@@ -1,0 +1,196 @@
+"""The modules of the DEAL-YOLO-LD detect path, NCHW, Ultralytics state-dict names.
+
+Port of the forward math of ``experiment_yolo_tpu/nn/modules.py``: ``Conv``
+(``ConvBN``), ``Bottleneck``, ``C2f``, ``SPPF``, ``Upsample``, ``Concat``,
+``Add``, ``ScalSeq``, ``LDConv`` and ``Detect``. Parameter and buffer names are
+those of the Ultralytics fork (``conv``/``bn``, ``cv1``/``cv2``/``m.{k}``,
+LDConv ``p_conv``/``conv.0``/``conv.1``, ScalSeq ``conv3d``/``bn``, Detect
+``cv2.{i}.{j}``/``cv3.{i}.{j}``), so a state dict in that layout loads as is.
+
+Every BatchNorm uses eps 1e-3 and momentum 0.03, as in the JAX package (the
+fork's ``initialize_weights`` sets those on its BatchNorm2d layers).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from experiment_yolo_torch.ops.kernels.ldconv_gather import ldconv_gather
+
+BN_EPS, BN_MOMENTUM = 1e-3, 0.03
+
+
+class Conv(nn.Module):
+    """Conv2d (no bias) + BatchNorm + SiLU; 'same' padding k // 2."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, k // 2, bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.bn(self.conv(x)))
+
+
+class Bottleneck(nn.Module):
+    """Two 3x3 Convs with an optional residual add."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 3)
+        self.cv2 = Conv(c_, c2, 3)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """cv1 -> split in two -> n bottlenecks chained on the tail -> concat all -> cv2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1)
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(Bottleneck(self.c, self.c, shortcut, e=1.0) for _ in range(n))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = list(self.cv1(x).chunk(2, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class SPPF(nn.Module):
+    """cv1 -> three chained k x k max pools (stride 1, 'same') -> concat -> cv2."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1)
+        self.cv2 = Conv(c_ * 4, c2, 1)
+        self.m = nn.MaxPool2d(k, 1, k // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = [self.cv1(x)]
+        for _ in range(3):
+            ys.append(self.m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class Concat(nn.Module):
+    """Channel concat of a list of maps."""
+
+    def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
+        return torch.cat(xs, 1)
+
+
+class Add(nn.Module):
+    """Elementwise sum of a list of maps (DEAL's ASF fusion)."""
+
+    def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
+        out = xs[0]
+        for x in xs[1:]:
+            out = out + x
+        return out
+
+
+class ScalSeq(nn.Module):
+    """Scale-sequence fusion: three pyramid levels projected to c2, upsampled
+    to the finest, stacked on a scale axis, Conv3d 1x1x1 + BatchNorm3d over
+    (B, scale, H, W) + LeakyReLU 0.1, then max over the scale axis."""
+
+    def __init__(self, inc: Sequence[int], c2: int):
+        super().__init__()
+        if inc[0] != c2:
+            self.conv0 = Conv(inc[0], c2, 1)
+        self.conv1 = Conv(inc[1], c2, 1)
+        self.conv2 = Conv(inc[2], c2, 1)
+        self.conv3d = nn.Conv3d(c2, c2, 1)
+        self.bn = nn.BatchNorm3d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
+        p3, p4, p5 = xs
+        if hasattr(self, "conv0"):
+            p3 = self.conv0(p3)
+        size = p3.shape[2:]  # the pyramid's levels differ by integer factors
+        p4 = F.interpolate(self.conv1(p4), size=size, mode="nearest")
+        p5 = F.interpolate(self.conv2(p5), size=size, mode="nearest")
+        y = self.bn(self.conv3d(torch.stack([p3, p4, p5], 2)))  # (B, C, 3, H, W)
+        return F.leaky_relu(y, 0.1).amax(2)
+
+
+class LDConv(nn.Module):
+    """Linear deformable convolution: a 3x3 offset conv ``p_conv`` predicts 2N
+    offsets per output pixel (the first N rows, the last N columns); kernel K3
+    samples the input bilinearly at the N deformed points; the (N, 1) conv
+    ``conv.0`` is one matmul over the N*C samples; then BatchNorm and SiLU.
+
+    The reference fork's quirks carried by the JAX package are kept: the border
+    double count lives in the gather, ``p_conv`` starts with a zero weight and a
+    uniform(+-1/sqrt(fan_in)) bias (:func:`init_weights`).
+    """
+
+    def __init__(self, c1: int, c2: int, num_param: int = 3, stride: int = 1):
+        super().__init__()
+        self.num_param, self.stride = num_param, stride
+        self.conv = nn.Sequential(
+            nn.Conv2d(c1, c2, (num_param, 1), (num_param, 1), bias=False),
+            nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM),
+            nn.SiLU(),
+        )
+        self.p_conv = nn.Conv2d(c1, 2 * num_param, 3, stride, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        off = self.p_conv(x)  # (B, 2N, h, w)
+        b, _, h, w = off.shape
+        feat = ldconv_gather(x.contiguous(), off.contiguous(), self.stride)  # (B, h*w, N*C) n-major
+        weight = self.conv[0].weight  # (O, C, N, 1) -> (O, N*C), n-major like feat
+        proj = weight[..., 0].transpose(1, 2).reshape(weight.shape[0], -1)
+        y = torch.matmul(proj, feat.transpose(1, 2)).reshape(b, -1, h, w)
+        return self.conv[2](self.conv[1](y))
+
+
+class Detect(nn.Module):
+    """Decoupled anchor-free head: per level a box branch (cv2 -> 4*reg_max) and
+    a class branch (cv3 -> nc); returns the raw maps (B, 4*reg_max + nc, H, W)."""
+
+    def __init__(self, nc: int, ch: Sequence[int], reg_max: int = 16):
+        super().__init__()
+        self.nc, self.reg_max = nc, reg_max
+        self.no = nc + 4 * reg_max
+        c2 = max(16, ch[0] // 4, reg_max * 4)
+        c3 = max(ch[0], min(nc, 100))
+        self.cv2 = nn.ModuleList(
+            nn.Sequential(Conv(c, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1)) for c in ch)
+        self.cv3 = nn.ModuleList(
+            nn.Sequential(Conv(c, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for c in ch)
+
+    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [torch.cat([box(x), cls(x)], 1) for x, box, cls in zip(xs, self.cv2, self.cv3)]
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded initialisation: every conv weight and bias from
+    uniform(+-1/sqrt(fan_in)) (PyTorch's own default), BatchNorm at identity,
+    and LDConv's ``p_conv`` weight at zero (the reference zero-inits only the
+    weight; its bias keeps the uniform draw)."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+            bound = 1.0 / (m.weight[0].numel() ** 0.5)
+            m.weight.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.reset_parameters()
+    for m in model.modules():
+        if isinstance(m, LDConv):
+            m.p_conv.weight.zero_()
