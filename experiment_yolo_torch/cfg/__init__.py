@@ -1,10 +1,9 @@
-"""Predict-time configuration: the copied ``default.yaml`` plus overrides.
+"""Configuration: the copied ``default.yaml`` plus overrides.
 
 Port of ``experiment_yolo_tpu/cfg/__init__.py`` (``get_cfg``/``check_imgsz``),
-cut to what the detect predict path reads: ``conf``, ``iou``, ``max_det``,
-``agnostic_nms``, ``nms_type``, ``soft_nms_quirk``, ``classes``, ``imgsz``
-and ``batch``. Every key of ``default.yaml`` is still accepted as an override,
-so a config written for the JAX package loads here unchanged.
+with the checks of the keys the detect predict path and the training step
+read. Every key of ``default.yaml`` is accepted as an override, so a config
+written for the JAX package loads here unchanged.
 """
 
 from __future__ import annotations
@@ -21,8 +20,8 @@ CFG_DIR = Path(__file__).resolve().parent
 DEFAULT_CFG_PATH = CFG_DIR / "default.yaml"
 
 _FRACTION_KEYS = {"conf", "iou"}
-_INT_KEYS = {"max_det", "imgsz", "batch"}
-_BOOL_KEYS = {"agnostic_nms", "soft_nms_quirk"}
+_INT_KEYS = {"max_det", "imgsz", "batch", "epochs", "nbs"}
+_BOOL_KEYS = {"agnostic_nms", "soft_nms_quirk", "amp", "ema", "cos_lr"}
 _NMS_TYPES = ("soft", "hard")
 
 

@@ -1,9 +1,10 @@
 // DFL decode: softmax expectation over reg_max bins, read in place from the
-// box channels of an NCHW Detect head map.
+// box channels of an NCHW Detect head map, and its analytic backward.
 //
-// Replaces experiment_yolo_tpu/ops/pallas/dfl_decode.py:_fwd_kernel (reached
-// through dfl_decode_pallas). The TPU kernel packed two anchors per 128-lane
-// row and reduced with a segment matmul; on Hopper that packing buys nothing.
+// Replaces experiment_yolo_tpu/ops/pallas/dfl_decode.py:_fwd_kernel and
+// _bwd_kernel (reached through dfl_decode_pallas). The TPU kernels packed two
+// anchors per 128-lane row and reduced with a segment matmul; on Hopper that
+// packing buys nothing.
 //
 // Bound: memory. Each (anchor, side) reads reg_max floats once and writes one
 // float; the arithmetic (a max, reg_max exps, two sums) is far below the
@@ -40,5 +41,45 @@ extern "C" int dfl_decode_launch(const float* x, float* out, int B, int A,
   const int threads = 256;
   dim3 grid((A + threads - 1) / threads, 4, B);
   dfl_decode_kernel<<<grid, threads, 0, stream>>>(x, out, A, batch_stride, reg_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Backward: with p = softmax(x) over one (anchor, side) group and y its
+// expectation, d x_r = p_r * g * (r - y). Nothing of the forward's softmax is
+// saved: each thread recomputes its group's max and denominator from x, reads
+// the saved y and the incoming g once, and writes reg_max gradients into the
+// box channels of an NCHW map of the head's shape (the caller zeroes the
+// class channels). Bound: memory, about 2*reg_max + 2 floats per group; the
+// layout is the forward's, so every bin load and store of a warp is one
+// contiguous line.
+__global__ void dfl_decode_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                                      const float* __restrict__ g, float* __restrict__ dx,
+                                      int A, long long batch_stride, int reg_max) {
+  const int a = blockIdx.x * blockDim.x + threadIdx.x;
+  const int side = blockIdx.y;
+  const int b = blockIdx.z;
+  if (a >= A) return;
+  const long long base = b * batch_stride + static_cast<long long>(side) * reg_max * A + a;
+  const float* p = x + base;
+  float* d = dx + base;
+  float m = -INFINITY;
+  for (int r = 0; r < reg_max; ++r) m = fmaxf(m, p[static_cast<long long>(r) * A]);
+  float den = 0.f;
+  for (int r = 0; r < reg_max; ++r) den += expf(p[static_cast<long long>(r) * A] - m);
+  const long long o = (static_cast<long long>(b) * A + a) * 4 + side;
+  const float yv = y[o], gv = g[o];
+  const float inv_den = 1.f / den;
+  for (int r = 0; r < reg_max; ++r) {
+    const float pr = expf(p[static_cast<long long>(r) * A] - m) * inv_den;
+    d[static_cast<long long>(r) * A] = pr * gv * (static_cast<float>(r) - yv);
+  }
+}
+
+// x, dx: (B, no, H, W) f32 contiguous, box channels first; y, g: (B, A, 4) f32.
+extern "C" int dfl_decode_bwd_launch(const float* x, const float* y, const float* g, float* dx, int B, int A,
+                                     long long batch_stride, int reg_max, cudaStream_t stream) {
+  const int threads = 256;
+  dim3 grid((A + threads - 1) / threads, 4, B);
+  dfl_decode_bwd_kernel<<<grid, threads, 0, stream>>>(x, y, g, dx, A, batch_stride, reg_max);
   return static_cast<int>(cudaGetLastError());
 }

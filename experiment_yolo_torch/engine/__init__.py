@@ -1,1 +1,1 @@
-"""The predict entry point and its results."""
+"""The predict and train entry points, and the predict results."""

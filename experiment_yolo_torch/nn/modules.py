@@ -8,7 +8,9 @@ LDConv ``p_conv``/``conv.0``/``conv.1``, ScalSeq ``conv3d``/``bn``, Detect
 ``cv2.{i}.{j}``/``cv3.{i}.{j}``), so a state dict in that layout loads as is.
 
 Every BatchNorm uses eps 1e-3 and momentum 0.03, as in the JAX package (the
-fork's ``initialize_weights`` sets those on its BatchNorm2d layers).
+fork's ``initialize_weights`` sets those on its BatchNorm2d layers), and in
+train mode updates its running variance with the biased batch variance, as
+the JAX package does (``BatchNorm2d``, ``BatchNorm3d`` below).
 """
 
 from __future__ import annotations
@@ -24,13 +26,42 @@ from experiment_yolo_torch.ops.kernels.ldconv_gather import ldconv_gather
 BN_EPS, BN_MOMENTUM = 1e-3, 0.03
 
 
+class _BiasedRunningVar:
+    """Train mode of the JAX package's BatchNorm (``nn/norm.py:72-78,155``):
+    normalise with the batch's biased statistics, as PyTorch does, but move
+    ``running_var`` towards the *biased* batch variance, where PyTorch's own
+    update uses the unbiased one. Eval mode is PyTorch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # F.batch_norm moves a copy by momentum * (unbiased variance) and keeps it
+        # for the backward; scale that move by (n-1)/n to the biased one (C
+        # elements: no second pass over x)
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            torch.lerp((1.0 - self.momentum) * self.running_var, var, (n - 1) / n, out=self.running_var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm2d(_BiasedRunningVar, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with the JAX package's biased running-variance update."""
+
+
+class BatchNorm3d(_BiasedRunningVar, nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with the JAX package's biased running-variance update."""
+
+
 class Conv(nn.Module):
     """Conv2d (no bias) + BatchNorm + SiLU; 'same' padding k // 2."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, k // 2, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.silu(self.bn(self.conv(x)))
@@ -114,7 +145,7 @@ class ScalSeq(nn.Module):
         self.conv1 = Conv(inc[1], c2, 1)
         self.conv2 = Conv(inc[2], c2, 1)
         self.conv3d = nn.Conv3d(c2, c2, 1)
-        self.bn = nn.BatchNorm3d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm3d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
         p3, p4, p5 = xs
@@ -143,7 +174,7 @@ class LDConv(nn.Module):
         self.num_param, self.stride = num_param, stride
         self.conv = nn.Sequential(
             nn.Conv2d(c1, c2, (num_param, 1), (num_param, 1), bias=False),
-            nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM),
+            BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM),
             nn.SiLU(),
         )
         self.p_conv = nn.Conv2d(c1, 2 * num_param, 3, stride, 1)

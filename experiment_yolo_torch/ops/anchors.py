@@ -1,7 +1,7 @@
 """Anchor-free grid machinery and the Detect decode, on NCHW head maps.
 
 Port of ``experiment_yolo_tpu/ops/anchors.py`` (``make_anchors``,
-``dist2bbox``, ``decode_detections``); the DFL decode itself is kernel K1,
+``dist2bbox``, ``bbox2dist``, ``decode_detections``); the DFL decode itself is kernel K1,
 with its plain version, in ``ops/kernels/dfl_decode.py``. Anchors are in
 (x, y) = (col, row) order in grid units, row-major over each level, as in the
 JAX package, so anchor ``a`` of a level is pixel ``a`` of its flattened map.
@@ -37,6 +37,13 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
     if xywh:
         return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], -1)
     return torch.cat([x1y1, x2y2], -1)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """xyxy boxes -> (l, t, r, b) distances from the anchor points, clamped to
+    [0, reg_max - 0.01] (the DFL targets)."""
+    x1y1, x2y2 = bbox[..., :2], bbox[..., 2:4]
+    return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1).clamp(0, reg_max - 0.01)
 
 
 def decode_detections(feats: List[torch.Tensor], strides: Sequence[int], nc: int,

@@ -6,9 +6,11 @@ root of the checkout, where ``<hash>`` covers the source, the shared header and
 the flags. All sources are compiled at once, one ``nvcc`` each, the first time
 any kernel is asked for; later calls (and later processes) reuse the libraries.
 
-Every C entry point takes the CUDA stream last and returns the value of
-``cudaGetLastError()`` after its launch; :func:`launch` raises on a non-zero
-value, so a launch the card refuses never passes silently.
+Each library exports ``<name>_launch`` and may export more entry points
+(``dfl_decode_bwd_launch`` beside ``dfl_decode_launch``). Every C entry point
+takes the CUDA stream last and returns the value of ``cudaGetLastError()``
+after its launch; :func:`launch` raises on a non-zero value, so a launch the
+card refuses never passes silently.
 """
 
 from __future__ import annotations
@@ -79,24 +81,26 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def _function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """``<name>_launch`` of kernel ``name``, building all kernels on first use."""
-    if name not in _fns:
-        if name not in _libs:
+def _function(lib: str, entry: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """``<entry>_launch`` of library ``lib``, building all kernels on first use."""
+    if entry not in _fns:
+        if lib not in _libs:
             build_all()
-        fn = getattr(_libs[name], f"{name}_launch")
+        fn = getattr(_libs[lib], f"{entry}_launch")
         fn.restype = ctypes.c_int
         fn.argtypes = [*argtypes, ctypes.c_void_p]  # the stream comes last
-        _fns[name] = fn
-    return _fns[name]
+        _fns[entry] = fn
+    return _fns[entry]
 
 
-def launch(name: str, argtypes: Sequence, *args, device) -> None:
-    """Launch kernel ``name`` on PyTorch's current stream of ``device``; raise
-    with CUDA's message if the launch returned an error."""
+def launch(name: str, argtypes: Sequence, *args, device, lib: str | None = None) -> None:
+    """Launch entry point ``<name>_launch`` of library ``lib`` (default
+    ``name``) on PyTorch's current stream of ``device``; raise with CUDA's
+    message if the launch returned an error."""
     import torch
 
-    fn = _function(name, argtypes)
+    lib = lib or name
+    fn = _function(lib, name, argtypes)
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
     if device.index == torch.cuda.current_device():
         rc = fn(*args, stream)
@@ -104,7 +108,7 @@ def launch(name: str, argtypes: Sequence, *args, device) -> None:
         with torch.cuda.device(device):
             rc = fn(*args, stream)
     if rc:
-        err = _libs[name].ey_error_string
+        err = _libs[lib].ey_error_string
         err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
         raise RuntimeError(f"{name} launch: CUDA error {rc} ({err(rc).decode()})")
 

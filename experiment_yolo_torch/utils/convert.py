@@ -4,7 +4,9 @@ The port's own copy of the name and layout mapping of
 ``experiment_yolo_tpu/utils/torch_convert.py`` (read in the other direction),
 for the module types of the detect slice. It takes the JAX package's
 ``{'params', 'batch_stats'}`` as nested dicts of numpy arrays and returns a
-state dict for ``model.load_state_dict(..., strict=True)``.
+state dict for ``model.load_state_dict(..., strict=True)``; a tree shaped like
+``params`` alone (a gradient or a momentum buffer) converts to the port's
+parameter names the same way.
 
 Layout rules:
 - conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw)
@@ -87,25 +89,42 @@ def _rule(mtype: str, rest: List[str], module) -> Rule:
     raise KeyError(f"module type {mtype} has no weights to convert")
 
 
+def _leaf_rule(name: str, model) -> Rule:
+    """The rule of state-dict entry ``name``, its path starting at its layer."""
+    parts = name.split(".")
+    layer = model.model[int(parts[1])]
+    try:
+        kind, path, fn = _rule(layer.type, parts[2:], layer)
+    except KeyError as e:
+        raise KeyError(f"{name}: no JAX counterpart ({e})") from None
+    return kind, (f"layers_{parts[1]}", *path), fn
+
+
+def jax_path(name: str, model) -> Tuple[str, Tuple[str, ...]]:
+    """Where the JAX variables hold state-dict entry ``name``: the collection
+    (``params`` or ``batch_stats``) and the path inside it."""
+    return _leaf_rule(name, model)[:2]
+
+
+def _convert(name: str, ref: torch.Tensor, variables: Dict, model) -> torch.Tensor:
+    kind, path, fn = _leaf_rule(name, model)
+    node = variables[kind]
+    for k in path:
+        node = node[k]
+    arr = fn(np.asarray(node, np.float32))
+    if arr.shape != tuple(ref.shape):
+        raise ValueError(f"{name}: converted shape {arr.shape} != model shape {tuple(ref.shape)}")
+    return torch.tensor(arr)
+
+
 def jax_variables_to_state_dict(variables: Dict, model) -> Dict[str, torch.Tensor]:
     """The JAX package's variables -> a full ``state_dict`` for ``model``."""
-    out: Dict[str, torch.Tensor] = {}
-    for name, ref in model.state_dict().items():
-        if name.endswith("num_batches_tracked"):
-            out[name] = torch.zeros_like(ref)
-            continue
-        parts = name.split(".")
-        idx = int(parts[1])
-        layer = model.model[idx]
-        try:
-            kind, path, fn = _rule(layer.type, parts[2:], layer)
-        except KeyError as e:
-            raise KeyError(f"{name}: no JAX counterpart ({e})") from None
-        node = variables[kind][f"layers_{idx}"]
-        for k in path:
-            node = node[k]
-        arr = fn(np.asarray(node, np.float32))
-        if arr.shape != tuple(ref.shape):
-            raise ValueError(f"{name}: converted shape {arr.shape} != model shape {tuple(ref.shape)}")
-        out[name] = torch.tensor(arr)
-    return out
+    return {name: torch.zeros_like(ref) if name.endswith("num_batches_tracked") else
+            _convert(name, ref, variables, model) for name, ref in model.state_dict().items()}
+
+
+def jax_params_to_named(tree: Dict, model) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the JAX ``params`` (a gradient, a momentum buffer,
+    an EMA of the parameters) -> {parameter name of ``model``: tensor}, in the
+    port's layouts, so that it compares leaf by leaf with the port's own."""
+    return {name: _convert(name, p, {"params": tree}, model) for name, p in model.named_parameters()}

@@ -1,10 +1,11 @@
-"""Seeded inputs and weights for runs on the card without a dataset or a
-checkpoint: ``chip_smoke.py`` and ``profile_predict``."""
+"""Seeded inputs, labelled batches and weights for runs on the card without a
+dataset or a checkpoint: ``chip_smoke.py``, ``profile_predict`` and
+``profile_train``. Test scaffolding, not a dataset."""
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +28,35 @@ def seeded_images(n: int, seed: int) -> List[np.ndarray]:
         img = np.repeat(np.repeat(base, 32, 0), 32, 1)[:h, :w].astype(np.int16)
         out.append(np.clip(img + rng.integers(-20, 21, (h, w, 3)), 0, 255).astype(np.uint8))
     return out
+
+
+# one fill colour per class (BGR order does not matter: the step takes pixels as given)
+CLASS_COLOURS = ((230, 25, 75), (60, 180, 75), (255, 225, 25), (0, 130, 200), (245, 130, 48), (145, 30, 180),
+                 (70, 240, 240), (240, 50, 230))
+
+
+def seeded_batch(batch: int, imgsz: int, seed: int, nc: int = 6, max_boxes: int = 16) -> Dict[str, np.ndarray]:
+    """A labelled batch in the training step's format: ``img`` (B, imgsz,
+    imgsz, 3) uint8 of dark noise with 2 to ``max_boxes`` filled rectangles
+    per image in their class's colour, 8 to 128 px on a side (at most half the
+    image), so that the stride-4 level gets objects too; ``bboxes`` (B, M, 4)
+    normalised xywh, ``cls`` (B, M) int32 and ``mask`` (B, M) bool, padded to
+    M = ``max_boxes``."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 48, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+    bboxes = np.zeros((batch, max_boxes, 4), np.float32)
+    cls = np.zeros((batch, max_boxes), np.int32)
+    mask = np.zeros((batch, max_boxes), bool)
+    side = (8, max(9, min(128, imgsz // 2)))
+    for i in range(batch):
+        for j in range(int(rng.integers(2, max_boxes + 1))):
+            w, h = (int(v) for v in rng.integers(side[0], side[1] + 1, 2))
+            x0, y0 = int(rng.integers(0, imgsz - w + 1)), int(rng.integers(0, imgsz - h + 1))
+            c = int(rng.integers(0, nc))
+            img[i, y0:y0 + h, x0:x0 + w] = CLASS_COLOURS[c % len(CLASS_COLOURS)]
+            bboxes[i, j] = ((x0 + w / 2) / imgsz, (y0 + h / 2) / imgsz, w / imgsz, h / imgsz)
+            cls[i, j], mask[i, j] = c, True
+    return {"img": img, "bboxes": bboxes, "cls": cls, "mask": mask}
 
 
 @torch.no_grad()

@@ -31,21 +31,26 @@ model = DetectionModel("yolov8-LD-P2.yaml", device="cpu")
 imgs = [np.random.default_rng(0).integers(0, 256, (64, 48, 3), dtype=np.uint8)]
 for nms_type in ("soft", "hard"):
     DetectionPredictor(model, {"imgsz": 64, "batch": 1, "nms_type": nms_type})(imgs)
-launches = [dfl_decode.dfl_decode.launches, ldconv_gather.ldconv_gather.launches, nms_suppress.nms_suppress.launches]
+from experiment_yolo_torch.engine.trainer import DetectionTrainer
+from experiment_yolo_torch.utils.seeded import seeded_batch
+DetectionTrainer(model, {"amp": False, "batch": 2}).train_step(seeded_batch(2, 64, 0))
+launches = [dfl_decode.dfl_decode.launches, ldconv_gather.ldconv_gather.launches, nms_suppress.nms_suppress.launches,
+            dfl_decode.dfl_decode_bwd.launches, ldconv_gather.ldconv_gather_bwd.launches]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "cv2", "PIL"))
 print(len(mods), launches, bad)
 """
 
 
 def test_port_imports_no_jax_and_cpu_launches_nothing():
-    """In a fresh interpreter: import every port module and serve two CPU
-    predicts. Nothing of JAX, the JAX package, OpenCV or PIL is loaded, and
-    no kernel launch is counted: CPU tensors take the plain versions."""
+    """In a fresh interpreter: import every port module, serve two CPU
+    predicts and take one CPU training step. Nothing of JAX, the JAX package,
+    OpenCV or PIL is loaded, and no kernel launch, forward or backward, is
+    counted: CPU tensors take the plain versions."""
     assert len(MODULES) >= 15
     out = subprocess.run([sys.executable, "-c", _PROBE, *MODULES], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[-2] == f"{len(MODULES)} [0, 0, 0] []"
+    assert out.stdout.split("\n")[-2] == f"{len(MODULES)} [0, 0, 0, 0, 0] []"
 
 
 def test_port_sources_name_no_cv2_pil_or_jax():
@@ -90,20 +95,31 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     """A tensor that is neither on the CPU nor on the card (here ``meta``)
     is refused by every wrapper before any build or launch: only a CPU
     tensor reaches a plain version."""
-    from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode
-    from experiment_yolo_torch.ops.kernels.ldconv_gather import ldconv_gather
+    from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode, dfl_decode_bwd
+    from experiment_yolo_torch.ops.kernels.ldconv_gather import ldconv_gather, ldconv_gather_bwd
     from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress
 
     meta = {"device": "meta"}
     with pytest.raises(ValueError, match="CUDA tensor"):
         dfl_decode(torch.zeros(1, 70, 4, 4, **meta))
     with pytest.raises(ValueError, match="CUDA tensor"):
+        dfl_decode_bwd(torch.zeros(1, 70, 4, 4, **meta), torch.zeros(1, 16, 4, **meta), torch.zeros(1, 16, 4, **meta))
+    with pytest.raises(ValueError, match="CUDA tensor"):
         ldconv_gather(torch.zeros(1, 3, 8, 8, **meta), torch.zeros(1, 6, 8, 8, **meta), 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ldconv_gather_bwd(torch.zeros(1, 3, 8, 8, **meta), torch.zeros(1, 6, 8, 8, **meta),
+                          torch.zeros(1, 64, 9, **meta), 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         nms_suppress(torch.zeros(1, 8, 4, **meta), torch.zeros(1, 8, dtype=torch.bool, **meta), 0.5)
 
 
-@pytest.mark.parametrize("name", ["dfl_decode", "nms_suppress", "ldconv_gather"])
+# entry point -> (library, the wrapper module's argument-list name)
+ENTRY_POINTS = {"dfl_decode": ("dfl_decode", "_ARGS"), "nms_suppress": ("nms_suppress", "_ARGS"),
+                "ldconv_gather": ("ldconv_gather", "_ARGS"), "dfl_decode_bwd": ("dfl_decode", "_BWD_ARGS"),
+                "ldconv_gather_bwd": ("ldconv_gather", "_BWD_ARGS")}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
 def test_ctypes_argtypes_match_the_c_entry_points(name):
     """Each wrapper's ctypes argument list matches ``<name>_launch`` in its
     CUDA source, parameter for parameter (the stream, last, is added by
@@ -114,14 +130,15 @@ def test_ctypes_argtypes_match_the_c_entry_points(name):
 
     from experiment_yolo_torch.ops.kernels import _build
 
-    src = (_build.CSRC / f"{name}.cu").read_text()
+    lib, attr = ENTRY_POINTS[name]
+    src = (_build.CSRC / f"{lib}.cu").read_text()
     params = re.search(rf'extern "C" int {name}_launch\(([^)]*)\)', src).group(1)
     types = [" ".join(p.split()[:-1]) for p in params.split(",")]
     assert types[-1] == "cudaStream_t"
     ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
     want = [ctypes.c_void_p if t.endswith("*") else ctype[t] for t in types[:-1]]
-    assert list(importlib.import_module(f"experiment_yolo_torch.ops.kernels.{name}")._ARGS) == want
-    assert name in _build.KERNELS
+    assert list(getattr(importlib.import_module(f"experiment_yolo_torch.ops.kernels.{lib}"), attr)) == want
+    assert lib in _build.KERNELS
 
 
 def test_model_rejects_bad_inputs_and_unknown_layers():

@@ -1,4 +1,5 @@
-"""The port's LDConv gather and module against the JAX package's LDConv.
+"""The port's LDConv gather, its backward, and the module against the JAX
+package's LDConv.
 
 Inputs come from a numpy seed and go to both packages. Offsets are drawn
 large on purpose, so that many sampling positions leave the image and the
@@ -6,13 +7,15 @@ border double count (``border='torch'``) and the corner clamps are exercised,
 as in ``tests/test_ldconv_torch_border.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from experiment_yolo_torch.nn.modules import LDConv as TorchLDConv
-from experiment_yolo_torch.ops.kernels.ldconv_gather import WINDOW_R, grid_points, ldconv_gather, ldconv_gather_plain
+from experiment_yolo_torch.ops.kernels.ldconv_gather import (WINDOW_R, grid_points, ldconv_gather, ldconv_gather_bwd,
+                                                             ldconv_gather_bwd_plain, ldconv_gather_plain)
 from experiment_yolo_tpu.nn.modules import LDConv as JaxLDConv
 from experiment_yolo_tpu.nn.modules import _ldconv_grid_pts, ldconv_bilinear_gather
 from experiment_yolo_tpu.ops.pallas.ldconv_kernel import bilinear_gather_single
@@ -144,3 +147,109 @@ def test_module_matches_jax(sampling, n, stride, weight_scale):
         got = tm(torch.from_numpy(x)).numpy()
     assert got.shape == np.transpose(want, (0, 3, 1, 2)).shape
     np.testing.assert_allclose(got, np.transpose(want, (0, 3, 1, 2)), atol=1e-4, rtol=0)
+
+
+def _pin_positions(off, stride, hx, wx):
+    """Put some samples exactly on the padded rails 0 and size_padded - 1, some
+    on integer positions, and some 40 px out, by editing ``off`` in place."""
+    b, n2, h, w = off.shape
+    n = n2 // 2
+    pts = grid_points(n)
+    _, pad_r, pad_c = _jax_positions(off, stride, hx, wx)
+    hp, wp = hx + WINDOW_R + pad_r, wx + WINDOW_R + pad_c
+    rng = np.random.default_rng(99)
+    for k, flat in enumerate(rng.permutation(b * n * h * w)[:24]):  # 24 distinct samples
+        bi, ni, i, j = np.unravel_index(flat, (b, n, h, w))
+        base_r, base_c = i * stride + WINDOW_R + pts[ni][0], j * stride + WINDOW_R + pts[ni][1]
+        target = [(0.0, 0.0), (hp - 1.0, wp - 1.0), (0.0, wp - 1.0), (float(rng.integers(hp)), float(rng.integers(wp))),
+                  (hp + 40.0, -40.0), (-40.0, wp + 40.0)][k % 6]
+        off[bi, ni, i, j], off[bi, n + ni, i, j] = target[0] - base_r, target[1] - base_c
+    return off
+
+
+@pytest.mark.parametrize("n,stride", CASES)
+def test_gather_backward_matches_jax_vjp(n, stride):
+    """Plain backward vs ``jax.vjp`` of the JAX gather times ``_border_mul``
+    on the edge-padded source (the custom VJP ``_ldconv_gather_bwd``, then
+    the pad's transpose), with samples on both rails, on integer positions and
+    40 px out: dx and doff within 1e-5 abs + 1e-5 rel (the same products,
+    summed in another order). The autograd path equals the plain backward."""
+    x, off = _inputs(n * 10 + stride + 100, n, stride)
+    b, c, hx, wx = x.shape
+    off = _pin_positions(off, stride, hx, wx)
+    p, pad_r, pad_c = _jax_positions(off, stride, hx, wx)
+    dy = np.random.default_rng(5).standard_normal((b, p.shape[1] * p.shape[2], n * c)).astype(np.float32)
+
+    def fn(x_nhwc, pos):
+        xp = jnp.pad(x_nhwc, ((0, 0), (WINDOW_R, pad_r), (WINDOW_R, pad_c), (0, 0)), mode="edge")
+        return ldconv_bilinear_gather(xp, pos) * _border_mul(pos, hx, wx)[..., None]
+
+    _, vjp = jax.vjp(fn, jnp.asarray(np.transpose(x, (0, 2, 3, 1))), p)
+    jdx, jdp = vjp(jnp.asarray(dy.reshape(b, p.shape[1], p.shape[2], n, c)))
+    jdx = np.transpose(np.asarray(jdx), (0, 3, 1, 2))
+    jdoff = np.transpose(np.asarray(jdp), (0, 4, 3, 1, 2)).reshape(off.shape)  # (B, [row N, col N], h, w)
+    pos = np.asarray(p)
+    hp, wp = hx + WINDOW_R + pad_r, wx + WINDOW_R + pad_c
+    assert (pos[..., 0] == 0).any() and (pos[..., 0] == hp - 1).any() and (pos[..., 1] == wp - 1).any()
+    assert (pos[..., 0] > hp + 30).any() and (pos[..., 1] < -30).any()
+
+    dx, doff = ldconv_gather_bwd_plain(torch.from_numpy(x), torch.from_numpy(off), torch.from_numpy(dy), stride)
+    np.testing.assert_allclose(dx.numpy(), jdx, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(doff.numpy(), jdoff, atol=1e-5, rtol=1e-5)
+    far = (pos[..., 0] > hp + 30) | (pos[..., 0] < -30)  # (B, h, w, N): rows far out give no row gradient
+    assert (doff.numpy()[:, :n].transpose(0, 2, 3, 1)[far] == 0).all()
+
+    xt, ot = torch.from_numpy(x).requires_grad_(), torch.from_numpy(off).requires_grad_()
+    ldconv_gather(xt, ot, stride).backward(torch.from_numpy(dy))
+    np.testing.assert_array_equal(xt.grad.numpy(), dx.numpy())
+    np.testing.assert_array_equal(ot.grad.numpy(), doff.numpy())
+    before = ldconv_gather_bwd.launches
+    ldconv_gather_bwd(torch.from_numpy(x), torch.from_numpy(off), torch.from_numpy(dy), stride)
+    assert ldconv_gather_bwd.launches == before  # CPU tensors take the plain version
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
+
+
+@pytest.mark.parametrize("sampling", ["gather", "auto"])
+@pytest.mark.parametrize("n,stride,weight_scale", [(1, 2, 1.0), (3, 1, 1.0), (3, 2, 1.0), (3, 1, 0.02)])
+def test_module_gradients_match_jax(sampling, n, stride, weight_scale):
+    """Gradients of the port's LDConv in train mode (K3's plain backward,
+    BatchNorm on batch statistics) against ``jax.vjp`` of the JAX LDConv, for
+    the input and every parameter, and the running statistics the step
+    leaves (the JAX biased variance): 1e-4 relative L2, the forward's 1e-4
+    carried through the same sums. With ``auto`` at weight scale 0.02 the JAX
+    LDConv differentiates its dense hat-window path, which gives the same
+    gradient away from integer positions."""
+    c1, c2 = 4, 6
+    tm, variables = _module_pair(n, stride, c1, c2, seed=n + 7 * stride, weight_scale=weight_scale)
+    x = np.random.default_rng(12).standard_normal((2, c1, 15, 12)).astype(np.float32)
+    jm = JaxLDConv(c2=c2, num_param=n, stride=stride, sampling=sampling)
+
+    def fn(params, x_nhwc):
+        return jm.apply({"params": params, "batch_stats": variables["batch_stats"]}, x_nhwc, train=True,
+                        mutable=["batch_stats"])
+
+    jy, vjp, jstats = jax.vjp(fn, variables["params"], jnp.asarray(np.transpose(x, (0, 2, 3, 1))), has_aux=True)
+    w = np.random.default_rng(13).standard_normal(jy.shape).astype(np.float32)
+    jg_params, jg_x = vjp(jnp.asarray(w))
+
+    tm.train()
+    xt = torch.from_numpy(x).requires_grad_()
+    y = tm(xt)
+    y.backward(torch.from_numpy(np.ascontiguousarray(np.transpose(w, (0, 3, 1, 2)))))
+    assert _rel(y.detach().numpy(), np.transpose(np.asarray(jy), (0, 3, 1, 2))) < 1e-4
+    assert _rel(xt.grad.numpy(), np.transpose(np.asarray(jg_x), (0, 3, 1, 2))) < 1e-4
+    want = {
+        "p_conv.weight": np.transpose(np.asarray(jg_params["p_conv"]["kernel"]), (3, 2, 0, 1)),
+        "p_conv.bias": np.asarray(jg_params["p_conv"]["bias"]),
+        "conv.0.weight": np.asarray(jg_params["proj"]["kernel"]).reshape(n, c1, c2).transpose(2, 1, 0)[..., None],
+        "conv.1.weight": np.asarray(jg_params["bn"]["scale"]), "conv.1.bias": np.asarray(jg_params["bn"]["bias"]),
+    }
+    for name, p in tm.named_parameters():
+        assert np.linalg.norm(want[name]) > 0, name
+        assert _rel(p.grad.numpy(), want[name]) < 1e-4, name
+    for leaf in ("mean", "var"):
+        np.testing.assert_allclose(getattr(tm.conv[1], f"running_{leaf}").numpy(),
+                                   np.asarray(jstats["batch_stats"]["bn"][leaf]), atol=1e-6, rtol=1e-5)

@@ -1,11 +1,13 @@
-"""The port's tensor ops against the JAX package: DFL decode, anchors and
-decode, boxes, hard-NMS suppression, full NMS, letterbox and the config.
+"""The port's tensor ops against the JAX package: DFL decode and its
+gradient, anchors and decode, boxes and the CIoU, hard-NMS suppression, full
+NMS, letterbox and the config.
 
 Inputs come from a numpy seed and go through the JAX function and its port.
 Where the JAX function has a Pallas kernel, it also runs in interpret mode,
 as the JAX package's own tests run it on the CPU.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,12 +18,15 @@ from experiment_yolo_torch.data.augment import letterbox as t_letterbox
 from experiment_yolo_torch.ops import anchors as tanchors
 from experiment_yolo_torch.ops.boxes import box_iou as t_box_iou
 from experiment_yolo_torch.ops.boxes import xywh2xyxy as t_xywh2xyxy
-from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode as t_dfl, dfl_decode_plain
+from experiment_yolo_torch.ops.boxes import bbox_iou as t_bbox_iou
+from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode as t_dfl, dfl_decode_bwd, dfl_decode_bwd_plain
+from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode_plain
 from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress as t_suppress, nms_suppress_plain
 from experiment_yolo_torch.ops.nms import non_max_suppression as t_nms
 from experiment_yolo_tpu import cfg as jcfg
 from experiment_yolo_tpu.data.augment import letterbox as j_letterbox
 from experiment_yolo_tpu.ops import anchors as janchors
+from experiment_yolo_tpu.ops.boxes import bbox_iou as j_bbox_iou
 from experiment_yolo_tpu.ops.boxes import box_iou as j_box_iou
 from experiment_yolo_tpu.ops.boxes import xywh2xyxy as j_xywh2xyxy
 from experiment_yolo_tpu.ops.nms import non_max_suppression as j_nms
@@ -65,6 +70,71 @@ def test_dfl_decode_matches_jax_and_pallas_interpret():
     before = t_dfl.launches
     np.testing.assert_array_equal(t_dfl(torch.from_numpy(x), REG_MAX).numpy(), got)
     assert t_dfl.launches == before  # a CPU tensor takes the plain version
+
+
+@pytest.mark.parametrize("spread", [False, True])
+def test_dfl_decode_gradient_matches_pallas_vjp_and_jax_grad(spread):
+    """The plain backward (and the autograd path that takes it on the CPU)
+    against the VJP of ``dfl_decode_pallas``, whose ``_bwd_kernel`` runs in
+    interpret mode here (A = 64 keeps the 128-lane packing), and against
+    ``jax.vjp`` of the jnp ``dfl_decode``; with ``spread`` some groups sit at
+    +-200. Box channels within 1e-5 abs + 1e-5 rel (p * g * (bin - y) in f32
+    in another order); class channels exactly 0."""
+    x = _head_map(5, h=8, w=8, spread=spread)
+    g = np.random.default_rng(6).standard_normal((2, 64, 4)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    y = t_dfl(xt, REG_MAX)
+    y.backward(torch.from_numpy(g))
+    got = dfl_decode_bwd_plain(torch.from_numpy(x), y.detach(), torch.from_numpy(g), REG_MAX).numpy()
+    np.testing.assert_array_equal(xt.grad.numpy(), got)
+    assert np.isfinite(got).all() and not got[:, 4 * REG_MAX:].any()
+    box = np.transpose(got[:, :4 * REG_MAX], (0, 2, 3, 1)).reshape(2, 64, 4 * REG_MAX)  # as the JAX (B, A, 64)
+    for fn in (lambda d: dfl_decode_pallas(d, REG_MAX, True), lambda d: janchors.dfl_decode(d, REG_MAX)):
+        _, vjp = jax.vjp(fn, jnp.asarray(_nhwc_box(x)))
+        np.testing.assert_allclose(box, np.asarray(vjp(jnp.asarray(g))[0]), atol=1e-5, rtol=1e-5)
+    before = dfl_decode_bwd.launches
+    np.testing.assert_array_equal(dfl_decode_bwd(torch.from_numpy(x), y.detach(), torch.from_numpy(g)).numpy(), got)
+    assert dfl_decode_bwd.launches == before  # a CPU tensor takes the plain version
+
+
+def _ciou_boxes(seed, n=300):
+    """xyxy pairs that overlap, touch, nest and miss, with tiny and wide boxes."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0, 60, (n, 2))
+    a = np.concatenate([c - rng.uniform(0.5, 20, (n, 2)), c + rng.uniform(0.5, 20, (n, 2))], -1)
+    c2 = c + rng.normal(0, 8, (n, 2))
+    b = np.concatenate([c2 - rng.uniform(0.5, 20, (n, 2)), c2 + rng.uniform(0.5, 20, (n, 2))], -1)
+    b[:20] = a[:20]  # identical pairs
+    b[20:40, 0] = a[20:40, 2]  # touching on an edge
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [1, 4])
+def test_ciou_values_and_gradients_match_jax(seed):
+    """xyxy CIoU values within 1e-6 abs and gradients (alpha held out of
+    them, as the JAX ``stop_gradient``) within 1e-5 abs + 1e-4 rel: the same
+    float expressions, but arctan and the divisions round differently."""
+    a, b = _ciou_boxes(seed)
+    ta, tb = torch.from_numpy(a).requires_grad_(), torch.from_numpy(b).requires_grad_()
+    got = t_bbox_iou(ta, tb)
+    w = np.random.default_rng(seed + 1).standard_normal(got.shape).astype(np.float32)
+    got.backward(torch.from_numpy(w))
+    want, vjp = jax.vjp(lambda p, q: j_bbox_iou(p, q, xywh=False, CIoU=True), jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    ga, gb = vjp(jnp.asarray(w))
+    np.testing.assert_allclose(ta.grad.numpy(), np.asarray(ga), atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(gb), atol=1e-5, rtol=1e-4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_bbox_iou(ta, tb, GIoU=True)
+
+
+def test_bbox2dist_matches_jax():
+    rng = np.random.default_rng(3)
+    anchors = rng.uniform(0, 20, (50, 2)).astype(np.float32)
+    boxes = np.concatenate([anchors - rng.uniform(-2, 20, (50, 2)), anchors + rng.uniform(-2, 20, (50, 2))],
+                           -1).astype(np.float32)
+    np.testing.assert_array_equal(tanchors.bbox2dist(torch.from_numpy(anchors), torch.from_numpy(boxes), REG_MAX).numpy(),
+                                  np.asarray(janchors.bbox2dist(jnp.asarray(anchors), jnp.asarray(boxes), REG_MAX)))
 
 
 def test_make_anchors_and_decode_match_jax():
