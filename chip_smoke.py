@@ -6,7 +6,7 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero and nothing is caught:
  1. print the card's name and power limit (``nvidia-smi``);
  2. turn TF32 off for matmuls and cuDNN convolutions (full f32 throughout);
- 3. build the three CUDA libraries of ``experiment_yolo_torch/csrc`` (five
+ 3. build the four CUDA libraries of ``experiment_yolo_torch/csrc`` (six
     kernels) with nvcc;
  4. build ``yolov8-LD-P2.yaml`` (n scale, nc=6) on the card from a seeded
     generator, and run one batch of 8 at 640 to take each kernel's inputs
@@ -44,8 +44,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     and update within 1e-3 relative L2 (an absolute floor of 1e-6 under a norm
     of 1e-5; an update also gets one f32 spacing of each new parameter, since
     each side rounds p + update once);
-11. print a ``{"kernels": [...]}`` line, a ``{"served": ...}`` line and a
-    ``{"trained": ...}`` line, and last ``{"ok": true, "device": {...}}``.
+11. build ``yolov8-C2f-VSS.yaml`` (n scale, nc=6: ten VSS blocks) on the card
+    from the same seeds, SS2D's own init kept, and run phase 4's batch to
+    take the selective-scan inputs of every block: ten launches of K4, each
+    covering a block's four scan directions (40 scans per forward);
+12. hold K4 against its plain version on one block's inputs at each of the
+    four pyramid levels (L = 25,600, 6,400, 1,600, 400) and on random inputs
+    of the same shapes (``dt`` a softplus of a normal, ``A`` minus the exp of a
+    normal: the seeded ``dt`` sits near 0.01), every direction within 1e-5 of
+    its own largest plain value; time one forward's ten launches (median of
+    20) and their plain versions (median of 3: each walks up to 25,600 steps
+    in Python), and each level's launch alone;
+13. serve 20 batches of 8 through ``DetectionPredictor`` on the VSS model, soft
+    then hard NMS, counters at 0 just before and read just after: exactly 10
+    K4 and 3 K1 launches per forward, 1 K2 per hard batch, no K3;
+14. run 2 images of that batch through the same weights on the CPU (plain
+    versions) and compare raw maps and hard-NMS detections as phase 7 does;
+15. build ``yolov8.yaml`` and ``yolov8-ASF-P2P2.yaml`` (n scale) on the card and
+    push one batch through each: finite raw maps of the expected shapes,
+    strides 8/16/32 and 4/8/16;
+16. print a ``{"kernels": [...]}`` line for the six kernels, a ``{"served":
+    ...}``, a ``{"trained": ...}`` and a ``{"served_vss": ...}`` line, and last
+    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result without a CUDA device, or when the
 package is not beside it.
@@ -62,10 +82,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CFG = "yolov8-LD-P2.yaml"
+VSS_CFG = "yolov8-C2f-VSS.yaml"
+PLAIN_CONV_CFGS = {"yolov8.yaml": (8, 16, 32), "yolov8-ASF-P2P2.yaml": (4, 8, 16)}  # config -> expected strides
 IMGSZ, BATCH, SEED = 640, 8, 0
 N_IMAGES, SERVE_BATCHES = 32, 20  # 4 distinct batches of seeded images, served in turn
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_BATCHES = 20, 3, 4  # timed steps, warm-up steps, distinct seeded batches
 CMP_IMGSZ, CMP_BATCH = 320, 2  # the card-versus-CPU training step
+VSS_CMP_BATCH = 2  # the VSS card-versus-CPU batch: the CPU walks 25,600 scan steps one by one
+PLAIN_SCAN_RUNS = 3  # timed runs of K4's plain version: one forward's ten scans walk 76,800 steps in Python
+K4_RTOL = 1e-5  # K4 vs plain: each direction's max abs error over that direction's largest plain value
 BWD_RTOL = 1e-5  # backward kernels vs plain: max abs error over each output's largest plain value (atomics' order)
 CONF, IOU = 0.25, 0.7
 RUNS, WARMUP = 20, 3
@@ -89,16 +114,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn) -> float:
+def cuda_ms(fn, runs: int = RUNS, warmup: int = WARMUP) -> float:
     """Median milliseconds of ``fn`` on the card: CUDA events around each of
-    RUNS calls after WARMUP calls."""
+    ``runs`` calls after ``warmup`` calls."""
     import torch
 
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -507,6 +532,196 @@ def match_fraction(a, b, tol=1e-2):
     return float(close.any(1).mean())
 
 
+def capture_scan_inputs(model, x):
+    """One forward on batch ``x`` under ``no_grad``: the arguments of every
+    selective-scan call, in order, as SS2D hands them to K4."""
+    import torch
+
+    import experiment_yolo_torch.nn.zoo_blocks as zoo
+
+    calls, scan = [], zoo.selective_scan
+
+    def scan_hook(*args):
+        calls.append(args)
+        return scan(*args)
+
+    zoo.selective_scan = scan_hook
+    try:
+        with torch.no_grad():
+            feats = model(x)
+    finally:
+        zoo.selective_scan = scan
+    return feats, calls
+
+
+def check_k4(calls):
+    """K4 against its plain version on one VSS block's inputs per pyramid
+    level, and on random inputs of the same shapes (the seeded model's ``dt``
+    sits near 0.01 everywhere): every direction within K4_RTOL of its own
+    largest plain value. Timed over the ten launches of one forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    levels = {}
+    for args in calls:
+        levels.setdefault(args[0].shape[2], args)  # the first block of each sequence length
+    check(sorted(levels) == [(IMGSZ // s) ** 2 for s in (32, 16, 8, 4)], f"scan lengths {sorted(levels)}")
+    gen = torch.Generator().manual_seed(SEED + 4)
+
+    def randn(t):
+        return torch.randn(t.shape, generator=gen).to(t.device)
+
+    def worst(got, want):
+        """(max abs error, the worst direction's max abs error over that
+        direction's largest plain value)."""
+        err = (got - want).abs().amax((0, 2, 3))
+        return err.max().item(), (err / want.abs().amax((0, 2, 3))).max().item()
+
+    def cost(inputs):
+        """Bytes (x, dt, A, B, C, D read once, y written once) and operations of one launch: per (sequence,
+        step, channel, state) 8 (dt*A, exp, dt*B, *x, h*da, +, h*C, the sum), per (sequence, step, channel) 2
+        more for the skip."""
+        n = inputs[0].numel()
+        return (sum(t.numel() for t in inputs) + n) * 4, n * (16 * 8 + 2)
+
+    detail, err, rel = [], 0.0, 0.0
+    with torch.no_grad():
+        for length, args in sorted(levels.items()):
+            x, dt, a, b, c, d = args
+            check(x.dim() == 4 and x.shape[1] == 4, f"a launch covers {x.shape} and not four directions")
+            rand = (randn(x), F.softplus(randn(dt)), -torch.exp(randn(a)), randn(b), randn(c), randn(d))
+            row = {"shape_B_G_L_D": list(x.shape), "dt_main_median": dt.median().item()}
+            for kind, inputs in (("main", args), ("random", rand)):
+                e, r = worst(selective_scan(*inputs), selective_scan_plain(*inputs))
+                torch.cuda.synchronize()
+                check(r <= K4_RTOL, f"K4 selective_scan disagrees with its plain version on {kind} inputs at "
+                                    f"L={length}: max abs err {e} ({r} of the direction's largest plain value)")
+                row[f"{kind}_max_abs_err"], row[f"{kind}_rel_err"] = e, r
+                err, rel = max(err, e), max(rel, r)
+            row["ms"] = cuda_ms(lambda: selective_scan(*args))
+            row["device_ms"] = device_ms(lambda: selective_scan(*args), "selective_scan_kernel")
+            row["bytes"] = cost(args)[0]
+            row["bound_ms"] = bound(*cost(args))[0]
+            detail.append(row)
+
+        def kernel():
+            return [selective_scan(*args) for args in calls]
+
+        ms, dev_ms = cuda_ms(kernel), device_ms(kernel, "selective_scan_kernel")
+        plain_ms = cuda_ms(lambda: [selective_scan_plain(*args) for args in calls], runs=PLAIN_SCAN_RUNS, warmup=1)
+    nbytes, ops = (sum(v) for v in zip(*(cost(args) for args in calls)))
+    b_ms, b_by = bound(nbytes, ops)
+    return dict(name="selective_scan", route="cuda", source="experiment_yolo_torch/csrc/selective_scan.cu",
+                replaces="experiment_yolo_tpu/ops/pallas/selective_scan.py:50", max_abs_err=err, rel_err=rel, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, plain_runs=PLAIN_SCAN_RUNS, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                launches_per_forward=len(calls), scans_per_forward=sum(args[0].shape[1] for args in calls),
+                bytes_per_forward=nbytes, levels=detail)
+
+
+def serve_timed(model, images, counters, per_forward, card, label):
+    """SERVE_BATCHES batches of BATCH through ``DetectionPredictor`` with soft
+    and then hard NMS, every launch counter at 0 just before each run and read
+    just after; ``per_forward`` is the launches one forward must make. Returns
+    the timings per NMS type, the launches of both runs, the hard results."""
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch import DetectionPredictor
+
+    stream = [images[i % N_IMAGES] for i in range(SERVE_BATCHES * BATCH)]
+    launches = dict.fromkeys(counters, 0)
+    served = {}
+    hard_results = None
+    for nms_type in ("soft", "hard"):
+        pred = DetectionPredictor(model, {"imgsz": IMGSZ, "batch": BATCH, "nms_type": nms_type})
+        pred(images[:BATCH])  # warm-up: cuDNN picks its algorithms
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        results, batch_ms = [], []
+        for start in range(0, len(stream), BATCH):
+            t = time.perf_counter()
+            results += pred(stream[start:start + BATCH])  # ends in a copy to the host, which waits for the card
+            batch_ms.append((time.perf_counter() - t) * 1e3)
+        run = {name: fn.launches for name, fn in counters.items()}
+        want = {name: per_forward.get(name, 0) * SERVE_BATCHES for name in counters}
+        want["nms_suppress"] = SERVE_BATCHES if nms_type == "hard" else 0
+        check(run == want, f"{label} {nms_type} NMS main path launched {run}, expected {want}")
+        for name in launches:
+            launches[name] += run[name]
+        check(len(results) == len(stream), f"{len(results)} results for {len(stream)} images")
+        counts = [len(r) for r in results]
+        check(min(counts) > 0, f"{label} {nms_type}: an image has no detections: {counts}")
+        for r, img in zip(results, stream):
+            d = r.boxes.data
+            check(bool(np.isfinite(d).all()), f"{label} {nms_type}: non-finite detections")
+            h, w = img.shape[:2]
+            check(bool((d[:, [0, 2]] >= 0).all() and (d[:, [0, 2]] <= w).all() and (d[:, [1, 3]] >= 0).all()
+                       and (d[:, [1, 3]] <= h).all()), f"{label} {nms_type}: boxes outside their image")
+            check(bool(((d[:, 4] > CONF) & (d[:, 4] <= 1)).all() and ((d[:, 5] >= 0) & (d[:, 5] < model.nc)).all()),
+                  f"{label} {nms_type}: scores or classes out of range")
+        per_batch = results[::BATCH]  # every result of a batch carries that batch's speed
+        median_ms = statistics.median(batch_ms)
+        served[nms_type] = {
+            "batches": SERVE_BATCHES, "batch_ms_median": median_ms, "batch_ms_min": min(batch_ms),
+            "batch_ms_max": max(batch_ms), "batch_ms_p10_p90": statistics.quantiles(batch_ms, n=10)[::8],
+            "img_per_s_at_median": BATCH / median_ms * 1e3, "img_per_s_overall": len(stream) / sum(batch_ms) * 1e3,
+            "host_preprocess_ms_per_batch_median": statistics.median(r.speed["preprocess"] * BATCH for r in per_batch),
+            "inference_ms_per_batch_median": statistics.median(r.speed["inference"] * BATCH for r in per_batch),
+            "detections_per_image": sum(counts) / len(counts), "launches": run}
+        log(f"served {label} {nms_type} NMS: {len(stream)} images in {SERVE_BATCHES} batches of {BATCH} at {IMGSZ}: "
+            f"median {median_ms:.2f} ms per batch (min {min(batch_ms):.2f}, max {max(batch_ms):.2f}), "
+            f"{served[nms_type]['img_per_s_at_median']:.2f} img/s at the median, launches {run}, {card}")
+        if nms_type == "hard":
+            hard_results = results
+    check(hard_results is not None, "hard NMS did not run")
+    return served, launches
+
+
+def compare_serving_cpu(cfg, model, x):
+    """Batch ``x`` through ``model`` on the card and through the same weights
+    on the CPU, plain versions only: raw maps, decode, hard-NMS detections."""
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch import DetectionModel
+    from experiment_yolo_torch.ops.anchors import decode_detections
+    from experiment_yolo_torch.ops.nms import non_max_suppression
+
+    cpu = DetectionModel(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    with torch.no_grad():
+        cpu_feats = cpu(x.cpu())
+        feats = model(x)
+        gpu_boxes, gpu_scores = model.predict(x)
+    map_err = max((a.cpu() - b).abs().max().item() for a, b in zip(feats, cpu_feats))
+    check(map_err <= 1e-3, f"{cfg}: raw head maps differ from the CPU's by {map_err} > 1e-3")
+    # decode and hard NMS on the card's own maps, once on the card (K1, K2) and once on the CPU (plain)
+    cb, cs = decode_detections([f.cpu() for f in feats], model.stride, model.nc, model.reg_max)
+    dec_err = (gpu_boxes.cpu() - cb).abs().max().item()
+    check(dec_err <= 1e-3, f"{cfg}: decoded boxes differ from the CPU decode of the same maps by {dec_err} px")
+    nms_kw = dict(conf_thres=CONF, iou_thres=IOU, nms_type="hard")
+    gd, gn = non_max_suppression(gpu_boxes, gpu_scores, **nms_kw)
+    pd, pn = non_max_suppression(gpu_boxes.cpu(), gpu_scores.cpu(), **nms_kw)
+    gd, gn, pd, pn = gd.cpu().numpy(), gn.cpu().numpy(), pd.numpy(), pn.numpy()
+    check((gn == pn).all(), f"{cfg}: hard-NMS counts on the card {gn.tolist()} != on the CPU {pn.tolist()}")
+    check(int(gn.min()) > 0, f"{cfg}: an image of the compared batch has no detection: {gn.tolist()}")
+    check((gd[..., 5] == pd[..., 5]).all(), f"{cfg}: hard-NMS classes differ between card and CPU")
+    det_err = float(np.abs(gd[..., :4] - pd[..., :4]).max())
+    check(det_err <= 1e-2, f"{cfg}: hard-NMS boxes differ between card and CPU by {det_err} px")
+    # the whole CPU path on its own maps: near-equal scores may swap places in a
+    # sort, so a few detections may differ; hold most of them
+    cd, cn = non_max_suppression(*decode_detections(cpu_feats, model.stride, model.nc, model.reg_max), **nms_kw)
+    cd, cn = cd.numpy(), cn.numpy()
+    frac = min(match_fraction(gd[i, :gn[i]], cd[i, :cn[i]]) for i in range(len(gn)))
+    check(frac >= 0.95, f"{cfg}: only {frac:.3f} of an image's card detections are on the CPU path")
+    return {"batch": len(gn), "map_max_abs_err": map_err, "decode_max_abs_err_px": dec_err,
+            "nms_same_maps_max_abs_err_px": det_err, "cpu_path_min_match_fraction": frac,
+            "cpu_path_max_count_gap": int(np.abs(gn - cn).max()), "counts": gn.tolist()}
+
+
 def main() -> None:
     import torch
 
@@ -520,18 +735,17 @@ def main() -> None:
     import numpy as np
 
     import experiment_yolo_torch
-    from experiment_yolo_torch import DetectionModel, DetectionPredictor
+    from experiment_yolo_torch import DetectionModel
     from experiment_yolo_torch.data.augment import letterbox
-    from experiment_yolo_torch.ops.anchors import decode_detections
-    from experiment_yolo_torch.ops.kernels import _build, dfl_decode, ldconv_gather, nms_suppress
-    from experiment_yolo_torch.ops.nms import non_max_suppression
     from experiment_yolo_torch.engine.trainer import DetectionTrainer
+    from experiment_yolo_torch.ops.kernels import _build, dfl_decode, ldconv_gather, nms_suppress, selective_scan
     from experiment_yolo_torch.utils.seeded import he_normal_, seeded_batch, seeded_images
 
     check(Path(experiment_yolo_torch.__file__).resolve() == pkg.resolve(), "imported a package other than the checkout's")
     counters = {"dfl_decode": dfl_decode.dfl_decode, "dfl_decode_bwd": dfl_decode.dfl_decode_bwd,
                 "nms_suppress": nms_suppress.nms_suppress, "ldconv_gather": ldconv_gather.ldconv_gather,
-                "ldconv_gather_bwd": ldconv_gather.ldconv_gather_bwd}
+                "ldconv_gather_bwd": ldconv_gather.ldconv_gather_bwd,
+                "selective_scan": selective_scan.selective_scan}
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -557,12 +771,16 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    def seeded_model(cfg):
+        model = DetectionModel(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        he_normal_(model, SEED + 1)
+        log(f"model {cfg} scale n: {sum(p.numel() for p in model.parameters())} params, strides {model.stride}, "
+            f"seeded weights (PyTorch init from seed {SEED}, conv weights redrawn He-normal from seed {SEED + 1}), "
+            "Detect class-bias priors set to 0")
+        return model
+
     # 4. model and the main path's kernel inputs
-    model = DetectionModel(CFG, device="cuda", generator=torch.Generator().manual_seed(SEED))
-    he_normal_(model, SEED + 1)
-    log(f"model {CFG} scale n: {sum(p.numel() for p in model.parameters())} params, strides {model.stride}, "
-        f"seeded weights (PyTorch init from seed {SEED}, conv weights redrawn He-normal from seed {SEED + 1}), "
-        "Detect class-bias priors set to 0")
+    model = seeded_model(CFG)
     images = seeded_images(N_IMAGES, SEED)
     lb = np.stack([letterbox(img, IMGSZ)[0][..., ::-1] for img in images[:BATCH]])
     x = (torch.from_numpy(np.ascontiguousarray(lb)).cuda().permute(0, 3, 1, 2).float() / 255.0).contiguous()
@@ -578,86 +796,11 @@ def main() -> None:
             f"({k['bound_by']})")
 
     # 6. the main path: DetectionPredictor, soft then hard NMS, one batch per call
-    per_forward = {"dfl_decode": len(model.stride), "ldconv_gather": 10}
-    stream = [images[i % N_IMAGES] for i in range(SERVE_BATCHES * BATCH)]
-    launches = dict.fromkeys(counters, 0)
-    served = {}
-    hard_results = None
-    for nms_type in ("soft", "hard"):
-        pred = DetectionPredictor(model, {"imgsz": IMGSZ, "batch": BATCH, "nms_type": nms_type})
-        pred(images[:BATCH])  # warm-up: cuDNN picks its algorithms
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        results, batch_ms = [], []
-        for start in range(0, len(stream), BATCH):
-            t = time.perf_counter()
-            results += pred(stream[start:start + BATCH])  # ends in a copy to the host, which waits for the card
-            batch_ms.append((time.perf_counter() - t) * 1e3)
-        run = {name: fn.launches for name, fn in counters.items()}
-        want = {"dfl_decode": per_forward["dfl_decode"] * SERVE_BATCHES, "dfl_decode_bwd": 0,
-                "nms_suppress": SERVE_BATCHES if nms_type == "hard" else 0,
-                "ldconv_gather": per_forward["ldconv_gather"] * SERVE_BATCHES, "ldconv_gather_bwd": 0}
-        check(run == want, f"{nms_type} NMS main path launched {run}, expected {want}")
-        for name in launches:
-            launches[name] += run[name]
-        check(len(results) == len(stream), f"{len(results)} results for {len(stream)} images")
-        counts = [len(r) for r in results]
-        check(min(counts) > 0, f"{nms_type}: an image has no detections: {counts}")
-        for r, img in zip(results, stream):
-            d = r.boxes.data
-            check(bool(np.isfinite(d).all()), f"{nms_type}: non-finite detections")
-            h, w = img.shape[:2]
-            check(bool((d[:, [0, 2]] >= 0).all() and (d[:, [0, 2]] <= w).all() and (d[:, [1, 3]] >= 0).all()
-                       and (d[:, [1, 3]] <= h).all()), f"{nms_type}: boxes outside their image")
-            check(bool(((d[:, 4] > CONF) & (d[:, 4] <= 1)).all() and ((d[:, 5] >= 0) & (d[:, 5] < model.nc)).all()),
-                  f"{nms_type}: scores or classes out of range")
-        per_batch = results[::BATCH]  # every result of a batch carries that batch's speed
-        median_ms = statistics.median(batch_ms)
-        served[nms_type] = {
-            "batches": SERVE_BATCHES, "batch_ms_median": median_ms, "batch_ms_min": min(batch_ms),
-            "batch_ms_max": max(batch_ms), "batch_ms_p10_p90": statistics.quantiles(batch_ms, n=10)[::8],
-            "img_per_s_at_median": BATCH / median_ms * 1e3, "img_per_s_overall": len(stream) / sum(batch_ms) * 1e3,
-            "host_preprocess_ms_per_batch_median": statistics.median(r.speed["preprocess"] * BATCH for r in per_batch),
-            "inference_ms_per_batch_median": statistics.median(r.speed["inference"] * BATCH for r in per_batch),
-            "detections_per_image": sum(counts) / len(counts), "launches": run}
-        log(f"served {nms_type} NMS: {len(stream)} images in {SERVE_BATCHES} batches of {BATCH} at {IMGSZ}: "
-            f"median {median_ms:.2f} ms per batch (min {min(batch_ms):.2f}, max {max(batch_ms):.2f}), "
-            f"{served[nms_type]['img_per_s_at_median']:.2f} img/s at the median, launches {run}, {card}")
-        if nms_type == "hard":
-            hard_results = results
+    served, launches = serve_timed(model, images, counters, {"dfl_decode": len(model.stride), "ldconv_gather": 10},
+                                   card, CFG)
     # 7. the same batch through the same weights on the CPU, plain versions only
-    cpu = DetectionModel(CFG, device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
-    with torch.no_grad():
-        cpu_feats = cpu(x.cpu())
-        gpu_boxes, gpu_scores = model.predict(x)
-    map_err = max((a.cpu() - b).abs().max().item() for a, b in zip(feats, cpu_feats))
-    check(map_err <= 1e-3, f"raw head maps differ from the CPU's by {map_err} > 1e-3")
-    # decode and hard NMS on the card's own maps, once on the card (K1, K2) and once on the CPU (plain)
-    cb, cs = decode_detections([f.cpu() for f in feats], model.stride, model.nc, model.reg_max)
-    dec_err = (gpu_boxes.cpu() - cb).abs().max().item()
-    check(dec_err <= 1e-3, f"decoded boxes differ from the CPU decode of the same maps by {dec_err} px")
-    nms_kw = dict(conf_thres=CONF, iou_thres=IOU, nms_type="hard")
-    gd, gn = non_max_suppression(gpu_boxes, gpu_scores, **nms_kw)
-    pd, pn = non_max_suppression(gpu_boxes.cpu(), gpu_scores.cpu(), **nms_kw)
-    gd, gn, pd, pn = gd.cpu().numpy(), gn.cpu().numpy(), pd.numpy(), pn.numpy()
-    check((gn == pn).all(), f"hard-NMS counts on the card {gn.tolist()} != on the CPU {pn.tolist()}")
-    check((gd[..., 5] == pd[..., 5]).all(), "hard-NMS classes differ between card and CPU")
-    det_err = float(np.abs(gd[..., :4] - pd[..., :4]).max())
-    check(det_err <= 1e-2, f"hard-NMS boxes differ between card and CPU by {det_err} px")
-    # the whole CPU path on its own maps: near-equal scores may swap places in a
-    # sort, so a few detections may differ; hold most of them
-    cd, cn = non_max_suppression(*decode_detections(cpu_feats, model.stride, model.nc, model.reg_max), **nms_kw)
-    cd, cn = cd.numpy(), cn.numpy()
-    frac = min(match_fraction(gd[i, :gn[i]], cd[i, :cn[i]]) for i in range(BATCH))
-    count_gap = int(np.abs(gn - cn).max())
-    check(frac >= 0.95, f"only {frac:.3f} of an image's card detections are on the CPU path")
-    compare = {"map_max_abs_err": map_err, "decode_max_abs_err_px": dec_err, "nms_same_maps_max_abs_err_px": det_err,
-               "cpu_path_min_match_fraction": frac, "cpu_path_max_count_gap": count_gap,
-               "counts": gn.tolist()}
+    compare = compare_serving_cpu(CFG, model, x)
     log(f"CPU comparison: {json.dumps(compare)}")
-    check(hard_results is not None, "hard NMS did not run")
 
     # 8. the backward kernels on one training step's inputs
     trainer = DetectionTrainer(model, {"amp": False, "batch": BATCH, "imgsz": IMGSZ})
@@ -673,7 +816,7 @@ def main() -> None:
     # 9. the training main path: DetectionTrainer.train_step, one batch per call
     step_ms, run, last, moved, ema_moved = train_timed(trainer, batches, counters)
     want = {"dfl_decode": 3 * TRAIN_STEPS, "dfl_decode_bwd": 3 * TRAIN_STEPS, "nms_suppress": 0,
-            "ldconv_gather": 10 * TRAIN_STEPS, "ldconv_gather_bwd": 10 * TRAIN_STEPS}
+            "ldconv_gather": 10 * TRAIN_STEPS, "ldconv_gather_bwd": 10 * TRAIN_STEPS, "selective_scan": 0}
     check(run == want, f"the training steps launched {run}, expected {want}")
     for name in launches:
         launches[name] += run[name]
@@ -688,23 +831,69 @@ def main() -> None:
     log(f"trained: {TRAIN_STEPS} steps of {BATCH} at {IMGSZ}: median {median_ms:.2f} ms per step (min "
         f"{min(step_ms):.2f}, max {max(step_ms):.2f}), {trained['img_per_s_at_median']:.2f} img/s at the median, "
         f"launches {run}, {opt.updates} updates over {trainer.state.step} micro-batches, {card}")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["kernel_ms"] = k["ms"]
 
     # 10. one training step on the card and on the CPU, same weights and batch
     cmp_batch = seeded_batch(CMP_BATCH, CMP_IMGSZ, SEED + 20, nc=model.nc)
     trained["cpu_comparison"] = compare_train_cpu({k: v.cpu() for k, v in model.state_dict().items()}, cmp_batch)
     log(f"training CPU comparison: {json.dumps(trained['cpu_comparison'])}")
+    del trainer, model, ld, ld_train, rand_ld, levels, feats
+    torch.cuda.empty_cache()
 
-    # 11. the result lines
+    # 11. the VSS detector and the scan inputs of one forward
+    vss = seeded_model(VSS_CFG)
+    _, calls = capture_scan_inputs(vss, x)
+    check(len(calls) == 10, f"expected 10 VSS blocks on the path, found {len(calls)} scan calls")
+
+    # 12. K4 against its plain version, and timed
+    k4 = check_k4(calls)
+    del calls
+    log(f"selective_scan: max abs err {k4['max_abs_err']} ({k4['rel_err']} of a direction's largest plain value), "
+        f"kernel {k4['ms']:.4f} ms (device {k4['device_ms']} ms) for one forward's {k4['launches_per_forward']} "
+        f"launches ({k4['scans_per_forward']} scans), plain {k4['plain_ms']:.1f} ms (median of {k4['plain_runs']}), "
+        f"library none, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
+    for row in k4["levels"]:
+        log(f"  K4 level {row}")
+    kernels.append(k4)
+
+    # 13. the VSS main path: DetectionPredictor, soft then hard NMS
+    served_vss, run = serve_timed(vss, images, counters, {"dfl_decode": len(vss.stride),
+                                                          "selective_scan": k4["launches_per_forward"]}, card, VSS_CFG)
+    for name in launches:
+        launches[name] += run[name]
+    # 14. a smaller batch through the same weights on the CPU, plain versions only
+    compare_vss = compare_serving_cpu(VSS_CFG, vss, x[:VSS_CMP_BATCH])
+    log(f"VSS CPU comparison: {json.dumps(compare_vss)}")
+    del vss
+
+    # 15. the plain-Conv configs: one batch each
+    plain_conv = {}
+    for cfg, strides in PLAIN_CONV_CFGS.items():
+        m = seeded_model(cfg)
+        with torch.no_grad():
+            maps = m(x)
+        check(m.stride == strides, f"{cfg}: strides {m.stride}, expected {strides}")
+        check([tuple(f.shape) for f in maps] == [(BATCH, m.nc + 4 * m.reg_max, IMGSZ // s, IMGSZ // s) for s in strides],
+              f"{cfg}: raw map shapes {[tuple(f.shape) for f in maps]}")
+        check(all(bool(torch.isfinite(f).all()) for f in maps), f"{cfg}: non-finite raw maps")
+        plain_conv[cfg] = {"strides": list(m.stride), "params": sum(p.numel() for p in m.parameters()),
+                           "map_abs_max": max(f.abs().max().item() for f in maps)}
+    log(f"plain-Conv configs: {json.dumps(plain_conv)}")
+
+    # 16. the result lines
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        k["kernel_ms"] = k["ms"]
+        check(k["launches"] > 0, f"{k['name']} was launched no time on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "kernel_ms", "device_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(json.dumps({"kernel_detail": [{k: v for k, v in kern.items() if k not in keys or k == "name"}
                                       for kern in kernels]}))
-    log(json.dumps({"served": served, "imgsz": IMGSZ, "batch": BATCH, "dtype": "float32", "card": card}))
+    log(json.dumps({"served": served, "cpu_comparison": compare, "imgsz": IMGSZ, "batch": BATCH, "dtype": "float32",
+                    "card": card}))
     log(json.dumps({"trained": trained, "card": card}))
+    log(json.dumps({"served_vss": served_vss, "cpu_comparison": compare_vss, "plain_conv_configs": plain_conv,
+                    "cfg": VSS_CFG, "imgsz": IMGSZ, "batch": BATCH, "dtype": "float32", "card": card}))
     log(f"card: {card}")
     log(f"total seconds after the card check: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

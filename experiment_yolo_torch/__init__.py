@@ -2,8 +2,9 @@
 
 Sibling of ``experiment_yolo_tpu`` (the JAX reference): NCHW tensors,
 Ultralytics state-dict names, and hand-written ``sm_90a`` kernels for the
-DFL decode and its backward, hard-NMS suppression, and the LDConv bilinear
-gather and its backward. It imports neither JAX nor the JAX package.
+DFL decode and its backward, hard-NMS suppression, the LDConv bilinear
+gather and its backward, and the selective scan of the Mamba/VSS blocks. It
+imports neither JAX nor the JAX package.
 """
 
 from experiment_yolo_torch.engine.predictor import DetectionPredictor

@@ -1,11 +1,14 @@
-"""The modules of the DEAL-YOLO-LD detect path, NCHW, Ultralytics state-dict names.
+"""The core modules of the detect paths, NCHW, Ultralytics state-dict names.
 
 Port of the forward math of ``experiment_yolo_tpu/nn/modules.py``: ``Conv``
 (``ConvBN``), ``Bottleneck``, ``C2f``, ``SPPF``, ``Upsample``, ``Concat``,
-``Add``, ``ScalSeq``, ``LDConv`` and ``Detect``. Parameter and buffer names are
-those of the Ultralytics fork (``conv``/``bn``, ``cv1``/``cv2``/``m.{k}``,
-LDConv ``p_conv``/``conv.0``/``conv.1``, ScalSeq ``conv3d``/``bn``, Detect
-``cv2.{i}.{j}``/``cv3.{i}.{j}``), so a state dict in that layout loads as is.
+``Add``, ``ScalSeq``, ``LDConv`` and ``Detect``: every block of
+``yolov8.yaml``, ``yolov8-ASF-P2P2.yaml`` and ``yolov8-LD-P2.yaml``. The
+Mamba/VSS blocks of ``yolov8-C2f-VSS.yaml`` are in ``nn/zoo_blocks.py``.
+Parameter and buffer names are those of the Ultralytics fork (``conv``/``bn``,
+``cv1``/``cv2``/``m.{k}``, LDConv ``p_conv``/``conv.0``/``conv.1``, ScalSeq
+``conv3d``/``bn``, Detect ``cv2.{i}.{j}``/``cv3.{i}.{j}``), so a state dict in
+that layout loads as is.
 
 Every BatchNorm uses eps 1e-3 and momentum 0.03, as in the JAX package (the
 fork's ``initialize_weights`` sets those on its BatchNorm2d layers), and in
@@ -166,7 +169,7 @@ class LDConv(nn.Module):
 
     The reference fork's quirks carried by the JAX package are kept: the border
     double count lives in the gather, ``p_conv`` starts with a zero weight and a
-    uniform(+-1/sqrt(fan_in)) bias (:func:`init_weights`).
+    uniform(+-1/sqrt(fan_in)) bias (:func:`init_weights`, :meth:`seeded_init`).
     """
 
     def __init__(self, c1: int, c2: int, num_param: int = 3, stride: int = 1):
@@ -178,6 +181,11 @@ class LDConv(nn.Module):
             nn.SiLU(),
         )
         self.p_conv = nn.Conv2d(c1, 2 * num_param, 3, stride, 1)
+
+    @torch.no_grad()
+    def seeded_init(self, generator: torch.Generator) -> None:
+        """The reference zero-inits only ``p_conv``'s weight; its bias keeps its draw."""
+        self.p_conv.weight.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         off = self.p_conv(x)  # (B, 2N, h, w)
@@ -210,18 +218,18 @@ class Detect(nn.Module):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation: every conv weight and bias from
-    uniform(+-1/sqrt(fan_in)) (PyTorch's own default), BatchNorm at identity,
-    and LDConv's ``p_conv`` weight at zero (the reference zero-inits only the
-    weight; its bias keeps the uniform draw)."""
+    """Seeded initialisation: every conv and linear weight and bias from
+    uniform(+-1/sqrt(fan_in)) (PyTorch's own default), BatchNorm and LayerNorm
+    at identity; then each module's own ``seeded_init(generator)`` where it
+    has one (LDConv's zero offset weight, SS2D's scan parameters)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
             bound = 1.0 / (m.weight[0].numel() ** 0.5)
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:
                 m.bias.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+        elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
             m.reset_parameters()
     for m in model.modules():
-        if isinstance(m, LDConv):
-            m.p_conv.weight.zero_()
+        if hasattr(m, "seeded_init"):
+            m.seeded_init(generator)

@@ -1,9 +1,10 @@
 """Model assembly: a YAML graph spec -> ``DetectionModel`` (an ``nn.Module``).
 
 Port of ``experiment_yolo_tpu/nn/tasks.py`` (``parse_model``,
-``DetectionModel``) for the module types of ``yolov8-LD-P2.yaml``: channel and
-depth scaling, savelist routing, strides from the graph's own downsampling,
-and the Detect bias priors. Layers live in ``self.model`` so that state-dict
+``DetectionModel``) for the module types of ``yolov8.yaml``,
+``yolov8-ASF-P2P2.yaml``, ``yolov8-LD-P2.yaml`` and ``yolov8-C2f-VSS.yaml``
+(``PORTED`` below): channel and depth scaling, savelist routing, strides from
+the graph's own downsampling, and the Detect bias priors. Layers live in ``self.model`` so that state-dict
 names read ``model.{i}.<module names>``, as in the Ultralytics fork.
 """
 
@@ -19,9 +20,14 @@ import torch
 from torch import nn
 
 from experiment_yolo_torch.cfg import CFG_DIR, yaml_load
-from experiment_yolo_torch.nn.modules import C2f, SPPF, Add, Concat, Detect, LDConv, ScalSeq, init_weights
+from experiment_yolo_torch.nn.modules import C2f, SPPF, Add, Concat, Conv, Detect, LDConv, ScalSeq, init_weights
+from experiment_yolo_torch.nn.zoo_blocks import INNER_BLOCKS, C2fX, C3X
 from experiment_yolo_torch.ops.anchors import decode_detections
 from experiment_yolo_torch.utils import select_device
+
+
+PORTED = "Conv, LDConv, C2f, SPPF, nn.Upsample, Concat, Add, ScalSeq, Detect, and C2f_<X> / C3_<X> for X in " \
+         + ", ".join(INNER_BLOCKS)
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -59,13 +65,18 @@ def parse_model(d: dict, ch: int = 3) -> Tuple[List[nn.Module], List[int], List[
         c1 = chs[src[0]] if i else ch
         s_in = down[src[0]] if i else Fraction(1)
         n = max(round(n * depth), 1) if n > 1 else n
-        if mname == "LDConv":  # args: [c2, num_param, stride]
+        zoo, _, inner = mname.partition("_")
+        if mname in ("Conv", "LDConv"):  # args: [c2, k, stride] and [c2, num_param, stride]
             c2 = _scale_ch(args[0], nc, width, max_channels)
-            mod = LDConv(c1, c2, *args[1:])
+            mod = (Conv if mname == "Conv" else LDConv)(c1, c2, *args[1:])
             s_out = s_in * (args[2] if len(args) > 2 else 1)
         elif mname == "C2f":
             c2 = _scale_ch(args[0], nc, width, max_channels)
             mod = C2f(c1, c2, n, args[1] if len(args) > 1 else False)
+            s_out = s_in
+        elif zoo in ("C2f", "C3") and inner in INNER_BLOCKS:  # args: [c2, shortcut]
+            c2 = _scale_ch(args[0], nc, width, max_channels)
+            mod = (C2fX if zoo == "C2f" else C3X)(c1, c2, inner, n, bool(args[1]) if len(args) > 1 else False)
             s_out = s_in
         elif mname == "SPPF":
             c2 = _scale_ch(args[0], nc, width, max_channels)
@@ -88,8 +99,8 @@ def parse_model(d: dict, ch: int = 3) -> Tuple[List[nn.Module], List[int], List[
             det_strides = [int(down[j]) for j in src]
         else:
             raise NotImplementedError(f"module {mname!r} (layer {i}) is not ported to experiment_yolo_torch; "
-                                      "the port covers LDConv, C2f, SPPF, nn.Upsample, Concat, Add, ScalSeq, Detect")
-        if n > 1 and mname != "C2f":
+                                      f"the port covers {PORTED}")
+        if n > 1 and not isinstance(mod, (C2f, C2fX, C3X)):
             raise NotImplementedError(f"layer {i}: repeats of {mname} are not ported")
         mod.f, mod.i, mod.type = abs_f if len(abs_f) > 1 else abs_f[0], i, mname
         save.update(j for j in abs_f if j != -1)

@@ -1,10 +1,11 @@
-"""Where a served LD-P2 batch spends its time on the card.
+"""Where a served batch spends its time on the card.
 
 Usage, on a machine with an NVIDIA GPU and the CUDA toolkit:
 
-    python -m experiment_yolo_torch.profile_predict
+    python -m experiment_yolo_torch.profile_predict [model.yaml]
 
-Builds ``yolov8-LD-P2.yaml`` (n scale) with seeded weights
+Builds the model (default ``yolov8-LD-P2.yaml``; ``yolov8-C2f-VSS.yaml`` for
+the Mamba/VSS detector), at n scale, with seeded weights
 (``utils/seeded.py``) and serves seeded images of mixed sizes through
 ``DetectionPredictor`` at imgsz 640, batch 8, f32 with TF32 off, once per NMS
 type: first without the profiler, then under ``torch.profiler``. Prints one
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import time
 from collections import defaultdict
 
@@ -29,7 +31,7 @@ from experiment_yolo_torch.utils.seeded import he_normal_, seeded_images
 
 BATCHES, BATCH, IMGSZ, SEED = 4, 8, 640, 0
 KERNELS = {"dfl_decode_kernel": "K1 dfl_decode", "nms_suppress_kernel": "K2 nms_suppress",
-           "ldconv_gather_kernel": "K3 ldconv_gather"}
+           "ldconv_gather_kernel": "K3 ldconv_gather", "selective_scan_kernel": "K4 selective_scan"}
 CONV_WORDS = ("conv", "xmma", "cudnn", "implicit", "fprop", "winograd", "fft")
 GEMM_WORDS = ("gemm", "cutlass")
 
@@ -44,7 +46,7 @@ def group_of(name: str) -> str:
     if any(w in low for w in CONV_WORDS):
         return "convolution"
     if any(w in low for w in GEMM_WORDS):
-        return "matmul (LDConv projection)"
+        return "matmul (LDConv and SS2D projections)"
     return "other (elementwise, reductions, sort, pooling)"
 
 
@@ -83,20 +85,20 @@ def profile(model, images, nms_type: str, batch: int = BATCH, imgsz: int = IMGSZ
     }
 
 
-def main() -> None:
+def main(cfg: str = "yolov8-LD-P2.yaml") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_predict: no CUDA device; this measures the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    model = DetectionModel("yolov8-LD-P2.yaml", device="cuda", generator=torch.Generator().manual_seed(SEED))
+    model = DetectionModel(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
     he_normal_(model, SEED + 1)
     images = seeded_images(BATCHES * BATCH, SEED)
     for nms_type in ("hard", "soft"):
         row = profile(model, images, nms_type)
-        print(json.dumps({**row, "card": card}), flush=True)
+        print(json.dumps({"cfg": cfg, **row, "card": card}), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:2])

@@ -2,7 +2,9 @@
 
 The port's own copy of the name and layout mapping of
 ``experiment_yolo_tpu/utils/torch_convert.py`` (read in the other direction),
-for the module types of the detect slice. It takes the JAX package's
+for the layer types the port builds: ``Conv``, ``LDConv``, ``C2f``, ``SPPF``,
+``ScalSeq``, ``Detect`` and the zoo containers ``C2f_VSS``, ``C2f_LVMB``,
+``C3_VSS``, ``C3_LVMB``. It takes the JAX package's
 ``{'params', 'batch_stats'}`` as nested dicts of numpy arrays and returns a
 state dict for ``model.load_state_dict(..., strict=True)``; a tree shaped like
 ``params`` alone (a gradient or a momentum buffer) converts to the port's
@@ -14,6 +16,12 @@ Layout rules:
 - LDConv Dense ``proj`` (N*C, O), n-major -> the (N, 1) conv ``conv.0.weight``
   (O, C, N, 1): W[o, i, n, 0] = dense[n*C + i, o]
 - ScalSeq Dense ``conv3d`` (I, O) -> Conv3d weight (O, I, 1, 1, 1)
+- VSSBlock / SS2D: Dense kernel (I, O) -> Linear weight (O, I); the depthwise
+  conv kernel (3, 3, 1, d_inner) -> (d_inner, 1, 3, 3) by the conv rule, and
+  its bias; LayerNorm scale/bias -> weight/bias; the five raw parameters
+  (``x_proj_weight``, ``dt_projs_weight``, ``dt_projs_bias``, ``A_logs``,
+  ``Ds``) by name and unchanged: the port keeps the JAX package's shapes,
+  direction axis first, not VMamba's flattened (4*d_inner, ...) ones
 """
 
 from __future__ import annotations
@@ -56,8 +64,48 @@ def _proj(dense: np.ndarray, n: int) -> np.ndarray:
     return dense.reshape(n, nc // n, o).transpose(2, 1, 0)[..., None]
 
 
+SS2D_RAW = ("x_proj_weight", "dt_projs_weight", "dt_projs_bias", "A_logs", "Ds")
+
+
+def _vss(prefix: Tuple[str, ...], rest: List[str]) -> Rule:
+    """A ``VSSBlock`` at ``prefix``: rest is ['ln_1', leaf] or ['self_attention', ...]."""
+    if rest[0] == "ln_1":
+        return "params", (*prefix, "ln_1", "scale" if rest[1] == "weight" else "bias"), _same
+    if rest[0] != "self_attention":
+        raise KeyError(".".join(rest))
+    prefix, name, leaf = (*prefix, "self_attention"), rest[1], rest[2:]
+    if name in SS2D_RAW:
+        return "params", (*prefix, name), _same
+    if name in ("in_proj", "out_proj") and leaf == ["weight"]:
+        return "params", (*prefix, name, "kernel"), lambda w: w.T
+    if name == "conv2d":
+        return "params", (*prefix, name, "kernel" if leaf == ["weight"] else "bias"), \
+            _conv if leaf == ["weight"] else _same
+    if name == "out_norm":
+        return "params", (*prefix, name, "scale" if leaf == ["weight"] else "bias"), _same
+    raise KeyError(".".join(rest))
+
+
+def _zoo(inner: str, rest: List[str]) -> Rule:
+    """A ``C2f_<inner>`` / ``C3_<inner>`` container: its own Convs, and in
+    ``m.{k}`` a VSS bottleneck (``cv1`` Conv, ``cv2`` VSSBlock) or a bare
+    VSSBlock (LVMB)."""
+    if rest[0] != "m":
+        return _conv_bn((rest[0],), rest[1:])
+    slot, rest = f"m{rest[1]}", rest[2:]
+    if inner == "LVMB":
+        return _vss((slot,), rest)
+    if rest[0] == "cv1":
+        return _conv_bn((slot, "cv1"), rest[1:])
+    return _vss((slot, rest[0]), rest[1:])
+
+
 def _rule(mtype: str, rest: List[str], module) -> Rule:
     """Where the JAX variables hold the torch leaf ``rest`` of a layer of ``mtype``."""
+    if mtype == "Conv":
+        return _conv_bn((), rest)
+    if mtype in ("C2f_VSS", "C2f_LVMB", "C3_VSS", "C3_LVMB"):
+        return _zoo(mtype.partition("_")[2], rest)
     if mtype == "C2f":
         if rest[0] == "m":  # m.{k}.cv1.conv.weight -> m{k}/cv1/conv/kernel
             return _conv_bn((f"m{rest[1]}", rest[2]), rest[3:])

@@ -71,7 +71,9 @@ def he_normal_(model: torch.nn.Module, seed: int) -> None:
     work. LDConv's offset conv keeps its zero weight and uniform bias (the
     reference's init), so its offsets are one value per channel, the same at
     every pixel: ``chip_smoke.py`` also holds kernel K3 to its plain version
-    on random offsets.
+    on random offsets. In a VSS model SS2D's depthwise conv is redrawn like
+    any conv; its linear layers and scan parameters keep their own init, whose
+    step sizes sit near 0.01, so K4 is held on random inputs too.
     """
     gen = torch.Generator().manual_seed(seed)
     offset_convs = {id(m.p_conv) for m in model.modules() if isinstance(m, LDConv)}

@@ -26,16 +26,21 @@ mods = sys.argv[1:]
 for m in mods:
     __import__(m)
 from experiment_yolo_torch import DetectionModel, DetectionPredictor
-from experiment_yolo_torch.ops.kernels import dfl_decode, ldconv_gather, nms_suppress
+from experiment_yolo_torch.ops.kernels import dfl_decode, ldconv_gather, nms_suppress, selective_scan
 model = DetectionModel("yolov8-LD-P2.yaml", device="cpu")
 imgs = [np.random.default_rng(0).integers(0, 256, (64, 48, 3), dtype=np.uint8)]
 for nms_type in ("soft", "hard"):
     DetectionPredictor(model, {"imgsz": 64, "batch": 1, "nms_type": nms_type})(imgs)
+vss = {"nc": 6, "scales": {"n": [0.33, 0.25, 1024]},
+       "backbone": [[-1, 1, "Conv", [64, 3, 2]], [-1, 1, "Conv", [128, 3, 2]], [-1, 3, "C2f_VSS", [128, True]]],
+       "head": [[-1, 1, "C3_LVMB", [128]], [[2, 3], 1, "Detect", ["nc"]]]}
+DetectionPredictor(DetectionModel(vss, device="cpu"), {"imgsz": 64, "batch": 1, "nms_type": "hard"})(imgs)
 from experiment_yolo_torch.engine.trainer import DetectionTrainer
 from experiment_yolo_torch.utils.seeded import seeded_batch
 DetectionTrainer(model, {"amp": False, "batch": 2}).train_step(seeded_batch(2, 64, 0))
 launches = [dfl_decode.dfl_decode.launches, ldconv_gather.ldconv_gather.launches, nms_suppress.nms_suppress.launches,
-            dfl_decode.dfl_decode_bwd.launches, ldconv_gather.ldconv_gather_bwd.launches]
+            dfl_decode.dfl_decode_bwd.launches, ldconv_gather.ldconv_gather_bwd.launches,
+            selective_scan.selective_scan.launches]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "cv2", "PIL"))
 print(len(mods), launches, bad)
 """
@@ -43,14 +48,15 @@ print(len(mods), launches, bad)
 
 def test_port_imports_no_jax_and_cpu_launches_nothing():
     """In a fresh interpreter: import every port module, serve two CPU
-    predicts and take one CPU training step. Nothing of JAX, the JAX package,
+    predicts of LD-P2 and one of a small VSS model, and take one CPU training
+    step. Nothing of JAX, the JAX package,
     OpenCV or PIL is loaded, and no kernel launch, forward or backward, is
     counted: CPU tensors take the plain versions."""
-    assert len(MODULES) >= 15
+    assert len(MODULES) >= 17
     out = subprocess.run([sys.executable, "-c", _PROBE, *MODULES], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[-2] == f"{len(MODULES)} [0, 0, 0, 0, 0] []"
+    assert out.stdout.split("\n")[-2] == f"{len(MODULES)} [0, 0, 0, 0, 0, 0] []"
 
 
 def test_port_sources_name_no_cv2_pil_or_jax():
@@ -73,7 +79,8 @@ def test_port_sources_name_no_cv2_pil_or_jax():
                     f"{path.relative_to(ROOT)} imports {name}"
 
 
-@pytest.mark.parametrize("name", ["default.yaml", "models/yolov8-LD-P2.yaml"])
+@pytest.mark.parametrize("name", ["default.yaml", "models/yolov8-LD-P2.yaml", "models/yolov8.yaml",
+                                  "models/yolov8-ASF-P2P2.yaml"])
 def test_yaml_copies_equal_originals(name):
     assert (PORT / "cfg" / name).read_bytes() == (ROOT / "experiment_yolo_tpu" / "cfg" / name).read_bytes()
 
@@ -98,6 +105,7 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode, dfl_decode_bwd
     from experiment_yolo_torch.ops.kernels.ldconv_gather import ldconv_gather, ldconv_gather_bwd
     from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress
+    from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan
 
     meta = {"device": "meta"}
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -111,12 +119,15 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
                           torch.zeros(1, 64, 9, **meta), 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         nms_suppress(torch.zeros(1, 8, 4, **meta), torch.zeros(1, 8, dtype=torch.bool, **meta), 0.5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        selective_scan(torch.zeros(1, 8, 4, **meta), torch.zeros(1, 8, 4, **meta), torch.zeros(4, 16, **meta),
+                       torch.zeros(1, 8, 16, **meta), torch.zeros(1, 8, 16, **meta), torch.zeros(4, **meta))
 
 
 # entry point -> (library, the wrapper module's argument-list name)
 ENTRY_POINTS = {"dfl_decode": ("dfl_decode", "_ARGS"), "nms_suppress": ("nms_suppress", "_ARGS"),
                 "ldconv_gather": ("ldconv_gather", "_ARGS"), "dfl_decode_bwd": ("dfl_decode", "_BWD_ARGS"),
-                "ldconv_gather_bwd": ("ldconv_gather", "_BWD_ARGS")}
+                "ldconv_gather_bwd": ("ldconv_gather", "_BWD_ARGS"), "selective_scan": ("selective_scan", "_ARGS")}
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))
@@ -149,7 +160,10 @@ def test_model_rejects_bad_inputs_and_unknown_layers():
         model(torch.zeros(1, 3, 60, 64))
     cfg = dict(model.yaml)
     cfg["backbone"] = [[-1, 1, "GhostConv", [16, 3, 2]]] + list(cfg["backbone"][1:])
-    with pytest.raises(NotImplementedError, match="GhostConv"):
+    with pytest.raises(NotImplementedError, match="GhostConv.*the port covers Conv, LDConv, C2f,.*VSS, LVMB"):
+        DetectionModel(cfg, device="cpu")
+    cfg["backbone"] = [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "C2f_Faster", [16, True]]] + list(cfg["backbone"][2:])
+    with pytest.raises(NotImplementedError, match="C2f_Faster"):  # a zoo inner block that is not ported
         DetectionModel(cfg, device="cpu")
     with pytest.raises(FileNotFoundError):
         DetectionModel("no-such-model.yaml", device="cpu")
