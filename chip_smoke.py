@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     offsets at the same shapes that vary by pixel and image and reach 40 px
     out of bounds; time kernel, plain version and, for K3, ``F.grid_sample``
     as a library yardstick (CUDA events, median of 20 runs after warm-up),
-    and read each kernel's device time from a ``torch.profiler`` trace;
+    and read each kernel's device time from a ``torch.profiler`` trace, for
+    K3 also layer by layer beside each layer's bound;
  6. serve 20 batches of 8 seeded images of mixed sizes through
     ``DetectionPredictor`` at imgsz 640, once with soft and once with hard
     NMS, with every launch counter set to 0 just before and read just after,
@@ -46,15 +47,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     each side rounds p + update once);
 11. build ``yolov8-C2f-VSS.yaml`` (n scale, nc=6: ten VSS blocks) on the card
     from the same seeds, SS2D's own init kept, and run phase 4's batch to
-    take the selective-scan inputs of every block: ten launches of K4, each
-    covering a block's four scan directions (40 scans per forward);
-12. hold K4 against its plain version on one block's inputs at each of the
-    four pyramid levels (L = 25,600, 6,400, 1,600, 400) and on random inputs
-    of the same shapes (``dt`` a softplus of a normal, ``A`` minus the exp of a
-    normal: the seeded ``dt`` sits near 0.01), every direction within 1e-5 of
-    its own largest plain value; time one forward's ten launches (median of
-    20) and their plain versions (median of 3: each walks up to 25,600 steps
-    in Python), and each level's launch alone;
+    take the selective-scan calls of every block as SS2D makes them: ten
+    calls of K4, each covering a block's four scan directions (40 scans per
+    forward) on two unreversed sequences, with the reverse flags, the
+    direction-to-source index, and ``B`` and ``C`` as strided views;
+12. hold K4 against its plain version on one block's call at each of the
+    four pyramid levels (L = 25,600, 6,400, 1,600, 400), on random inputs of
+    the same shapes and at a ragged L = 1,003 (``dt`` a softplus of a normal,
+    ``A`` minus the exp of a normal and ``D`` per direction, two of four
+    directions reversed, ``B`` and ``C`` views of a tensor with rows of 33
+    floats: the seeded ``dt`` sits near 0.01 and its ``A`` and ``D`` are the
+    same for every direction), every direction within 1e-5 of its own
+    largest plain value; time one forward's ten calls (median of 20) and
+    their plain versions (median of 3: each walks up to 25,600 steps in
+    Python), and each level's call alone;
 13. serve 20 batches of 8 through ``DetectionPredictor`` on the VSS model, soft
     then hard NMS, counters at 0 just before and read just after: exactly 10
     K4 and 3 K1 launches per forward, 1 K2 per hard batch, no K3;
@@ -98,6 +104,13 @@ RUNS, WARMUP = 20, 3
 # and f32 operations/s outside the tensor cores (none of these kernels uses them).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# K2's bound is a chain, not a rate: the keep/suppress decisions of one image depend on each other in
+# score order. Assumed least cost of one decision: a read of keep[i] from shared memory (about 30 clocks
+# on Hopper) for a candidate that is already suppressed; for a kept one a second such round trip, since
+# the flags it clears must be visible (a barrier) before the next read. At the SXM part's 1.98 GHz.
+SM_CLOCK_HZ = 1.98e9
+SMEM_ROUND_TRIP_CLOCKS = 30
+RAGGED_SCAN_LENGTH = 1003  # K4 also at a length that is no multiple of its chunk (48 here) or its 8-step tile
 
 
 def fail(msg: str) -> None:
@@ -226,14 +239,15 @@ def check_k2(shifted, valid):
     ms = cuda_ms(lambda: nms_suppress(shifted, valid, IOU))
     dev_ms = device_ms(lambda: nms_suppress(shifted, valid, IOU), "nms_suppress_kernel")
     plain_ms = cuda_ms(lambda: nms_suppress_plain(shifted, valid, IOU))
-    b, k = valid.shape
-    later = torch.arange(k, device=valid.device).flip(0)  # candidates after index i: k-1-i
-    pairs = int((later * want).sum())  # IoUs this data needs: each kept i against every later j
-    b_ms, b_by = bound(b * k * (16 + 1 + 1), pairs * 13 + b * k * 3)  # ~13 ops per IoU and test
+    # the longest chain of dependent decisions among the images, which run side by side
+    chain_clocks = int(((valid.sum(1) + want.sum(1)) * SMEM_ROUND_TRIP_CLOCKS).max())
+    b_ms, b_by = chain_clocks / SM_CLOCK_HZ * 1e3, "operations"
     return dict(name="nms_suppress", route="cuda", source="experiment_yolo_torch/csrc/nms_suppress.cu",
                 replaces="experiment_yolo_tpu/ops/pallas/nms_kernel.py:26", max_abs_err=float(mismatched), ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                kept=int(want.sum()), candidates=int(valid.sum()))
+                kept=int(want.sum()), candidates=int(valid.sum()), chain_clocks=chain_clocks,
+                bound_assumption=f"dependent chain: {SMEM_ROUND_TRIP_CLOCKS} clocks per candidate plus "
+                                 f"{SMEM_ROUND_TRIP_CLOCKS} per kept box, longest image, at {SM_CLOCK_HZ / 1e9} GHz")
 
 
 def random_offsets(ld):
@@ -297,20 +311,30 @@ def check_k3(ld, rand_ld):
     plain_ms = cuda_ms(lambda: [ldconv_gather_plain(x, o, s) for x, o, s in ld])
     main_grids, rand_grids = grid_sample_grids(ld), grid_sample_grids(rand_ld)
     library_ms = cuda_ms(lambda: library(ld, main_grids))
+    # ten calls cost the host more than the card, for the kernel and for the library: their device times beside them
+    library_device_ms = device_ms(lambda: library(ld, main_grids), "grid_sampler")
     random = {"max_abs_err": rand_err, "ms": cuda_ms(lambda: kernel(rand_ld)),
               "device_ms": device_ms(lambda: kernel(rand_ld), "ldconv_gather_kernel"),
-              "library_ms": cuda_ms(lambda: library(rand_ld, rand_grids))}
+              "library_ms": cuda_ms(lambda: library(rand_ld, rand_grids)),
+              "library_device_ms": device_ms(lambda: library(rand_ld, rand_grids), "grid_sampler")}
     nbytes = ops = 0
-    for (x, o, _), y in zip(ld, got):
+    layers = []
+    for (x, o, s), (_, ro, _), y in zip(ld, rand_ld, got):
         b, n2, h, w = o.shape
-        nbytes += (x.numel() + o.numel() + y.numel()) * 4
-        ops += y.numel() * 9 + b * h * w * (n2 // 2) * 24  # 4 products, 3 sums, 2 scalings; positions and weights
+        cost = ((x.numel() + o.numel() + y.numel()) * 4,
+                y.numel() * 9 + b * h * w * (n2 // 2) * 24)  # 4 products, 3 sums, 2 scalings; positions and weights
+        nbytes, ops = nbytes + cost[0], ops + cost[1]
+        layers.append({"shape": f"{tuple(x.shape)}->{tuple(y.shape)}", "stride": s,
+                       "device_ms": device_ms(lambda: ldconv_gather(x, o, s), "ldconv_gather_kernel"),
+                       "random_device_ms": device_ms(lambda: ldconv_gather(x, ro, s), "ldconv_gather_kernel"),
+                       "bound_ms": bound(*cost)[0]})
     b_ms, b_by = bound(nbytes, ops)
-    shapes = [f"{tuple(x.shape)}->{tuple(y.shape)}" for (x, _, _), y in zip(ld, got)]
+    shapes = [row["shape"] for row in layers]
     return dict(name="ldconv_gather", route="cuda", source="experiment_yolo_torch/csrc/ldconv_gather.cu",
                 replaces="experiment_yolo_tpu/ops/pallas/ldconv_kernel.py:29", max_abs_err=max(err, rand_err),
                 ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                main_path_max_abs_err=err, random_offsets=random, shapes=shapes)
+                main_path_max_abs_err=err, library_device_ms=library_device_ms, random_offsets=random, shapes=shapes,
+                layers=layers)
 
 
 def capture_train_inputs(trainer, batch):
@@ -534,16 +558,17 @@ def match_fraction(a, b, tol=1e-2):
 
 def capture_scan_inputs(model, x):
     """One forward on batch ``x`` under ``no_grad``: the arguments of every
-    selective-scan call, in order, as SS2D hands them to K4."""
+    selective-scan call, in order, as SS2D hands them to K4: (positional,
+    keyword) pairs."""
     import torch
 
     import experiment_yolo_torch.nn.zoo_blocks as zoo
 
     calls, scan = [], zoo.selective_scan
 
-    def scan_hook(*args):
-        calls.append(args)
-        return scan(*args)
+    def scan_hook(*args, **kwargs):
+        calls.append((args, kwargs))
+        return scan(*args, **kwargs)
 
     zoo.selective_scan = scan_hook
     try:
@@ -555,23 +580,34 @@ def capture_scan_inputs(model, x):
 
 
 def check_k4(calls):
-    """K4 against its plain version on one VSS block's inputs per pyramid
-    level, and on random inputs of the same shapes (the seeded model's ``dt``
-    sits near 0.01 everywhere): every direction within K4_RTOL of its own
-    largest plain value. Timed over the ten launches of one forward."""
+    """K4 against its plain version on one VSS block's call per pyramid
+    level, exactly as SS2D makes it, on random inputs of the same shapes and
+    at one ragged length (the seeded model's ``dt`` sits near 0.01 and its
+    ``A`` and ``D`` do not differ by direction): every direction within
+    K4_RTOL of its own largest plain value. Timed over the ten calls of one
+    forward."""
     import torch
     import torch.nn.functional as F
 
-    from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan, selective_scan_plain
+    from experiment_yolo_torch.ops.kernels.selective_scan import chunk_length, selective_scan, selective_scan_plain
 
     levels = {}
-    for args in calls:
-        levels.setdefault(args[0].shape[2], args)  # the first block of each sequence length
+    for args, kwargs in calls:
+        levels.setdefault(args[1].shape[2], (args, kwargs))  # the first block of each sequence length
     check(sorted(levels) == [(IMGSZ // s) ** 2 for s in (32, 16, 8, 4)], f"scan lengths {sorted(levels)}")
     gen = torch.Generator().manual_seed(SEED + 4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def randn(t):
-        return torch.randn(t.shape, generator=gen).to(t.device)
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+
+    def random_call(bsz, length, dim):
+        """Random inputs in SS2D's form: two sequences for four directions, two of them reversed (not
+        SS2D's two), per-direction A and D, B and C as views of one tensor with rows of 33 floats."""
+        wide = randn(bsz, 4, length, 2 * 16 + 1)
+        args = (randn(bsz, 2, length, dim), F.softplus(randn(bsz, 4, length, dim)), -torch.exp(randn(4, dim, 16)),
+                wide[..., 1:17], wide[..., 17:], randn(4, dim))
+        return args, {"reverse": (True, False, False, True), "source": (1, 0, 0, 1)}
 
     def worst(got, want):
         """(max abs error, the worst direction's max abs error over that
@@ -579,45 +615,61 @@ def check_k4(calls):
         err = (got - want).abs().amax((0, 2, 3))
         return err.max().item(), (err / want.abs().amax((0, 2, 3))).max().item()
 
-    def cost(inputs):
-        """Bytes (x, dt, A, B, C, D read once, y written once) and operations of one launch: per (sequence,
+    def cost(args):
+        """Bytes (x, dt, A, B, C, D read once, y written once) and operations of one call: per (sequence,
         step, channel, state) 8 (dt*A, exp, dt*B, *x, h*da, +, h*C, the sum), per (sequence, step, channel) 2
         more for the skip."""
-        n = inputs[0].numel()
-        return (sum(t.numel() for t in inputs) + n) * 4, n * (16 * 8 + 2)
+        n = args[1].numel()
+        return (sum(t.numel() for t in args) + n) * 4, n * (16 * 8 + 2)
+
+    def held(kind, length, args, kwargs):
+        e, r = worst(selective_scan(*args, **kwargs), selective_scan_plain(*args, **kwargs))
+        torch.cuda.synchronize()
+        check(r <= K4_RTOL, f"K4 selective_scan disagrees with its plain version on {kind} inputs at "
+                            f"L={length}: max abs err {e} ({r} of the direction's largest plain value)")
+        return e, r
 
     detail, err, rel = [], 0.0, 0.0
     with torch.no_grad():
-        for length, args in sorted(levels.items()):
-            x, dt, a, b, c, d = args
-            check(x.dim() == 4 and x.shape[1] == 4, f"a launch covers {x.shape} and not four directions")
-            rand = (randn(x), F.softplus(randn(dt)), -torch.exp(randn(a)), randn(b), randn(c), randn(d))
-            row = {"shape_B_G_L_D": list(x.shape), "dt_main_median": dt.median().item()}
-            for kind, inputs in (("main", args), ("random", rand)):
-                e, r = worst(selective_scan(*inputs), selective_scan_plain(*inputs))
-                torch.cuda.synchronize()
-                check(r <= K4_RTOL, f"K4 selective_scan disagrees with its plain version on {kind} inputs at "
-                                    f"L={length}: max abs err {e} ({r} of the direction's largest plain value)")
+        for length, (args, kwargs) in sorted(levels.items()):
+            x, dt, _, b, _, _ = args
+            check(dt.dim() == 4 and dt.shape[1] == 4 and x.shape[1] == 2, f"a call covers x {x.shape}, dt {dt.shape}: "
+                                                                           "not four directions on two sequences")
+            check(kwargs.get("reverse") == (False, False, True, True) and kwargs.get("source") == (0, 1, 0, 1)
+                  and not b.is_contiguous(), f"SS2D's call at L={length} is not the strided, flagged form: {kwargs}")
+            bsz, _, _, dim = dt.shape
+            row = {"shape_B_G_L_D": list(dt.shape), "dt_main_median": dt.median().item(), "B_row_floats": b.stride(2),
+                   "chunk_steps": chunk_length(bsz * 4, length, dim, sms)}
+            for kind, (a, k) in (("main", (args, kwargs)), ("random", random_call(bsz, length, dim))):
+                e, r = held(kind, length, a, k)
                 row[f"{kind}_max_abs_err"], row[f"{kind}_rel_err"] = e, r
                 err, rel = max(err, e), max(rel, r)
-            row["ms"] = cuda_ms(lambda: selective_scan(*args))
-            row["device_ms"] = device_ms(lambda: selective_scan(*args), "selective_scan_kernel")
+            row["ms"] = cuda_ms(lambda: selective_scan(*args, **kwargs))
+            row["device_ms"] = device_ms(lambda: selective_scan(*args, **kwargs), "selective_scan_kernel")
             row["bytes"] = cost(args)[0]
             row["bound_ms"] = bound(*cost(args))[0]
             detail.append(row)
+        # a length that is no multiple of the chunk or the tile, at the widest level's batch and a middle width
+        bsz, dim = detail[0]["shape_B_G_L_D"][0], detail[1]["shape_B_G_L_D"][3]
+        chunk = chunk_length(bsz * 4, RAGGED_SCAN_LENGTH, dim, sms)
+        check(RAGGED_SCAN_LENGTH % chunk and RAGGED_SCAN_LENGTH % 8, f"L={RAGGED_SCAN_LENGTH} is not ragged for chunks of {chunk}")
+        e, r = held("ragged random", RAGGED_SCAN_LENGTH, *random_call(bsz, RAGGED_SCAN_LENGTH, dim))
+        err, rel = max(err, e), max(rel, r)
+        ragged = {"shape_B_G_L_D": [bsz, 4, RAGGED_SCAN_LENGTH, dim], "chunk_steps": chunk, "max_abs_err": e, "rel_err": r}
 
         def kernel():
-            return [selective_scan(*args) for args in calls]
+            return [selective_scan(*args, **kwargs) for args, kwargs in calls]
 
         ms, dev_ms = cuda_ms(kernel), device_ms(kernel, "selective_scan_kernel")
-        plain_ms = cuda_ms(lambda: [selective_scan_plain(*args) for args in calls], runs=PLAIN_SCAN_RUNS, warmup=1)
-    nbytes, ops = (sum(v) for v in zip(*(cost(args) for args in calls)))
+        plain_ms = cuda_ms(lambda: [selective_scan_plain(*args, **kwargs) for args, kwargs in calls],
+                           runs=PLAIN_SCAN_RUNS, warmup=1)
+    nbytes, ops = (sum(v) for v in zip(*(cost(args) for args, _ in calls)))
     b_ms, b_by = bound(nbytes, ops)
     return dict(name="selective_scan", route="cuda", source="experiment_yolo_torch/csrc/selective_scan.cu",
                 replaces="experiment_yolo_tpu/ops/pallas/selective_scan.py:50", max_abs_err=err, rel_err=rel, ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms, plain_runs=PLAIN_SCAN_RUNS, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                launches_per_forward=len(calls), scans_per_forward=sum(args[0].shape[1] for args in calls),
-                bytes_per_forward=nbytes, levels=detail)
+                launches_per_forward=len(calls), scans_per_forward=sum(args[1].shape[1] for args, _ in calls),
+                bytes_per_forward=nbytes, levels=detail, ragged=ragged)
 
 
 def serve_timed(model, images, counters, per_forward, card, label):
@@ -794,6 +846,10 @@ def main() -> None:
         log(f"{k['name']}: max abs err {k['max_abs_err']}, kernel {k['ms']:.4f} ms (device {k['device_ms']} ms), "
             f"plain {k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound {k['bound_ms']:.4f} ms "
             f"({k['bound_by']})")
+    log(f"  K2 bound: {kernels[1]['bound_assumption']}")
+    log(f"  K3 library device ms {kernels[2]['library_device_ms']}, random offsets: {kernels[2]['random_offsets']}")
+    for row in kernels[2]["layers"]:
+        log(f"  K3 layer {row}")
 
     # 6. the main path: DetectionPredictor, soft then hard NMS, one batch per call
     served, launches = serve_timed(model, images, counters, {"dfl_decode": len(model.stride), "ldconv_gather": 10},
@@ -853,6 +909,7 @@ def main() -> None:
         f"library none, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
     for row in k4["levels"]:
         log(f"  K4 level {row}")
+    log(f"  K4 ragged {k4['ragged']}")
     kernels.append(k4)
 
     # 13. the VSS main path: DetectionPredictor, soft then hard NMS

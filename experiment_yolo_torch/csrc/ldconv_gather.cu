@@ -14,15 +14,37 @@
 // the sample is scaled by 2 for each axis whose pr - R lies outside [0, H-1)
 // (the reference fork's out-of-border double count).
 //
-// Bound: memory. Each output value costs four source loads and a handful of
-// flops. Design: one thread per (output pixel, n, channel), channels
-// innermost, so a warp writes one contiguous run of the (B, h*w, N*C)
-// n-major output and the threads of one (pixel, n) share their offset loads.
-// The source stays NCHW as the convolutions leave it, so neighbouring
-// channels of a corner sit H*W apart; the four corner reads are not
-// coalesced and lean on L1/L2 for the reuse between neighbouring pixels.
-// Every weight and product is rounded explicitly (no contracted multiply-add)
-// so the kernel agrees with the plain PyTorch version bit for bit.
+// Bound: memory (the ten layers of yolov8-LD-P2 at batch 8, 640 px move 446
+// MB, 0.13 ms at the card's rate). Each output value costs four source loads
+// and nine float operations; the positions, weights and corners cost some 150
+// operations more, but only once per (pixel, n). Measured on an H100: 0.26 ms on
+// the seeded model's smooth offsets (F.grid_sample on the same positions: 0.39
+// ms), 0.53 ms on offsets that scatter a warp's corners over many lines
+// (F.grid_sample: 0.49 ms), where the L1 hit rate of the corner loads decides.
+// An earlier kernel ran one thread per (pixel, n, channel) with channels
+// innermost: every thread redid the positions, and a warp's corner loads fell
+// on 32 channel planes, one sector each; it took 0.73 ms on either.
+//
+// Design: one block per tile of T consecutive output pixels of one image,
+// all N points, all C channels.
+// 1. T*N threads compute one sample each (positions, the four products of
+//    weights, the four corners, the multiplier) into shared memory; their
+//    offset loads run along pixels, as the offsets lie.
+// 2. A warp takes 32 neighbouring pixels of one sampling point, keeps their
+//    samples in registers and loops over channels: the four corner loads of
+//    a warp fall into a few sectors of one or two rows of one channel plane,
+//    as the library's grid_sample reads. Each value goes into a [T][N*C]
+//    tile in shared memory (row length odd, so the column writes spread over
+//    the banks).
+// 3. out is (B, h*w, N*C), so the tile is one contiguous run of T*N*C
+//    floats: the block writes it with neighbouring lanes on neighbouring
+//    addresses.
+// T is the largest of 256, 128, 64, 32 whose tile stays within 16 KB: eight
+// blocks then share an SM and leave half of its 256 KB as L1, which offsets
+// that scatter a warp's corners over many lines need (a 32 KB tile was as fast
+// on the model's smooth offsets and 19% slower on random ones). Every weight and product is rounded
+// explicitly, in the order of the plain PyTorch version (no contracted
+// multiply-add), so the kernel agrees with it bit for bit.
 //
 // The backward (ldconv_gather_bwd_launch) is the counterpart of the JAX
 // custom VJP _ldconv_gather_bwd (nn/modules.py:469), composed with the border
@@ -94,25 +116,79 @@ __device__ __forceinline__ Sample sample_at(const float* __restrict__ off, const
   return s;
 }
 
-__global__ void ldconv_gather_kernel(const float* __restrict__ x, const float* __restrict__ off,
-                                     float* __restrict__ out, Geom g, long long total) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int c = static_cast<int>(t % g.C);
-  long long q = t / g.C;
-  const int n = static_cast<int>(q % g.N);
-  q /= g.N;
-  const int hw = g.h * g.w;
-  const int p = static_cast<int>(q % hw);
-  const int b = static_cast<int>(q / hw);
-  const Sample s = sample_at(off, g, b, p, n);
+constexpr int GATHER_THREADS = 256;
+constexpr int GATHER_WARPS = GATHER_THREADS / 32;
+constexpr int SAMPLE_WORDS = 9;  // per (pixel, n) in shared memory: 4 weights, 4 corners, the multiplier
 
-  const float* xc = x + (static_cast<long long>(b) * g.C + c) * g.H * g.W;
-  float v = __fmul_rn(__fmul_rn(s.wr0, s.wc0), xc[s.i00]);
-  v = __fadd_rn(v, __fmul_rn(__fmul_rn(s.wr0, s.wc1), xc[s.i01]));
-  v = __fadd_rn(v, __fmul_rn(__fmul_rn(s.wr1, s.wc0), xc[s.i10]));
-  v = __fadd_rn(v, __fmul_rn(__fmul_rn(s.wr1, s.wc1), xc[s.i11]));
-  out[t] = __fmul_rn(v, s.mul);
+// The row length of the shared-memory tile: odd, so that 32 pixels of one column hit 32 banks.
+__host__ __device__ inline int tile_row(int nc) { return nc | 1; }
+
+// T: pixels per tile, a multiple of 32. slices: the channels of a (32 pixels, n) unit are dealt to this
+// many warps, so that every warp of the block has work.
+__global__ void __launch_bounds__(GATHER_THREADS)
+ldconv_gather_kernel(const float* __restrict__ x, const float* __restrict__ off, float* __restrict__ out, Geom g,
+                     int T, int slices) {
+  extern __shared__ __align__(16) float smem[];
+  const int NC = g.N * g.C, hw = g.h * g.w, row = tile_row(NC), TN = T * g.N;
+  float* tile = smem;  // [T][row]
+  float* w00 = tile + T * row;
+  float* w01 = w00 + TN;
+  float* w10 = w01 + TN;
+  float* w11 = w10 + TN;
+  float* mul = w11 + TN;
+  int* i00 = reinterpret_cast<int*>(mul + TN);
+  int* i01 = i00 + TN;
+  int* i10 = i01 + TN;
+  int* i11 = i10 + TN;
+  const int b = blockIdx.y, p0 = blockIdx.x * T;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+  // 1. the samples, n-major: q = n * T + pixel. Past the image's last pixel the last one again.
+  for (int q = threadIdx.x; q < TN; q += GATHER_THREADS) {
+    const int n = q / T;
+    const Sample s = sample_at(off, g, b, min(p0 + q - n * T, hw - 1), n);
+    w00[q] = __fmul_rn(s.wr0, s.wc0);
+    w01[q] = __fmul_rn(s.wr0, s.wc1);
+    w10[q] = __fmul_rn(s.wr1, s.wc0);
+    w11[q] = __fmul_rn(s.wr1, s.wc1);
+    mul[q] = s.mul;
+    i00[q] = s.i00;
+    i01[q] = s.i01;
+    i10[q] = s.i10;
+    i11[q] = s.i11;
+  }
+  __syncthreads();
+
+  // 2. the values: a unit is 32 neighbouring pixels of one n, an item one slice of a unit's channels
+  const int units = TN / 32;
+  const long long plane = static_cast<long long>(g.H) * g.W;
+  for (int item = warp; item < units * slices; item += GATHER_WARPS) {
+    const int q = (item % units) * 32 + lane, first = item / units;
+    const int n = q / T;
+    const float a00 = w00[q], a01 = w01[q], a10 = w10[q], a11 = w11[q], m = mul[q];
+    const int j00 = i00[q], j01 = i01[q], j10 = i10[q], j11 = i11[q];
+    float* cell = tile + (q - n * T) * row + n * g.C;
+    const float* xc = x + (static_cast<long long>(b) * g.C + first) * plane;
+#pragma unroll 4
+    for (int c = first; c < g.C; c += slices, xc += slices * plane) {
+      float v = __fmul_rn(a00, xc[j00]);
+      v = __fadd_rn(v, __fmul_rn(a01, xc[j01]));
+      v = __fadd_rn(v, __fmul_rn(a10, xc[j10]));
+      v = __fadd_rn(v, __fmul_rn(a11, xc[j11]));
+      cell[c] = __fmul_rn(v, m);
+    }
+  }
+  __syncthreads();
+
+  // 3. the tile is one contiguous run of out
+  const int pixels = min(T, hw - p0);
+  float* o = out + (static_cast<long long>(b) * hw + p0) * NC;
+  if (row == NC) {
+    for (int i = threadIdx.x; i < pixels * NC; i += GATHER_THREADS) o[i] = tile[i];
+  } else {
+    for (int p = warp; p < pixels; p += GATHER_WARPS)
+      for (int j = lane; j < NC; j += 32) o[p * NC + j] = tile[p * row + j];
+  }
 }
 
 __global__ void ldconv_gather_bwd_kernel(const float* __restrict__ x, const float* __restrict__ off,
@@ -159,11 +235,27 @@ extern "C" int ldconv_gather_launch(const float* x, const float* off, float* out
                                     int h, int w, int N, int base, int stride, int R, int Hp, int Wp,
                                     cudaStream_t stream) {
   const Geom g{B, C, H, W, h, w, N, base, stride, R, Hp, Wp};
-  const long long total = static_cast<long long>(B) * h * w * N * C;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (blocks > 0) ldconv_gather_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(x, off, out, g, total);
+  if (B == 0 || h * w == 0 || N * C == 0) return static_cast<int>(cudaSuccess);
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int NC = N * C;
+  int T = 256;  // the largest tile of at most 16 KB: what shared memory leaves is L1, which scattered offsets need
+  while (T > 32 && T * NC > 4096) T /= 2;
+  const size_t smem = (static_cast<size_t>(T) * tile_row(NC) + static_cast<size_t>(SAMPLE_WORDS) * T * N) * sizeof(float);
+  if (smem > 48 * 1024) {  // wide layers: above 227 KB (N*C beyond about 1,800) the launch is refused
+    const cudaError_t e = cudaFuncSetAttribute(ldconv_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  // units * slices is the least common multiple of the units and the block's warps
+  const int units = T * N / 32;
+  int gcd = units, r = GATHER_WARPS;
+  while (r) {
+    const int t = gcd % r;
+    gcd = r;
+    r = t;
+  }
+  const dim3 grid((h * w + T - 1) / T, B);
+  ldconv_gather_kernel<<<grid, GATHER_THREADS, smem, stream>>>(x, off, out, g, T, GATHER_WARPS / gcd);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,162 +1,323 @@
 // Selective scan (the Mamba state-space recurrence), all directions of a
-// block in one launch:
+// block in one call:
 //
 //   h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t      state (D, N) per sequence
 //   y_t = C_t . h_t + Dskip * x_t
 //
 // Replaces experiment_yolo_tpu/ops/pallas/selective_scan.py:_scan_kernel
 // (reached through selective_scan_pallas), together with the D*x term that
-// the JAX function adds outside its kernel. The TPU kernel holds one whole
-// (L, D) sequence and the (D, N) state in VMEM per program and walks L with
-// a fori_loop; a sequence of 25,600 steps does not fit a block's shared
-// memory here, and nothing needs it to: the state is one register.
+// the JAX function adds outside its kernel, and with the reversal of the
+// backward directions and the B/C slicing that SS2D does around it. The TPU
+// kernel holds one whole (L, D) sequence and the (D, N) state in VMEM per
+// program and walks L with a fori_loop.
 //
-// Bound: the chain of L dependent steps, far more than bytes. One launch over
-// (B, G, L, D) at B = 8, G = 4, L = 25,600, D = 32 moves 420 MB (0.13 ms at
-// the card's memory rate), but every (sequence, channel, state) must take its
-// L steps in order, and at that shape the launch has only about one warp per
-// SM scheduler, so nothing hides a step's latency but the kernel's own code.
+// Bound on this card (H100 SXM, measured at B = 8, G = 4, L = 25,600, D = 32, where the call must
+// move 367 MB: 0.11 ms at the card's memory rate): no single unit. The three passes take 0.27-0.31 ms
+// there. Each of the two scans keeps the special-function units busy for 0.10 ms (one exp per (state,
+// step), 16 a clock per SM, and a chunked scan computes each twice), reads its inputs from device
+// memory again, and pulls B_t and C_t, 32 floats a step, out of shared memory into every lane. In
+// throwaway builds (kernel_variants.py) the call was 8-16% faster without its exps, 3-5% without those
+// shared-memory reads, 10-19% without its copies from device memory, and 1.7-2.4 times without all
+// three: what bounds a pass is how well a scheduler's six warps overlap the three, not one of them.
+// An earlier kernel ran one thread per (sequence, channel, state) and spent about 27 operations per
+// (state, step) on repeated shared loads, expf's range reduction and a shuffle butterfly for the sum
+// over states; it took 0.38-0.52 ms.
 //
-// Design: one thread per (sequence, channel, state), the N = 16 states of a
-// channel in 16 neighbouring lanes, 8 channels (128 threads) per block, the
-// loop over L inside the kernel.
-// - The chain itself is one multiply and one add per step; exp(dt*A), dt*B*x
-//   and the sum of C*h over the 16 lanes do not depend on h_{t-1}, and the
-//   loop is unrolled by 16 so that they overlap across steps.
-// - No step waits for device memory. The block streams its x, dt (8 channels:
-//   one 32-byte sector per step) and B, C (one 64-byte line per step, shared
-//   by every channel of the sequence) through a ring of STAGES tiles of TILE
-//   steps in shared memory, filled by cp.async: while one tile is consumed
-//   the next STAGES - 1 are in flight, 128 steps ahead. A first version that
-//   loaded 8 steps ahead into registers spent a device-memory latency on
-//   every 8 steps and was several times slower.
-// - The sums over the 16 lanes are taken 16 steps at a time: at each of the
-//   four butterfly stages a lane keeps half of its values and hands the other
-//   half to its partner, so 15 shuffles do the work of 64, and lane n ends
-//   with the sum of step n and stores it. The additions are those of the
-//   plain butterfly, pair for pair.
+// Design:
+// - One thread per (sequence, channel, chunk of L) with the channel's 16 states in registers: x_t and
+//   dt_t are read once per channel, B_t and C_t are broadcast reads of shared memory, y_t is summed
+//   inside the thread. exp(dt*A) is one multiply and one ex2.approx with A scaled by log2(e)
+//   beforehand (expf, with its range reduction, made the call 1.65-1.78 times slower); for |dt*A| < 0.35
+//   that is the very operation expf ends in, and a larger decay forgets its error within three steps.
+//   Five operations per (state, step).
+// - That leaves only B*G*D threads, so L is cut into chunks that run side by side, as many as fill
+//   the card's resident warps once (the wrapper chooses the length). Pass 1
+//   (selective_scan_kernel_ends) scans every chunk but the last from h = 0 and keeps its end state and
+//   its sum of dt; pass 2 (selective_scan_kernel_carry) walks the chunks of each (sequence, channel,
+//   state) in order, start_{c+1} = exp(A * sum dt_c) * start_c + end_c; pass 3
+//   (selective_scan_kernel_outputs) scans every chunk again from its true start state and writes y. A
+//   single chunk is pass 3 alone.
+// - A warp is 32 neighbouring channels of one chunk and shares nothing with other warps. It streams
+//   its steps through its own ring of STAGES tiles of TILE steps in shared memory, filled by cp.async
+//   two tiles ahead, so no step waits for device memory and a block needs no barrier. A whole tile is
+//   one branch-free block of code, so that the compiler overlaps neighbouring steps; only a chunk's
+//   ragged last tile checks each step.
+// - A reversed direction walks its steps from L-1 down and reads and writes index t, so its inputs
+//   and its y are in the forward order and nobody flips them. x comes through a direction-to-source
+//   index: a reversed direction reads its forward partner's x. B and C come with strides, straight out
+//   of the projection that holds dt, B and C side by side; they are copied 16, 8 or 4 bytes at a time,
+//   whatever their pointer and strides allow.
+// - Tried and dropped, with their times at the four pyramid levels in PERF.md: two channels a thread
+//   (half the shared-memory reads, but 128 registers and fewer warps), two stages, tiles of 4 steps,
+//   four warps a block, a check on every step.
 //
-// The recurrence uses expf and explicitly rounded multiplies and adds (no
-// fused multiply-add, no fast-math): the state matches the plain PyTorch
-// version's float32 state bit for bit over all L steps.
+// The chunks change the float order of the carried state, and y is summed with fused multiply-adds,
+// so the result agrees with the plain PyTorch version to about 3e-6 of the largest value on the seeded
+// model's inputs (step sizes of 0.01), not bit for bit. The slower the decay, the longer a difference
+// between ex2.approx and the plain version's exp lives in the state.
 #include <math.h>
 #include "common.cuh"
 
-constexpr int N_STATE = 16;       // states per channel, one lane each
-constexpr int CH_PER_BLOCK = 8;   // channels per block
-constexpr int THREADS = N_STATE * CH_PER_BLOCK;
-constexpr int TILE = 64;          // steps per stage of the shared-memory ring (12 KB a stage)
-constexpr int STAGES = 3;         // stages: STAGES - 1 tiles are in flight while one is consumed
-constexpr int GROUP = 16;         // steps whose 16-lane sums are taken together
-static_assert(GROUP == N_STATE && TILE % GROUP == 0, "lane n of a channel ends a group with step n");
+constexpr int N_STATE = 16;  // states per channel, all in one thread's registers
+constexpr int LANES = 32;    // channels per warp
+constexpr int WARPS = 2;     // warps per block, each on its own (chunk, channel group)
+constexpr int TILE = 8;      // steps per stage of a warp's shared-memory ring
+constexpr int STAGES = 3;    // stages: STAGES - 1 tiles are in flight while one is consumed
+constexpr int CARRY = N_STATE + 1;  // floats kept per (chunk, channel): the end state and the sum of dt
+constexpr float LOG2E = 1.4426950408889634f;
 
-struct Stage {
-  float x[TILE][CH_PER_BLOCK], dt[TILE][CH_PER_BLOCK], b[TILE][N_STATE], c[TILE][N_STATE];
+struct __align__(16) Stage {  // 3 KB: a block's 2 warps x 3 stages take 18 KB, and 12 blocks (24 warps) fit an SM
+  float x[TILE][LANES], dt[TILE][LANES], b[TILE][N_STATE], c[TILE][N_STATE];
 };
 
-__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))),
-               "l"(gmem));
-}
+struct ScanArgs {
+  const float *x, *dt, *A, *Bm, *Cm, *Dskip;
+  float *y, *carry;
+  int G, Gx, L, D;
+  int b_sb, b_sg, b_sl, c_sb, c_sg, c_sl;  // strides of B and C in floats: batch, direction, step
+  int reverse_mask, source_pack;           // bit g: direction g runs backwards; nibble g: its x direction
+  int chunk_len, chunks;
+};
 
-// Start the copy of steps t0 .. t0+TILE-1 of the block's channels into one stage; past the end of the
-// sequence or of the channels the last one is copied again (its results are never stored).
-__device__ __forceinline__ void load_tile(Stage& s, const float* __restrict__ xs, const float* __restrict__ dts,
-                                          const float* __restrict__ bs, const float* __restrict__ cs,
-                                          int t0, int d0, int L, int D) {
-  for (int i = threadIdx.x; i < TILE * CH_PER_BLOCK; i += THREADS) {
-    const int t = i / CH_PER_BLOCK, ch = i % CH_PER_BLOCK;
-    const long long at = static_cast<long long>(min(t0 + t, L - 1)) * D + min(d0 + ch, D - 1);
-    cp_async_4(&s.x[t][ch], xs + at);
-    cp_async_4(&s.dt[t][ch], dts + at);
-  }
-  for (int i = threadIdx.x; i < TILE * (N_STATE / 4); i += THREADS) {
-    const int t = i / (N_STATE / 4), j = 4 * (i % (N_STATE / 4));
-    const long long at = static_cast<long long>(min(t0 + t, L - 1)) * N_STATE + j;
-    cp_async_16(&s.b[t][j], bs + at);
-    cp_async_16(&s.c[t][j], cs + at);
-  }
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(gmem), "n"(BYTES));
 }
 
-__global__ void __launch_bounds__(THREADS)
-selective_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
-                      const float* __restrict__ Bm, const float* __restrict__ Cm, const float* __restrict__ Dskip,
-                      float* __restrict__ y, int G, int L, int D) {
-  __shared__ __align__(16) Stage ring[STAGES];
-  const int n = threadIdx.x % N_STATE, ch = threadIdx.x / N_STATE;
-  const int d0 = blockIdx.x * CH_PER_BLOCK;
-  const bool live = d0 + ch < D;         // a ragged last block keeps its lanes in the shuffles
-  const int d = live ? d0 + ch : D - 1;
-  const long long seq = blockIdx.y;      // b * G + g
-  const int g = static_cast<int>(seq % G);
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
 
-  const float* xs = x + seq * L * D;
-  const float* dts = dt + seq * L * D;
-  const float* bs = Bm + seq * L * N_STATE;
-  const float* cs = Cm + seq * L * N_STATE;
-  float* ys = y + seq * L * D + d;
-  const float a = A[(static_cast<long long>(g) * D + d) * N_STATE + n];
-  const float dskip = Dskip ? Dskip[static_cast<long long>(g) * D + d] : 0.f;
-  const bool up8 = n & 8, up4 = n & 4, up2 = n & 2, up1 = n & 1;
+// What one warp works on: 32 channels of one chunk of one (image, direction).
+struct Work {
+  const float *xs, *dts, *bs, *cs;  // at step 0 of the sequence, this lane's channel
+  int lane, d, seq, g, chunk, s0, s1;
+  bool live, rev;
+};
 
-  const int tiles = (L + TILE - 1) / TILE;
-  for (int k = 0; k < STAGES - 1; ++k) {
-    if (k < tiles) load_tile(ring[k], xs, dts, bs, cs, k * TILE, d0, L, D);
-    asm volatile("cp.async.commit_group;\n" ::);
-  }
-  float h = 0.f;
-  for (int k = 0; k < tiles; ++k) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));  // this thread's copies of tile k have landed
-    __syncthreads();  // so have everyone's, and everyone is done with tile k-1, whose stage is refilled next
-    if (k + STAGES - 1 < tiles)
-      load_tile(ring[(k + STAGES - 1) % STAGES], xs, dts, bs, cs, (k + STAGES - 1) * TILE, d0, L, D);
-    asm volatile("cp.async.commit_group;\n" ::);
-    const Stage& s = ring[k % STAGES];
+__device__ __forceinline__ bool find_work(const ScanArgs& a, int chunks_run, Work& w) {
+  const int groups = (a.D + LANES - 1) / LANES;
+  const int item = blockIdx.x * WARPS + threadIdx.x / LANES;
+  if (item >= chunks_run * groups) return false;
+  w.lane = threadIdx.x % LANES;
+  w.chunk = item / groups;
+  const int d = (item % groups) * LANES + w.lane;
+  w.live = d < a.D;  // a ragged last group keeps its lanes for the copies
+  w.d = w.live ? d : a.D - 1;
+  w.seq = blockIdx.y;  // b * G + g
+  w.g = w.seq % a.G;
+  const long long b = w.seq / a.G;
+  w.rev = (a.reverse_mask >> w.g) & 1;
+  const int gx = (a.source_pack >> (4 * w.g)) & 15;
+  w.s0 = w.chunk * a.chunk_len;
+  w.s1 = min(w.s0 + a.chunk_len, a.L);
+  w.xs = a.x + (b * a.Gx + gx) * a.L * a.D + w.d;
+  w.dts = a.dt + static_cast<long long>(w.seq) * a.L * a.D + w.d;
+  w.bs = a.Bm + b * a.b_sb + static_cast<long long>(w.g) * a.b_sg;
+  w.cs = a.Cm + b * a.c_sb + static_cast<long long>(w.g) * a.c_sg;
+  return true;
+}
+
+// Step s of a direction sits at index s of its sequence, or at L-1-s when it runs backwards.
+__device__ __forceinline__ long long index_of(const Work& w, int s, int L) { return w.rev ? L - 1 - s : s; }
+
+// Start the copy of steps s .. s+TILE-1 into one stage. Past the end of the chunk the last step is
+// copied again and never used. VEC floats of B and C go in one copy.
+template <int VEC, bool WITH_C>
+__device__ __forceinline__ void load_tile(Stage& st, const ScanArgs& a, const Work& w, int s) {
+  const long long t = index_of(w, s, a.L);
+  const int dir = w.rev ? -1 : 1, last = min(TILE, w.s1 - s) - 1;
+  const float* px = w.xs + t * a.D;
+  const float* pdt = w.dts + t * a.D;
 #pragma unroll
-    for (int g0 = 0; g0 < TILE; g0 += GROUP) {
-      float q[GROUP];
+  for (int i = 0; i < TILE; ++i) {
+    const int at = min(i, last) * dir * a.D;
+    cp_async<4>(&st.x[i][w.lane], px + at);
+    cp_async<4>(&st.dt[i][w.lane], pdt + at);
+  }
+  constexpr int PER_STEP = N_STATE / VEC;
+  const float* pb = w.bs + t * a.b_sl;
+  const float* pc = w.cs + t * a.c_sl;
 #pragma unroll
-      for (int i = 0; i < GROUP; ++i) {
-        const float dtv = s.dt[g0 + i][ch];
-        const float da = expf(__fmul_rn(dtv, a));
-        const float dbx = __fmul_rn(__fmul_rn(dtv, s.b[g0 + i][n]), s.x[g0 + i][ch]);
-        h = __fadd_rn(__fmul_rn(h, da), dbx);
-        q[i] = __fmul_rn(h, s.c[g0 + i][n]);
+  for (int k = w.lane; k < TILE * PER_STEP; k += LANES) {
+    const int i = min(k / PER_STEP, last) * dir, j = (k % PER_STEP) * VEC;
+    cp_async<4 * VEC>(&st.b[k / PER_STEP][j], pb + i * a.b_sl + j);
+    if (WITH_C) cp_async<4 * VEC>(&st.c[k / PER_STEP][j], pc + i * a.c_sl + j);
+  }
+}
+
+// The per-lane state of a scan: one channel's 16 states, their decays, its skip and its sum of dt.
+struct Lane {
+  float a2[N_STATE], h[N_STATE], dskip, dt_sum;
+};
+
+// The first `steps` steps of one tile, or all TILE of them when GUARD is false: the compiler then sees
+// one block of TILE steps and overlaps the reads, exps and multiply-adds of neighbouring steps.
+template <bool OUT, bool GUARD>
+__device__ __forceinline__ void scan_tile(const ScanArgs& a, const Work& w, const Stage& st, Lane& r, int s,
+                                          int steps, float* ys) {
+  float tile_sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < TILE; ++i) {
+    if (GUARD && i >= steps) break;
+    const float dtv = st.dt[i][w.lane], xv = st.x[i][w.lane];
+    const float u = dtv * xv;
+    const float4* b4 = reinterpret_cast<const float4*>(st.b[i]);
+    const float4* c4 = reinterpret_cast<const float4*>(st.c[i]);
+    float acc[4] = {r.dskip * xv, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < N_STATE / 4; ++q) {
+      const float4 bq = b4[q];
+      const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+      float cv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (OUT) {
+        const float4 cq = c4[q];
+        cv[0] = cq.x, cv[1] = cq.y, cv[2] = cq.z, cv[3] = cq.w;
       }
-      // the sums over the 16 lanes, 16 steps at once: at each stage a lane keeps half of its values and
-      // hands the other half to its partner, so 15 shuffles do what 64 would, and lane n ends with step n
-      float r8[8], r4[4], r2[2];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        r8[j] = (up8 ? q[j + 8] : q[j]) + __shfl_xor_sync(0xffffffffu, up8 ? q[j] : q[j + 8], 8, N_STATE);
+      for (int j = 0; j < 4; ++j) {
+        const int n = 4 * q + j;
+        r.h[n] = fmaf(r.h[n], ex2(dtv * r.a2[n]), u * bv[j]);
+        if (OUT) acc[j] = fmaf(r.h[n], cv[j], acc[j]);
+      }
+    }
+    if (OUT) {
+      if (w.live) ys[index_of(w, s + i, a.L) * a.D] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    } else {
+      tile_sum += dtv;
+    }
+  }
+  r.dt_sum += tile_sum;  // tile by tile: the sum of 264 steps keeps the rounding of some 40 additions
+}
+
+// One chunk of 32 channels. OUT: from the chunk's true start state, writing y (pass 3). Otherwise from
+// h = 0, keeping the end state and the sum of dt (pass 1).
+template <int VEC, bool OUT>
+__device__ __forceinline__ void scan_chunk(const ScanArgs& a, const Work& w, Stage* ring) {
+  Lane r;
+  // slot c of the carry: pass 1 leaves chunk c's end state there, pass 2 turns it into chunk c+1's start
+  float* slot = a.carry + (static_cast<long long>(w.seq) * (a.chunks - 1) + (OUT ? w.chunk - 1 : w.chunk)) * CARRY * a.D + w.d;
+  const float* arow = a.A + (static_cast<long long>(w.g) * a.D + w.d) * N_STATE;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        r4[j] = (up4 ? r8[j + 4] : r8[j]) + __shfl_xor_sync(0xffffffffu, up4 ? r8[j] : r8[j + 4], 4, N_STATE);
+  for (int n = 0; n < N_STATE; ++n) {
+    r.a2[n] = arow[n] * LOG2E;
+    r.h[n] = (OUT && w.chunk > 0) ? slot[static_cast<long long>(n) * a.D] : 0.f;
+  }
+  r.dskip = (OUT && a.Dskip) ? a.Dskip[static_cast<long long>(w.g) * a.D + w.d] : 0.f;
+  r.dt_sum = 0.f;
+  float* ys = a.y + static_cast<long long>(w.seq) * a.L * a.D + w.d;
+
+  const int tiles = (w.s1 - w.s0 + TILE - 1) / TILE;
+  for (int k = 0; k < STAGES - 1; ++k) {
+    if (k < tiles) load_tile<VEC, OUT>(ring[k], a, w, w.s0 + k * TILE);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int k = 0; k < tiles; ++k) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));  // this lane's copies of tile k have landed
+    __syncwarp();  // so have the other lanes', and every lane is done with tile k-1, whose stage is refilled next
+    if (k + STAGES - 1 < tiles)
+      load_tile<VEC, OUT>(ring[(k + STAGES - 1) % STAGES], a, w, w.s0 + (k + STAGES - 1) * TILE);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const int s = w.s0 + k * TILE;
+    if (s + TILE <= w.s1)
+      scan_tile<OUT, false>(a, w, ring[k % STAGES], r, s, TILE, ys);
+    else
+      scan_tile<OUT, true>(a, w, ring[k % STAGES], r, s, w.s1 - s, ys);
+  }
+  if (!OUT && w.live) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        r2[j] = (up2 ? r4[j + 2] : r4[j]) + __shfl_xor_sync(0xffffffffu, up2 ? r4[j] : r4[j + 2], 2, N_STATE);
-      float r = (up1 ? r2[1] : r2[0]) + __shfl_xor_sync(0xffffffffu, up1 ? r2[0] : r2[1], 1, N_STATE);
-      const int t = k * TILE + g0 + n;
-      if (live && t < L) {
-        if (Dskip) r = __fadd_rn(r, __fmul_rn(s.x[g0 + n][ch], dskip));
-        ys[static_cast<long long>(t) * D] = r;
+    for (int n = 0; n < N_STATE; ++n) slot[static_cast<long long>(n) * a.D] = r.h[n];
+    slot[static_cast<long long>(N_STATE) * a.D] = r.dt_sum;
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(WARPS * LANES) selective_scan_kernel_ends(ScanArgs a) {
+  __shared__ Stage ring[WARPS][STAGES];
+  Work w;
+  if (find_work(a, a.chunks - 1, w)) scan_chunk<VEC, false>(a, w, ring[threadIdx.x / LANES]);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(WARPS * LANES) selective_scan_kernel_outputs(ScanArgs a) {
+  __shared__ Stage ring[WARPS][STAGES];
+  Work w;
+  if (find_work(a, a.chunks, w)) scan_chunk<VEC, true>(a, w, ring[threadIdx.x / LANES]);
+}
+
+// One thread per (sequence, state, channel), channels innermost as in the carry: the chunks in order,
+// eight loaded ahead of the chain of multiply-adds.
+__global__ void selective_scan_kernel_carry(ScanArgs a, long long total) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int d = static_cast<int>(t % a.D);
+  const int n = static_cast<int>(t / a.D % N_STATE);
+  const long long seq = t / a.D / N_STATE;
+  const float an = a.A[((seq % a.G) * a.D + d) * N_STATE + n];
+  const long long chunk_stride = static_cast<long long>(CARRY) * a.D;
+  float* state = a.carry + seq * (a.chunks - 1) * chunk_stride + static_cast<long long>(n) * a.D + d;
+  const float* sums = a.carry + seq * (a.chunks - 1) * chunk_stride + static_cast<long long>(N_STATE) * a.D + d;
+  constexpr int AHEAD = 8;
+  float h = 0.f;
+  for (int c0 = 0; c0 < a.chunks - 1; c0 += AHEAD) {
+    float end[AHEAD], sum[AHEAD];
+#pragma unroll
+    for (int j = 0; j < AHEAD; ++j) {
+      const int c = min(c0 + j, a.chunks - 2);
+      end[j] = state[c * chunk_stride];
+      sum[j] = sums[c * chunk_stride];
+    }
+#pragma unroll
+    for (int j = 0; j < AHEAD; ++j) {
+      if (c0 + j < a.chunks - 1) {
+        h = fmaf(expf(an * sum[j]), h, end[j]);
+        state[(c0 + j) * chunk_stride] = h;
       }
     }
   }
 }
 
-// x, dt, y: (B, G, L, D); A: (G, D, N); Bm, Cm: (B, G, L, N), 16-byte aligned;
-// Dskip: (G, D) or null (no skip term); all f32 contiguous, N = 16. G is the
-// number of scan directions that share the launch (1 for a single scan).
-extern "C" int selective_scan_launch(const float* x, const float* dt, const float* A, const float* Bm,
-                                     const float* Cm, const float* Dskip, float* y, int B, int G, int L, int D,
-                                     int N, cudaStream_t stream) {
-  if (N != N_STATE) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((D + CH_PER_BLOCK - 1) / CH_PER_BLOCK, B * G);
-  selective_scan_kernel<<<grid, THREADS, 0, stream>>>(x, dt, A, Bm, Cm, Dskip, y, G, L, D);
+template <int VEC>
+static int launch_passes(const ScanArgs& a, int B, cudaStream_t stream) {
+  const int groups = (a.D + LANES - 1) / LANES;
+  const dim3 block(WARPS * LANES);
+  if (a.chunks > 1) {
+    const dim3 grid(((a.chunks - 1) * groups + WARPS - 1) / WARPS, B * a.G);
+    selective_scan_kernel_ends<VEC><<<grid, block, 0, stream>>>(a);
+    const long long total = static_cast<long long>(B) * a.G * N_STATE * a.D;
+    selective_scan_kernel_carry<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(a, total);
+  }
+  const dim3 grid((a.chunks * groups + WARPS - 1) / WARPS, B * a.G);
+  selective_scan_kernel_outputs<VEC><<<grid, block, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// x: (B, Gx, L, D); dt, y: (B, G, L, D); A: (G, D, N); Dskip: (G, D) or null (no skip term): f32 contiguous,
+// N = 16. Bm, Cm: (B, G, L, N) f32 with unit stride over N and the given strides, in floats, over batch,
+// direction and step. G is the number of scan directions that share the call (at most 8). Direction g
+// runs backwards when bit g of reverse_mask is set and reads the x of direction (source_pack >> 4g) & 15.
+// L is cut into chunks of chunk_len steps; carry: ceil(L / chunk_len) - 1 slots of 17 * D floats per
+// (image, direction) of scratch, or null for a single chunk.
+extern "C" int selective_scan_launch(const float* x, const float* dt, const float* A, const float* Bm,
+                                     const float* Cm, const float* Dskip, float* y, float* carry, int B, int G,
+                                     int Gx, int L, int D, int N, int b_sb, int b_sg, int b_sl, int c_sb, int c_sg,
+                                     int c_sl, int reverse_mask, int source_pack, int chunk_len,
+                                     cudaStream_t stream) {
+  if (N != N_STATE || G > 8 || chunk_len < 1 || B * G > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (L + chunk_len - 1) / chunk_len;
+  if (chunks > 1 && !carry) return static_cast<int>(cudaErrorInvalidValue);
+  const ScanArgs a{x, dt, A, Bm, Cm, Dskip, y, carry, G, Gx, L, D, b_sb, b_sg, b_sl, c_sb, c_sg, c_sl,
+                   reverse_mask, source_pack, chunk_len, chunks};
+  // the widest copy of B and C that every row's address allows
+  const auto bits = reinterpret_cast<unsigned long long>(Bm) | reinterpret_cast<unsigned long long>(Cm) |
+                    static_cast<unsigned long long>(4LL * (b_sb | b_sg | b_sl | c_sb | c_sg | c_sl));
+  if (bits % 16 == 0) return launch_passes<4>(a, B, stream);
+  if (bits % 8 == 0) return launch_passes<2>(a, B, stream);
+  return launch_passes<1>(a, B, stream);
 }

@@ -33,15 +33,18 @@ from experiment_yolo_torch.nn.modules import Conv
 from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan
 
 LN_EPS = 1e-6
+# SS2D's four scans: row-major, column-major, and each of the two from its end
+REVERSED = (False, False, True, True)
+SOURCE = (0, 1, 0, 1)  # the sequence each direction reads
 
 
 class SS2D(nn.Module):
     """2-D selective scan over a (B, H, W, C) map: ``in_proj`` -> split into
     ``x`` and the gate ``z`` -> depthwise 3x3 conv + SiLU -> four sequences
-    (row-major, column-major, and each reversed) -> per direction the
-    projections to ``dt``, ``B``, ``C`` and kernel K4, one launch for the four
-    -> un-reverse, un-transpose and sum -> LayerNorm -> ``* silu(z)`` ->
-    ``out_proj``."""
+    (row-major, column-major, and each from its end) -> per direction the
+    projections to ``dt``, ``B``, ``C`` and kernel K4, one call for the four,
+    which walks the reversed directions backwards in place -> un-transpose
+    and sum -> LayerNorm -> ``* silu(z)`` -> ``out_proj``."""
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 3, expand: int = 2):
         super().__init__()
@@ -78,14 +81,17 @@ class SS2D(nn.Module):
         xc = F.silu(self.conv2d(xc.permute(0, 3, 1, 2)))  # (B, d, H, W)
         row = xc.permute(0, 2, 3, 1).reshape(bsz, h * w, d)
         col = xc.permute(0, 3, 2, 1).reshape(bsz, h * w, d)
-        xs = torch.stack([row, col], 1)
-        xs = torch.cat([xs, xs.flip(2)], 1)  # (B, 4, L, d): row, col, row reversed, col reversed
-        dbl = torch.matmul(xs, self.x_proj_weight.transpose(1, 2))  # (B, 4, L, r + 2N)
-        dt, bs, cs = dbl.split([r, n, n], -1)
+        xs = torch.stack([row, col], 1)  # (B, 2, L, d): the row-major and the column-major sequence
+        # Directions 2 and 3 scan the same two sequences from their ends. The projections are pointwise over
+        # L, so all four run on the unreversed sequences, each with its own weights; K4 walks 2 and 3
+        # backwards, reads their x from 0 and 1, and returns every y in the order of its sequence.
+        w_x = self.x_proj_weight.view(2, 2, r + 2 * n, d).transpose(2, 3)  # [reversed?, row or column]
+        dbl = torch.matmul(xs[:, None], w_x).view(bsz, 4, h * w, r + 2 * n)
+        dt, bs, cs = dbl.split([r, n, n], -1)  # B and C stay views: K4 takes their strides
         dt = F.softplus(torch.matmul(dt, self.dt_projs_weight.transpose(1, 2)) + self.dt_projs_bias[:, None])
-        ys = selective_scan(xs, dt, -torch.exp(self.A_logs), bs.contiguous(), cs.contiguous(), self.Ds)
-        y = ys[:, 0] + ys[:, 2].flip(1)
-        ycol = ys[:, 1] + ys[:, 3].flip(1)
+        ys = selective_scan(xs, dt, -torch.exp(self.A_logs), bs, cs, self.Ds, reverse=REVERSED, source=SOURCE)
+        y = ys[:, 0] + ys[:, 2]
+        ycol = ys[:, 1] + ys[:, 3]
         y = y + ycol.reshape(bsz, w, h, d).transpose(1, 2).reshape(bsz, h * w, d)
         y = self.out_norm(y.reshape(bsz, h, w, d)) * F.silu(z)
         return self.out_proj(y)

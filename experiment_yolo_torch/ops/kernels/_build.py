@@ -101,7 +101,8 @@ def launch(name: str, argtypes: Sequence, *args, device, lib: str | None = None)
 
     lib = lib or name
     fn = _function(lib, name, argtypes)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    # the raw handle of PyTorch's current stream; the public call builds a Stream object around it first
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
     if device.index == torch.cuda.current_device():
         rc = fn(*args, stream)
     else:  # a launch goes to the calling thread's current device
@@ -113,13 +114,18 @@ def launch(name: str, argtypes: Sequence, *args, device, lib: str | None = None)
         raise RuntimeError(f"{name} launch: CUDA error {rc} ({err(rc).decode()})")
 
 
-def validate(t, what: str, dtype, ndim: int) -> None:
-    """The checks every wrapper makes before handing a pointer to a kernel."""
+def validate(t, what: str, dtype, ndim: int, dense_last_only: bool = False) -> None:
+    """The checks every wrapper makes before handing a pointer to a kernel.
+    ``dense_last_only``: the kernel takes the other axes' strides, so only the
+    last axis must be dense."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got one on {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{what}: expected {ndim} dims, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if dense_last_only:
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: expected unit stride along the last axis, got strides {t.stride()}")
+    elif not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")

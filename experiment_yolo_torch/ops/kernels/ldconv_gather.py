@@ -8,6 +8,9 @@ LDConv's production gather: ``ldconv_gather_packed`` times ``_border_mul``
 ``_ldconv_gather_bwd`` (``nn/modules.py:469``). The kernels,
 ``csrc/ldconv_gather.cu``, turn the raw offset-conv output into positions,
 corners, weights and the border multiplier in one pass and are bound by
+memory. The forward computes each sample once per (pixel, n), reads the
+corners with a warp along neighbouring pixels of one channel plane, and turns
+the values into the (pixel, n, channel) layout through a tile in shared
 memory; the source says how.
 
 :func:`ldconv_gather` is differentiable: a ``torch.autograd.Function`` whose
@@ -19,6 +22,7 @@ tensors on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, Tuple
 
@@ -39,18 +43,23 @@ def grid_points(num_param: int) -> List[Tuple[int, int]]:
     return [(r, c) for r in range(rows) for c in range(base)] + [(rows, c) for c in range(rem)]
 
 
-def _geometry(x: torch.Tensor, off: torch.Tensor, stride: int):
-    """(N, base, padded H, padded W) for a source and its offsets; the padded
-    sizes are those of the JAX LDConv's edge-padded source."""
-    _, _, hx, wx = x.shape
-    _, n2, h, w = off.shape
-    n = n2 // 2
+@functools.lru_cache(maxsize=None)
+def _padded(hx: int, wx: int, h: int, w: int, n: int, stride: int):
     pts = grid_points(n)
     max_pr = max(p[0] for p in pts)
     max_pc = max(p[1] for p in pts)
     hp = hx + WINDOW_R + max(0, (h - 1) * stride + max_pr + WINDOW_R + 2 - hx)
     wp = wx + WINDOW_R + max(0, (w - 1) * stride + max_pc + WINDOW_R + 2 - wx)
     return n, round(math.sqrt(n)), hp, wp
+
+
+def _geometry(x: torch.Tensor, off: torch.Tensor, stride: int):
+    """(N, base, padded H, padded W) for a source and its offsets; the padded
+    sizes are those of the JAX LDConv's edge-padded source. Kept per shape:
+    a forward asks ten times."""
+    _, _, hx, wx = x.shape
+    _, n2, h, w = off.shape
+    return _padded(hx, wx, h, w, n2 // 2, stride)
 
 
 def _samples(x: torch.Tensor, off: torch.Tensor, stride: int):

@@ -35,6 +35,11 @@ vss = {"nc": 6, "scales": {"n": [0.33, 0.25, 1024]},
        "backbone": [[-1, 1, "Conv", [64, 3, 2]], [-1, 1, "Conv", [128, 3, 2]], [-1, 3, "C2f_VSS", [128, True]]],
        "head": [[-1, 1, "C3_LVMB", [128]], [[2, 3], 1, "Detect", ["nc"]]]}
 DetectionPredictor(DetectionModel(vss, device="cpu"), {"imgsz": 64, "batch": 1, "nms_type": "hard"})(imgs)
+dbl = torch.rand(1, 4, 12, 33)  # K4 as SS2D calls it: two sequences, reversed directions, B and C as views
+y = selective_scan.selective_scan(torch.rand(1, 2, 12, 8), torch.rand(1, 4, 12, 8), -torch.rand(4, 8, 16),
+                                  dbl[..., 1:17], dbl[..., 17:], torch.rand(4, 8), reverse=(False, False, True, True),
+                                  source=(0, 1, 0, 1))
+assert y.shape == (1, 4, 12, 8) and bool(torch.isfinite(y).all())
 from experiment_yolo_torch.engine.trainer import DetectionTrainer
 from experiment_yolo_torch.utils.seeded import seeded_batch
 DetectionTrainer(model, {"amp": False, "batch": 2}).train_step(seeded_batch(2, 64, 0))
@@ -122,6 +127,10 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         selective_scan(torch.zeros(1, 8, 4, **meta), torch.zeros(1, 8, 4, **meta), torch.zeros(4, 16, **meta),
                        torch.zeros(1, 8, 16, **meta), torch.zeros(1, 8, 16, **meta), torch.zeros(4, **meta))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        selective_scan(torch.zeros(1, 1, 8, 4, **meta), torch.zeros(1, 2, 8, 4, **meta), torch.zeros(2, 4, 16, **meta),
+                       torch.zeros(1, 2, 8, 16, **meta), torch.zeros(1, 2, 8, 16, **meta), torch.zeros(2, 4, **meta),
+                       reverse=(False, True), source=(0, 0))
 
 
 # entry point -> (library, the wrapper module's argument-list name)

@@ -121,6 +121,39 @@ def test_ss2d_matches_jax_on_a_non_square_map():
     assert np.abs(swapped - want).max() > 100 * ATOL
 
 
+@pytest.mark.parametrize("d_model,rank", [(16, 1), (32, 2), (64, 4)])
+def test_ss2d_hands_k4_unreversed_sequences_and_views_and_matches_jax(monkeypatch, d_model, rank):
+    """SS2D makes no reversed copy and no copy of ``B`` and ``C``: K4 gets the
+    two sequences, ``B`` and ``C`` as slices of the projection that holds
+    ``dt`` beside them (a row of rank + 32 floats), and the flags and sources
+    of the four directions. The output still matches the JAX SS2D within
+    1e-4 abs at each projection rank."""
+    import inspect
+
+    x = np.random.default_rng(8).standard_normal((2, H, W, d_model)).astype(np.float32)
+    jm = jz.SS2D(d_model=d_model)
+    params = _shake(jm.init(jax.random.PRNGKey(0), x), seed=9)["params"]
+    tm = _load(tz.SS2D(d_model), {"params": {"self_attention": params}},
+               lambda parts: convert._vss((), ["self_attention", *parts]))
+    assert tm.dt_rank == rank
+    calls = []
+    monkeypatch.setattr(tz, "selective_scan", lambda *a, **k: calls.append((a, k)) or selective_scan(*a, **k))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jm.apply({"params": params}, x)), atol=ATOL, rtol=0)
+    ((xs, dt, a, bs, cs, ds), kw), = calls
+    length, d = H * W, 2 * d_model
+    assert xs.shape == (2, 2, length, d) and dt.shape == (2, 4, length, d) and xs.is_contiguous()
+    assert kw == {"reverse": (False, False, True, True), "source": (0, 1, 0, 1)}
+    row = rank + 32
+    for t, col in ((bs, rank), (cs, rank + 16)):
+        assert t.shape == (2, 4, length, 16) and t.stride() == (4 * length * row, length * row, row, 1)
+        assert t.storage_offset() == col and t.untyped_storage().data_ptr() == bs.untyped_storage().data_ptr()
+    assert a.shape == (4, d, 16) and ds.shape == (4, d)
+    source = inspect.getsource(tz.SS2D.forward)
+    assert "flip" not in source and "contiguous" not in source
+
+
 def test_vss_block_matches_jax_and_uses_eps_1e_6():
     x = np.random.default_rng(2).standard_normal((2, H, W, 16)).astype(np.float32)
     x[0, :, :, :] *= 1e-3  # small activations: here a LayerNorm eps of 1e-5 would show
