@@ -15,10 +15,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
  5. hold each kernel against its plain PyTorch version on those inputs
     (K1 and K3 within 1e-5 abs, K2 identical masks), K3 also on random
     offsets at the same shapes that vary by pixel and image and reach 40 px
-    out of bounds; time kernel, plain version and, for K3, ``F.grid_sample``
-    as a library yardstick (CUDA events, median of 20 runs after warm-up),
-    and read each kernel's device time from a ``torch.profiler`` trace, for
-    K3 also layer by layer beside each layer's bound;
+    out of bounds, K2 also on made-up candidates (a ragged K = 1,000, K =
+    8,192, duplicates, IoUs exactly at the threshold, interleaved invalid
+    candidates, an image with none valid); time kernel, plain version and,
+    for K3, ``F.grid_sample`` as a library yardstick (CUDA events, median of
+    20 runs after warm-up), and read each kernel's device time from a
+    ``torch.profiler`` trace, for K3 also layer by layer beside each layer's
+    bound; K2's bound is the largest of its pair arithmetic, its bytes and
+    its chain of decisions (the earlier design's own bound beside it);
  6. serve 20 batches of 8 seeded images of mixed sizes through
     ``DetectionPredictor`` at imgsz 640, once with soft and once with hard
     NMS, with every launch counter set to 0 just before and read just after,
@@ -30,9 +34,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     offsets and incoming gradient and each level's Detect map, decoded
     distances and incoming gradient; hold the K1 and K3 backward kernels
     against their plain versions on them (and K3's on phase 5's random
-    offsets), each output of each level or layer (K3's ``dx`` and ``doff``
-    apart) within 1e-5 of its own largest plain value, and time them as phase
-    5 times the forwards, with ``F.grid_sample``'s backward as K3's yardstick;
+    offsets, on offsets that put 90% of each layer's samples on sixteen
+    source positions and on seam offsets, whose neighbouring pixels' cells
+    follow each other across images and sampling points; also the same ten
+    layers at imgsz 608, where several have h*w no multiple of 32 and split
+    their channels unevenly over threads, on random, contention and seam
+    offsets), each output of each level or layer (K3's ``dx`` and
+    ``doff`` apart) within 1e-5 of its own largest plain value, and time them
+    as phase 5 times the forwards (K3's device time summing every launch of
+    its wrapper, the zero fill of ``dx`` included, also layer by layer), with
+    ``F.grid_sample``'s backward as K3's yardstick;
  9. take 20 timed training steps after 3 warm-up steps, 4 distinct seeded
     batches in turn, with every launch counter set to 0 just before and read
     just after (exactly 3 K1, 3 K1-backward, 10 K3 and 10 K3-backward launches
@@ -98,18 +109,23 @@ VSS_CMP_BATCH = 2  # the VSS card-versus-CPU batch: the CPU walks 25,600 scan st
 PLAIN_SCAN_RUNS = 3  # timed runs of K4's plain version: one forward's ten scans walk 76,800 steps in Python
 K4_RTOL = 1e-5  # K4 vs plain: each direction's max abs error over that direction's largest plain value
 BWD_RTOL = 1e-5  # backward kernels vs plain: max abs error over each output's largest plain value (atomics' order)
+RAGGED_IMGSZ = 608  # K3's backward is also held at this size: LDConv outputs of 76 x 76 and 38 x 38 pixels
 CONF, IOU = 0.25, 0.7
 RUNS, WARMUP = 20, 3
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s,
 # and f32 operations/s outside the tensor cores (none of these kernels uses them).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# K2's bound is a chain, not a rate: the keep/suppress decisions of one image depend on each other in
-# score order. Assumed least cost of one decision: a read of keep[i] from shared memory (about 30 clocks
-# on Hopper) for a candidate that is already suppressed; for a kept one a second such round trip, since
-# the flags it clears must be visible (a barrier) before the next read. At the SXM part's 1.98 GHz.
+# K2's bound is the largest of three: the IoU arithmetic of every pair (i, j > i) over the f32 rate, its
+# bytes over HBM, and the chain of keep/suppress decisions of the image with most valid candidates, which
+# depend on each other in score order and cost at least the latency of one dependent register operation
+# each (4 clocks on Hopper), at the SXM part's 1.98 GHz. The bound stated for the earlier one-block-per-image
+# design, kept beside it, was that design's own cost: a shared-memory round trip (about 30 clocks) per
+# candidate and one more per kept box.
 SM_CLOCK_HZ = 1.98e9
-SMEM_ROUND_TRIP_CLOCKS = 30
+DEPENDENT_OP_CLOCKS = 4
+IOU_OPS = 14  # 2 min, 2 max, 2 sub, 2 clamps, 3 mul/add/sub for inter and union, + eps, the division, the compare
+SMEM_ROUND_TRIP_CLOCKS = 30  # the earlier design's bound's assumption
 RAGGED_SCAN_LENGTH = 1003  # K4 also at a length that is no multiple of its chunk (48 here) or its 8-step tile
 
 
@@ -147,9 +163,10 @@ def cuda_ms(fn, runs: int = RUNS, warmup: int = WARMUP) -> float:
 
 
 def device_ms(fn, kernel: str, runs: int = 5):
-    """Device milliseconds per call of ``fn`` spent in the CUDA kernel named
-    ``kernel``, from a ``torch.profiler`` trace; None if three traces in a
-    row hold no device time for it (a trace now and then comes back without
+    """Device milliseconds per call of ``fn`` spent in CUDA kernels whose name
+    holds ``kernel`` (``""``: every device event of the trace, a wrapper's
+    fills included), from a ``torch.profiler`` trace; None if three traces in
+    a row hold no device time for it (a trace now and then comes back without
     the kernel's events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -226,6 +243,54 @@ def check_k1(feats):
                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def made_up_candidates(gen):
+    """K2's made-up cases, each (boxes (B, K, 4), valid (B, K), threshold):
+    clustered candidates at a ragged K = 1,000 and at the largest K, 8,192;
+    exact duplicates; pairs whose float32 IoU is exactly 0.7, 0.8 or 0.6
+    (small integers: 7/10 ties with the threshold and must not suppress);
+    invalid candidates interleaved with valid ones; an image with no valid
+    candidate."""
+    import torch
+
+    def clustered(b, k):
+        centres = (torch.rand(b, k // 8 + 1, 2, generator=gen) * 600).repeat_interleave(8, 1)[:, :k]
+        centres = centres + torch.randn(b, k, 2, generator=gen) * 6
+        wh = torch.rand(b, k, 2, generator=gen) * 50 + 10
+        return torch.cat([centres - wh / 2, centres + wh / 2], -1).contiguous()
+
+    def some_valid(b, k):
+        return torch.rand(b, k, generator=gen) > 0.2
+
+    dup = clustered(2, 512)
+    dup[:, 1::2] = dup[:, 0::2]
+    x0 = 20.0 * torch.arange(300, dtype=torch.float32)
+    inner = torch.tensor([7.0, 8.0, 6.0]).repeat(100)
+    zero, one = torch.zeros(300), torch.ones(300)
+    ties = torch.stack([torch.stack([x0, zero, x0 + 10, one], -1), torch.stack([x0, zero, x0 + inner, one], -1)], 1)
+    ties = torch.stack([ties.reshape(600, 4), ties[torch.randperm(300, generator=gen)].reshape(600, 4)])
+    interleaved = some_valid(2, 1024)
+    interleaved[:, 1::2] = False
+    none = some_valid(2, 1024)
+    none[1] = False
+    return {"ragged K=1000": (clustered(3, 1000), some_valid(3, 1000), IOU),
+            "K=8192": (clustered(2, 8192), some_valid(2, 8192), IOU),
+            "duplicates": (dup, some_valid(2, 512), IOU),
+            "IoU at the threshold": (ties.contiguous(), torch.ones(2, 600, dtype=torch.bool), 0.7),
+            "interleaved invalid": (clustered(2, 1024), interleaved, 0.5),
+            "an image with no valid candidate": (clustered(2, 1024), none, 0.5)}
+
+
+def k2_bound(valid, k: int):
+    """(least ms, what bounds it, the three times) for a batch of K = ``k``
+    candidates per image: pair arithmetic, bytes, the longest chain."""
+    pairs = valid.shape[0] * k * (k - 1) / 2
+    times = {"pairs_ms": pairs * IOU_OPS / F32_OPS_PER_S * 1e3,
+             "bytes_ms": valid.numel() * (16 + 1 + 1) / HBM_BYTES_PER_S * 1e3,  # boxes, valid read; keep written
+             "chain_ms": int(valid.sum(1).max()) * DEPENDENT_OP_CLOCKS / SM_CLOCK_HZ * 1e3}
+    worst = max(times, key=times.get)
+    return times[worst], "bytes" if worst == "bytes_ms" else "operations", times
+
+
 def check_k2(shifted, valid):
     import torch
 
@@ -236,18 +301,43 @@ def check_k2(shifted, valid):
     mismatched = int((keep != want).sum())
     check(mismatched == 0, f"K2 nms_suppress: {mismatched} keep flags differ from its plain version")
     check(bool(want.any()) and bool((valid & ~want).any()), "K2 inputs neither keep nor suppress: no real work")
+    made_up = {}
+    for label, (boxes, ok, thr) in made_up_candidates(torch.Generator().manual_seed(SEED + 5)).items():
+        boxes, ok = boxes.cuda(), ok.cuda()
+        got, ref = nms_suppress(boxes, ok, thr), nms_suppress_plain(boxes, ok, thr)
+        torch.cuda.synchronize()
+        bad = int((got != ref).sum())
+        check(bad == 0, f"K2 nms_suppress: {bad} keep flags differ from its plain version on the {label} case")
+        made_up[label] = {"K": boxes.shape[1], "images": boxes.shape[0], "kept": int(ref.sum()),
+                          "valid": int(ok.sum()), "mismatched": bad,
+                          "device_ms": device_ms(lambda: nms_suppress(boxes, ok, thr), "nms_suppress_kernel")}
+    check(made_up["IoU at the threshold"]["kept"] == 1000, "K2's tie case should keep the 7/10 and 6/10 pairs whole")
     ms = cuda_ms(lambda: nms_suppress(shifted, valid, IOU))
     dev_ms = device_ms(lambda: nms_suppress(shifted, valid, IOU), "nms_suppress_kernel")
     plain_ms = cuda_ms(lambda: nms_suppress_plain(shifted, valid, IOU))
-    # the longest chain of dependent decisions among the images, which run side by side
-    chain_clocks = int(((valid.sum(1) + want.sum(1)) * SMEM_ROUND_TRIP_CLOCKS).max())
-    b_ms, b_by = chain_clocks / SM_CLOCK_HZ * 1e3, "operations"
+    b_ms, b_by, parts = k2_bound(valid, shifted.shape[1])
+    old_clocks = int(((valid.sum(1) + want.sum(1)) * SMEM_ROUND_TRIP_CLOCKS).max())
     return dict(name="nms_suppress", route="cuda", source="experiment_yolo_torch/csrc/nms_suppress.cu",
                 replaces="experiment_yolo_tpu/ops/pallas/nms_kernel.py:26", max_abs_err=float(mismatched), ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                kept=int(want.sum()), candidates=int(valid.sum()), chain_clocks=chain_clocks,
-                bound_assumption=f"dependent chain: {SMEM_ROUND_TRIP_CLOCKS} clocks per candidate plus "
-                                 f"{SMEM_ROUND_TRIP_CLOCKS} per kept box, longest image, at {SM_CLOCK_HZ / 1e9} GHz")
+                kept=int(want.sum()), candidates=int(valid.sum()), bound_parts=parts,
+                bound_assumption=f"largest of: {IOU_OPS} f32 operations per pair (i, j > i) over "
+                                 f"{F32_OPS_PER_S / 1e12:g} TFLOP/s; 18 bytes per candidate over HBM; the image "
+                                 f"with most valid candidates deciding them one after another at "
+                                 f"{DEPENDENT_OP_CLOCKS} clocks (one dependent register operation) each, "
+                                 f"{SM_CLOCK_HZ / 1e9} GHz",
+                old_design_bound_ms=old_clocks / SM_CLOCK_HZ * 1e3,
+                old_design_bound_assumption=f"one block per image: {SMEM_ROUND_TRIP_CLOCKS} clocks per candidate plus "
+                                            f"{SMEM_ROUND_TRIP_CLOCKS} per kept box, longest image",
+                made_up=made_up)
+
+
+def _random_offsets_like(o, gen):
+    import torch
+
+    r = torch.randn(o.shape, generator=gen) * 4
+    far = torch.rand(o.shape, generator=gen) < 0.02
+    return torch.where(far, r + 40 * r.sign(), r).to(o.device)
 
 
 def random_offsets(ld):
@@ -258,12 +348,7 @@ def random_offsets(ld):
     import torch
 
     gen = torch.Generator().manual_seed(SEED + 2)
-    rand_ld = []
-    for x, o, s in ld:
-        r = torch.randn(o.shape, generator=gen) * 4
-        far = torch.rand(o.shape, generator=gen) < 0.02
-        rand_ld.append((x, torch.where(far, r + 40 * r.sign(), r).to(o.device), s))
-    return rand_ld
+    return [(x, _random_offsets_like(o, gen), s) for x, o, s in ld]
 
 
 def grid_sample_grids(layers):
@@ -406,10 +491,19 @@ def check_k1_bwd(levels):
 
 
 def check_k3_bwd(ld, rand_ld):
+    """K3's backward against its plain version on one training step's inputs,
+    on phase 5's random offsets, on contention offsets (90% of each layer's
+    samples on sixteen source positions) and on seam offsets, and on the same
+    layers at RAGGED_IMGSZ on random, contention and seam offsets, each
+    output (``dx``, ``doff``) of each layer within BWD_RTOL of its own largest
+    plain value. Device times sum every launch the wrapper makes, the zero
+    fill of ``dx`` included; also layer by layer beside each layer's bytes
+    bound."""
     import torch
     import torch.nn.functional as F
 
     from experiment_yolo_torch.ops.kernels.ldconv_gather import ldconv_gather_bwd, ldconv_gather_bwd_plain
+    from experiment_yolo_torch.utils.seeded import contention_offsets, seam_offsets
 
     def kernel(layers):
         return [t for x, o, dy, s in layers for t in ldconv_gather_bwd(x, o, dy, s)]
@@ -421,10 +515,25 @@ def check_k3_bwd(ld, rand_ld):
     gen = torch.Generator().manual_seed(SEED + 3)
     rand = [(x, o, torch.randn(dy.shape, generator=gen).to(dy.device), s)
             for (x, o, s), (_, _, _, dy) in zip(rand_ld, ld)]
-    err, rel = _rel_err(kernel(main), plain(main))
-    check(rel <= BWD_RTOL, f"K3 ldconv_gather_bwd disagrees with its plain version: {err} ({rel} relative)")
-    rand_err, rand_rel = _rel_err(kernel(rand), plain(rand))
-    check(rand_rel <= BWD_RTOL, f"K3 ldconv_gather_bwd disagrees on random offsets: {rand_err} ({rand_rel} relative)")
+    contended = [(x, contention_offsets(x, o, s, gen), dy, s) for x, o, dy, s in rand]
+    seam = [(x, seam_offsets(x, o, s), dy, s) for x, o, dy, s in rand]
+    # the same layers at RAGGED_IMGSZ: every source and output side scaled, random sources and gradients
+    ragged = []
+    for x, o, dy, s in main:
+        b, c, hx, wx = x.shape
+        hx, wx = hx * RAGGED_IMGSZ // IMGSZ, wx * RAGGED_IMGSZ // IMGSZ
+        o = torch.empty(b, o.shape[1], hx // s, wx // s, device=o.device)
+        ragged.append((torch.randn(b, c, hx, wx, generator=gen).to(x.device), _random_offsets_like(o, gen),
+                       torch.randn(b, o.shape[2] * o.shape[3], dy.shape[2], generator=gen).to(dy.device), s))
+    errs = {}
+    for kind, layers in (("main", main), ("random", rand), ("contention", contended), ("seam", seam),
+                         (f"{RAGGED_IMGSZ} random", ragged),
+                         (f"{RAGGED_IMGSZ} contention", [(x, contention_offsets(x, o, s, gen), dy, s)
+                                                         for x, o, dy, s in ragged]),
+                         (f"{RAGGED_IMGSZ} seam", [(x, seam_offsets(x, o, s), dy, s) for x, o, dy, s in ragged])):
+        errs[kind] = _rel_err(kernel(layers), plain(layers))
+        check(errs[kind][1] <= BWD_RTOL, f"K3 ldconv_gather_bwd disagrees with its plain version on {kind} offsets: "
+                                         f"{errs[kind][0]} ({errs[kind][1]} relative)")
 
     # F.grid_sample's backward on the same positions and incoming gradients
     grids = grid_sample_grids([(x, o, s) for x, o, _, s in main])
@@ -435,19 +544,37 @@ def check_k3_bwd(ld, rand_ld):
            for _, o, dy, _ in main]  # (B, C, hw, N), grid_sample's output layout
     library_ms = cuda_ms(lambda: torch.autograd.grad(outs, xs + gs, dys, retain_graph=True))
 
-    nbytes = ops = 0
-    for x, o, dy, _ in main:
+    def cost(x, o, dy):
         b, n2, h, w = o.shape
-        nbytes += (2 * x.numel() + 2 * o.numel() + dy.numel()) * 4  # x, off, dy read; dx, doff written
-        ops += dy.numel() * 23 + b * h * w * (n2 // 2) * 30  # per channel: d, 2 x 7 for the offsets, 4 + 4 scatter
+        return ((2 * x.numel() + 2 * o.numel() + dy.numel()) * 4,  # x, off, dy read; dx, doff written
+                dy.numel() * 23 + b * h * w * (n2 // 2) * 30)  # per channel: d, 2 x 7 for the offsets, 4 + 4 scatter
+
+    nbytes = ops = 0
+    layers = []
+    for i, (x, o, dy, s) in enumerate(main):
+        nb, op = cost(x, o, dy)
+        nbytes, ops = nbytes + nb, ops + op
+        layers.append({"shape": f"{tuple(dy.shape)}->{tuple(x.shape)},{tuple(o.shape)}", "stride": s,
+                       "device_ms": device_ms(lambda: ldconv_gather_bwd(x, o, dy, s), ""),
+                       "random_device_ms": device_ms(lambda: ldconv_gather_bwd(*rand[i][:3], s), ""),
+                       "contention_device_ms": device_ms(lambda: ldconv_gather_bwd(*contended[i][:3], s), ""),
+                       "bound_ms": bound(nb, op)[0]})
     b_ms, b_by = bound(nbytes, ops)
+    err, rel = max(e for e, _ in errs.values()), max(r for _, r in errs.values())
     return dict(name="ldconv_gather_bwd", route="cuda", source="experiment_yolo_torch/csrc/ldconv_gather.cu",
-                replaces="experiment_yolo_tpu/nn/modules.py:469", max_abs_err=max(err, rand_err), rel_err=max(rel, rand_rel),
-                ms=cuda_ms(lambda: kernel(main)), device_ms=device_ms(lambda: kernel(main), "ldconv_gather_bwd_kernel"),
+                replaces="experiment_yolo_tpu/nn/modules.py:469", max_abs_err=err, rel_err=rel,
+                ms=cuda_ms(lambda: kernel(main)), device_ms=device_ms(lambda: kernel(main), ""),
                 plain_ms=cuda_ms(lambda: plain(main)), bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                random_offsets={"max_abs_err": rand_err, "rel_err": rand_rel, "ms": cuda_ms(lambda: kernel(rand)),
-                                "device_ms": device_ms(lambda: kernel(rand), "ldconv_gather_bwd_kernel")},
-                shapes=[f"{tuple(dy.shape)}->{tuple(x.shape)},{tuple(o.shape)}" for x, o, dy, _ in main])
+                main_path={"max_abs_err": errs["main"][0], "rel_err": errs["main"][1]},
+                other_offsets={kind: {"max_abs_err": e, "rel_err": r} for kind, (e, r) in errs.items()
+                               if kind not in ("main", "random", "contention")},
+                ragged_shapes=[f"{tuple(dy.shape)}->{tuple(x.shape)},{tuple(o.shape)}" for x, o, dy, _ in ragged],
+                random_offsets={"max_abs_err": errs["random"][0], "rel_err": errs["random"][1],
+                                "ms": cuda_ms(lambda: kernel(rand)), "device_ms": device_ms(lambda: kernel(rand), "")},
+                contention_offsets={"max_abs_err": errs["contention"][0], "rel_err": errs["contention"][1],
+                                    "ms": cuda_ms(lambda: kernel(contended)),
+                                    "device_ms": device_ms(lambda: kernel(contended), "")},
+                device_ms_counts="every launch of the wrapper, the zero fill of dx included", layers=layers)
 
 
 def train_timed(trainer, batches, counters):
@@ -846,7 +973,10 @@ def main() -> None:
         log(f"{k['name']}: max abs err {k['max_abs_err']}, kernel {k['ms']:.4f} ms (device {k['device_ms']} ms), "
             f"plain {k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound {k['bound_ms']:.4f} ms "
             f"({k['bound_by']})")
-    log(f"  K2 bound: {kernels[1]['bound_assumption']}")
+    log(f"  K2 bound: {kernels[1]['bound_assumption']}: {kernels[1]['bound_parts']}; the earlier design's own "
+        f"bound {kernels[1]['old_design_bound_ms']:.4f} ms ({kernels[1]['old_design_bound_assumption']})")
+    for label, row in kernels[1]["made_up"].items():
+        log(f"  K2 {label}: {row}")
     log(f"  K3 library device ms {kernels[2]['library_device_ms']}, random offsets: {kernels[2]['random_offsets']}")
     for row in kernels[2]["layers"]:
         log(f"  K3 layer {row}")
@@ -867,6 +997,11 @@ def main() -> None:
         log(f"{k['name']}: max abs err {k['max_abs_err']} ({k['rel_err']} of the largest plain value), kernel "
             f"{k['ms']:.4f} ms (device {k['device_ms']} ms), plain {k['plain_ms']:.4f} ms, library {k['library_ms']} "
             f"ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+    log(f"  K3 bwd main path {bwd[1]['main_path']}, random offsets {bwd[1]['random_offsets']}, contention offsets "
+        f"{bwd[1]['contention_offsets']}, others {bwd[1]['other_offsets']}; device ms count "
+        f"{bwd[1]['device_ms_counts']}")
+    for row in bwd[1]["layers"]:
+        log(f"  K3 bwd layer {row}")
     kernels = [kernels[0], bwd[0], kernels[1], kernels[2], bwd[1]]
 
     # 9. the training main path: DetectionTrainer.train_step, one batch per call

@@ -57,11 +57,49 @@
 //   dpc += d * ((x01 - x00) * wr0 + (x11 - x10) * wr1)
 // summed over channels; each offset gradient is kept where its unclamped
 // padded position lies in [0, size_padded - 1], inclusive (on a rail it
-// passes whole), and is 0 outside. Bound: memory. Design: one thread per
-// (pixel, n), pixels innermost so that a warp's offset loads, corner loads
-// and atomics fall on neighbouring pixels of one channel plane; each thread
-// loops over the C channels with dpr and dpc in registers and issues four f32
-// atomicAdds per channel, whose order varies from run to run.
+// passes whole), and is 0 outside.
+//
+// What bounds it: the adds into dx. The first kernel ran one thread
+// per (pixel, n) over all C channels with four f32 atomics to device memory
+// per (sample, channel); on an H100, of its 0.84 ms per training step (the dx
+// fill included) the atomics took 0.35 ms on smooth offsets, 2.1 of 2.8 ms on
+// offsets that scatter a warp's corners, and 7.1 of 7.7 ms when most samples
+// land on a few source pixels (adds to one address queue in L2, layer 0
+// alone 3.1 ms). An atomic add costs L2 one operation per 32-byte sector it
+// touches, so the design cuts the adds and the sectors they touch:
+// 1. One thread per (pixel, n, slice of channels), pixels fastest, as before:
+//    a warp's offset loads, corner loads and adds fall on neighbouring pixels
+//    of one channel plane. Wide layers of few pixels (C = 64, 128 at 40 x 40)
+//    split their channels over threads until the layer has 270,336 of them
+//    (two thousand a SM), at least 8 channels each; the slices' offset
+//    gradients then meet in doff by atomic adds after a zero fill. Where h*w
+//    is no multiple of 32 a warp holds pixels of two images, sampling points
+//    or slices; every lane runs the same number of channels, and the
+//    exchanges below compare cells by their place in dx, the slice's first
+//    channel plane included, so lanes of two slices never merge.
+// 2. Each sample's two corners of a row are neighbouring cells A, A + 1, and
+//    neighbouring lanes' cells follow each other. Decided once per thread
+//    from its neighbours' corners (shuffles), then applied per channel: a
+//    lane whose B cell is the next lane's A takes that lane's value (stride
+//    1: one add where there were two), a lane whose A is even adds A and B as
+//    one 8-byte reduction, and a lane whose B is even and whose next lane's A
+//    is B + 1 adds that pair as one (stride 2, odd A). Smooth offsets so turn
+//    four 4-byte adds a sample into two 8-byte ones that fill their sectors.
+// What bounds it now, as measured on the H100: still the adds. On the
+// model's smooth offsets the ten LD-P2 layers take about three times their
+// bytes bound, the dx fill a tenth of that; on scattered offsets the adds
+// still fall on one sector each, about ten times the bound. PERF.md has the
+// times per layer.
+// Two other designs were slower and were left out: a warp-level combine of
+// lanes that add into one pixel (__match_any_sync, one add per pixel), which
+// cut the time by a third when four source pixels took most of a layer's
+// samples but cost every warp its check; and a window per tile in shared
+// memory, flushed with 16-byte adds (a float atomic add on shared memory is a
+// compare-and-swap loop on this card, and the windows' set-up, clearing and
+// flushing cost more than the sectors they saved). PERF.md has the times.
+// dx is zeroed by the caller. The products per channel are those of the
+// plain version; sums run in another order, and the adds' order varies from
+// run to run.
 #include <math.h>
 #include "common.cuh"
 
@@ -191,14 +229,69 @@ ldconv_gather_kernel(const float* __restrict__ x, const float* __restrict__ off,
   }
 }
 
-__global__ void ldconv_gather_bwd_kernel(const float* __restrict__ x, const float* __restrict__ off,
-                                         const float* __restrict__ dy, float* __restrict__ dx,
-                                         float* __restrict__ doff, Geom g, long long total) {
+// ---- backward ----
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_MIN_THREADS = 270336;  // channels are split until a layer has this many threads (132 SMs x 2048)
+constexpr int BWD_MIN_CHANNELS = 8;      // ... but a thread keeps at least this many
+
+// One row's two cells of a sample, A (column c0) and B (column c1 = c0 + 1, or c0 where clamped), with
+// values va and vb, added into the channel plane dxc. Neighbouring lanes hold neighbouring pixels of one
+// row of the output, so their cells mostly follow each other: a lane whose B is the next lane's A takes
+// that lane's value (merge), a lane whose A is even adds A and B as one 8-byte value (pair), and a lane
+// whose B is even and whose next lane's A follows it adds B and that A as one (cross). row_plan decides
+// once per thread; every value is added exactly once.
+struct RowPlan {
+  bool merge, pair, cross, taken;  // taken: this lane's A goes with the lane before it
+};
+
+__device__ __forceinline__ RowPlan row_plan(long long A, long long B, bool live, int lane, bool aligned) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const long long nextA = __shfl_down_sync(FULL, A, 1);
+  const bool next_live = __shfl_down_sync(FULL, live, 1) && lane < 31;
+  RowPlan r;
+  r.merge = live && next_live && nextA == B;
+  r.pair = aligned && live && B == A + 1 && (A & 1) == 0;
+  r.cross = aligned && live && next_live && !r.merge && !r.pair && (B & 1) == 0 && nextA == B + 1;
+  // a lane whose left neighbour merged or crossed gives its A to it; a lane with a pair keeps its A
+  const bool left = __shfl_up_sync(FULL, r.merge || r.cross, 1) && lane > 0;
+  r.taken = left;
+  if (r.taken) r.pair = false;
+  return r;
+}
+
+__device__ __forceinline__ void add_row(float* __restrict__ dx, long long A, long long B, float va, float vb,
+                                        const RowPlan& r, bool live) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const float next_va = __shfl_down_sync(FULL, va, 1);
+  if (!live) return;
+  const float b_sum = r.merge ? vb + next_va : vb;
+  if (r.pair) {
+    atomicAdd(reinterpret_cast<float2*>(dx + A), make_float2(va, b_sum));
+    return;
+  }
+  if (!r.taken) atomicAdd(dx + A, va);
+  if (r.cross)
+    atomicAdd(reinterpret_cast<float2*>(dx + B), make_float2(vb, next_va));
+  else
+    atomicAdd(dx + B, b_sum);
+}
+
+// One thread per (pixel, n, slice of channels), pixels fastest: a warp's offset loads, corner loads and adds
+// fall on neighbouring pixels of one channel plane.
+__global__ void __launch_bounds__(BWD_THREADS)
+ldconv_gather_bwd_kernel(const float* __restrict__ x, const float* __restrict__ off, const float* __restrict__ dy,
+                         float* __restrict__ dx, float* __restrict__ doff, Geom g, long long total, int per_thread,
+                         int slices) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= total) return;
+  const int lane = threadIdx.x % 32;
+  const bool live = t < total;  // no early return: the lanes of a warp exchange values below
   const int hw = g.h * g.w;
-  const int p = static_cast<int>(t % hw);
-  const long long q = t / hw;
+  const long long tt = live ? t : total - 1;
+  const int p = static_cast<int>(tt % hw);
+  long long q = tt / hw;
+  const int slice = static_cast<int>(q % slices);
+  q /= slices;
   const int n = static_cast<int>(q % g.N);
   const int b = static_cast<int>(q / g.N);
   const Sample s = sample_at(off, g, b, p, n);
@@ -206,27 +299,46 @@ __global__ void ldconv_gather_bwd_kernel(const float* __restrict__ x, const floa
   const float w10 = __fmul_rn(s.wr1, s.wc0), w11 = __fmul_rn(s.wr1, s.wc1);
 
   const long long plane = static_cast<long long>(g.H) * g.W;
-  const float* xb = x + static_cast<long long>(b) * g.C * plane;
-  float* dxb = dx + static_cast<long long>(b) * g.C * plane;
-  const float* dyp = dy + (static_cast<long long>(b) * hw + p) * g.N * g.C + static_cast<long long>(n) * g.C;
+  const int c0 = slice * per_thread, c1 = min(g.C, c0 + per_thread);
+  // The corners as offsets into dx from its plane of (image b, channel c0): a warp of a layer whose h*w is no
+  // multiple of 32 holds two images or two channel slices, and their lanes' corners must never match.
+  const long long first = (static_cast<long long>(b) * g.C + c0) * plane;
+  const long long k00 = first + s.i00, k01 = first + s.i01, k10 = first + s.i10, k11 = first + s.i11;
+  // 8-byte adds need every channel plane to start on an even float
+  const bool aligned = (plane & 1) == 0;
+  const RowPlan top = row_plan(k00, k01, live, lane, aligned), bottom = row_plan(k10, k11, live, lane, aligned);
+
+  const float* dyp = dy + (static_cast<long long>(b) * hw + p) * g.N * g.C + static_cast<long long>(n) * g.C + c0;
+  const float* xc = x + first;
+  float* dxc = dx;  // plus a corner's offset: its cell in the plane of channel c0 + k
   float dpr = 0.f, dpc = 0.f;
-  for (int c = 0; c < g.C; ++c) {
-    const float d = dyp[c] * s.mul;
-    const float* xc = xb + c * plane;
-    const float v00 = xc[s.i00], v01 = xc[s.i01], v10 = xc[s.i10], v11 = xc[s.i11];
-    dpr += d * ((v10 - v00) * s.wc0 + (v11 - v01) * s.wc1);
-    dpc += d * ((v01 - v00) * s.wr0 + (v11 - v10) * s.wr1);
-    float* dxc = dxb + c * plane;
-    atomicAdd(dxc + s.i00, w00 * d);
-    atomicAdd(dxc + s.i01, w01 * d);
-    atomicAdd(dxc + s.i10, w10 * d);
-    atomicAdd(dxc + s.i11, w11 * d);
+  // Every lane runs per_thread channels, idle past c1 (the last slice may hold fewer), so that add_row's
+  // shuffles find the whole warp. Lanes that exchange values share a slice, so they are idle together.
+  for (int k = 0; k < per_thread; ++k, xc += plane, dxc += plane) {
+    const bool on = live && c0 + k < c1;
+    float d = 0.f;
+    if (on) {
+      d = dyp[k] * s.mul;
+      const float v00 = xc[s.i00], v01 = xc[s.i01], v10 = xc[s.i10], v11 = xc[s.i11];
+      dpr += d * ((v10 - v00) * s.wc0 + (v11 - v01) * s.wc1);
+      dpc += d * ((v01 - v00) * s.wr0 + (v11 - v10) * s.wr1);
+    }
+    add_row(dxc, k00, k01, w00 * d, w01 * d, top, on);
+    add_row(dxc, k10, k11, w10 * d, w11 * d, bottom, on);
   }
+  if (!live) return;
   const bool in_r = s.pr >= 0.f && s.pr <= static_cast<float>(g.Hp - 1);
   const bool in_c = s.pc >= 0.f && s.pc <= static_cast<float>(g.Wp - 1);
   float* db = doff + static_cast<long long>(b) * 2 * g.N * hw;
-  db[static_cast<long long>(n) * hw + p] = in_r ? dpr : 0.f;
-  db[static_cast<long long>(g.N + n) * hw + p] = in_c ? dpc : 0.f;
+  float* dr = db + static_cast<long long>(n) * hw + p;
+  float* dc = db + static_cast<long long>(g.N + n) * hw + p;
+  if (slices == 1) {
+    *dr = in_r ? dpr : 0.f;
+    *dc = in_c ? dpc : 0.f;
+  } else {  // the slices' sums meet in doff, which the launch zeroed
+    if (in_r) atomicAdd(dr, dpr);
+    if (in_c) atomicAdd(dc, dpc);
+  }
 }
 
 // x: (B, C, H, W) f32; off: (B, 2N, h, w) f32, the first N channels row
@@ -266,11 +378,23 @@ extern "C" int ldconv_gather_bwd_launch(const float* x, const float* off, const 
                                         int B, int C, int H, int W, int h, int w, int N, int base, int stride, int R,
                                         int Hp, int Wp, cudaStream_t stream) {
   const Geom g{B, C, H, W, h, w, N, base, stride, R, Hp, Wp};
-  const long long total = static_cast<long long>(B) * N * h * w;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
+  if (B == 0 || h * w == 0 || N * C == 0) return static_cast<int>(cudaSuccess);
+  // channels split over threads until the layer fills the card, each thread keeping BWD_MIN_CHANNELS or more
+  const long long samples = static_cast<long long>(B) * N * h * w;
+  const long long by_channels = (C + BWD_MIN_CHANNELS - 1) / BWD_MIN_CHANNELS;
+  const long long by_threads = (BWD_MIN_THREADS + samples - 1) / samples;
+  int slices = static_cast<int>(by_channels < by_threads ? by_channels : by_threads);
+  if (slices < 1) slices = 1;
+  const int per_thread = (C + slices - 1) / slices;
+  slices = (C + per_thread - 1) / per_thread;
+  const long long total = samples * slices;
+  const long long blocks = (total + BWD_THREADS - 1) / BWD_THREADS;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (blocks > 0)
-    ldconv_gather_bwd_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(x, off, dy, dx, doff, g, total);
+  if (slices > 1) {
+    const cudaError_t e = cudaMemsetAsync(doff, 0, static_cast<size_t>(B) * 2 * N * h * w * sizeof(float), stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  ldconv_gather_bwd_kernel<<<static_cast<unsigned>(blocks), BWD_THREADS, 0, stream>>>(x, off, dy, dx, doff, g, total,
+                                                                                       per_thread, slices);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
-"""What bounds K3 and K4 on the card: time throwaway variants of their sources.
+"""What bounds K2, K3, K3's backward and K4 on the card: time throwaway
+variants of their sources.
 
 Usage, on a machine with an NVIDIA Hopper GPU and the CUDA toolkit:
 
-    python3 -m experiment_yolo_torch.kernel_variants [k3|k4|both]
+    python3 -m experiment_yolo_torch.kernel_variants [k2|k3|k3bwd|k4|all] [--baseline ROOT]
 
 Each variant is the kernel's source with a few pieces of text replaced (no
 exp, no shared-memory reads of B and C, no copies from device memory, another
@@ -14,9 +15,18 @@ the shapes ``yolov8-C2f-VSS.yaml`` (K4) and ``yolov8-LD-P2.yaml`` (K3) give
 their kernels at batch 8, imgsz 640, on seeded random inputs (K4: step sizes
 near 0.01 and decays -1..-16, as the seeded model; K3: one offset per channel,
 as the seeded model, and offsets N(0, 4^2) px with 2% pushed 40 px further).
-One JSON line per variant; the card's name and power limit come first, and
-for K4 the real kernel's error against its plain version at L = 6,400 with
-step sizes near 0.01 and near 0.001.
+K3's backward is timed per layer on those offsets and on offsets that pull
+90% of a layer's samples onto sixteen source positions (many adds on one address),
+summing every launch its wrapper makes (the zero fill of ``dx`` included);
+K2 on clustered candidates, a batch of 8 images at K = 1,024 (the main path's
+pre-NMS top-k) and at K = 8,192. One JSON line per variant; the card's name
+and power limit come first, and for K4 the real kernel's error against its
+plain version at L = 6,400 with step sizes near 0.01 and near 0.001.
+
+``--baseline ROOT`` also times K3's backward built from another checkout
+(say the parent commit, unpacked with ``git archive``) behind this one's
+wrapper, so that two versions are compared in one process; the two sources
+must have the same ``ldconv_gather_bwd_launch`` signature.
 """
 
 from __future__ import annotations
@@ -25,12 +35,16 @@ import ctypes
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
 from experiment_yolo_torch.ops.kernels import _build
-from experiment_yolo_torch.ops.kernels.ldconv_gather import ldconv_gather_fwd, ldconv_gather_plain
+from experiment_yolo_torch.ops.kernels.ldconv_gather import (ldconv_gather_bwd, ldconv_gather_bwd_plain,
+                                                             ldconv_gather_fwd, ldconv_gather_plain)
+from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress, nms_suppress_plain
 from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan, selective_scan_plain
+from experiment_yolo_torch.utils.seeded import contention_offsets
 
 EXP = ("ex2(dtv * r.a2[n])", "(dtv * r.a2[n])")
 READ_B = ("const float4 bq = b4[q];", "const float4 bq = make_float4(dtv, xv, u, dtv);")
@@ -58,14 +72,34 @@ K3_VARIANTS = {
     "channel loop unrolled by 2": (("#pragma unroll 4\n    for (int c = first", "#pragma unroll 2\n    for (int c = first"),),
     "channel loop unrolled by 8": (("#pragma unroll 4\n    for (int c = first", "#pragma unroll 8\n    for (int c = first"),),
 }
+# variant -> (old, new) pieces of csrc/ldconv_gather.cu, for the backward kernel
+K3BWD_VARIANTS = {
+    "as it is": (),
+    "no pairs or merges: four 4-byte adds a sample": (("r.merge = live &&", "r.merge = false &&"),
+                                                       ("r.pair = aligned &&", "r.pair = false &&"),
+                                                       ("r.cross = aligned &&", "r.cross = false &&")),
+    "no channel split": (("BWD_MIN_THREADS = 270336;", "BWD_MIN_THREADS = 0;"),),
+    "at least 4 channels a thread": (("BWD_MIN_CHANNELS = 8;", "BWD_MIN_CHANNELS = 4;"),),
+    "at least 16 channels a thread": (("BWD_MIN_CHANNELS = 8;", "BWD_MIN_CHANNELS = 16;"),),
+}
+# variant -> (old, new) pieces of csrc/nms_suppress.cu
+K2_VARIANTS = {
+    "as it is": (),
+    "pair blocks of 64 rows": (("constexpr int PAIR_ROWS = 128;", "constexpr int PAIR_ROWS = 64;"),),
+    "no IEEE division (wrong masks)": (("const float iou = __fdiv_rn(", "const float iou = __fmul_rn("),),
+    "sixteen rows' loads in flight": (("int t[8];", "int t[16];"), ("u < 8; ++u) {", "u < 16; ++u) {"),
+                                      ("u < 8; ++u)\n", "u < 16; ++u)\n")),
+}
 SCAN_LEVELS = ((25600, 32, 1), (6400, 64, 2), (1600, 128, 4), (400, 256, 8))  # L, d_inner, dt_rank at P2..P5
 GATHER_LAYERS = ((3, 3, 2, 640), (16, 3, 2, 320), (32, 3, 2, 160), (64, 3, 2, 80), (128, 1, 1, 40), (64, 1, 1, 80),
                  (64, 1, 1, 80), (32, 1, 1, 160), (32, 3, 2, 160), (64, 3, 2, 80))  # C, N, stride, source size
 BATCH = 8
 
 
-def build_variants(name: str, variants) -> dict:
-    """One library per variant of ``csrc/<name>.cu``, all nvcc runs at once."""
+def build_variants(name: str, variants, baseline: Path | None = None) -> dict:
+    """One library per variant of ``csrc/<name>.cu``, all nvcc runs at once;
+    with ``baseline`` (the root of another checkout) also that checkout's
+    ``csrc/<name>.cu`` as it is, under the tag ``"baseline"``."""
     out_dir = _build.BUILD_DIR.parent / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     source = (_build.CSRC / f"{name}.cu").read_text()
@@ -81,6 +115,11 @@ def build_variants(name: str, variants) -> dict:
         lib = path.with_suffix(".so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(path)]
         procs[tag] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    if baseline is not None:
+        csrc = baseline / "experiment_yolo_torch" / "csrc"
+        lib = out_dir / f"{name}_baseline.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib), str(csrc / f"{name}.cu")]
+        procs["baseline"] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for tag, (proc, lib) in procs.items():
         log, _ = proc.communicate()
@@ -99,7 +138,8 @@ def swap_in(name: str, lib: ctypes.CDLL) -> None:
 
 def device_ms(fn, mark: str, runs: int = 5) -> dict:
     """Device milliseconds per call of ``fn`` by kernel, for kernels whose
-    name holds ``mark`` (that prefix dropped from the keys)."""
+    name holds ``mark`` (that prefix dropped from the keys; ``""`` takes every
+    device event of the trace, fills and copies included)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -108,7 +148,8 @@ def device_ms(fn, mark: str, runs: int = 5) -> dict:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("(")[0].replace("void ", "").replace(mark, "").strip("_"): e.self_device_time_total / runs / 1e3
+    return {e.key.split("(")[0].replace("void ", "").replace(mark, "").strip("_") or e.key:
+            e.self_device_time_total / runs / 1e3
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and mark in e.key and e.self_device_time_total}
 
@@ -162,19 +203,93 @@ def gather_variants(gen: torch.Generator) -> None:
         print(json.dumps(row), flush=True)
 
 
+def gather_bwd_variants(gen: torch.Generator, baseline: Path | None) -> None:
+    layers = []
+    for c, n, stride, size in GATHER_LAYERS:
+        h = size // stride
+        x = torch.randn(BATCH, c, size, size, generator=gen)
+        smooth = (torch.rand(2 * n, generator=gen) * 0.6 - 0.3)[None, :, None, None].expand(BATCH, 2 * n, h, h)
+        rand = torch.randn(BATCH, 2 * n, h, h, generator=gen) * 4
+        rand = torch.where(torch.rand(rand.shape, generator=gen) < 0.02, rand + 40 * rand.sign(), rand)
+        cont = contention_offsets(x, rand, stride, gen)
+        dy = torch.randn(BATCH, h * h, n * c, generator=gen)
+        layers.append((x.cuda(), {"smooth": smooth.contiguous().cuda(), "random": rand.cuda(), "contention": cont.cuda()},
+                       dy.cuda(), stride))
+    want = {kind: [ldconv_gather_bwd_plain(x, offs[kind], dy, s) for x, offs, dy, s in layers]
+            for kind in ("random", "contention")}
+
+    def rel_err(kind):
+        """The worst output's max abs error over its own largest plain value (dx and doff apart)."""
+        worst = 0.0
+        for (x, offs, dy, s), ref in zip(layers, want[kind]):
+            for got, exp in zip(ldconv_gather_bwd(x, offs[kind], dy, s), ref):
+                worst = max(worst, ((got - exp).abs().max() / exp.abs().max().clamp(min=1e-30)).item())
+        return worst
+
+    for tag, lib in build_variants("ldconv_gather", K3BWD_VARIANTS, baseline).items():
+        swap_in("ldconv_gather", lib)
+        row = {"kernel": "K3 bwd", "variant": tag, "rel_err": {kind: rel_err(kind) for kind in want}}
+        for kind in ("smooth", "random", "contention"):
+            per_layer = [device_ms(lambda: ldconv_gather_bwd(x, offs[kind], dy, s), "") for x, offs, dy, s in layers]
+            row[f"{kind}_offsets_ms"] = {"layers": [sum(v.values()) for v in per_layer],
+                                         "all": sum(sum(v.values()) for v in per_layer),
+                                         "by_kernel": {k: sum(v.get(k, 0.0) for v in per_layer)
+                                                       for k in {k for v in per_layer for k in v}}}
+        print(json.dumps(row), flush=True)
+
+
+def nms_cases(gen: torch.Generator):
+    """Clustered xyxy candidates of 8 images (about a fifth of them invalid)
+    at K = 1,024 and 8,192, and the IoU threshold of the main path."""
+    cases = {}
+    for k in (1024, 8192):
+        centres = (torch.rand(BATCH, k // 8, 2, generator=gen) * 600).repeat_interleave(8, 1)
+        centres = centres + torch.randn(BATCH, k, 2, generator=gen) * 6
+        wh = torch.rand(BATCH, k, 2, generator=gen) * 50 + 10
+        boxes = torch.cat([centres - wh / 2, centres + wh / 2], -1).contiguous()
+        valid = torch.rand(BATCH, k, generator=gen) > 0.2
+        cases[k] = (boxes.cuda(), valid.cuda())
+    return cases, 0.7
+
+
+def nms_variants(gen: torch.Generator) -> None:
+    cases, thr = nms_cases(gen)
+    want = {k: nms_suppress_plain(b, v, thr) for k, (b, v) in cases.items()}
+    for tag, lib in build_variants("nms_suppress", K2_VARIANTS).items():
+        swap_in("nms_suppress", lib)
+        row = {"kernel": "K2", "variant": tag}
+        for k, (b, v) in cases.items():
+            row[f"K{k}"] = {"mismatched": int((nms_suppress(b, v, thr) != want[k]).sum()), "kept": int(want[k].sum()),
+                            "candidates": int(v.sum()),
+                            **device_ms(lambda: nms_suppress(b, v, thr), "nms_suppress_kernel")}
+        print(json.dumps(row), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: torch.cuda.is_available() is false: this needs an NVIDIA GPU")
-    which = sys.argv[1] if len(sys.argv) > 1 else "both"
+    args = sys.argv[1:]
+    baseline = None
+    if "--baseline" in args:
+        i = args.index("--baseline")
+        baseline = Path(args[i + 1]).resolve()
+        del args[i:i + 2]
+    which = args[0] if args else "all"
+    if which not in ("k2", "k3", "k3bwd", "k4", "all"):
+        sys.exit(f"kernel_variants: unknown target {which!r}: one of k2, k3, k3bwd, k4, all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}", flush=True)
     _build.build_all()
     gen = torch.Generator().manual_seed(0)
-    if which in ("k4", "both"):
-        scan_variants(gen)
-    if which in ("k3", "both"):
-        gather_variants(gen)
+    targets = {"k4": scan_variants, "k3": gather_variants}
+    for name, fn in targets.items():
+        if which in (name, "all"):
+            fn(gen)
+    if which in ("k3bwd", "all"):
+        gather_bwd_variants(gen, baseline)
+    if which in ("k2", "all"):
+        nms_variants(gen)
 
 
 if __name__ == "__main__":

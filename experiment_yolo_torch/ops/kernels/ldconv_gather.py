@@ -11,7 +11,10 @@ corners, weights and the border multiplier in one pass and are bound by
 memory. The forward computes each sample once per (pixel, n), reads the
 corners with a warp along neighbouring pixels of one channel plane, and turns
 the values into the (pixel, n, channel) layout through a tile in shared
-memory; the source says how.
+memory. The backward, bound by its atomic adds into ``dx``, merges the adds
+of neighbouring lanes that fall on one cell, pairs neighbouring cells into
+8-byte adds, and splits the channels of wide layers over threads; the source
+says how, and what bounds each.
 
 :func:`ldconv_gather` is differentiable: a ``torch.autograd.Function`` whose
 forward and backward launch the kernels for CUDA tensors and take

@@ -1,6 +1,7 @@
 """Seeded inputs, labelled batches and weights for runs on the card without a
-dataset or a checkpoint: ``chip_smoke.py``, ``profile_predict`` and
-``profile_train``. Test scaffolding, not a dataset."""
+dataset or a checkpoint, and offsets that stress the LDConv gather's
+backward: ``chip_smoke.py``, ``profile_predict``, ``profile_train`` and
+``kernel_variants``. Test scaffolding, not a dataset."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from experiment_yolo_torch.nn.modules import LDConv
+from experiment_yolo_torch.ops.kernels.ldconv_gather import grid_points
 
 # mixed (h, w) so that letterbox both resizes and pads
 MIXED_SIZES: Tuple[Tuple[int, int], ...] = ((640, 640), (480, 640), (720, 1280), (375, 500), (1080, 810),
@@ -83,3 +85,46 @@ def he_normal_(model: torch.nn.Module, seed: int) -> None:
             m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * std)
     for cls in model.model[-1].cv3:
         cls[-1].bias.zero_()
+
+
+def _offsets_to(off: torch.Tensor, stride: int, tr: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
+    """The offsets (B, 2N, h, w) that put each sample of an LDConv with
+    offsets shaped like ``off`` at the source position (``tr``, ``tc``), both
+    (B, N, h, w): a sample's position is its grid position plus its offset."""
+    b, n2, h, w = off.shape
+    n = n2 // 2
+    pts = torch.tensor(grid_points(n), dtype=torch.float32)  # (N, 2)
+    rows = (torch.arange(h, dtype=torch.float32) * stride)[:, None].expand(h, w)
+    cols = (torch.arange(w, dtype=torch.float32) * stride)[None, :].expand(h, w)
+    return torch.cat([tr - rows - pts[:, 0].reshape(1, n, 1, 1), tc - cols - pts[:, 1].reshape(1, n, 1, 1)], 1)
+
+
+def contention_offsets(x: torch.Tensor, off: torch.Tensor, stride: int, gen: torch.Generator,
+                       share: float = 0.9) -> torch.Tensor:
+    """Offsets (like ``off``) that put a ``share`` of the samples at one of
+    sixteen source positions, a quarter of a pixel past the points of a 4 x 4
+    grid at (H (2k + 1) / 8, W (2l + 1) / 8), so that their bilinear corners
+    and their adds in the backward land on the same 64 source pixels; the rest
+    keep ``off``."""
+    b, n2, h, w = off.shape
+    n, (hx, wx) = n2 // 2, x.shape[2:]
+    pick = torch.randint(0, 16, (b, n, h, w), generator=gen)
+    tr = (hx * (2 * (pick // 4) + 1) // 8).float() + 0.25
+    tc = (wx * (2 * (pick % 4) + 1) // 8).float() + 0.25
+    pulled = torch.rand((b, n, h, w), generator=gen) < share
+    cont = _offsets_to(off, stride, tr, tc)
+    return torch.where(torch.cat([pulled, pulled], 1), cont, off.cpu()).to(off.device)
+
+
+def seam_offsets(x: torch.Tensor, off: torch.Tensor, stride: int) -> torch.Tensor:
+    """Offsets (like ``off``) that put every sample a quarter of a pixel
+    past source row H / 2 and column (j + 1) mod w, j its output column. The
+    cells of neighbouring output pixels then follow each other also from the
+    last pixel of one image or sampling point to the first of the next: where
+    h * w is no multiple of 32, one warp of the backward holds both, and must
+    not merge their adds unless they go into the same channel plane."""
+    b, n2, h, w = off.shape
+    n = n2 // 2
+    tr = torch.full((b, n, h, w), float(x.shape[2] // 2) + 0.25)
+    tc = ((torch.arange(w) + 1) % w).float().expand(b, n, h, w) + 0.25
+    return _offsets_to(off, stride, tr, tc).to(off.device)

@@ -16,6 +16,7 @@ import torch
 from experiment_yolo_torch.nn.modules import LDConv as TorchLDConv
 from experiment_yolo_torch.ops.kernels.ldconv_gather import (WINDOW_R, grid_points, ldconv_gather, ldconv_gather_bwd,
                                                              ldconv_gather_bwd_plain, ldconv_gather_plain)
+from experiment_yolo_torch.utils.seeded import contention_offsets, seam_offsets
 from experiment_yolo_tpu.nn.modules import LDConv as JaxLDConv
 from experiment_yolo_tpu.nn.modules import _ldconv_grid_pts, ldconv_bilinear_gather
 from experiment_yolo_tpu.ops.pallas.ldconv_kernel import bilinear_gather_single
@@ -167,15 +168,30 @@ def _pin_positions(off, stride, hx, wx):
     return off
 
 
-@pytest.mark.parametrize("n,stride", CASES)
-def test_gather_backward_matches_jax_vjp(n, stride):
+@pytest.mark.parametrize("n,stride,offsets", [pytest.param(n, s, "random", id=f"{n}-{s}") for n, s in CASES]
+                         + [pytest.param(n, s, kind, id=f"{n}-{s}-{kind}") for kind in ("contention", "seam")
+                            for n, s in ((3, 2), (1, 1))])
+def test_gather_backward_matches_jax_vjp(n, stride, offsets):
     """Plain backward vs ``jax.vjp`` of the JAX gather times ``_border_mul``
     on the edge-padded source (the custom VJP ``_ldconv_gather_bwd``, then
     the pad's transpose), with samples on both rails, on integer positions and
-    40 px out: dx and doff within 1e-5 abs + 1e-5 rel (the same products,
-    summed in another order). The autograd path equals the plain backward."""
+    40 px out; also on the offsets that hold the kernel to the plain version
+    on the card (``utils/seeded.py``): contention, 90% of the samples on
+    sixteen source positions, and seam, every sample on one source row at the
+    column after its pixel's own. dx and doff within 1e-5 abs + 1e-5 rel (the
+    same products, summed in another order). The autograd path equals the
+    plain backward."""
     x, off = _inputs(n * 10 + stride + 100, n, stride)
     b, c, hx, wx = x.shape
+    if offsets == "contention":
+        off = contention_offsets(torch.from_numpy(x), torch.from_numpy(off), stride,
+                                 torch.Generator().manual_seed(7)).numpy()
+    elif offsets == "seam":
+        off = seam_offsets(torch.from_numpy(x), torch.from_numpy(off), stride).numpy()
+        pos = np.asarray(_jax_positions(off, stride, hx, wx)[0]) - WINDOW_R  # (B, h, w, N, [row, col]), source px
+        cols = (np.arange(off.shape[3]) + 1) % off.shape[3] + 0.25
+        np.testing.assert_allclose(pos[..., 0], hx // 2 + 0.25, atol=1e-5)
+        np.testing.assert_allclose(pos[..., 1], np.broadcast_to(cols[None, None, :, None], pos.shape[:-1]), atol=1e-5)
     off = _pin_positions(off, stride, hx, wx)
     p, pad_r, pad_c = _jax_positions(off, stride, hx, wx)
     dy = np.random.default_rng(5).standard_normal((b, p.shape[1] * p.shape[2], n * c)).astype(np.float32)
@@ -192,6 +208,10 @@ def test_gather_backward_matches_jax_vjp(n, stride):
     hp, wp = hx + WINDOW_R + pad_r, wx + WINDOW_R + pad_c
     assert (pos[..., 0] == 0).any() and (pos[..., 0] == hp - 1).any() and (pos[..., 1] == wp - 1).any()
     assert (pos[..., 0] > hp + 30).any() and (pos[..., 1] < -30).any()
+    if offsets == "contention":  # most samples read one of sixteen source pixels' neighbourhoods
+        src = np.floor(pos - WINDOW_R).reshape(-1, 2)
+        _, counts = np.unique(src, axis=0, return_counts=True)
+        assert np.sort(counts)[-16:].sum() >= 0.8 * len(src)
 
     dx, doff = ldconv_gather_bwd_plain(torch.from_numpy(x), torch.from_numpy(off), torch.from_numpy(dy), stride)
     np.testing.assert_allclose(dx.numpy(), jdx, atol=1e-5, rtol=1e-5)

@@ -180,13 +180,48 @@ def _candidates(k, seed, b=2):
     return boxes, valid
 
 
-@pytest.mark.parametrize("k,seed,thr", [(64, 0, 0.5), (256, 1, 0.7), (1024, 2, 0.45)])
-def test_nms_suppress_matches_jax_reference_and_pallas_interpret(k, seed, thr):
-    """Identical keep masks: the IoU is bitwise the JAX package's, so every
-    comparison with the threshold decides alike."""
+def _made_up(kind, k, seed):
+    """Candidates and valid flags for the cases a bitmask NMS could get
+    wrong: ``clustered`` (``_candidates``, also at a K that is no multiple of
+    32 or 64), exact ``duplicates``, IoUs exactly at 0.7 (built from small
+    integers, so that the float32 IoU is exact: 7/10 ties, 8/10 suppresses,
+    6/10 does not), invalid candidates interleaved with valid ones, and a
+    batch whose second image has no valid candidate."""
     boxes, valid = _candidates(k, seed)
+    if kind == "duplicates":
+        boxes[:, 1::2] = boxes[:, 0::2]
+    elif kind == "ties":
+        rng = np.random.default_rng(seed)
+        x0 = 20.0 * np.arange(k // 2, dtype=np.float32)
+        inner = np.float32([7, 8, 6])[np.arange(k // 2) % 3]
+        zeros, ones = np.zeros_like(x0), np.ones_like(x0)
+        pairs = np.stack([np.stack([x0, zeros, x0 + 10, ones], -1), np.stack([x0, zeros, x0 + inner, ones], -1)], 1)
+        boxes = np.stack([pairs.reshape(k, 4), pairs[rng.permutation(k // 2)].reshape(k, 4)]).astype(np.float32)
+        valid = np.ones((2, k), bool)
+    elif kind == "interleaved-invalid":
+        valid[:, 1::2] = False
+    elif kind == "all-invalid-image":
+        valid[1] = False
+    return boxes, valid
+
+
+@pytest.mark.parametrize("k,seed,thr,kind", [
+    pytest.param(64, 0, 0.5, "clustered", id="64-0-0.5"), pytest.param(256, 1, 0.7, "clustered", id="256-1-0.7"),
+    pytest.param(1024, 2, 0.45, "clustered", id="1024-2-0.45"), pytest.param(100, 3, 0.7, "clustered", id="ragged-100"),
+    pytest.param(64, 4, 0.7, "duplicates", id="duplicates"), pytest.param(60, 5, 0.7, "ties", id="iou-at-threshold"),
+    pytest.param(64, 6, 0.5, "interleaved-invalid", id="interleaved-invalid"),
+    pytest.param(48, 7, 0.5, "all-invalid-image", id="all-invalid-image")])
+def test_nms_suppress_matches_jax_reference_and_pallas_interpret(k, seed, thr, kind):
+    """Identical keep masks: the IoU is bitwise the JAX package's, so every
+    comparison with the threshold decides alike, ties at it included."""
+    boxes, valid = _made_up(kind, k, seed)
     got = nms_suppress_plain(torch.from_numpy(boxes), torch.from_numpy(valid), thr).numpy()
     assert 0 < got.sum() < valid.sum(), "the case should both keep and suppress"
+    if kind == "ties":
+        iou = t_box_iou(torch.from_numpy(boxes[0]), torch.from_numpy(boxes[0])).numpy()
+        assert (iou == np.float32(thr)).sum() >= 2 and (iou > thr).sum() > k, "pairs should sit at and above 0.7"
+    if kind == "all-invalid-image":
+        assert not got[1].any()
     for i in range(len(boxes)):
         ref = nms_suppress_reference(jnp.asarray(boxes[i]), jnp.asarray(valid[i]), thr)
         np.testing.assert_array_equal(got[i], np.asarray(ref))
