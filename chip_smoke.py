@@ -6,7 +6,7 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero and nothing is caught:
  1. print the card's name and power limit (``nvidia-smi``);
  2. turn TF32 off for matmuls and cuDNN convolutions (full f32 throughout);
- 3. build the four CUDA libraries of ``experiment_yolo_torch/csrc`` (six
+ 3. build the five CUDA libraries of ``experiment_yolo_torch/csrc`` (seven
     kernels) with nvcc;
  4. build ``yolov8-LD-P2.yaml`` (n scale, nc=6) on the card from a seeded
     generator, and run one batch of 8 at 640 to take each kernel's inputs
@@ -25,11 +25,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     its chain of decisions (the earlier design's own bound beside it);
  6. serve 20 batches of 8 seeded images of mixed sizes through
     ``DetectionPredictor`` at imgsz 640, once with soft and once with hard
-    NMS, with every launch counter set to 0 just before and read just after,
-    and report the median batch time and its spread;
+    NMS, with every launch counter set to 0 just before and read just after
+    (1 K5 per soft batch, 1 K2 per hard batch), and report the median batch
+    time and its spread;
  7. run one batch through the same weights on the CPU with the plain versions
     and compare raw maps and hard-NMS detections;
- 8. take one training step (``DetectionTrainer.train_step``, batch 8 at 640,
+ 8. validate LD-P2 with ``DetectionValidator`` on 4 seeded labelled batches of
+    8 at 640 (``ori_shape`` 640 x 640, ``ratio_pad`` (1, 0, 0)), soft-NMS in
+    quirk mode and then hard NMS, counters at 0 just before each run and read
+    just after (exactly 3 K1 and 10 K3 per forward, 1 K5 per soft batch, 1 K2
+    per hard batch), and report img/s and the per-batch median and spread;
+    hold K5 against its plain version on each batch's own candidate pools
+    (multi-label, K = 4,096, quirk on and off) and on made-up pools (K = 1, a
+    ragged K = 1,000, K = 4,096 and 8,192, duplicates, IoUs at the threshold,
+    a decay onto the 0.25 floor, an image with none valid, the quirk's first
+    box in the last slot): identical kept sets, scores within 1e-6 relative;
+    the stats through K5 must equal those of the same maps through the plain
+    loop on the card; time K5 on the first batch's pool beside its bound (the
+    chain of steps the busiest image takes);
+ 9. take one training step (``DetectionTrainer.train_step``, batch 8 at 640,
     seeded labelled batches) and capture, through hooks, each LDConv's source,
     offsets and incoming gradient and each level's Detect map, decoded
     distances and incoming gradient; hold the K1 and K3 backward kernels
@@ -44,25 +58,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     as phase 5 times the forwards (K3's device time summing every launch of
     its wrapper, the zero fill of ``dx`` included, also layer by layer), with
     ``F.grid_sample``'s backward as K3's yardstick;
- 9. take 20 timed training steps after 3 warm-up steps, 4 distinct seeded
-    batches in turn, with every launch counter set to 0 just before and read
-    just after (exactly 3 K1, 3 K1-backward, 10 K3 and 10 K3-backward launches
-    per step); every loss and gradient finite, parameters and EMA moved;
-10. take one step from the same weights and batch at 320, batch 2, on the card
+10. take 20 timed training steps (CIoU) after 3 warm-up steps, 4 distinct
+    seeded batches in turn, with every launch counter set to 0 just before and
+    read just after (exactly 3 K1, 3 K1-backward, 10 K3 and 10 K3-backward
+    launches per step); every loss and gradient finite, parameters and EMA
+    moved;
+11. take one step from the same weights and batch at 320, batch 2, on the card
     and on the CPU (plain versions), with warmup off and ``nbs`` equal to the
-    batch, so that the step fires at once with the full LR of every group:
-    identical foreground count, losses within 1e-4 relative, every
-    parameter's gradient, momentum buffer (clipped gradient plus weight decay)
-    and update within 1e-3 relative L2 (an absolute floor of 1e-6 under a norm
-    of 1e-5; an update also gets one f32 spacing of each new parameter, since
-    each side rounds p + update once);
-11. build ``yolov8-C2f-VSS.yaml`` (n scale, nc=6: ten VSS blocks) on the card
+    batch, so that the step fires at once with the full LR of every group,
+    once with CIoU and once with the paper's recipe (Wise-IoU v3, NWD,
+    ``iou_ratio`` 0.5): identical foreground count, losses within 1e-4
+    relative, every parameter's gradient, momentum buffer (clipped gradient
+    plus weight decay) and update within 1e-3 relative L2 (an absolute floor
+    of 1e-6 under a norm of 1e-5; an update also gets one f32 spacing of each
+    new parameter, since each side rounds p + update once), and with the
+    recipe the new ``iou_mean`` within 1e-6 relative;
+12. build ``yolov8-C2f-VSS.yaml`` (n scale, nc=6: ten VSS blocks) on the card
     from the same seeds, SS2D's own init kept, and run phase 4's batch to
     take the selective-scan calls of every block as SS2D makes them: ten
     calls of K4, each covering a block's four scan directions (40 scans per
     forward) on two unreversed sequences, with the reverse flags, the
     direction-to-source index, and ``B`` and ``C`` as strided views;
-12. hold K4 against its plain version on one block's call at each of the
+13. hold K4 against its plain version on one block's call at each of the
     four pyramid levels (L = 25,600, 6,400, 1,600, 400), on random inputs of
     the same shapes and at a ragged L = 1,003 (``dt`` a softplus of a normal,
     ``A`` minus the exp of a normal and ``D`` per direction, two of four
@@ -72,17 +89,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     largest plain value; time one forward's ten calls (median of 20) and
     their plain versions (median of 3: each walks up to 25,600 steps in
     Python), and each level's call alone;
-13. serve 20 batches of 8 through ``DetectionPredictor`` on the VSS model, soft
+14. serve 20 batches of 8 through ``DetectionPredictor`` on the VSS model, soft
     then hard NMS, counters at 0 just before and read just after: exactly 10
-    K4 and 3 K1 launches per forward, 1 K2 per hard batch, no K3;
-14. run 2 images of that batch through the same weights on the CPU (plain
+    K4 and 3 K1 launches per forward, 1 K5 per soft batch, 1 K2 per hard
+    batch, no K3;
+15. run 2 images of that batch through the same weights on the CPU (plain
     versions) and compare raw maps and hard-NMS detections as phase 7 does;
-15. build ``yolov8.yaml`` and ``yolov8-ASF-P2P2.yaml`` (n scale) on the card and
+16. build ``yolov8.yaml`` and ``yolov8-ASF-P2P2.yaml`` (n scale) on the card and
     push one batch through each: finite raw maps of the expected shapes,
     strides 8/16/32 and 4/8/16;
-16. print a ``{"kernels": [...]}`` line for the six kernels, a ``{"served":
-    ...}``, a ``{"trained": ...}`` and a ``{"served_vss": ...}`` line, and last
-    ``{"ok": true, "device": {...}}``.
+17. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
+    ...}``, a ``{"served_vss": ...}`` and a ``{"validated": ...}`` line, then
+    the ``{"kernels": [...]}`` line for the seven kernels, the card's name and
+    power limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result without a CUDA device, or when the
 package is not beside it.
@@ -91,6 +110,7 @@ package is not beside it.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -127,6 +147,11 @@ DEPENDENT_OP_CLOCKS = 4
 IOU_OPS = 14  # 2 min, 2 max, 2 sub, 2 clamps, 3 mul/add/sub for inter and union, + eps, the division, the compare
 SMEM_ROUND_TRIP_CLOCKS = 30  # the earlier design's bound's assumption
 RAGGED_SCAN_LENGTH = 1003  # K4 also at a length that is no multiple of its chunk (48 here) or its 8-step tile
+VAL_BATCHES, VAL_CONF = 4, 0.001  # seeded labelled batches of the val phase; the validator's conf
+K5_RTOL = 1e-6  # K5 vs plain: kept scores' relative error (the same rounded operations: bit-equal expected)
+VAL_PROTOCOLS = {"soft-quirk": {"nms_type": "soft", "soft_nms_quirk": True},  # PARITY.md's protocol
+                 "hard": {"nms_type": "hard", "soft_nms_quirk": False}}
+RECIPE = {"use_wiseiou": True, "wiou_ltype": "WIoU", "nwd": True, "iou_ratio": 0.5}  # EXPERIMENTS.md's box loss
 
 
 def fail(msg: str) -> None:
@@ -194,8 +219,8 @@ def bound(nbytes: float, ops: float):
 
 def capture_inputs(model, x):
     """One forward on batch ``x``: the Detect maps, each LDConv's (source,
-    offsets, stride), and the hard-NMS candidates that the main path hands
-    to K1, K3 and K2."""
+    offsets, stride), and the NMS candidates that the serving path hands to
+    K1, K3 and K2 or K5."""
     import torch
 
     from experiment_yolo_torch.nn.modules import LDConv
@@ -210,8 +235,7 @@ def capture_inputs(model, x):
     for h in hooks:
         h.remove()
     boxes, scores = decode_detections(feats, model.stride, model.nc, model.reg_max)
-    cand = nms_candidates(boxes, scores, CONF)
-    return feats, ld, cand.shifted.contiguous(), cand.valid
+    return feats, ld, nms_candidates(boxes, scores, CONF)
 
 
 def check_k1(feats):
@@ -422,6 +446,176 @@ def check_k3(ld, rand_ld):
                 layers=layers)
 
 
+def k5_bound(out, k: int):
+    """(least ms, what bounds it, the two times) of soft-NMS on one batch whose
+    plain output is ``out`` (B, K): each image runs one step per kept box and
+    one more that does not keep (at most min(300, K)), and each step needs
+    ceil(log2 K) dependent compares for its argmax at 4 clocks each; the
+    busiest image bounds the batch. Its bytes (boxes, scores and flags read,
+    scores written: 25 per candidate) beside it."""
+    steps = int(((out > -1).sum(1) + 1).clamp(max=min(300, k)).max())
+    times = {"chain_ms": steps * math.ceil(math.log2(max(k, 2))) * DEPENDENT_OP_CLOCKS / SM_CLOCK_HZ * 1e3,
+             "bytes_ms": out.numel() * 25 / HBM_BYTES_PER_S * 1e3}
+    worst = max(times, key=times.get)
+    return times[worst], "operations" if worst == "chain_ms" else "bytes", times, steps
+
+
+def check_k5(pools, serve_pool):
+    """K5 against its plain version on the val batches' own pools
+    (``pools``: (label, args, kw) with args (boxes, scores, valid, iou_thres,
+    max_det)) and on made-up pools, each with and without the quirk:
+    identical kept sets, kept scores within K5_RTOL relative. Timed on the
+    first val pool, beside its bound; the serving path's pool (K = 1,024, one
+    label per anchor) timed too."""
+    import torch
+
+    from experiment_yolo_torch.ops.kernels.soft_nms import soft_nms, soft_nms_plain
+    from experiment_yolo_torch.utils.seeded import soft_nms_cases
+
+    def held(label, args, kw):
+        got, want = soft_nms(*args, **kw), soft_nms_plain(*args, **kw)
+        torch.cuda.synchronize()
+        kept = want > -1
+        check(bool(((got > -1) == kept).all()), f"K5 soft_nms: kept sets differ from its plain version on {label}")
+        rel = ((got - want).abs()[kept] / want[kept].abs()).max().item() if bool(kept.any()) else 0.0
+        check(rel <= K5_RTOL, f"K5 soft_nms: kept scores differ from its plain version by {rel} relative on {label}")
+        return {"K": args[0].shape[1], "images": args[0].shape[0], "kept": int(kept.sum()),
+                "valid": int(args[2].sum()), "max_abs_err": (got - want).abs().max().item(), "rel_err": rel,
+                "bit_equal": bool(torch.equal(got, want))}
+
+    main = {label: held(label, args, kw) for label, args, kw in pools}
+    made_up = {}
+    for label, (boxes, scores, valid, thr, first_idx, n_valid) in soft_nms_cases(SEED + 6, "cuda").items():
+        for quirk in (False, True):
+            kw = {"first_idx": first_idx, "n_valid": n_valid} if quirk else {}
+            row = held(f"the {label} case" + (" (quirk)" if quirk else ""), (boxes, scores, valid, thr, 300), kw)
+            row["device_ms"] = device_ms(lambda: soft_nms(boxes, scores, valid, thr, 300, **kw), "soft_nms_kernel")
+            made_up[label + (" quirk" if quirk else "")] = row
+    label, args, kw = pools[0]
+    ms = cuda_ms(lambda: soft_nms(*args, **kw))
+    dev_ms = device_ms(lambda: soft_nms(*args, **kw), "soft_nms_kernel")
+    out = soft_nms_plain(*args, **kw)
+    plain_ms = cuda_ms(lambda: soft_nms_plain(*args, **kw))
+    b_ms, b_by, parts, steps = k5_bound(out, args[0].shape[1])
+    s_out = soft_nms_plain(*serve_pool)
+    serve = {"K": serve_pool[0].shape[1], "kept": int((s_out > -1).sum()), "ms": cuda_ms(lambda: soft_nms(*serve_pool)),
+             "device_ms": device_ms(lambda: soft_nms(*serve_pool), "soft_nms_kernel"),
+             "plain_ms": cuda_ms(lambda: soft_nms_plain(*serve_pool)),
+             "bound_ms": k5_bound(s_out, serve_pool[0].shape[1])[0],
+             **{k: v for k, v in held("the serving pool", serve_pool, {}).items() if k in ("rel_err", "bit_equal")}}
+    rows = (*main.values(), *made_up.values())
+    err, rel = max(r["max_abs_err"] for r in rows), max(r["rel_err"] for r in rows)
+    return dict(name="soft_nms", route="cuda", source="experiment_yolo_torch/csrc/soft_nms.cu",
+                replaces="experiment_yolo_tpu/ops/nms.py:129", max_abs_err=err, rel_err=rel, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, timed_on=label,
+                bound_parts=parts, bound_steps=steps,
+                bound_assumption=f"the busiest image's {steps} steps (kept boxes and the one that stops), each "
+                                 f"ceil(log2 K) dependent compares at {DEPENDENT_OP_CLOCKS} clocks, "
+                                 f"{SM_CLOCK_HZ / 1e9} GHz; 25 bytes per candidate over HBM",
+                main_path_pools=main, made_up=made_up,
+                serving_pool=serve, library="none: no single PyTorch call computes soft-NMS")
+
+
+def val_batches(nc: int):
+    """VAL_BATCHES seeded labelled batches of BATCH at IMGSZ in the val
+    loader's format: letterboxed at gain 1 and no pad."""
+    import numpy as np
+
+    from experiment_yolo_torch.utils.seeded import seeded_batch
+
+    extra = {"ori_shape": np.full((BATCH, 2), IMGSZ, np.int32),
+             "ratio_pad": np.tile(np.float32([1.0, 0.0, 0.0]), (BATCH, 1))}
+    return [{**seeded_batch(BATCH, IMGSZ, SEED + 30 + i, nc=nc), **extra} for i in range(VAL_BATCHES)]
+
+
+def validate_timed(model, batches, counters, card):
+    """``DetectionValidator`` with soft-NMS in quirk mode and with hard NMS,
+    every launch counter at 0 just before each run and read just after; the
+    time of each batch is taken between the validator's requests for the
+    next one (forward, NMS, copy to the host, matching). Returns the results
+    per protocol and the launches of both runs."""
+    import torch
+
+    from experiment_yolo_torch import DetectionValidator
+
+    out, launches = {}, dict.fromkeys(counters, 0)
+    n = len(batches)
+    for label, args in VAL_PROTOCOLS.items():
+        validator = DetectionValidator(args)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        stamps = []
+
+        def timed():
+            for b in batches:
+                stamps.append(time.perf_counter())
+                yield b
+
+        stats = validator(model, timed(), model.names)
+        stamps.append(time.perf_counter())
+        run = {name: fn.launches for name, fn in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        want.update(dfl_decode=3 * n, ldconv_gather=10 * n)
+        want["soft_nms" if args["nms_type"] == "soft" else "nms_suppress"] = n
+        check(run == want, f"the {label} val main path launched {run}, expected {want}")
+        for name in launches:
+            launches[name] += run[name]
+        batch_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        median_ms = statistics.median(batch_ms)
+        out[label] = {"stats": stats, "batches": n, "batch_ms": batch_ms, "batch_ms_median": median_ms,
+                      "batch_ms_min": min(batch_ms), "batch_ms_max": max(batch_ms),
+                      "img_per_s_at_median": BATCH / median_ms * 1e3,
+                      "img_per_s_overall": n * BATCH / sum(batch_ms) * 1e3, "launches": run}
+        log(f"validated {CFG} {label}: {n} batches of {BATCH} at {IMGSZ}: median {median_ms:.2f} ms per batch (min "
+            f"{min(batch_ms):.2f}, max {max(batch_ms):.2f}), {out[label]['img_per_s_at_median']:.2f} img/s at the "
+            f"median, stats {stats}, launches {run}, {card}")
+    return out, launches
+
+
+def val_pools_and_plain_stats(model, batches):
+    """Each val batch's decoded maps once: its soft-NMS pools (multi-label,
+    K = 4,096 at conf 0.001, quirk on and off) for K5's check, and the
+    validator's soft-quirk stats with K5 and with the plain loop on those
+    same maps, which must be equal."""
+    import torch
+
+    import experiment_yolo_torch.ops.nms as nms
+    from experiment_yolo_torch import DetectionValidator
+    from experiment_yolo_torch.engine.validator import VAL_PRE_NMS_TOPK
+    from experiment_yolo_torch.ops.kernels.soft_nms import soft_nms, soft_nms_plain
+    from experiment_yolo_torch.utils.metrics import DetMetrics
+
+    validator = DetectionValidator({**VAL_PROTOCOLS["soft-quirk"], "verbose": False})
+    metrics = {"kernel": DetMetrics(), "plain": DetMetrics()}
+    counts = {"kernel": [], "plain": []}
+    pools = []
+    for i, b in enumerate(batches):
+        with torch.no_grad():
+            x = (torch.from_numpy(b["img"]).cuda().permute(0, 3, 1, 2).float() / 255.0).contiguous()  # as infer does
+            boxes, scores = model.predict(x)
+        for kind, fn in (("kernel", soft_nms), ("plain", soft_nms_plain)):
+            nms.soft_nms = fn
+            try:
+                det, n = (t.cpu().numpy() for t in validator.nms(boxes, scores))
+            finally:
+                nms.soft_nms = soft_nms
+            validator.score_batch(metrics[kind], det, n, b)
+            counts[kind] += n.tolist()
+        for quirk in (True, False):
+            c = nms.nms_candidates(boxes, scores, VAL_CONF, first_box=quirk, multi_label=True,
+                                   pre_nms_topk=VAL_PRE_NMS_TOPK)
+            kw = {"first_idx": c.first_idx, "n_valid": c.n_valid} if quirk else {}
+            pools.append((f"val batch {i}" + (" quirk" if quirk else ""),
+                          (c.shifted.contiguous(), c.scores.contiguous(), c.valid, IOU, 300), kw))
+    stats = {kind: m.result() for kind, m in metrics.items()}
+    check(counts["kernel"] == counts["plain"], f"val detections per image with K5 {counts['kernel']}, plain loop "
+                                               f"{counts['plain']}")
+    check(stats["kernel"] == stats["plain"], f"val stats with K5 {stats['kernel']} != plain loop {stats['plain']}")
+    return pools, {"stats_with_k5": stats["kernel"], "stats_with_plain_loop": stats["plain"],
+                   "detections_per_image": counts["kernel"]}
+
+
 def capture_train_inputs(trainer, batch):
     """One training step with hooks on the two differentiable kernels: each
     LDConv's (source, offsets, stride, incoming gradient) and each level's
@@ -609,10 +803,12 @@ def train_timed(trainer, batches, counters):
     return step_ms, launches, {k: v.item() for k, v in comps.items()}, moved, ema_moved
 
 
-def compare_train_cpu(state_dict, batch):
+def compare_train_cpu(state_dict, batch, recipe=None):
     """One step from the same weights and batch on the card and on the CPU.
     Warmup is off and ``nbs`` is the batch, so the step fires at once and
-    every group, the weight group with its decay included, moves at lr0."""
+    every group, the weight group with its decay included, moves at lr0.
+    ``recipe``: loss switches (Wise-IoU, NWD); then the new ``iou_mean`` is
+    held too."""
     import numpy as np
     import torch
 
@@ -625,13 +821,13 @@ def compare_train_cpu(state_dict, batch):
         model.load_state_dict(state_dict, strict=True)
         before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
         trainer = DetectionTrainer(model, {"amp": False, "batch": CMP_BATCH, "imgsz": CMP_IMGSZ, "nbs": CMP_BATCH,
-                                           "warmup_epochs": 0.0})
+                                           "warmup_epochs": 0.0, **(recipe or {})})
         opt = trainer.state.optimizer
         lrs = opt.schedules()
         comps = trainer.train_step(batch)
         check(opt.updates == 1 and min(lrs[:2]) > 0, f"{dev}: the compared step fired {opt.updates} updates at "
                                                      f"(lr, bias lr, momentum) {lrs}: expected 1 with both LRs > 0")
-        out[dev] = dict(comps={k: v.item() for k, v in comps.items()}, lrs=lrs,
+        out[dev] = dict(comps={k: v.item() for k, v in comps.items()}, lrs=lrs, iou_mean=trainer.state.iou_mean.item(),
                         grads={n: p.grad.cpu() for n, p in model.named_parameters()},
                         momentum={n: opt.state[p]["momentum_buffer"].cpu() for n, p in model.named_parameters()},
                         after={n: p.detach().cpu() for n, p in model.named_parameters()},
@@ -663,7 +859,13 @@ def compare_train_cpu(state_dict, batch):
     spacing = {n: float(np.linalg.norm(np.spacing(p.numpy()))) for n, p in cpu["after"].items()}
     upd_rel, bad = worst(gpu["updates"], cpu["updates"], spacing)
     check(not bad, f"parameter updates differ from the CPU's beyond 1e-3 relative L2: {bad[:5]}")
-    return {"imgsz": CMP_IMGSZ, "batch": CMP_BATCH, "lr_bias_lr_momentum": gpu["lrs"], "fg": gpu["comps"]["fg"],
+    iou_rel = abs(gpu["iou_mean"] - cpu["iou_mean"]) / abs(cpu["iou_mean"])
+    if recipe:
+        check(iou_rel <= 1e-6 and cpu["iou_mean"] != 1.0, f"iou_mean {gpu['iou_mean']} on the card, {cpu['iou_mean']} "
+                                                          "on the CPU: not within 1e-6 relative, or it did not move")
+    return {"imgsz": CMP_IMGSZ, "batch": CMP_BATCH, "loss_switches": recipe or "CIoU",
+            "lr_bias_lr_momentum": gpu["lrs"], "fg": gpu["comps"]["fg"],
+            "iou_mean_card": gpu["iou_mean"], "iou_mean_cpu": cpu["iou_mean"], "iou_mean_rel_err": iou_rel,
             "loss_max_rel_err": loss_rel, "grad_max_rel_l2": grad_rel, "momentum_max_rel_l2": mom_rel,
             "update_max_rel_l2": upd_rel,
             "loss_card": {k: gpu["comps"][k] for k in ("box", "cls", "dfl")},
@@ -827,6 +1029,7 @@ def serve_timed(model, images, counters, per_forward, card, label):
         run = {name: fn.launches for name, fn in counters.items()}
         want = {name: per_forward.get(name, 0) * SERVE_BATCHES for name in counters}
         want["nms_suppress"] = SERVE_BATCHES if nms_type == "hard" else 0
+        want["soft_nms"] = SERVE_BATCHES if nms_type == "soft" else 0
         check(run == want, f"{label} {nms_type} NMS main path launched {run}, expected {want}")
         for name in launches:
             launches[name] += run[name]
@@ -917,14 +1120,15 @@ def main() -> None:
     from experiment_yolo_torch import DetectionModel
     from experiment_yolo_torch.data.augment import letterbox
     from experiment_yolo_torch.engine.trainer import DetectionTrainer
-    from experiment_yolo_torch.ops.kernels import _build, dfl_decode, ldconv_gather, nms_suppress, selective_scan
+    from experiment_yolo_torch.ops.kernels import (_build, dfl_decode, ldconv_gather, nms_suppress, selective_scan,
+                                                   soft_nms)
     from experiment_yolo_torch.utils.seeded import he_normal_, seeded_batch, seeded_images
 
     check(Path(experiment_yolo_torch.__file__).resolve() == pkg.resolve(), "imported a package other than the checkout's")
     counters = {"dfl_decode": dfl_decode.dfl_decode, "dfl_decode_bwd": dfl_decode.dfl_decode_bwd,
                 "nms_suppress": nms_suppress.nms_suppress, "ldconv_gather": ldconv_gather.ldconv_gather,
                 "ldconv_gather_bwd": ldconv_gather.ldconv_gather_bwd,
-                "selective_scan": selective_scan.selective_scan}
+                "selective_scan": selective_scan.selective_scan, "soft_nms": soft_nms.soft_nms}
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -963,12 +1167,12 @@ def main() -> None:
     images = seeded_images(N_IMAGES, SEED)
     lb = np.stack([letterbox(img, IMGSZ)[0][..., ::-1] for img in images[:BATCH]])
     x = (torch.from_numpy(np.ascontiguousarray(lb)).cuda().permute(0, 3, 1, 2).float() / 255.0).contiguous()
-    feats, ld, shifted, valid = capture_inputs(model, x)
+    feats, ld, cand = capture_inputs(model, x)
     check(len(ld) == 10, f"expected 10 LDConv layers on the path, found {len(ld)}")
 
     # 5. each kernel against its plain version, and timed
     rand_ld = random_offsets(ld)
-    kernels = [check_k1(feats), check_k2(shifted, valid), check_k3(ld, rand_ld)]
+    kernels = [check_k1(feats), check_k2(cand.shifted.contiguous(), cand.valid), check_k3(ld, rand_ld)]
     for k in kernels:
         log(f"{k['name']}: max abs err {k['max_abs_err']}, kernel {k['ms']:.4f} ms (device {k['device_ms']} ms), "
             f"plain {k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound {k['bound_ms']:.4f} ms "
@@ -988,7 +1192,25 @@ def main() -> None:
     compare = compare_serving_cpu(CFG, model, x)
     log(f"CPU comparison: {json.dumps(compare)}")
 
-    # 8. the backward kernels on one training step's inputs
+    # 8. the val main path: DetectionValidator, soft-NMS in quirk mode then hard; K5 against its plain version
+    vbatches = val_batches(model.nc)
+    validated, run = validate_timed(model, vbatches, counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    pools, validated["k5_vs_plain_loop"] = val_pools_and_plain_stats(model, vbatches)
+    # the serving path's soft-NMS pool (the predictor's defaults: no quirk)
+    k5 = check_k5(pools, (cand.shifted.contiguous(), cand.scores.contiguous(), cand.valid, IOU, 300))
+    del pools, cand
+    log(f"soft_nms: max abs err {k5['max_abs_err']} ({k5['rel_err']} relative on kept scores), kernel "
+        f"{k5['ms']:.4f} ms (device {k5['device_ms']} ms) on {k5['timed_on']}, plain {k5['plain_ms']:.4f} ms, "
+        f"library none, bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}: {k5['bound_assumption']}: "
+        f"{k5['bound_parts']})")
+    log(f"  K5 val stats with K5 and with the plain loop: {json.dumps(validated['k5_vs_plain_loop'])}")
+    for label, row in (*k5["main_path_pools"].items(), *k5["made_up"].items()):
+        log(f"  K5 {label}: {row}")
+    log(f"  K5 serving pool: {k5['serving_pool']}")
+
+    # 9. the backward kernels on one training step's inputs
     trainer = DetectionTrainer(model, {"amp": False, "batch": BATCH, "imgsz": IMGSZ})
     batches = [seeded_batch(BATCH, IMGSZ, SEED + 10 + i, nc=model.nc) for i in range(TRAIN_BATCHES)]
     ld_train, levels = capture_train_inputs(trainer, batches[0])
@@ -1004,10 +1226,11 @@ def main() -> None:
         log(f"  K3 bwd layer {row}")
     kernels = [kernels[0], bwd[0], kernels[1], kernels[2], bwd[1]]
 
-    # 9. the training main path: DetectionTrainer.train_step, one batch per call
+    # 10. the training main path: DetectionTrainer.train_step, one batch per call
     step_ms, run, last, moved, ema_moved = train_timed(trainer, batches, counters)
     want = {"dfl_decode": 3 * TRAIN_STEPS, "dfl_decode_bwd": 3 * TRAIN_STEPS, "nms_suppress": 0,
-            "ldconv_gather": 10 * TRAIN_STEPS, "ldconv_gather_bwd": 10 * TRAIN_STEPS, "selective_scan": 0}
+            "ldconv_gather": 10 * TRAIN_STEPS, "ldconv_gather_bwd": 10 * TRAIN_STEPS, "selective_scan": 0,
+            "soft_nms": 0}
     check(run == want, f"the training steps launched {run}, expected {want}")
     for name in launches:
         launches[name] += run[name]
@@ -1023,19 +1246,22 @@ def main() -> None:
         f"{min(step_ms):.2f}, max {max(step_ms):.2f}), {trained['img_per_s_at_median']:.2f} img/s at the median, "
         f"launches {run}, {opt.updates} updates over {trainer.state.step} micro-batches, {card}")
 
-    # 10. one training step on the card and on the CPU, same weights and batch
+    # 11. one training step on the card and on the CPU, same weights and batch, CIoU and the paper's recipe
     cmp_batch = seeded_batch(CMP_BATCH, CMP_IMGSZ, SEED + 20, nc=model.nc)
-    trained["cpu_comparison"] = compare_train_cpu({k: v.cpu() for k, v in model.state_dict().items()}, cmp_batch)
+    cmp_state = {k: v.cpu() for k, v in model.state_dict().items()}
+    trained["cpu_comparison"] = compare_train_cpu(cmp_state, cmp_batch)
     log(f"training CPU comparison: {json.dumps(trained['cpu_comparison'])}")
+    trained["cpu_comparison_recipe"] = compare_train_cpu(cmp_state, cmp_batch, RECIPE)
+    log(f"training CPU comparison with the recipe: {json.dumps(trained['cpu_comparison_recipe'])}")
     del trainer, model, ld, ld_train, rand_ld, levels, feats
     torch.cuda.empty_cache()
 
-    # 11. the VSS detector and the scan inputs of one forward
+    # 12. the VSS detector and the scan inputs of one forward
     vss = seeded_model(VSS_CFG)
     _, calls = capture_scan_inputs(vss, x)
     check(len(calls) == 10, f"expected 10 VSS blocks on the path, found {len(calls)} scan calls")
 
-    # 12. K4 against its plain version, and timed
+    # 13. K4 against its plain version, and timed
     k4 = check_k4(calls)
     del calls
     log(f"selective_scan: max abs err {k4['max_abs_err']} ({k4['rel_err']} of a direction's largest plain value), "
@@ -1045,19 +1271,19 @@ def main() -> None:
     for row in k4["levels"]:
         log(f"  K4 level {row}")
     log(f"  K4 ragged {k4['ragged']}")
-    kernels.append(k4)
+    kernels += [k4, k5]
 
-    # 13. the VSS main path: DetectionPredictor, soft then hard NMS
+    # 14. the VSS main path: DetectionPredictor, soft then hard NMS
     served_vss, run = serve_timed(vss, images, counters, {"dfl_decode": len(vss.stride),
                                                           "selective_scan": k4["launches_per_forward"]}, card, VSS_CFG)
     for name in launches:
         launches[name] += run[name]
-    # 14. a smaller batch through the same weights on the CPU, plain versions only
+    # 15. a smaller batch through the same weights on the CPU, plain versions only
     compare_vss = compare_serving_cpu(VSS_CFG, vss, x[:VSS_CMP_BATCH])
     log(f"VSS CPU comparison: {json.dumps(compare_vss)}")
     del vss
 
-    # 15. the plain-Conv configs: one batch each
+    # 16. the plain-Conv configs: one batch each
     plain_conv = {}
     for cfg, strides in PLAIN_CONV_CFGS.items():
         m = seeded_model(cfg)
@@ -1071,14 +1297,13 @@ def main() -> None:
                            "map_abs_max": max(f.abs().max().item() for f in maps)}
     log(f"plain-Conv configs: {json.dumps(plain_conv)}")
 
-    # 16. the result lines
+    # 17. the result lines
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["kernel_ms"] = k["ms"]
         check(k["launches"] > 0, f"{k['name']} was launched no time on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "kernel_ms", "device_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(json.dumps({"kernel_detail": [{k: v for k, v in kern.items() if k not in keys or k == "name"}
                                       for kern in kernels]}))
     log(json.dumps({"served": served, "cpu_comparison": compare, "imgsz": IMGSZ, "batch": BATCH, "dtype": "float32",
@@ -1086,6 +1311,10 @@ def main() -> None:
     log(json.dumps({"trained": trained, "card": card}))
     log(json.dumps({"served_vss": served_vss, "cpu_comparison": compare_vss, "plain_conv_configs": plain_conv,
                     "cfg": VSS_CFG, "imgsz": IMGSZ, "batch": BATCH, "dtype": "float32", "card": card}))
+    log(json.dumps({"validated": validated, "cfg": CFG, "imgsz": IMGSZ, "batch": BATCH, "conf": VAL_CONF,
+                    "dtype": "float32", "card": card}))
+    # last of the long lines, so that a reader of the output's tail gets it whole
+    log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"card: {card}")
     log(f"total seconds after the card check: {time.perf_counter() - t0:.1f}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 """Batched fixed-shape non-maximum suppression.
 
-Port of ``experiment_yolo_tpu/ops/nms.py:non_max_suppression`` on its
-predict-path settings (one label per anchor): a top-k pre-filter over each
-anchor's best class, the class-offset trick, then greedy hard NMS (kernel K2
-on the card) or the reference fork's Gaussian soft-NMS, packed into a fixed
-(B, max_det, 6) [x1, y1, x2, y2, conf, cls] plus per-image counts.
+Port of ``experiment_yolo_tpu/ops/nms.py:non_max_suppression`` for xywh
+boxes: a top-k pre-filter, over each anchor's best class (one label per
+anchor, the predictor's setting) or over every (anchor, class) score
+(``multi_label``, the validator's), the class-offset trick, then greedy hard
+NMS (kernel K2 on the card) or the reference fork's Gaussian soft-NMS (kernel
+K5), packed into a fixed (B, max_det, 6) [x1, y1, x2, y2, conf, cls] plus
+per-image counts.
 
 Ties in every top-k break toward the lower index, as ``jax.lax.top_k`` does,
 so the port keeps the JAX package's candidate order exactly.
@@ -16,56 +18,17 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from experiment_yolo_torch.ops.boxes import box_iou, xywh2xyxy
+from experiment_yolo_torch.ops.boxes import xywh2xyxy
 from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress
+from experiment_yolo_torch.ops.kernels.soft_nms import soft_nms
 
-_PRE_NMS_TOPK = 1024  # candidates kept per image before NMS
 _MAX_WH = 7680.0  # class offset of the boxes, so classes never overlap
-_SIGMA = 0.5  # soft-NMS Gaussian decay exp(-iou^2 / sigma)
-_SOFT_SCORE_THRESHOLD = 0.25  # soft-NMS keeps while the best live score exceeds this, whatever conf is
-_EARLY_EXIT_EVERY = 16  # soft-NMS steps between checks that any image still keeps boxes
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Largest k along the last dim, ties to the lower index."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
-
-
-def _soft_nms_keep(shifted: torch.Tensor, cand_scores: torch.Tensor, valid: torch.Tensor, iou_thres: float,
-                   max_det: int, first_idx: Optional[torch.Tensor] = None, n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Gaussian soft-NMS over (B, K) score-sorted candidates -> per-candidate
-    output scores (decayed; -1 where not kept).
-
-    Each step takes the best live box, decays by exp(-iou^2 / sigma) every live
-    score whose IoU with it exceeds ``iou_thres``, and stops keeping once the
-    best live score falls to 0.25 (the fork's threshold, whatever ``conf``
-    is). With ``first_idx``/``n_valid`` set it reproduces the fork's
-    quirks: the first box kept is the first in anchor order, and a step keeps
-    only while at least two boxes survive, so the last lone survivor is dropped.
-    Once no image keeps a box, no later step can: the loop then ends early.
-    """
-    b, k = cand_scores.shape
-    rows = torch.arange(b, device=cand_scores.device)
-    live = torch.where(valid, cand_scores, torch.full_like(cand_scores, -1.0))
-    out = torch.full_like(cand_scores, -1.0)
-    for t in range(min(max_det, k)):
-        if first_idx is not None:
-            i = first_idx if t == 0 else live.argmax(-1)
-            m = n_valid if t == 0 else (live > _SOFT_SCORE_THRESHOLD).sum(-1)
-            cond = m >= 2
-        else:
-            i = live.argmax(-1)
-            cond = live[rows, i] > _SOFT_SCORE_THRESHOLD
-        si = live[rows, i]
-        iou = box_iou(shifted[rows, i][:, None], shifted)[:, 0]  # (B, K)
-        decay = torch.where(iou > iou_thres, torch.exp(-(iou ** 2) / _SIGMA), torch.ones_like(iou))
-        live = torch.where(cond[:, None], live * decay, live)
-        live[rows, i] = -1.0
-        out[rows, i] = torch.where(cond, si, out[rows, i])
-        if t % _EARLY_EXIT_EVERY == _EARLY_EXIT_EVERY - 1 and not bool(cond.any()):
-            break
-    return out
 
 
 def _pack(cand_boxes, cand_cls, keep_scores, conf_thres: float, max_det: int):
@@ -97,53 +60,64 @@ class Candidates(NamedTuple):
 
 
 def nms_candidates(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25, agnostic: bool = False,
-                   first_box: bool = False) -> Candidates:
-    """The top-k pre-filter over each anchor's best class and the class-offset
-    trick on xywh boxes; ``first_box`` adds the soft-NMS quirk's first box in
-    anchor order."""
+                   first_box: bool = False, multi_label: bool = False, pre_nms_topk: int = 1024) -> Candidates:
+    """The top-k pre-filter and the class-offset trick on xywh boxes (B, A, 4)
+    and scores (B, A, nc). The pool is the ``pre_nms_topk`` best of each
+    anchor's best class, or with ``multi_label`` of every (anchor, class)
+    score (flat index ``anchor * nc + class``). ``first_box`` adds the
+    soft-NMS quirk's first box: the lowest conf-passing index of that array."""
     boxes, scores = xywh2xyxy(boxes.float()), scores.float()
-    b, a, _ = boxes.shape
-    k = min(_PRE_NMS_TOPK, a)
-    best_scores, best_cls = scores.max(-1)
-    best_cls = best_cls.float()
-    cand_scores, cand_anchor = _top_k(best_scores, k)
+    b, a, nc = scores.shape
+    if multi_label:
+        pool = scores.reshape(b, a * nc)
+    else:
+        pool, best_cls = scores.max(-1)
+    k = min(pre_nms_topk, pool.shape[1])
+    cand_scores, cand_idx = _top_k(pool, k)
     first_idx = n_valid = None
     if first_box:
-        # the fork keeps its first box in anchor order, the lowest conf-passing
-        # anchor; if the top-k pool misses it, it takes the last slot
-        vfirst = best_scores > conf_thres
+        # the fork keeps its first box in array order, the lowest conf-passing
+        # index; if the top-k pool misses it, it takes the last slot
+        vfirst = pool > conf_thres
         n_valid = vfirst.sum(-1)
-        first_anchor = vfirst.int().argmax(-1)
-        present = (cand_anchor == first_anchor[:, None]).any(-1)
-        cand_anchor[:, -1] = torch.where(present, cand_anchor[:, -1], first_anchor)
-        cand_scores[:, -1] = torch.where(present, cand_scores[:, -1],
-                                         best_scores.gather(1, first_anchor[:, None])[:, 0])
-        first_idx = (cand_anchor == first_anchor[:, None]).int().argmax(-1)
+        first = vfirst.int().argmax(-1)
+        present = (cand_idx == first[:, None]).any(-1)
+        cand_idx[:, -1] = torch.where(present, cand_idx[:, -1], first)
+        cand_scores[:, -1] = torch.where(present, cand_scores[:, -1], pool.gather(1, first[:, None])[:, 0])
+        first_idx = (cand_idx == first[:, None]).int().argmax(-1)
+    if multi_label:
+        cand_anchor, cand_cls = cand_idx // nc, (cand_idx % nc).float()
+    else:
+        cand_anchor, cand_cls = cand_idx, torch.gather(best_cls.float(), 1, cand_idx)
     cand_boxes = torch.gather(boxes, 1, cand_anchor[..., None].expand(b, k, 4))
-    cand_cls = torch.gather(best_cls, 1, cand_anchor)
     shifted = cand_boxes if agnostic else cand_boxes + (cand_cls * _MAX_WH)[..., None]
     return Candidates(cand_boxes, cand_cls, cand_scores, shifted, cand_scores > conf_thres, first_idx, n_valid)
 
 
 def non_max_suppression(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25,
                         iou_thres: float = 0.7, max_det: int = 300, agnostic: bool = False,
-                        nms_type: str = "hard", soft_first_quirk: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                        nms_type: str = "hard", soft_first_quirk: bool = False, multi_label: bool = False,
+                        pre_nms_topk: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched NMS: xywh boxes (B, A, 4) in input pixels and sigmoid scores
     (B, A, nc) -> detections (B, max_det, 6) [x1, y1, x2, y2, conf, cls],
-    zero-padded, and counts (B,) int32. Each image keeps its 1024 best
-    anchors before NMS.
+    zero-padded, and counts (B,) int32. Each image keeps its
+    ``pre_nms_topk`` best anchors (or, with ``multi_label``, (anchor, class)
+    pairs) before NMS.
 
     ``nms_type='hard'`` is greedy suppression (kernel K2 on the card);
-    ``'soft'`` is the fork's Gaussian soft-NMS, and ``soft_first_quirk`` its
-    exact protocol (see :func:`_soft_nms_keep`).
+    ``'soft'`` is the fork's Gaussian soft-NMS (kernel K5 on the card), and
+    ``soft_first_quirk`` its exact protocol (see
+    :func:`~experiment_yolo_torch.ops.kernels.soft_nms.soft_nms_plain`).
     """
     if nms_type not in ("hard", "soft"):
         raise ValueError(f"nms_type={nms_type!r}: expected 'hard' or 'soft'")
-    c = nms_candidates(boxes, scores, conf_thres, agnostic, first_box=nms_type == "soft" and soft_first_quirk)
+    c = nms_candidates(boxes, scores, conf_thres, agnostic, first_box=nms_type == "soft" and soft_first_quirk,
+                       multi_label=multi_label, pre_nms_topk=pre_nms_topk)
+    shifted = c.shifted.contiguous()
     if nms_type == "soft":
-        keep_scores = _soft_nms_keep(c.shifted, c.scores, c.valid, iou_thres, max_det,
-                                     first_idx=c.first_idx, n_valid=c.n_valid)
+        keep_scores = soft_nms(shifted, c.scores.contiguous(), c.valid.contiguous(), iou_thres, max_det,
+                               first_idx=c.first_idx, n_valid=c.n_valid)
     else:
-        keep = nms_suppress(c.shifted.contiguous(), c.valid, iou_thres)
+        keep = nms_suppress(shifted, c.valid, iou_thres)
         keep_scores = torch.where(keep, c.scores, torch.full_like(c.scores, -1.0))
     return _pack(c.boxes, c.cls, keep_scores, conf_thres, max_det)

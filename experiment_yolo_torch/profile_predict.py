@@ -31,7 +31,8 @@ from experiment_yolo_torch.utils.seeded import he_normal_, seeded_images
 
 BATCHES, BATCH, IMGSZ, SEED = 4, 8, 640, 0
 KERNELS = {"dfl_decode_kernel": "K1 dfl_decode", "nms_suppress_kernel": "K2 nms_suppress",
-           "ldconv_gather_kernel": "K3 ldconv_gather", "selective_scan_kernel": "K4 selective_scan"}
+           "ldconv_gather_kernel": "K3 ldconv_gather", "selective_scan_kernel": "K4 selective_scan",
+           "soft_nms_kernel": "K5 soft_nms"}
 CONV_WORDS = ("conv", "xmma", "cudnn", "implicit", "fprop", "winograd", "fft")
 GEMM_WORDS = ("gemm", "cutlass")
 

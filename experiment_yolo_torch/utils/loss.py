@@ -1,27 +1,30 @@
-"""Detection loss: the anchor-free v8 loss with the default switches.
+"""Detection loss: the anchor-free v8 loss and the paper's box-loss recipe.
 
 Port of ``experiment_yolo_tpu/utils/loss.py`` (``LossConfig``, ``_df_loss``,
-``_bce_sum``, ``_cls_loss``, ``_box_dfl_losses``, ``_per_level_decode``,
-``detection_loss``) for its default configuration: TAL assignment, BCE class
-loss, CIoU box loss and the distribution focal loss, with the box half of
-each head map decoded per level by kernel K1 straight from the NCHW map.
+``_bce_sum``, ``_cls_loss``, ``_box_dfl_losses``, ``_masked_wise_iou``,
+``_plain_iou_loss``, ``_per_level_decode``, ``detection_loss``): TAL
+assignment, BCE class loss, CIoU or Wise-IoU v3 box loss (with the NWD blend
+on request) and the distribution focal loss, with the box half of each head
+map decoded per level by kernel K1 straight from the NCHW map.
 
-    per-level DFL decode (K1) -> TAL assign (no gradient) -> BCE cls + CIoU box + DFL
+    per-level DFL decode (K1) -> TAL assign (no gradient) -> BCE cls + (W/C)IoU [+ NWD] box + DFL
 
-The other switches of the JAX ``LossConfig`` (Wise-IoU, NWD, the IoU and
-class-loss zoos, ATSS) raise ``NotImplementedError``.
+Wise-IoU keeps a running mean of 1 - IoU over foreground anchors, which the
+caller threads from step to step. The JAX ``LossConfig``'s other switches
+(the rest of the IoU zoo, Inner- and Focaler-IoU, the class-loss zoo, ATSS)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from experiment_yolo_torch.ops.anchors import bbox2dist, dist2bbox, make_anchors
-from experiment_yolo_torch.ops.boxes import bbox_iou, xywh2xyxy
+from experiment_yolo_torch.ops.boxes import WIOU_MOMENTUM, bbox_iou, wasserstein_similarity, wise_iou_loss, xywh2xyxy
 from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode
 from experiment_yolo_torch.utils import tal
 
@@ -30,7 +33,10 @@ from experiment_yolo_torch.utils import tal
 class LossConfig:
     """Loss hyperparameters (gains as in ``cfg/default.yaml``: box/cls/dfl).
 
-    The JAX package's other switches are accepted at their defaults only.
+    ``use_wiseiou`` takes Wise-IoU v3 (``wiou_ltype='WIoU'``) for the box
+    loss in place of CIoU; ``nwd`` blends in the NWD loss as ``iou_ratio *
+    iou + (1 - iou_ratio) * nwd``. The JAX package's other switches are
+    accepted at their defaults only.
     """
 
     nc: int = 80
@@ -42,20 +48,25 @@ class LossConfig:
     tal_alpha: float = 0.5
     tal_beta: float = 6.0
     use_wiseiou: bool = False
+    wiou_ltype: str = "WIoU"
     nwd: bool = False
+    iou_ratio: float = 0.5
     iou_type: str = "CIoU"
+    inner_iou: bool = False
+    focaler_iou: bool = False
     cls_loss: str = "bce"
     assigner: str = "tal"
 
     def __post_init__(self):
-        unported = {"use_wiseiou": self.use_wiseiou, "nwd": self.nwd, "iou_type": self.iou_type != "CIoU",
+        unported = {"wiou_ltype": self.wiou_ltype != "WIoU", "iou_type": self.iou_type != "CIoU",
+                    "inner_iou": self.inner_iou, "focaler_iou": self.focaler_iou,
                     "cls_loss": self.cls_loss != "bce", "assigner": self.assigner != "tal"}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
                 f"LossConfig {', '.join(f'{k}={getattr(self, k)!r}' for k in bad)} is not ported to "
-                "experiment_yolo_torch; the port has the default loss (TAL, BCE, CIoU, DFL): see ROADMAP.md "
-                "queue 1 item 8")
+                "experiment_yolo_torch; the port has TAL, BCE, CIoU or WIoU v3 with the NWD blend, and DFL: see "
+                "ROADMAP.md queue 1 item 2 for the rest of the IoU zoo")
 
 
 def df_loss(pred_dist: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -88,12 +99,48 @@ def per_level_decode(feats: Sequence[torch.Tensor], anchor_points: torch.Tensor,
     return torch.cat(parts, 1)
 
 
+def _plain_iou_loss(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """1 - IoU of xyxy boxes (..., 4) -> (...,), the JAX package's float order."""
+    lt = torch.maximum(pred[..., :2], target[..., :2])
+    rb = torch.minimum(pred[..., 2:4], target[..., 2:4])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    wp = (pred[..., 2:4] - pred[..., :2]).clamp(min=0)
+    wt = (target[..., 2:4] - target[..., :2]).clamp(min=0)
+    return 1.0 - inter / (wp[..., 0] * wp[..., 1] + wt[..., 0] * wt[..., 1] - inter + eps)
+
+
+def _masked_wise_iou(pred: torch.Tensor, target: torch.Tensor, fg_mask: torch.Tensor,
+                     iou_mean: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Wise-IoU v3 of every anchor, focused by the running ``iou_mean``, zero
+    off the foreground, and the new running mean, taken over the foreground
+    anchors only (the reference's subset; ``max(fg, 1)`` guards an empty one)."""
+    loss, _ = wise_iou_loss(pred, target, iou_mean)
+    with torch.no_grad():
+        fg_mean = torch.where(fg_mask, _plain_iou_loss(pred, target), 0.0).sum() / fg_mask.sum().clamp(min=1)
+        new_mean = iou_mean * (1 - WIOU_MOMENTUM) + WIOU_MOMENTUM * fg_mean
+    return torch.where(fg_mask, loss, 0.0), new_mean
+
+
 def _box_dfl_losses(pred_maps: List[torch.Tensor], pred_bboxes: torch.Tensor, anchor_points: torch.Tensor,
                     target_bboxes: torch.Tensor, fg_mask: torch.Tensor, weight: torch.Tensor,
-                    target_scores_sum: torch.Tensor, reg_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """CIoU box loss and DFL loss, weighted by target score."""
-    iou = bbox_iou(pred_bboxes, target_bboxes)[..., 0]
-    loss_iou = (torch.where(fg_mask, 1.0 - iou, 0.0) * weight).sum() / target_scores_sum
+                    target_scores_sum: torch.Tensor, iou_mean: torch.Tensor,
+                    cfg: LossConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(W/C)IoU box loss (with the NWD blend) and DFL loss, weighted by target
+    score, and the new Wise-IoU running mean (``iou_mean`` itself without
+    Wise-IoU)."""
+    reg_max = cfg.reg_max
+    if cfg.use_wiseiou:
+        wiou, new_iou_mean = _masked_wise_iou(pred_bboxes, target_bboxes, fg_mask, iou_mean)
+        loss_iou = (wiou * weight).sum() / target_scores_sum
+    else:
+        iou = bbox_iou(pred_bboxes, target_bboxes)[..., 0]
+        loss_iou = (torch.where(fg_mask, 1.0 - iou, 0.0) * weight).sum() / target_scores_sum
+        new_iou_mean = iou_mean
+    if cfg.nwd:
+        nwd = wasserstein_similarity(pred_bboxes, target_bboxes)[..., 0]
+        nwd_loss = (torch.where(fg_mask, 1.0 - nwd, 0.0) * weight).sum() / target_scores_sum
+        loss_iou = cfg.iou_ratio * loss_iou + (1.0 - cfg.iou_ratio) * nwd_loss
 
     target_ltrb = bbox2dist(anchor_points[None], target_bboxes, reg_max)  # (B, A, 4)
     parts, start = [], 0
@@ -104,17 +151,21 @@ def _box_dfl_losses(pred_maps: List[torch.Tensor], pred_bboxes: torch.Tensor, an
         start += h * w
     dfl = torch.cat(parts, 1)  # (B, A)
     loss_dfl = (torch.where(fg_mask, dfl, 0.0) * weight).sum() / target_scores_sum
-    return loss_iou, loss_dfl
+    return loss_iou, loss_dfl, new_iou_mean
 
 
 def detection_loss(feats: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor], strides: Sequence[int],
-                   cfg: LossConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], tal.AssignResult]:
-    """(total, components, assignment) of raw Detect maps [(B, 4*reg_max + nc, H, W)].
+                   cfg: LossConfig, iou_mean: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], tal.AssignResult, torch.Tensor]:
+    """(total, components, assignment, new iou_mean) of raw Detect maps
+    [(B, 4*reg_max + nc, H, W)].
 
     ``batch`` holds ``bboxes`` (B, M, 4) normalised xywh, ``cls`` (B, M) and
     ``mask`` (B, M). Components are ``box``, ``cls`` and ``dfl``, each times
     its gain; the total is their sum times the batch size, the scale of the
-    reference's ``loss.sum() * batch_size``.
+    reference's ``loss.sum() * batch_size``. ``iou_mean`` is Wise-IoU's
+    running mean (0-d f32, 1.0 when None), returned as it came without
+    Wise-IoU.
     """
     nc, reg_max = cfg.nc, cfg.reg_max
     b = feats[0].shape[0]
@@ -139,8 +190,10 @@ def detection_loss(feats: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor]
     # BCE with logits: the analytic backward sigmoid(x) - t of the JAX _bce_sum
     loss_cls = F.binary_cross_entropy_with_logits(pred_scores, target_scores, reduction="sum") / target_scores_sum
     weight = torch.where(fg_mask, target_scores.sum(-1), 0.0)  # (B, A)
-    loss_iou, loss_dfl = _box_dfl_losses(list(feats), pred_bboxes, anchor_points, target_bboxes, fg_mask, weight,
-                                         target_scores_sum, reg_max)
+    if iou_mean is None:
+        iou_mean = torch.ones((), dtype=torch.float32, device=feats[0].device)
+    loss_iou, loss_dfl, new_iou_mean = _box_dfl_losses(list(feats), pred_bboxes, anchor_points, target_bboxes,
+                                                       fg_mask, weight, target_scores_sum, iou_mean, cfg)
     comps = {"box": loss_iou * cfg.box, "cls": loss_cls * cfg.cls, "dfl": loss_dfl * cfg.dfl}
     total = (comps["box"] + comps["cls"] + comps["dfl"]) * b
-    return total, comps, res
+    return total, comps, res, new_iou_mean

@@ -1,7 +1,8 @@
 """Seeded inputs, labelled batches and weights for runs on the card without a
-dataset or a checkpoint, and offsets that stress the LDConv gather's
-backward: ``chip_smoke.py``, ``profile_predict``, ``profile_train`` and
-``kernel_variants``. Test scaffolding, not a dataset."""
+dataset or a checkpoint, offsets that stress the LDConv gather's backward, and
+made-up candidate pools for soft-NMS: ``chip_smoke.py``, ``profile_predict``,
+``profile_train``, ``kernel_variants`` and the tests. Test scaffolding, not a
+dataset."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from experiment_yolo_torch.nn.modules import LDConv
+from experiment_yolo_torch.ops.boxes import box_iou
 from experiment_yolo_torch.ops.kernels.ldconv_gather import grid_points
 
 # mixed (h, w) so that letterbox both resizes and pads
@@ -128,3 +130,87 @@ def seam_offsets(x: torch.Tensor, off: torch.Tensor, stride: int) -> torch.Tenso
     tr = torch.full((b, n, h, w), float(x.shape[2] // 2) + 0.25)
     tc = ((torch.arange(w) + 1) % w).float().expand(b, n, h, w) + 0.25
     return _offsets_to(off, stride, tr, tc).to(off.device)
+
+
+SoftNmsCase = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, float, torch.Tensor, torch.Tensor]
+
+
+def soft_nms_cases(seed: int, device="cpu") -> Dict[str, SoftNmsCase]:
+    """Made-up candidate pools for soft-NMS (kernel K5), each (class-offset
+    xyxy boxes (B, K, 4), scores (B, K) sorted descending, the conf gate (B,
+    K), the IoU threshold, and the quirk's ``first_idx`` and ``n_valid`` (B,)
+    int64, a valid candidate and at least the valid count) on ``device``:
+
+    - K = 1, a ragged K = 1,000, K = 4,096 and K = 8,192 of clustered boxes;
+    - exact duplicates with equal scores (ties in the argmax);
+    - pairs whose float32 IoU is exactly 0.7, 0.8 or 0.6 (small integers:
+      7/10 ties with the threshold and must not decay);
+    - a score that the decay puts exactly on the 0.25 floor (found on
+      ``device``, whose ``exp`` the plain version uses);
+    - an image with no valid candidate;
+    - the quirk's first box in the last slot, scored out of order, as the
+      pool's forced slot is.
+    """
+    gen = torch.Generator().manual_seed(seed)
+
+    def clustered(b, k):
+        centres = (torch.rand(b, k // 8 + 1, 2, generator=gen) * 600).repeat_interleave(8, 1)[:, :k]
+        centres = centres + torch.randn(b, k, 2, generator=gen) * 6
+        wh = torch.rand(b, k, 2, generator=gen) * 50 + 10
+        return torch.cat([centres - wh / 2, centres + wh / 2], -1)
+
+    def scores_of(b, k):  # squares of uniforms: about half above the 0.25 floor
+        return torch.rand(b, k, generator=gen).pow(2).sort(-1, descending=True).values
+
+    def case(boxes, scores, valid, thr=0.7, first_idx=None, n_valid=None):
+        b, k = scores.shape
+        if first_idx is None:  # a random valid candidate, or 0 where none is valid
+            first_idx = torch.where(valid, torch.rand(b, k, generator=gen), -1.0).argmax(-1)
+        if n_valid is None:
+            n_valid = valid.sum(-1) + torch.randint(0, 3, (b,), generator=gen)
+        return tuple(t.to(device).contiguous() for t in (boxes.float(), scores.float(), valid)) + (
+            thr, first_idx.to(device), n_valid.to(device))
+
+    cases = {}
+    for label, b, k in (("K=1", 2, 1), ("ragged K=1000", 3, 1000), ("K=4096", 2, 4096), ("K=8192", 2, 8192)):
+        sc = scores_of(b, k)
+        cases[label] = case(clustered(b, k), sc, sc > 0.001)
+    dup, sc = clustered(2, 512), scores_of(2, 512)
+    dup[:, 1::2], sc[:, 1::2] = dup[:, 0::2], sc[:, 0::2]
+    cases["duplicates"] = case(dup, sc, sc > 0.001)
+
+    x0 = 20.0 * torch.arange(300, dtype=torch.float32)
+    inner = torch.tensor([7.0, 8.0, 6.0]).repeat(100)
+    zero, one = torch.zeros(300), torch.ones(300)
+    ties = torch.stack([torch.stack([x0, zero, x0 + 10, one], -1), torch.stack([x0, zero, x0 + inner, one], -1)], 1)
+    ties = torch.stack([ties.reshape(600, 4), ties[torch.randperm(300, generator=gen)].reshape(600, 4)])
+    sc = (0.3 + 0.7 * torch.rand(2, 600, generator=gen)).sort(-1, descending=True).values
+    cases["IoU at the threshold"] = case(ties, sc, torch.ones(2, 600, dtype=torch.bool))
+
+    # A (0.95) decays B (IoU 8/10) onto exactly 0.25; C, D, F sit apart, E below the floor
+    pair = torch.tensor([[0.0, 0.0, 10.0, 1.0], [0.0, 0.0, 8.0, 1.0]], device=device)
+    decay = torch.exp(-(box_iou(pair[:1], pair[1:])[0, 0] ** 2) / 0.5)
+    s = 0.25 / decay
+    for _ in range(64):
+        landed = s * decay
+        if landed == 0.25:
+            break
+        s = torch.nextafter(s, torch.tensor(1.0 if landed < 0.25 else 0.0, device=device))
+    if (s * decay).item() != 0.25:
+        raise RuntimeError("no score found whose decay lands on 0.25")
+    far = [[100.0 * i, 0.0, 100.0 * i + 10, 1.0] for i in range(1, 5)]
+    boxes = torch.tensor([pair.tolist()[0], pair.tolist()[1], *far])
+    sc = torch.tensor([0.95, s.item(), 0.5, 0.3, 0.26, 0.2])
+    cases["decay onto 0.25"] = case(boxes[None], sc[None], torch.ones(1, 6, dtype=torch.bool))
+
+    sc = scores_of(2, 256)
+    valid = sc > 0.001
+    valid[1] = False
+    cases["an image with none valid"] = case(clustered(2, 256), sc, valid, first_idx=torch.tensor([0, 0]),
+                                             n_valid=valid.sum(-1))
+    sc = scores_of(2, 300)
+    sc[:, -1] = 0.6
+    valid = sc > 0.001
+    valid[:, -1] = True
+    cases["quirk first in the last slot"] = case(clustered(2, 300), sc, valid, first_idx=torch.tensor([299, 299]))
+    return cases

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: no JAX, no JAX package, no OpenCV or PIL,
-its own copies of the YAMLs, and no silent fall-back to the CPU."""
+"""The PyTorch port stands alone: no JAX, no JAX package, no OpenCV, PIL or
+matplotlib, its own copies of the YAMLs, and no silent fall-back to the CPU."""
 
 import ast
 import subprocess
@@ -26,11 +26,16 @@ mods = sys.argv[1:]
 for m in mods:
     __import__(m)
 from experiment_yolo_torch import DetectionModel, DetectionPredictor
-from experiment_yolo_torch.ops.kernels import dfl_decode, ldconv_gather, nms_suppress, selective_scan
+from experiment_yolo_torch.ops.kernels import dfl_decode, ldconv_gather, nms_suppress, selective_scan, soft_nms
 model = DetectionModel("yolov8-LD-P2.yaml", device="cpu")
 imgs = [np.random.default_rng(0).integers(0, 256, (64, 48, 3), dtype=np.uint8)]
 for nms_type in ("soft", "hard"):
     DetectionPredictor(model, {"imgsz": 64, "batch": 1, "nms_type": nms_type})(imgs)
+from experiment_yolo_torch import DetectionValidator
+from experiment_yolo_torch.utils.seeded import seeded_batch
+val = {**seeded_batch(2, 64, 1), "ori_shape": np.full((2, 2), 64), "ratio_pad": np.tile(np.float32([1, 0, 0]), (2, 1))}
+for nms_type, quirk in (("soft", True), ("hard", False)):
+    DetectionValidator({"nms_type": nms_type, "soft_nms_quirk": quirk, "verbose": False})(model, [val], model.names)
 vss = {"nc": 6, "scales": {"n": [0.33, 0.25, 1024]},
        "backbone": [[-1, 1, "Conv", [64, 3, 2]], [-1, 1, "Conv", [128, 3, 2]], [-1, 3, "C2f_VSS", [128, True]]],
        "head": [[-1, 1, "C3_LVMB", [128]], [[2, 3], 1, "Detect", ["nc"]]]}
@@ -41,31 +46,32 @@ y = selective_scan.selective_scan(torch.rand(1, 2, 12, 8), torch.rand(1, 4, 12, 
                                   source=(0, 1, 0, 1))
 assert y.shape == (1, 4, 12, 8) and bool(torch.isfinite(y).all())
 from experiment_yolo_torch.engine.trainer import DetectionTrainer
-from experiment_yolo_torch.utils.seeded import seeded_batch
-DetectionTrainer(model, {"amp": False, "batch": 2}).train_step(seeded_batch(2, 64, 0))
+DetectionTrainer(model, {"amp": False, "batch": 2, "use_wiseiou": True, "nwd": True}).train_step(seeded_batch(2, 64, 0))
 launches = [dfl_decode.dfl_decode.launches, ldconv_gather.ldconv_gather.launches, nms_suppress.nms_suppress.launches,
             dfl_decode.dfl_decode_bwd.launches, ldconv_gather.ldconv_gather_bwd.launches,
-            selective_scan.selective_scan.launches]
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "cv2", "PIL"))
+            selective_scan.selective_scan.launches, soft_nms.soft_nms.launches]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "cv2", "PIL", "matplotlib"))
 print(len(mods), launches, bad)
 """
 
 
 def test_port_imports_no_jax_and_cpu_launches_nothing():
     """In a fresh interpreter: import every port module, serve two CPU
-    predicts of LD-P2 and one of a small VSS model, and take one CPU training
-    step. Nothing of JAX, the JAX package,
-    OpenCV or PIL is loaded, and no kernel launch, forward or backward, is
+    predicts of LD-P2 and one of a small VSS model, validate LD-P2 with
+    soft-NMS in quirk mode and with hard NMS, and take one CPU training step
+    with Wise-IoU and NWD. Nothing of JAX, the JAX package, OpenCV, PIL or
+    matplotlib is loaded, and no kernel launch, forward or backward, is
     counted: CPU tensors take the plain versions."""
-    assert len(MODULES) >= 17
+    assert len(MODULES) >= 20
     out = subprocess.run([sys.executable, "-c", _PROBE, *MODULES], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[-2] == f"{len(MODULES)} [0, 0, 0, 0, 0, 0] []"
+    assert out.stdout.split("\n")[-2] == f"{len(MODULES)} [0, 0, 0, 0, 0, 0, 0] []"
 
 
 def test_port_sources_name_no_cv2_pil_or_jax():
-    """No port source imports OpenCV, PIL, JAX or the JAX package, by an
+    """No port source imports OpenCV, PIL, matplotlib, JAX or the JAX package, by an
     import statement or by name (docstrings may cite the JAX code they port,
     and ``cv2`` is also a layer name of the Ultralytics state dict)."""
     for path in PORT.rglob("*.py"):
@@ -80,7 +86,8 @@ def test_port_sources_name_no_cv2_pil_or_jax():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "cv2", "PIL"), \
+                assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "cv2", "PIL",
+                                                  "matplotlib"), \
                     f"{path.relative_to(ROOT)} imports {name}"
 
 
@@ -111,6 +118,7 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     from experiment_yolo_torch.ops.kernels.ldconv_gather import ldconv_gather, ldconv_gather_bwd
     from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress
     from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan
+    from experiment_yolo_torch.ops.kernels.soft_nms import soft_nms
 
     meta = {"device": "meta"}
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -125,6 +133,9 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         nms_suppress(torch.zeros(1, 8, 4, **meta), torch.zeros(1, 8, dtype=torch.bool, **meta), 0.5)
     with pytest.raises(ValueError, match="CUDA tensor"):
+        soft_nms(torch.zeros(1, 8, 4, **meta), torch.zeros(1, 8, **meta), torch.zeros(1, 8, dtype=torch.bool, **meta),
+                 0.5, 300)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         selective_scan(torch.zeros(1, 8, 4, **meta), torch.zeros(1, 8, 4, **meta), torch.zeros(4, 16, **meta),
                        torch.zeros(1, 8, 16, **meta), torch.zeros(1, 8, 16, **meta), torch.zeros(4, **meta))
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -136,7 +147,8 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
 # entry point -> (library, the wrapper module's argument-list name)
 ENTRY_POINTS = {"dfl_decode": ("dfl_decode", "_ARGS"), "nms_suppress": ("nms_suppress", "_ARGS"),
                 "ldconv_gather": ("ldconv_gather", "_ARGS"), "dfl_decode_bwd": ("dfl_decode", "_BWD_ARGS"),
-                "ldconv_gather_bwd": ("ldconv_gather", "_BWD_ARGS"), "selective_scan": ("selective_scan", "_ARGS")}
+                "ldconv_gather_bwd": ("ldconv_gather", "_BWD_ARGS"), "selective_scan": ("selective_scan", "_ARGS"),
+                "soft_nms": ("soft_nms", "_ARGS")}
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))

@@ -107,7 +107,7 @@ def test_detection_loss_value_and_gradient_match_jax(seed):
     (jtotal, jcomps), jgrads = jax.value_and_grad(jfn, has_aux=True)(
         [jnp.asarray(np.transpose(m, (0, 2, 3, 1))) for m in maps])
     feats = [torch.from_numpy(m).requires_grad_() for m in maps]
-    total, comps, res = t_loss(feats, {k: torch.from_numpy(v) for k, v in lab.items()}, STRIDES, TLossConfig(nc=NC))
+    total, comps, res, _ = t_loss(feats, {k: torch.from_numpy(v) for k, v in lab.items()}, STRIDES, TLossConfig(nc=NC))
     total.backward()
     assert int(res.fg_mask.sum()) > 10
     for k in ("box", "cls", "dfl"):
@@ -117,8 +117,8 @@ def test_detection_loss_value_and_gradient_match_jax(seed):
         np.testing.assert_allclose(f.grad.numpy(), np.transpose(np.asarray(jg), (0, 3, 1, 2)), atol=1e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("switch", [{"use_wiseiou": True}, {"nwd": True}, {"iou_type": "GIoU"},
-                                    {"cls_loss": "focal"}, {"assigner": "atss"}])
+@pytest.mark.parametrize("switch", [{"use_wiseiou": True, "wiou_ltype": "SIoU"}, {"inner_iou": True},
+                                    {"iou_type": "GIoU"}, {"cls_loss": "focal"}, {"assigner": "atss"}])
 def test_unported_loss_switches_raise(switch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TLossConfig(nc=NC, **switch)

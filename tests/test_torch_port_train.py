@@ -220,10 +220,12 @@ def test_gather_passes_gradients_to_offsets_and_sources(run):
 
 def test_trainer_refuses_amp_and_unported_switches():
     model = TorchModel(CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 0 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         DetectionTrainer(model, {"batch": 2})  # amp defaults to True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DetectionTrainer(model, {**OVERRIDES, "use_wiseiou": True})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
+        DetectionTrainer(model, {**OVERRIDES, "iou_type": "GIoU"})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
+        DetectionTrainer(model, {**OVERRIDES, "use_wiseiou": True, "wiou_ltype": "SIoU"})
     with pytest.raises(ValueError, match="uint8"):
         DetectionTrainer(model, OVERRIDES).train_step({**seeded_batch(2, IMGSZ, 0),
                                                        "img": np.zeros((2, 3, IMGSZ, IMGSZ), np.float32)})
