@@ -1,9 +1,9 @@
-"""What bounds K2, K3, K3's backward and K4 on the card: time throwaway
+"""What bounds K2, K3, K3's backward, K4 and K5 on the card: time throwaway
 variants of their sources.
 
 Usage, on a machine with an NVIDIA Hopper GPU and the CUDA toolkit:
 
-    python3 -m experiment_yolo_torch.kernel_variants [k2|k3|k3bwd|k4|all] [--baseline ROOT]
+    python3 -m experiment_yolo_torch.kernel_variants [k2|k3|k3bwd|k4|k5|all] [--baseline ROOT]
 
 Each variant is the kernel's source with a few pieces of text replaced (no
 exp, no shared-memory reads of B and C, no copies from device memory, another
@@ -19,14 +19,24 @@ K3's backward is timed per layer on those offsets and on offsets that pull
 90% of a layer's samples onto sixteen source positions (many adds on one address),
 summing every launch its wrapper makes (the zero fill of ``dx`` included);
 K2 on clustered candidates, a batch of 8 images at K = 1,024 (the main path's
-pre-NMS top-k) and at K = 8,192. One JSON line per variant; the card's name
-and power limit come first, and for K4 the real kernel's error against its
+pre-NMS top-k) and at K = 8,192. K5 on the pools the seeded LD-P2 model
+gives the main paths at batch 8, 640: the validator's (multi-label, K =
+4,096 at conf 0.001, quirk on and off) and the predictor's (K = 1,024 at
+conf 0.25), and on the made-up trained-like pool (5% above the 0.25 floor);
+each K5 variant's row also counts the made-up pools of
+``utils/seeded.py:soft_nms_cases`` (quirk on and off) on which it differs
+from the plain version, so that the rows marked "mutation" show which case
+catches a broken pre-test. One JSON line per variant; the card's name and
+power limit come first, and for K4 the real kernel's error against its
 plain version at L = 6,400 with step sizes near 0.01 and near 0.001.
 
-``--baseline ROOT`` also times K3's backward built from another checkout
-(say the parent commit, unpacked with ``git archive``) behind this one's
-wrapper, so that two versions are compared in one process; the two sources
-must have the same ``ldconv_gather_bwd_launch`` signature.
+``--baseline ROOT`` also times K3's backward or K5 built from another
+checkout (say the parent commit, unpacked with ``git archive``) behind this
+one's wrapper, so that two versions are compared in one process; the two
+sources must have the same ``ldconv_gather_bwd_launch`` or
+``soft_nms_launch`` signature. A time comes only from a trace that holds
+every launch of the timed calls; where five traces in a row miss some, the
+row shows NaN.
 """
 
 from __future__ import annotations
@@ -43,8 +53,10 @@ from experiment_yolo_torch.ops.kernels import _build
 from experiment_yolo_torch.ops.kernels.ldconv_gather import (ldconv_gather_bwd, ldconv_gather_bwd_plain,
                                                              ldconv_gather_fwd, ldconv_gather_plain)
 from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress, nms_suppress_plain
-from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan, selective_scan_plain
-from experiment_yolo_torch.utils.seeded import contention_offsets
+from experiment_yolo_torch.ops.kernels.selective_scan import chunk_length, selective_scan, selective_scan_plain
+from experiment_yolo_torch.ops.kernels.soft_nms import soft_nms, soft_nms_plain
+from experiment_yolo_torch.utils.seeded import (VAL_SEED, contention_offsets, letterboxed, model_input, seeded_batch,
+                                                seeded_images, seeded_model, soft_nms_cases, soft_nms_pools)
 
 EXP = ("ex2(dtv * r.a2[n])", "(dtv * r.a2[n])")
 READ_B = ("const float4 bq = b4[q];", "const float4 bq = make_float4(dtv, xv, u, dtv);")
@@ -90,6 +102,37 @@ K2_VARIANTS = {
     "sixteen rows' loads in flight": (("int t[8];", "int t[16];"), ("u < 8; ++u) {", "u < 16; ++u) {"),
                                       ("u < 8; ++u)\n", "u < 16; ++u)\n")),
 }
+PRE_TEST = "fmaf(thr, u, -inter) >= 0.f"
+SIZE = ("constexpr int THREADS = 512;", "constexpr int MIN_PER_THREAD = 2;")
+# variant -> (old, new) pieces of csrc/soft_nms.cu; a variant that empties a part times the rest
+K5_VARIANTS = {
+    "as it is": (),
+    "up to 1,024 threads an image": ((SIZE[0], SIZE[0].replace("512", "1024")),),
+    "up to 256 threads an image": ((SIZE[0], SIZE[0].replace("512", "256")),),
+    "at least 4 candidates a thread": ((SIZE[1], SIZE[1].replace("2;", "4;")),),
+    "at least 8 candidates a thread": ((SIZE[1], SIZE[1].replace("2;", "8;")),),
+    "every launched warp steps": (("= max(32, min(static_cast<int>(blockDim.x), (n + 32 * C - 1) / (32 * C) * 32));",
+                                   "= static_cast<int>(blockDim.x);"),),
+    "decay pass emptied (the pick's removal kept)": (("slow |= 1u << c;", "slow |= 0u;"),),
+    "reductions emptied: picks in index order, slots and barrier kept": (
+        ("unsigned best = __reduce_max_sync(FULL, key[0]);", "unsigned best = key[0] | 0x3f800000u;"),
+        ("unsigned pick = __reduce_min_sync(FULL, key[0] == best ? mine : UINT_MAX);",
+         "unsigned pick = static_cast<unsigned>(s % max(n, 1)) + (mine & 0u);"),
+        ("unsigned count = quirk ? __reduce_add_sync(FULL, static_cast<unsigned>(cnt)) : 0u;",
+         "unsigned count = 2u + (cnt & 0);"),
+        ("best = __reduce_max_sync(FULL, e.x);", "best = e.x | 0x3f800000u;"),
+        ("pick = __reduce_min_sync(FULL, e.x == best ? e.y : UINT_MAX);",
+         "pick = static_cast<unsigned>(s % max(n, 1)) + (e.y & 0u);"),
+        ("count = quirk ? __reduce_add_sync(FULL, e.z) : 0u;", "count = 2u + (e.z & 0u);"),
+        ("if (!(quirk ? count >= 2u : best != 0u)) break;", "if (s >= n) break;")),
+    "no pre-test: a division per live candidate": ((f" && !({PRE_TEST})", ""),),
+    "no floor compaction: every valid candidate loaded": (
+        ("ok[j] && sc[j] > KEEP_FLOOR);", "ok[j]);"),
+        ("pos != s_first ? s_live[pos] : 0.f;", "pos != s_first && s_live[pos] > KEEP_FLOOR ? s_live[pos] : 0.f;")),
+    "mutation: pre-test > in place of >=": ((PRE_TEST, PRE_TEST.replace(">=", ">")),),
+    "mutation: pre-test without the fma": ((PRE_TEST, "__fsub_rn(__fmul_rn(thr, u), inter) >= 0.f"),),
+    "mutation: the pre-test decides alone": (("if (iou > thr) {", "if (true) {"),),
+}
 SCAN_LEVELS = ((25600, 32, 1), (6400, 64, 2), (1600, 128, 4), (400, 256, 8))  # L, d_inner, dt_rank at P2..P5
 GATHER_LAYERS = ((3, 3, 2, 640), (16, 3, 2, 320), (32, 3, 2, 160), (64, 3, 2, 80), (128, 1, 1, 40), (64, 1, 1, 80),
                  (64, 1, 1, 80), (32, 1, 1, 160), (32, 3, 2, 160), (64, 3, 2, 80))  # C, N, stride, source size
@@ -102,24 +145,21 @@ def build_variants(name: str, variants, baseline: Path | None = None) -> dict:
     ``csrc/<name>.cu`` as it is, under the tag ``"baseline"``."""
     out_dir = _build.BUILD_DIR.parent / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    source = (_build.CSRC / f"{name}.cu").read_text()
+    jobs = [(tag, _build.CSRC, pieces) for tag, pieces in variants.items()]
+    if baseline is not None:
+        jobs.append(("baseline", baseline / "experiment_yolo_torch" / "csrc", ()))
     procs = {}
-    for i, (tag, pieces) in enumerate(variants.items()):
-        text = source
+    for i, (tag, csrc, pieces) in enumerate(jobs):
+        text = (csrc / f"{name}.cu").read_text()
         for old, new in pieces:
             if old not in text:
-                raise ValueError(f"variant {tag!r} of {name}.cu: {old!r} is not in the source")
+                raise ValueError(f"variant {tag!r} of {csrc / name}.cu: {old!r} is not in the source")
             text = text.replace(old, new)
         path = out_dir / f"{name}_{i}.cu"
         path.write_text(text)
         lib = path.with_suffix(".so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(path)]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib), str(path)]
         procs[tag] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    if baseline is not None:
-        csrc = baseline / "experiment_yolo_torch" / "csrc"
-        lib = out_dir / f"{name}_baseline.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib), str(csrc / f"{name}.cu")]
-        procs["baseline"] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for tag, (proc, lib) in procs.items():
         log, _ = proc.communicate()
@@ -136,26 +176,38 @@ def swap_in(name: str, lib: ctypes.CDLL) -> None:
         del _build._fns[entry]
 
 
-def device_ms(fn, mark: str, runs: int = 5) -> dict:
+def device_ms(fn, kernel: str, per_call: int, runs: int = 5, span: str | None = None) -> dict:
     """Device milliseconds per call of ``fn`` by kernel, for kernels whose
-    name holds ``mark`` (that prefix dropped from the keys; ``""`` takes every
-    device event of the trace, fills and copies included)."""
+    name holds ``span`` (by default ``kernel``; that prefix dropped from the
+    keys; ``""`` takes every device event of the trace, fills and copies
+    included), from a trace that holds all ``runs * per_call`` launches of
+    the kernels named ``kernel`` (``per_call``: those one call launches). A
+    trace now and then misses some, and its times would read low: after five
+    such traces in a row the one key ``"incomplete trace"`` holds NaN. A
+    spin kernel, not timed, goes first: late in a long process a trace has
+    been seen to drop its first kernel every time."""
     from torch.profiler import ProfilerActivity, profile
 
+    span = kernel if span is None else span
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key.split("(")[0].replace("void ", "").replace(mark, "").strip("_") or e.key:
-            e.self_device_time_total / runs / 1e3
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and mark in e.key and e.self_device_time_total}
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000)
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key]
+        if sum(e.count for e in events if kernel in e.key) == runs * per_call:
+            return {e.key.split("(")[0].replace("void ", "").replace(span, "").strip("_") or e.key:
+                    e.self_device_time_total / runs / 1e3 for e in events if span in e.key}
+    return {"incomplete trace": float("nan")}
 
 
 def scan_variants(gen: torch.Generator) -> None:
     kw = dict(reverse=(False, False, True, True), source=(0, 1, 0, 1))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     calls = {}
     for length, dim, rank in SCAN_LEVELS:
         dbl = torch.randn(BATCH, 4, length, rank + 32, generator=gen).cuda()
@@ -178,7 +230,9 @@ def scan_variants(gen: torch.Generator) -> None:
             swap_in("selective_scan", lib)
             row = {"kernel": "K4", "variant": tag, "rel_err_at_L400": rel_err(calls[400])}
             for length, args in calls.items():
-                passes = device_ms(lambda: selective_scan(*args, **kw), "selective_scan_kernel")
+                bsz, g, _, dim = args[1].shape
+                kernels = 3 if length > chunk_length(bsz * g, length, dim, sms) else 1  # ends and carry if chunked
+                passes = device_ms(lambda: selective_scan(*args, **kw), "selective_scan_kernel", kernels)
                 row[f"L{length}"] = {**passes, "all": sum(passes.values())}
             print(json.dumps(row), flush=True)
 
@@ -198,7 +252,7 @@ def gather_variants(gen: torch.Generator) -> None:
         row = {"kernel": "K3", "variant": tag, "max_abs_err": err}
         for kind, which in (("smooth", 1), ("random", 2)):
             per_layer = [sum(device_ms(lambda: ldconv_gather_fwd(layer[0], layer[which], layer[3]),
-                                       "ldconv_gather_kernel").values()) for layer in layers]
+                                       "ldconv_gather_kernel", 1).values()) for layer in layers]
             row[f"{kind}_offsets_ms"] = {"layers": per_layer, "all": sum(per_layer)}
         print(json.dumps(row), flush=True)
 
@@ -230,7 +284,8 @@ def gather_bwd_variants(gen: torch.Generator, baseline: Path | None) -> None:
         swap_in("ldconv_gather", lib)
         row = {"kernel": "K3 bwd", "variant": tag, "rel_err": {kind: rel_err(kind) for kind in want}}
         for kind in ("smooth", "random", "contention"):
-            per_layer = [device_ms(lambda: ldconv_gather_bwd(x, offs[kind], dy, s), "") for x, offs, dy, s in layers]
+            per_layer = [device_ms(lambda: ldconv_gather_bwd(x, offs[kind], dy, s), "ldconv_gather_bwd_kernel", 1,
+                                   span="") for x, offs, dy, s in layers]
             row[f"{kind}_offsets_ms"] = {"layers": [sum(v.values()) for v in per_layer],
                                          "all": sum(sum(v.values()) for v in per_layer),
                                          "by_kernel": {k: sum(v.get(k, 0.0) for v in per_layer)
@@ -261,7 +316,46 @@ def nms_variants(gen: torch.Generator) -> None:
         for k, (b, v) in cases.items():
             row[f"K{k}"] = {"mismatched": int((nms_suppress(b, v, thr) != want[k]).sum()), "kept": int(want[k].sum()),
                             "candidates": int(v.sum()),
-                            **device_ms(lambda: nms_suppress(b, v, thr), "nms_suppress_kernel")}
+                            **device_ms(lambda: nms_suppress(b, v, thr), "nms_suppress_kernel", 2)}
+        print(json.dumps(row), flush=True)
+
+
+def main_path_pools() -> dict:
+    """K5's timed pools, (args, keywords) of ``soft_nms``, from the seeded
+    LD-P2 model in eval mode at the seeds of ``chip_smoke.py`` (seed 0): the
+    first val batch's pool (quirk on and off), the serving batch's pool, and
+    the made-up trained-like pool."""
+    model = seeded_model("yolov8-LD-P2.yaml", 0).eval()
+    val = seeded_batch(BATCH, 640, VAL_SEED, nc=model.nc)["img"]
+    served = letterboxed(seeded_images(BATCH, 0), 640)
+    pools = {}
+    with torch.no_grad():
+        for label, img, is_val in (("val pool", val, True), ("serving pool", served, False)):
+            for quirk, pool in soft_nms_pools(*model.predict(model_input(img, "cuda")), val=is_val).items():
+                pools[label + quirk] = pool
+    boxes, scores, valid, thr, first_idx, n_valid = soft_nms_cases(6, "cuda")["trained-like K=4096"]
+    pools["trained-like quirk"] = ((boxes, scores, valid, thr, 300), {"first_idx": first_idx, "n_valid": n_valid})
+    return pools
+
+
+def soft_nms_variants(baseline: Path | None) -> None:
+    pools = main_path_pools()
+    cases = [(f"{label}{' quirk' if quirk else ''}", (b, s, v, thr, 300),
+              {"first_idx": f, "n_valid": n} if quirk else {})
+             for label, (b, s, v, thr, f, n) in soft_nms_cases(6, "cuda").items() for quirk in (False, True)]
+    want = {label: soft_nms_plain(*args, **kw) for label, args, kw in cases}
+    want_pools = {label: soft_nms_plain(*args, **kw) for label, (args, kw) in pools.items()}
+    for tag, lib in build_variants("soft_nms", K5_VARIANTS, baseline).items():
+        swap_in("soft_nms", lib)
+        row = {"kernel": "K5", "variant": tag,
+               "cases_differing_from_plain": [label for label, args, kw in cases
+                                              if not torch.equal(soft_nms(*args, **kw), want[label])]}
+        for label, (args, kw) in pools.items():
+            got = soft_nms(*args, **kw)
+            row[label] = {"above_floor": int((args[2] & (args[1] > 0.25)).sum()), "kept": int((got > -1).sum()),
+                          "kept_by_plain": int((want_pools[label] > -1).sum()),
+                          "bit_equal": bool(torch.equal(got, want_pools[label])),
+                          "device_ms": sum(device_ms(lambda: soft_nms(*args, **kw), "soft_nms_kernel", 1).values())}
         print(json.dumps(row), flush=True)
 
 
@@ -275,8 +369,8 @@ def main() -> None:
         baseline = Path(args[i + 1]).resolve()
         del args[i:i + 2]
     which = args[0] if args else "all"
-    if which not in ("k2", "k3", "k3bwd", "k4", "all"):
-        sys.exit(f"kernel_variants: unknown target {which!r}: one of k2, k3, k3bwd, k4, all")
+    if which not in ("k2", "k3", "k3bwd", "k4", "k5", "all"):
+        sys.exit(f"kernel_variants: unknown target {which!r}: one of k2, k3, k3bwd, k4, k5, all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}", flush=True)
@@ -290,6 +384,8 @@ def main() -> None:
         gather_bwd_variants(gen, baseline)
     if which in ("k2", "all"):
         nms_variants(gen)
+    if which in ("k5", "all"):
+        soft_nms_variants(baseline)
 
 
 if __name__ == "__main__":

@@ -128,8 +128,8 @@ def ldconv_gather_plain(x: torch.Tensor, off: torch.Tensor, stride: int) -> torc
     return (out * mul[..., None]).reshape(b, h * w, n * c)
 
 
-def ldconv_gather_bwd_plain(x: torch.Tensor, off: torch.Tensor, dy: torch.Tensor,
-                            stride: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def ldconv_gather_bwd_plain(x: torch.Tensor, off: torch.Tensor, dy: torch.Tensor, stride: int,
+                            dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gradients (dx (B, C, H, W), doff (B, 2N, h, w)) of
     :func:`ldconv_gather_plain` for the incoming gradient ``dy`` (B, h*w, N*C).
 
@@ -140,21 +140,26 @@ def ldconv_gather_bwd_plain(x: torch.Tensor, off: torch.Tensor, dy: torch.Tensor
     gradient is ``sum_c d * ((x10 - x00) * wc0 + (x11 - x01) * wc1)`` for rows,
     alike for columns, kept where the unclamped padded position lies in
     ``[0, size_padded - 1]`` and 0 outside.
+
+    ``dtype=torch.float64`` takes the same float32 positions and weights but
+    multiplies and sums in float64: a reference for the float32 sums, whose
+    order the kernel's atomics and ``scatter_add_`` each choose.
     """
     b, c, hx, wx = x.shape
     _, n2, h, w = off.shape
     n = n2 // 2
-    pr, pc, (wr0, wr1, wc0, wc1), corners, mul, (hp, wp) = _samples(x, off, stride)
-    src = x.float().reshape(b, c, hx * wx)
-    d = dy.float().reshape(b, h * w, n, c) * mul[..., None]  # (B, hw, N, C)
+    pr, pc, weights, corners, mul, (hp, wp) = _samples(x, off, stride)
+    wr0, wr1, wc0, wc1 = (t.to(dtype) for t in weights)
+    src = x.to(dtype).reshape(b, c, hx * wx)
+    d = dy.to(dtype).reshape(b, h * w, n, c) * mul.to(dtype)[..., None]  # (B, hw, N, C)
     v00, v01, v10, v11 = (_corner_values(src, i) for i in corners)
     dpr = (d * ((v10 - v00) * wc0[..., None] + (v11 - v01) * wc1[..., None])).sum(-1)
     dpc = (d * ((v01 - v00) * wr0[..., None] + (v11 - v10) * wr1[..., None])).sum(-1)
-    dpr = dpr * ((pr >= 0) & (pr <= hp - 1)).float()
-    dpc = dpc * ((pc >= 0) & (pc <= wp - 1)).float()
+    dpr = dpr * ((pr >= 0) & (pr <= hp - 1)).to(dtype)
+    dpc = dpc * ((pc >= 0) & (pc <= wp - 1)).to(dtype)
     doff = torch.stack([dpr, dpc], 1).permute(0, 1, 3, 2).reshape(b, n2, h, w)  # (B, [row N, col N], h, w)
 
-    dx = torch.zeros((b, c, hx * wx), dtype=torch.float32, device=x.device)
+    dx = torch.zeros((b, c, hx * wx), dtype=dtype, device=x.device)
     for wgt, idx in zip((wr0 * wc0, wr0 * wc1, wr1 * wc0, wr1 * wc1), corners):
         upd = (wgt[..., None] * d).permute(0, 3, 1, 2).reshape(b, c, h * w * n)
         dx.scatter_add_(2, idx.reshape(b, 1, h * w * n).expand(b, c, h * w * n), upd)

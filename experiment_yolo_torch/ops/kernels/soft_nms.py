@@ -2,10 +2,12 @@
 
 Replaces ``experiment_yolo_tpu/ops/nms.py:_soft_nms_keep``, a ``lax.fori_loop``
 in JAX (not a Pallas kernel). The kernel, ``csrc/soft_nms.cu``, runs one
-block per image with the candidates in shared memory: each step is one block
-reduction for the pick and one decay pass. A chain of dependent steps bounds
-it, not bytes or arithmetic; an image leaves its loop at the first step that
-does not keep, and the source says why that gives the plain loop's result.
+block per image: it drops the candidates at or below the 0.25 floor at load,
+holds the others in registers, and makes each step one decay pass (an exact
+fma pre-test before any division) fused with the next pick's reduction, one
+barrier a step. A chain of dependent steps bounds it, not bytes or
+arithmetic; an image leaves its loop at the first step that does not keep,
+and the source says why that and the floor give the plain loop's result.
 
 :func:`soft_nms` launches the kernel for CUDA tensors (one launch per call for
 the whole batch) and takes :func:`soft_nms_plain` only for tensors on the CPU.
@@ -22,7 +24,7 @@ from experiment_yolo_torch.ops.boxes import box_iou
 from experiment_yolo_torch.ops.kernels import _build
 
 _ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float)
-MAX_K = 8192  # 20 bytes a candidate in shared memory: 160 KB of the 227 KB a block can have
+MAX_K = 8192  # 24 bytes a candidate in shared memory: 192 KB of the 227 KB a block can have
 _SIGMA = 0.5  # the Gaussian decay exp(-iou^2 / sigma)
 _SOFT_SCORE_THRESHOLD = 0.25  # a step keeps while the best live score exceeds this, whatever conf is
 _EARLY_EXIT_EVERY = 16  # plain version: steps between checks that any image still keeps boxes

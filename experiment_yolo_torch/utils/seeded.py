@@ -89,6 +89,55 @@ def he_normal_(model: torch.nn.Module, seed: int) -> None:
         cls[-1].bias.zero_()
 
 
+# the main paths' pools and inputs, shared by chip_smoke.py and kernel_variants
+VAL_SEED = 30  # val batch i of a run with seed s is seeded_batch(batch, imgsz, s + VAL_SEED + i, nc)
+SERVE_CONF, VAL_CONF, NMS_IOU, NMS_MAX_DET = 0.25, 0.001, 0.7, 300  # the predictor's and the validator's defaults
+
+
+def seeded_model(cfg, seed: int, device="cuda"):
+    """``cfg``'s DetectionModel with PyTorch's init drawn from ``seed`` and
+    the conv weights redrawn by :func:`he_normal_` from ``seed + 1``."""
+    from experiment_yolo_torch.nn.tasks import DetectionModel
+
+    model = DetectionModel(cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    he_normal_(model, seed + 1)
+    return model
+
+
+def letterboxed(images: List[np.ndarray], imgsz: int) -> np.ndarray:
+    """BGR ``images`` letterboxed to ``imgsz`` and flipped to RGB, as the
+    predictor hands them to the model: (B, imgsz, imgsz, 3) uint8."""
+    from experiment_yolo_torch.data.augment import letterbox
+
+    return np.stack([letterbox(img, imgsz)[0][..., ::-1] for img in images])
+
+
+def model_input(img: np.ndarray, device) -> torch.Tensor:
+    """A (B, H, W, 3) uint8 batch as the model takes it: (B, 3, H, W) float32 in [0, 1]."""
+    return (torch.from_numpy(np.ascontiguousarray(img)).to(device).permute(0, 3, 1, 2).float() / 255.0).contiguous()
+
+
+def soft_nms_pools(boxes: torch.Tensor, scores: torch.Tensor, *, val: bool) -> Dict[str, Tuple[tuple, dict]]:
+    """K5's input on a main path, from one batch's decoded ``boxes`` and
+    ``scores`` (``model.predict``): the arguments (class-offset boxes, scores,
+    valid, iou_thres, max_det) and keywords of ``soft_nms``. The predictor's
+    pool (the best class of each anchor at conf SERVE_CONF) under ``""``; with
+    ``val`` the validator's (multi-label, K = VAL_PRE_NMS_TOPK at conf
+    VAL_CONF), with the quirk's ``first_idx`` and ``n_valid`` under
+    ``" quirk"`` and without the quirk's first box under ``""``."""
+    from experiment_yolo_torch.engine.validator import VAL_PRE_NMS_TOPK
+    from experiment_yolo_torch.ops.nms import nms_candidates
+
+    out = {}
+    for quirk in ((True, False) if val else (False,)):
+        c = (nms_candidates(boxes, scores, VAL_CONF, first_box=quirk, multi_label=True, pre_nms_topk=VAL_PRE_NMS_TOPK)
+             if val else nms_candidates(boxes, scores, SERVE_CONF))
+        kw = {"first_idx": c.first_idx, "n_valid": c.n_valid} if quirk else {}
+        out[" quirk" if quirk else ""] = ((c.shifted.contiguous(), c.scores.contiguous(), c.valid, NMS_IOU,
+                                           NMS_MAX_DET), kw)
+    return out
+
+
 def _offsets_to(off: torch.Tensor, stride: int, tr: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
     """The offsets (B, 2N, h, w) that put each sample of an LDConv with
     offsets shaped like ``off`` at the source position (``tr``, ``tc``), both
@@ -149,7 +198,15 @@ def soft_nms_cases(seed: int, device="cpu") -> Dict[str, SoftNmsCase]:
       ``device``, whose ``exp`` the plain version uses);
     - an image with no valid candidate;
     - the quirk's first box in the last slot, scored out of order, as the
-      pool's forced slot is.
+      pool's forced slot is;
+    - a pool like a trained detector's at conf 0.001: K = 4,096 over 6
+      classes, about 5% of the scores above the 0.25 floor and the rest down
+      to 0.001 (the kernel drops those at load and stops early);
+    - pairs whose float32 IoU is one spacing above or below the threshold,
+      and pairs whose exact quotient is above it but rounds onto it (see
+      :func:`threshold_pairs`);
+    - a pool in which every box overlaps every other, so that no pair skips
+      the exact IoU by its intersection alone.
     """
     gen = torch.Generator().manual_seed(seed)
 
@@ -213,4 +270,68 @@ def soft_nms_cases(seed: int, device="cpu") -> Dict[str, SoftNmsCase]:
     valid = sc > 0.001
     valid[:, -1] = True
     cases["quirk first in the last slot"] = case(clustered(2, 300), sc, valid, first_idx=torch.tensor([299, 299]))
+
+    b, k, n_hi = 2, 4096, 205
+    cls = torch.randint(0, 6, (b, k), generator=gen)
+    hi = 0.25 + 0.7 * torch.rand(b, n_hi, generator=gen)
+    lo = 10 ** (math.log10(0.001) + (math.log10(0.25) - math.log10(0.001)) * torch.rand(b, k - n_hi, generator=gen))
+    sc = torch.cat([hi, lo], 1).sort(-1, descending=True).values
+    cases["trained-like K=4096"] = case(clustered(b, k) + (cls * 7680.0)[..., None], sc, sc > 0.001)
+
+    pairs = threshold_pairs(0.7, 32, gen)
+    sc = (0.3 + 0.7 * torch.rand(2, pairs.shape[0] * 2, generator=gen)).sort(-1, descending=True).values
+    order = torch.randperm(pairs.shape[0], generator=gen)
+    boxes = torch.stack([pairs.reshape(-1, 4), pairs[order].reshape(-1, 4)])
+    cases["IoU one spacing from the threshold"] = case(boxes, sc, torch.ones_like(sc, dtype=torch.bool))
+
+    centres = 300 + 16 * torch.rand(2, 1024, 2, generator=gen) - 8
+    wh = 40 + 20 * torch.rand(2, 1024, 2, generator=gen)
+    sc = (0.3 + 0.7 * torch.rand(2, 1024, generator=gen)).sort(-1, descending=True).values
+    cases["all overlapping"] = case(torch.cat([centres - wh / 2, centres + wh / 2], -1), sc, sc > 0.001)
     return cases
+
+
+def iou_parts(a: torch.Tensor, b: torch.Tensor):
+    """(inter, union, iou) of xyxy box pairs (N, 4) in float32, rounded
+    operation by operation as ``box_iou`` and kernel K5 round them."""
+    inter = (torch.minimum(a[:, 2:], b[:, 2:]) - torch.maximum(a[:, :2], b[:, :2])).clamp(min=0).prod(-1)
+    area_a, area_b = (a[:, 2:] - a[:, :2]).clamp(min=0).prod(-1), (b[:, 2:] - b[:, :2]).clamp(min=0).prod(-1)
+    union = area_a + area_b - inter + 1e-7
+    return inter, union, inter / union
+
+
+def threshold_pairs(thr: float, per_kind: int, gen: torch.Generator, trials: int = 8192) -> torch.Tensor:
+    """(3 * per_kind, 2, 4) xyxy pairs, each in its own 100 px cell, of
+    three kinds around ``t``, ``thr`` in float32, ``per_kind`` each:
+
+    - IoU one spacing above ``t`` where thr * u - inter, rounded twice (no
+      fma), is still >= 0: a pre-test without the fma would skip a decay;
+    - IoU one spacing below ``t`` (no decay, and the exact pre-test skips it);
+    - inter / u above ``t`` exactly, yet its rounded quotient equal to ``t``
+      (no decay): a pre-test that decided alone would decay.
+
+    Found by a seeded search over nested boxes near the threshold, with the
+    float32 operations of ``box_iou`` on the boxes' own coordinates."""
+    t = torch.tensor(thr, dtype=torch.float32)
+    above, below = torch.nextafter(t, torch.tensor(1.0)), torch.nextafter(t, torch.tensor(0.0))
+    n = 3 * per_kind
+    cell = torch.arange(n, dtype=torch.float32)
+    x0 = (100 * (cell % 16))[:, None].expand(n, trials)
+    y0 = (100 * (cell // 16))[:, None].expand(n, trials)
+    big = 10 + 50 * torch.rand(n, trials, 2, generator=gen)
+    h = big[..., 1] * (0.75 + 0.25 * torch.rand(n, trials, generator=gen))
+    w = t * big[..., 0] * big[..., 1] / h
+    w = w + torch.randint(-3, 4, (n, trials), generator=gen) * (torch.nextafter(w, w + 1) - w)
+    a = torch.stack([x0, y0, x0 + big[..., 0], y0 + big[..., 1]], -1).reshape(-1, 4)
+    b = torch.stack([x0, y0, x0 + w, y0 + h], -1).reshape(-1, 4)
+    inter, union, iou = iou_parts(a, b)
+    exact = t.double() * union.double() - inter.double()  # exact product; the difference keeps its sign
+    kinds = ((iou == above) & (t * union - inter >= 0), iou == below, (exact < 0) & (iou == t))
+    out = []
+    for i, hit in enumerate(kinds):
+        hit = hit.reshape(n, trials)[i * per_kind:(i + 1) * per_kind]
+        if not bool(hit.any(1).all()):
+            raise RuntimeError(f"threshold_pairs: no pair of kind {i} found in some cell")
+        j = hit.int().argmax(1) + torch.arange(i * per_kind, (i + 1) * per_kind) * trials
+        out.append(torch.stack([a[j], b[j]], 1))
+    return torch.cat(out)

@@ -232,6 +232,21 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
 
 
+def test_backward_plain_in_float64_sums_the_same_products():
+    """``dtype=torch.float64`` keeps the float32 positions and weights and
+    sums in float64, on contention offsets: a float64 result within 1e-5 of
+    the float32 one (the order of float32 sums), and the default unchanged."""
+    x, off = _inputs(41, 3, 2)
+    xt = torch.from_numpy(x)
+    off = contention_offsets(xt, torch.from_numpy(off), 2, torch.Generator().manual_seed(3))
+    dy = torch.from_numpy(np.random.default_rng(6).standard_normal((2, off.shape[2] * off.shape[3], 15))
+                          .astype(np.float32))
+    got32, got64 = (ldconv_gather_bwd_plain(xt, off, dy, 2, dtype) for dtype in (torch.float32, torch.float64))
+    for a, b, d in zip(got32, got64, ldconv_gather_bwd_plain(xt, off, dy, 2)):
+        assert b.dtype == torch.float64 and torch.equal(a, d)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-5)
+        assert not np.array_equal(a.numpy(), b.numpy().astype(np.float32))
+
 @pytest.mark.parametrize("sampling", ["gather", "auto"])
 @pytest.mark.parametrize("n,stride,weight_scale", [(1, 2, 1.0), (3, 1, 1.0), (3, 2, 1.0), (3, 1, 0.02)])
 def test_module_gradients_match_jax(sampling, n, stride, weight_scale):
