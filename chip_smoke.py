@@ -82,13 +82,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     of 1e-6 under a norm of 1e-5; an update also gets one f32 spacing of each
     new parameter, since each side rounds p + update once), and with the
     recipe the new ``iou_mean`` within 1e-6 relative;
-12. build ``yolov8-C2f-VSS.yaml`` (n scale, nc=6: ten VSS blocks) on the card
+12. write a synthetic BMP dataset with the port's ``make_synthetic_dataset``
+    (64 train and 16 val images at 640, seed 0) under ``build/``, time the
+    train loader alone (8 threads) over an epoch with and without mosaic, then
+    train ``yolov8-LD-P2.yaml`` (n scale, nc=3) with ``DetectionTrainer.train()``
+    for 2 epochs at batch 8 (``close_mosaic=1``: the second without mosaic,
+    default augment otherwise), validating the EMA model after each epoch
+    (soft-NMS), with every launch counter at 0 just before and read just after
+    (exactly 3 K1, 3 K1-backward, 10 K3 and 10 K3-backward launches per step,
+    3 K1, 10 K3 and 1 K5 per val batch); gates: finite losses, ``last.pt`` and
+    ``best.pt`` written, ``load_checkpoint(last.pt)`` giving maps bit-equal to
+    the trainer's EMA model's on a val batch, and ``resume=last.pt`` with
+    ``epochs=3`` running exactly one more epoch of 8 steps; it reports the
+    loop's img/s (loader included), each epoch's img/s and the share of its
+    wall time spent waiting for the next batch, the loader's ms per batch
+    alone, and val img/s;
+13. build ``yolov8-C2f-VSS.yaml`` (n scale, nc=6: ten VSS blocks) on the card
     from the same seeds, SS2D's own init kept, and run phase 4's batch to
     take the selective-scan calls of every block as SS2D makes them: ten
     calls of K4, each covering a block's four scan directions (40 scans per
     forward) on two unreversed sequences, with the reverse flags, the
     direction-to-source index, and ``B`` and ``C`` as strided views;
-13. hold K4 against its plain version on one block's call at each of the
+14. hold K4 against its plain version on one block's call at each of the
     four pyramid levels (L = 25,600, 6,400, 1,600, 400), on random inputs of
     the same shapes and at a ragged L = 1,003 (``dt`` a softplus of a normal,
     ``A`` minus the exp of a normal and ``D`` per direction, two of four
@@ -97,18 +112,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     same for every direction), every direction within 1e-5 of its own
     largest plain value; time one forward's ten calls (median of 20) and
     their plain versions (median of 3: each walks up to 25,600 steps in
-    Python), and each level's call alone;
-14. serve 20 batches of 8 through ``DetectionPredictor`` on the VSS model, soft
+    Python), and each level's call alone; take K4's device time again in a
+    fresh process (``chip_smoke.py --k4-device-ms``), whose traces hold every
+    launch, and report it as the kernel's;
+15. serve 20 batches of 8 through ``DetectionPredictor`` on the VSS model, soft
     then hard NMS, counters at 0 just before and read just after: exactly 10
     K4 and 3 K1 launches per forward, 1 K5 per soft batch, 1 K2 per hard
     batch, no K3;
-15. run 2 images of that batch through the same weights on the CPU (plain
+16. run 2 images of that batch through the same weights on the CPU (plain
     versions) and compare raw maps and hard-NMS detections as phase 7 does;
-16. build ``yolov8.yaml`` and ``yolov8-ASF-P2P2.yaml`` (n scale) on the card and
+17. build ``yolov8.yaml`` and ``yolov8-ASF-P2P2.yaml`` (n scale) on the card and
     push one batch through each: finite raw maps of the expected shapes,
     strides 8/16/32 and 4/8/16;
-17. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
-    ...}``, a ``{"served_vss": ...}`` and a ``{"validated": ...}`` line, then
+18. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
+    ...}``, a ``{"served_vss": ...}``, a ``{"validated": ...}`` and a
+    ``{"trained_loop": ...}`` line, then
     the ``{"kernels": [...]}`` line for the seven kernels, the card's name and
     power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -123,6 +141,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -157,6 +176,7 @@ IOU_OPS = 14  # 2 min, 2 max, 2 sub, 2 clamps, 3 mul/add/sub for inter and union
 SMEM_ROUND_TRIP_CLOCKS = 30  # the earlier design's bound's assumption
 RAGGED_SCAN_LENGTH = 1003  # K4 also at a length that is no multiple of its chunk (48 here) or its 8-step tile
 VAL_BATCHES = 4  # seeded labelled batches of the val phase
+LOOP_TRAIN, LOOP_VAL, LOOP_NC, LOOP_EPOCHS = 64, 16, 3, 2  # the dataset-driven loop: synthetic BMP images at IMGSZ
 K5_RTOL = 1e-6  # K5 vs plain: kept scores' relative error (the same rounded operations: bit-equal, also gated)
 VAL_PROTOCOLS = {"soft-quirk": {"nms_type": "soft", "soft_nms_quirk": True},  # PARITY.md's protocol
                  "hard": {"nms_type": "hard", "soft_nms_quirk": False}}
@@ -912,6 +932,144 @@ def compare_train_cpu(state_dict, batch, recipe=None):
             "loss_cpu": {k: cpu["comps"][k] for k in ("box", "cls", "dfl")}}
 
 
+def loader_ms(dataset, mosaic):
+    """Host milliseconds per batch of the train loader alone (nothing else
+    running): the gap between batches over one epoch, the first batch apart."""
+    from experiment_yolo_torch.data import DataLoader
+
+    loader = DataLoader(dataset, BATCH, shuffle=True, workers=8, seed=SEED, mosaic=mosaic)
+    times, t = [], time.perf_counter()
+    for _ in loader:
+        now = time.perf_counter()
+        times.append((now - t) * 1e3)
+        t = now
+    return {"first_ms": times[0], "median_ms": statistics.median(times[1:]), "batches": len(times)}
+
+
+def trained_loop(root: Path, counters, card):
+    """The dataset-driven main path: a synthetic BMP dataset written with the
+    port's ``make_synthetic_dataset`` into ``root``, LD-P2 (nc=3) trained by
+    ``DetectionTrainer.train()`` for LOOP_EPOCHS epochs (the last without
+    mosaic), validated after each, then reloaded from ``last.pt`` and resumed
+    for one more epoch. Gates: exact launch counts, finite losses, both
+    checkpoints, the reload's maps bit-equal to the EMA model's, the resumed
+    run's epoch and step counts. Returns the ``trained_loop`` record and the
+    loop's launches."""
+    import torch
+
+    import experiment_yolo_torch.data.build as build
+    from experiment_yolo_torch import DetectionModel, DetectionTrainer
+    from experiment_yolo_torch.data import make_synthetic_dataset
+    from experiment_yolo_torch.data.dataset import YOLODataset
+    from experiment_yolo_torch.engine.checkpoint import load_checkpoint
+    from experiment_yolo_torch.nn.tasks import yaml_model_load
+    from experiment_yolo_torch.cfg import get_cfg
+
+    t = time.perf_counter()
+    data = make_synthetic_dataset(root / "data", n_train=LOOP_TRAIN, n_val=LOOP_VAL, imgsz=IMGSZ, seed=SEED)
+    setup_s = time.perf_counter() - t
+    cfg = {**yaml_model_load(CFG), "nc": LOOP_NC}
+    args = {"data": str(data), "epochs": LOOP_EPOCHS, "batch": BATCH, "imgsz": IMGSZ, "workers": 8, "amp": False,
+            "close_mosaic": 1, "optimizer": "SGD", "project": str(root / "runs"), "verbose": False}
+    train_set = YOLODataset(root / "data" / "images" / "train", imgsz=IMGSZ, augment=True, hyp=get_cfg(args))
+    nb = len(train_set) // BATCH
+    alone = {"mosaic": loader_ms(train_set, None), "no_mosaic": loader_ms(train_set, False)}
+
+    # the consumer's wait for each batch, train and val loaders apart
+    waits, iterate = {True: [], False: []}, build.DataLoader.__iter__
+
+    def timed_iter(self):
+        it = iterate(self)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            waits[self.shuffle].append(time.perf_counter() - t0)
+            yield item
+
+    model = DetectionModel(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    trainer = DetectionTrainer(model, args)
+    marks, losses = [], []
+    trainer.callbacks.add("on_train_epoch_start", lambda trainer: marks.append(["epoch", time.perf_counter(),
+                                                                                len(waits[True])]))
+    trainer.callbacks.add("on_fit_epoch_end", lambda trainer: (marks.append(["end", time.perf_counter()]),
+                                                               losses.append(dict(trainer.loss_items))))
+    validate = trainer._validate
+
+    def timed_validate():
+        marks.append(["val", time.perf_counter(), len(waits[True])])
+        return validate()
+
+    trainer._validate = timed_validate
+    for fn in counters.values():
+        fn.launches = 0
+    build.DataLoader.__iter__ = timed_iter
+    try:
+        t = time.perf_counter()
+        metrics = trainer.train()
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+    finally:
+        build.DataLoader.__iter__ = iterate
+    launches = {name: fn.launches for name, fn in counters.items()}
+    steps, val_batches = LOOP_EPOCHS * nb, LOOP_EPOCHS * math.ceil(LOOP_VAL / BATCH)
+    want = {"dfl_decode": 3 * (steps + val_batches), "dfl_decode_bwd": 3 * steps, "nms_suppress": 0,
+            "ldconv_gather": 10 * (steps + val_batches), "ldconv_gather_bwd": 10 * steps, "selective_scan": 0,
+            "soft_nms": val_batches}
+    check(launches == want, f"the trained loop launched {launches}, expected {want}")
+    check(metrics["epochs_run"] == LOOP_EPOCHS and trainer.state.step == steps,
+          f"the loop ran {metrics['epochs_run']} epochs, {trainer.state.step} steps: expected {LOOP_EPOCHS}, {steps}")
+    check(all(math.isfinite(v) for row in losses for v in row.values()), f"a loop epoch's loss is not finite: {losses}")
+    weights = trainer.save_dir / "weights"
+    check((weights / "last.pt").is_file() and (weights / "best.pt").is_file(), f"no last.pt or best.pt in {weights}")
+
+    epochs = []
+    for e in range(LOOP_EPOCHS):
+        start, val, end = marks[3 * e], marks[3 * e + 1], marks[3 * e + 2]
+        train_s, val_s = val[1] - start[1], end[1] - val[1]
+        wait_s = sum(waits[True][start[2]:val[2]])
+        epochs.append({"epoch": e + 1, "mosaic": e < LOOP_EPOCHS - 1, "train_s": train_s,
+                       "img_per_s": nb * BATCH / train_s, "wait_share": wait_s / train_s,
+                       "step_wall_ms": train_s / nb * 1e3, "wait_ms_per_step": wait_s / nb * 1e3,
+                       "val_s": val_s, "val_img_per_s": LOOP_VAL / val_s, "losses": losses[e]})
+
+    # the reload: last.pt's EMA weights give the trainer's EMA model's maps, bit for bit
+    reloaded = load_checkpoint(weights / "last.pt").eval()
+    vbatch = next(iter(trainer._validator._loader))
+    x = torch.as_tensor(vbatch["img"]).to(reloaded.device).permute(0, 3, 1, 2).float().div(255.0).contiguous()
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
+        want_maps, got_maps = trainer.state.ema.ema(x), reloaded(x)
+    reload_equal = all(torch.equal(a, b) for a, b in zip(got_maps, want_maps))
+    check(reload_equal, "load_checkpoint(last.pt) gives maps that differ from the trainer's EMA model's")
+    del reloaded, want_maps, got_maps
+
+    # resume=last.pt with one more epoch: exactly nb more steps
+    for fn in counters.values():
+        fn.launches = 0
+    resumed = DetectionTrainer(DetectionModel(cfg),
+                               {**args, "epochs": LOOP_EPOCHS + 1, "resume": str(weights / "last.pt")})
+    t = time.perf_counter()
+    rmetrics = resumed.train()
+    resume_s = time.perf_counter() - t
+    resumed_steps = resumed.state.step - steps
+    bwd = counters["ldconv_gather_bwd"].launches
+    check(rmetrics["epochs_run"] == LOOP_EPOCHS + 1 and resumed_steps == nb and bwd == 10 * nb,
+          f"the resumed run: epochs_run {rmetrics['epochs_run']}, {resumed_steps} steps, {bwd} K3-backward launches; "
+          f"expected {LOOP_EPOCHS + 1}, {nb}, {10 * nb}")
+    for name, fn in counters.items():
+        launches[name] += fn.launches
+    record = {"cfg": CFG, "nc": LOOP_NC, "imgsz": IMGSZ, "batch": BATCH, "train_images": LOOP_TRAIN,
+              "val_images": LOOP_VAL, "epochs": LOOP_EPOCHS, "workers": 8, "dtype": "float32",
+              "dataset_write_s": setup_s, "loop_s": loop_s,
+              "loop_img_per_s": steps * BATCH / loop_s, "epochs_detail": epochs,
+              "loader_alone_ms_per_batch": alone, "last_val": {k: v for k, v in metrics.items() if k != "epochs_run"},
+              "reload_maps_bit_equal": reload_equal, "resumed_epochs_run": rmetrics["epochs_run"],
+              "resumed_steps": resumed_steps, "resume_s": resume_s, "launches_first_run": want, "card": card}
+    return record, launches
+
+
 def match_fraction(a, b, tol=1e-2):
     """Fraction of detections of ``a`` (N, 6) that have one in ``b`` of the same
     class with every coordinate within ``tol`` px."""
@@ -946,6 +1104,47 @@ def capture_scan_inputs(model, x):
     finally:
         zoo.selective_scan = scan
     return feats, calls
+
+
+def k4_passes(args, sms: int) -> int:
+    """The kernels one K4 call launches: the ends and carry passes only where the scan has more than one chunk."""
+    from experiment_yolo_torch.ops.kernels.selective_scan import chunk_length
+
+    bsz, g, length, dim = args[1].shape
+    return 3 if length > chunk_length(bsz * g, length, dim, sms) else 1
+
+
+def k4_device_ms_main() -> None:
+    """Run as ``chip_smoke.py --k4-device-ms``, in a fresh process: the VSS
+    model's scan calls of one forward at IMGSZ, batch BATCH (phase 4's batch),
+    and the device time of one forward's ten K4 calls from a whole trace. Late
+    in a long process every K4 trace has been seen to lack one launch; a fresh
+    process has not. Prints one JSON line."""
+    import torch
+
+    from experiment_yolo_torch.ops.kernels import _build
+    from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan
+    from experiment_yolo_torch.utils.seeded import letterboxed, model_input, seeded_images, seeded_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    x = model_input(letterboxed(seeded_images(BATCH, SEED), IMGSZ), "cuda")
+    _, calls = capture_scan_inputs(seeded_model(VSS_CFG, SEED), x)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    with torch.no_grad():
+        ms = device_ms(lambda: [selective_scan(*a, **k) for a, k in calls], "selective_scan_kernel",
+                       sum(k4_passes(a, sms) for a, _ in calls))
+    print(json.dumps({"k4_device_ms": ms, "calls": len(calls)}), flush=True)
+
+
+def k4_device_ms_fresh():
+    """K4's device time per forward from :func:`k4_device_ms_main` in a
+    subprocess (None if its traces lost launches too)."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--k4-device-ms"], capture_output=True,
+                         text=True, timeout=600)
+    check(out.returncode == 0, f"the fresh K4 timing process failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])["k4_device_ms"]
 
 
 def check_k4(calls):
@@ -992,9 +1191,7 @@ def check_k4(calls):
         return (sum(t.numel() for t in args) + n) * 4, n * (16 * 8 + 2)
 
     def passes(args):
-        """The kernels one call launches: the ends and carry passes only where the scan has more than one chunk."""
-        bsz, g, length, dim = args[1].shape
-        return 3 if length > chunk_length(bsz * g, length, dim, sms) else 1
+        return k4_passes(args, sms)
 
     def held(kind, length, args, kwargs):
         e, r = worst(selective_scan(*args, **kwargs), selective_scan_plain(*args, **kwargs))
@@ -1165,6 +1362,8 @@ def main() -> None:
     if not pkg.exists():
         fail(f"{pkg.parent} is missing: run from the root of a checkout")
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:] == ["--k4-device-ms"]:
+        return k4_device_ms_main()
 
     import experiment_yolo_torch
     from experiment_yolo_torch.engine.trainer import DetectionTrainer
@@ -1306,14 +1505,27 @@ def main() -> None:
     del trainer, model, ld, ld_train, rand_ld, levels, feats
     torch.cuda.empty_cache()
 
-    # 12. the VSS detector and the scan inputs of one forward
+    # 12. the dataset-driven main path: a synthetic dataset, train() with per-epoch validation, reload, resume
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        loop, run = trained_loop(Path(tmp), counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    log(f"trained loop: {LOOP_EPOCHS} epochs of {LOOP_TRAIN // BATCH} steps, {loop['loop_img_per_s']:.2f} img/s over "
+        f"the whole loop, per epoch {[round(e['img_per_s'], 2) for e in loop['epochs_detail']]} img/s, wait share "
+        f"{[round(e['wait_share'], 3) for e in loop['epochs_detail']]}, loader alone "
+        f"{loop['loader_alone_ms_per_batch']}, resumed to {loop['resumed_epochs_run']} epochs, {card}")
+    torch.cuda.empty_cache()
+
+    # 13. the VSS detector and the scan inputs of one forward
     vss = logged_model(VSS_CFG)
     _, calls = capture_scan_inputs(vss, x)
     check(len(calls) == 10, f"expected 10 VSS blocks on the path, found {len(calls)} scan calls")
 
-    # 13. K4 against its plain version, and timed
+    # 14. K4 against its plain version, and timed; its device time again from a fresh process
     k4 = check_k4(calls)
     del calls
+    k4["device_ms_in_process"], k4["device_ms"] = k4["device_ms"], k4_device_ms_fresh()
     log(f"selective_scan: max abs err {k4['max_abs_err']} ({k4['rel_err']} of a direction's largest plain value), "
         f"kernel {k4['ms']:.4f} ms (device {k4['device_ms']} ms) for one forward's {k4['launches_per_forward']} "
         f"launches ({k4['scans_per_forward']} scans), plain {k4['plain_ms']:.1f} ms (median of {k4['plain_runs']}), "
@@ -1323,17 +1535,17 @@ def main() -> None:
     log(f"  K4 ragged {k4['ragged']}")
     kernels += [k4, k5]
 
-    # 14. the VSS main path: DetectionPredictor, soft then hard NMS
+    # 15. the VSS main path: DetectionPredictor, soft then hard NMS
     served_vss, run = serve_timed(vss, images, counters, {"dfl_decode": len(vss.stride),
                                                           "selective_scan": k4["launches_per_forward"]}, card, VSS_CFG)
     for name in launches:
         launches[name] += run[name]
-    # 15. a smaller batch through the same weights on the CPU, plain versions only
+    # 16. a smaller batch through the same weights on the CPU, plain versions only
     compare_vss = compare_serving_cpu(VSS_CFG, vss, x[:VSS_CMP_BATCH])
     log(f"VSS CPU comparison: {json.dumps(compare_vss)}")
     del vss
 
-    # 16. the plain-Conv configs: one batch each
+    # 17. the plain-Conv configs: one batch each
     plain_conv = {}
     for cfg, strides in PLAIN_CONV_CFGS.items():
         m = logged_model(cfg)
@@ -1347,7 +1559,7 @@ def main() -> None:
                            "map_abs_max": max(f.abs().max().item() for f in maps)}
     log(f"plain-Conv configs: {json.dumps(plain_conv)}")
 
-    # 17. the result lines
+    # 18. the result lines
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["kernel_ms"] = k["ms"]
@@ -1363,6 +1575,7 @@ def main() -> None:
                     "cfg": VSS_CFG, "imgsz": IMGSZ, "batch": BATCH, "dtype": "float32", "card": card}))
     log(json.dumps({"validated": validated, "cfg": CFG, "imgsz": IMGSZ, "batch": BATCH, "conf": VAL_CONF,
                     "dtype": "float32", "card": card}))
+    log(json.dumps({"trained_loop": loop}))
     # last of the long lines, so that a reader of the output's tail gets it whole
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"card: {card}")

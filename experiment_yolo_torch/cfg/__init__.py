@@ -1,9 +1,9 @@
 """Configuration: the copied ``default.yaml`` plus overrides.
 
 Port of ``experiment_yolo_tpu/cfg/__init__.py`` (``get_cfg``/``check_imgsz``),
-with the checks of the keys the detect predict path and the training step
-read. Every key of ``default.yaml`` is accepted as an override, so a config
-written for the JAX package loads here unchanged.
+with the checks of the keys the detect predict path, the training step and
+the training loop read. Every key of ``default.yaml`` is accepted as an
+override, so a config written for the JAX package loads here unchanged.
 """
 
 from __future__ import annotations
@@ -20,8 +20,9 @@ CFG_DIR = Path(__file__).resolve().parent
 DEFAULT_CFG_PATH = CFG_DIR / "default.yaml"
 
 _FRACTION_KEYS = {"conf", "iou"}
-_INT_KEYS = {"max_det", "imgsz", "batch", "epochs", "nbs"}
-_BOOL_KEYS = {"agnostic_nms", "soft_nms_quirk", "amp", "ema", "cos_lr"}
+_INT_KEYS = {"max_det", "imgsz", "batch", "epochs", "nbs", "patience", "close_mosaic", "workers", "save_period"}
+_BOOL_KEYS = {"agnostic_nms", "soft_nms_quirk", "amp", "ema", "cos_lr", "val", "save", "rect", "multi_scale",
+              "single_cls", "exist_ok"}
 _NMS_TYPES = ("soft", "hard")
 
 
@@ -39,6 +40,12 @@ def default_cfg() -> Dict[str, Any]:
 def _coerce(k: str, v: Any) -> Any:
     if v is None or v == "None":
         return None
+    if k == "resume":  # a bool, or the path of a checkpoint to resume from
+        if isinstance(v, bool):
+            return v
+        if not isinstance(v, (str, Path)):
+            raise TypeError(f"'resume={v}' must be a bool or a checkpoint path")
+        return {"true": True, "false": False}.get(str(v).lower(), str(v))
     if k in _BOOL_KEYS and not isinstance(v, bool):
         if isinstance(v, str) and v.lower() in ("true", "false"):
             return v.lower() == "true"

@@ -1,35 +1,59 @@
-"""The detection training step.
+"""The detection trainer: the training step and the dataset-driven loop.
 
-Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect branch: the
-state of ``TrainState``, the loss config of ``DetectionTrainer.__init__``, the
-optimizer, state and EMA set-up of ``train()``, and the step of
-``_make_train_step`` as :meth:`DetectionTrainer.train_step`. One step takes a
-batch as the JAX step does (uint8 NHWC images and padded labels), runs the
-forward in train mode (BatchNorm statistics update), the loss (kernel K1 for
-the decode, TAL, BCE, CIoU or the paper's Wise-IoU v3 with the NWD blend,
-DFL), the backward (the K1 and K3 backward kernels on the card), the optimizer
-on its firing plan, and the EMA.
+Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect branch:
 
-Not ported yet: the dataset-driven ``train()`` loop, which needs the data
-slice (ROADMAP.md queue 1 item 3), and bf16 (``amp=True``, ROADMAP.md queue 1
-item 4).
+- :meth:`DetectionTrainer.train_step` is ``_make_train_step``'s step: a batch
+  as the JAX step takes it (uint8 NHWC images and padded labels), the forward
+  in train mode (BatchNorm statistics update), the loss (kernel K1 for the
+  decode, TAL, BCE, CIoU or the paper's Wise-IoU v3 with the NWD blend, DFL),
+  the backward (the K1 and K3 backward kernels on the card), the optimizer on
+  its firing plan, and the EMA;
+- :meth:`DetectionTrainer.train` is ``train()``: the dataset and the threaded
+  loader, the optimizer built for the loader's batches per epoch, epochs with
+  ``close_mosaic`` and ``multi_scale``, the per-epoch mean of the loss
+  components (read one step late, so that the host never waits for the step it
+  just launched), validation of the EMA model after every epoch through one
+  dataset-driven ``DetectionValidator``, ``results.csv``, the ``last``,
+  ``best`` and ``epochN`` checkpoints, ``resume`` and ``EarlyStopping``.
+
+Not ported: bf16 (``amp=True``, ROADMAP.md queue 1 item 4); the mesh, FSDP,
+``autobatch`` and ``plots`` (ROADMAP.md catalogue item 15), each of which
+raises; the kernel-warehouse temperature and the task losses, whose models
+the port does not build (catalogue items 14 and 13).
 """
 
 from __future__ import annotations
 
+import csv
+import time
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional
+from pathlib import Path
+from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
-from experiment_yolo_torch.cfg import get_cfg
+from experiment_yolo_torch.cfg import check_imgsz, get_cfg
+from experiment_yolo_torch.data.augment import resize_linear
+from experiment_yolo_torch.data.build import DataLoader, build_yolo_dataset
+from experiment_yolo_torch.data.dataset import check_det_dataset
+from experiment_yolo_torch.engine.checkpoint import read_checkpoint, save_checkpoint
 from experiment_yolo_torch.nn.tasks import DetectionModel
 from experiment_yolo_torch.optim.builders import YoloSGD, build_optimizer
+from experiment_yolo_torch.utils import LOGGER, colorstr, get_latest_run, increment_path
+from experiment_yolo_torch.utils.callbacks import Callbacks
 from experiment_yolo_torch.utils.ema import ModelEMA
 from experiment_yolo_torch.utils.loss import LossConfig, detection_loss
 
-NB = 100  # batches per epoch for the schedules until a dataset sets it (the JAX package's bench.py uses 100)
+NB = 100  # batches per epoch of the schedules for train_step callers, who have no loader (the JAX bench.py's)
+LOSS_KEYS = ("box", "cls", "dfl")  # the JAX step's loss components, in its sorted order
+MULTI_SCALE = (0.75, 0.9, 1.0, 1.15, 1.3)  # multi_scale's fixed bucket set, times imgsz
+
+
+def _host(comps: Mapping) -> np.ndarray:
+    """The loss components of a step as host floats (one device sync)."""
+    return np.asarray(torch.stack([comps[k] for k in LOSS_KEYS]).tolist())
 
 
 @dataclass
@@ -48,12 +72,30 @@ class TrainState:
     step: int = 0  # micro-batches taken
 
 
-class DetectionTrainer:
-    """Trains a :class:`DetectionModel` where it lives, one batch per
-    :meth:`train_step`.
+class EarlyStopping:
+    """Stop when fitness has not improved for ``patience`` epochs."""
 
-    ``overrides`` are ``default.yaml`` keys. The warmup and LR schedules and
-    the firing plan assume ``NB`` batches per epoch.
+    def __init__(self, patience: int = 50):
+        self.best_fitness = 0.0
+        self.best_epoch = 0
+        self.patience = patience or float("inf")
+
+    def __call__(self, epoch: int, fitness: Optional[float]) -> bool:
+        if fitness is None:
+            return False
+        if fitness >= self.best_fitness:
+            self.best_epoch = epoch
+            self.best_fitness = fitness
+        return (epoch - self.best_epoch) >= self.patience
+
+
+class DetectionTrainer:
+    """Trains a :class:`DetectionModel` where it lives: one batch per
+    :meth:`train_step`, or a dataset's epochs with :meth:`train`.
+
+    ``overrides`` are ``default.yaml`` keys. Until :meth:`train` builds the
+    optimizer for its loader, the warmup and LR schedules and the firing plan
+    assume ``NB`` batches per epoch.
     """
 
     def __init__(self, model: DetectionModel, overrides: Optional[Dict] = None):
@@ -61,19 +103,36 @@ class DetectionTrainer:
         if args.amp:
             raise NotImplementedError("amp=True (bf16 compute) is not ported to experiment_yolo_torch yet "
                                       "(ROADMAP.md queue 1 item 4); pass amp=False for f32")
+        if args.batch == -1:
+            raise NotImplementedError("batch=-1 (autobatch, utils/autobatch.py) is not ported to "
+                                      "experiment_yolo_torch yet (ROADMAP.md catalogue item 15)")
+        self.model = model
+        self.callbacks = Callbacks()
+        self.metrics: Dict[str, float] = {}
+        self.save_dir = self._get_save_dir()
         self.loss_cfg = LossConfig(nc=model.nc, reg_max=model.reg_max, box=args.box, cls=args.cls, dfl=args.dfl,
                                    use_wiseiou=args.use_wiseiou, wiou_ltype=args.wiou_ltype, nwd=args.nwd,
                                    iou_ratio=args.iou_ratio, iou_type=args.iou_type or "CIoU",
                                    inner_iou=args.inner_iou, focaler_iou=args.focaler_iou)
         # gradient accumulation towards the nominal batch size, weight decay scaled to match
         self.accumulate = max(round(args.nbs / args.batch), 1)
+        self.state = self._fresh_state(NB)
+
+    def _fresh_state(self, nb: int) -> TrainState:
+        """The state ``train()`` starts from: the optimizer for ``nb`` batches
+        per epoch, the EMA a copy of the model (in eval mode), ``iou_mean`` 1."""
+        args, model = self.args, self.model
         weight_decay = args.weight_decay * args.batch * self.accumulate / args.nbs
-        optimizer = build_optimizer(model, args.optimizer, args.lr0, args.momentum, weight_decay, NB, args.epochs,
+        optimizer = build_optimizer(model, args.optimizer, args.lr0, args.momentum, weight_decay, nb, args.epochs,
                                     args.lrf, args.cos_lr, args.warmup_epochs, args.warmup_bias_lr,
                                     args.warmup_momentum, accumulate=self.accumulate)
-        ema = ModelEMA(model, args.ema_decay, args.ema_tau) if args.ema else None  # a copy, in eval mode
+        ema = ModelEMA(model, args.ema_decay, args.ema_tau) if args.ema else None
         model.train()
-        self.state = TrainState(model, optimizer, ema, torch.ones((), dtype=torch.float32, device=model.device))
+        return TrainState(model, optimizer, ema, torch.ones((), dtype=torch.float32, device=model.device))
+
+    def _get_save_dir(self) -> Path:
+        return increment_path(Path(self.args.project or "runs/detect") / (self.args.name or "train"),
+                              exist_ok=self.args.exist_ok)
 
     def train_step(self, batch: Mapping) -> Dict[str, torch.Tensor]:
         """One micro-batch: ``img`` (B, H, W, 3) uint8 (no channel flip),
@@ -108,3 +167,194 @@ class DetectionTrainer:
                 st.ema.update(st.model)
         st.step += 1
         return {**{k: v.detach() for k, v in comps.items()}, "loss": total.detach(), "fg": res.fg_mask.sum()}
+
+    # ------------------------------------------------------------------
+    def _check_unported(self) -> None:
+        args = self.args
+        if int(args.fsdp or 0) > 1 or int(args.n_devices or 1) > 1:
+            raise NotImplementedError("the device mesh (n_devices > 1, fsdp > 1) is not ported to "
+                                      "experiment_yolo_torch yet: it maps to DDP or FSDP (ROADMAP.md catalogue "
+                                      "item 15)")
+        if args.plots:
+            raise NotImplementedError("plots=True draws figures, which are not ported to experiment_yolo_torch yet "
+                                      "(utils/plotting.py, ROADMAP.md catalogue item 15)")
+        if (args.task or "detect") != "detect":
+            raise NotImplementedError(f"task={args.task!r} (its losses and validators) is not ported to "
+                                      "experiment_yolo_torch yet (ROADMAP.md catalogue item 13)")
+        if not args.data:
+            raise ValueError("train() needs a dataset: pass data=<data.yaml>")
+
+    def _host_batch(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        """The batch as tensors in pinned host memory on the card's machine,
+        so that ``train_step``'s uploads run asynchronously."""
+        pin = self.model.device.type == "cuda"
+        out = {}
+        for k in ("img", "bboxes", "cls", "mask"):
+            t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+            out[k] = t.pin_memory() if pin else t
+        return out
+
+    def train(self) -> Dict[str, float]:
+        """Train on ``args.data`` for ``args.epochs`` epochs; returns the last
+        epoch's validation metrics and ``epochs_run``."""
+        args = self.args
+        self.callbacks.run("on_pretrain_routine_start", trainer=self)
+        self._check_unported()
+        args.imgsz = check_imgsz(int(args.imgsz), max(self.model.stride))
+        data = check_det_dataset(args.data)
+        if data["nc"] != self.model.nc:
+            raise ValueError(f"dataset nc={data['nc']} but model nc={self.model.nc} — build the model with "
+                             f"nc={data['nc']}")
+        self.data = data
+        self.model.names = data["names"]
+
+        train_set = build_yolo_dataset(args, data["train"], mode="train")
+        self.train_loader = DataLoader(train_set, args.batch, shuffle=True, workers=args.workers, seed=args.seed)
+        nb = len(self.train_loader)
+        if nb == 0:
+            raise ValueError(f"training set smaller than batch size {args.batch}")
+        self.state = self._fresh_state(nb)  # the schedules and the firing plan for this loader's epochs
+        start_epoch, best_fitness = 0, 0.0
+        if args.resume:
+            start_epoch, best_fitness = self._load_resume_state()
+            LOGGER.info(f"Resuming from epoch {start_epoch + 1} (best_fitness {best_fitness:.4f})")
+        stopper = EarlyStopping(args.patience)
+        stopper.best_fitness = best_fitness
+        stopper.best_epoch = max(start_epoch - 1, 0)
+        LOGGER.info(f"{colorstr('train:')} {len(train_set)} images, {nb} batches/epoch, {args.epochs} epochs, "
+                    f"batch {args.batch} on {self.model.device}, optimizer={args.optimizer}, amp={args.amp}")
+
+        epoch = start_epoch
+        for epoch in range(start_epoch, args.epochs):
+            self.epoch = epoch
+            self.callbacks.run("on_train_epoch_start", trainer=self)
+            if args.close_mosaic and epoch == args.epochs - args.close_mosaic:
+                LOGGER.info("Closing dataloader mosaic")
+                self.train_loader.mosaic = False
+            self.train_loader.set_epoch(epoch)
+            t0 = time.time()
+            mean_loss, n_acc, pending = np.zeros(len(LOSS_KEYS)), 0, None
+            ms_rng = np.random.default_rng(args.seed + 10_000 + epoch)
+            for batch in self.train_loader:
+                if args.multi_scale:
+                    batch = self._rescale_batch(batch, ms_rng)
+                comps = self.train_step(self._host_batch(batch))
+                if pending is not None:  # the previous step's losses: reading them waits only for that step
+                    mean_loss = (mean_loss * n_acc + _host(pending)) / (n_acc + 1)
+                    n_acc += 1
+                pending = comps
+            if pending is not None:
+                mean_loss = (mean_loss * n_acc + _host(pending)) / (n_acc + 1)
+                n_acc += 1
+            dt = time.time() - t0
+            loss_str = "  ".join(f"{k} {v:.4f}" for k, v in zip(LOSS_KEYS, mean_loss))
+            LOGGER.info(f"epoch {epoch + 1}/{args.epochs}  {loss_str}  {nb * args.batch / dt:.1f} img/s")
+            self.loss_items = dict(zip(LOSS_KEYS, mean_loss.tolist()))
+
+            fitness = self._validate() if args.val else None
+            self._save_metrics_csv(epoch)
+            self.callbacks.run("on_fit_epoch_end", trainer=self)
+
+            if args.save:
+                # best_fitness moves before `last` is written, so that a resume from it restores this epoch's best
+                improved = fitness is not None and fitness >= best_fitness
+                if improved:
+                    best_fitness = fitness
+                self._save("last", epoch, best_fitness)
+                if improved:
+                    self._save("best", epoch, best_fitness)
+                if args.save_period > 0 and (epoch + 1) % args.save_period == 0:
+                    self._save(f"epoch{epoch + 1}", epoch, best_fitness)
+            if stopper(epoch, fitness):
+                LOGGER.info(f"EarlyStopping at epoch {epoch + 1} (best epoch {stopper.best_epoch + 1})")
+                break
+
+        self.metrics["epochs_run"] = epoch + 1
+        self.callbacks.run("on_train_end", trainer=self)
+        return self.metrics
+
+    def _rescale_batch(self, batch: Dict, rng: np.random.Generator) -> Dict:
+        """Multi-scale training on a fixed bucket set of imgsz (stride-rounded):
+        the labels are normalised, so only the pixels resize."""
+        s = max(self.model.stride)
+        buckets = sorted({int(round(self.args.imgsz * f / s) * s) for f in MULTI_SCALE})
+        sz = int(rng.choice(buckets))
+        if sz == batch["img"].shape[1]:
+            return batch
+        return {**batch, "img": np.stack([resize_linear(im, (sz, sz)) for im in batch["img"]])}
+
+    def _validate(self) -> Optional[float]:
+        """Validate the EMA model (the model itself when ``ema`` is off) with
+        one validator for the whole run: its dataset and loader are built once."""
+        from experiment_yolo_torch.engine.validator import DetectionValidator
+
+        st = self.state
+        if getattr(self, "_validator", None) is None:
+            a = self.args
+            self._validator = DetectionValidator({"data": a.data, "imgsz": a.imgsz, "batch": a.batch, "conf": 0.001,
+                                                  "iou": 0.7, "max_det": a.max_det, "workers": a.workers,
+                                                  "max_labels": a.max_labels, "split": a.split, "verbose": False})
+        stats = self._validator(st.ema.ema if st.ema is not None else st.model)
+        self.metrics.update(stats)
+        return stats.get("fitness")
+
+    def _save_metrics_csv(self, epoch: int) -> None:
+        """Append this epoch's losses and metrics to ``results.csv``."""
+        row = {"epoch": epoch + 1, **{f"train/{k}": round(v, 5) for k, v in self.loss_items.items()}}
+        row.update({f"metrics/{k}": round(v, 5) for k, v in self.metrics.items() if isinstance(v, float)})
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        path = self.save_dir / "results.csv"
+        exists = path.exists()
+        with open(path, "a", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(row))
+            if not exists:
+                w.writeheader()
+            w.writerow(row)
+
+    def _train_state(self) -> Dict:
+        """What resuming needs beyond the weights: the optimizer's momentum
+        buffers, counters and, inside an accumulation window, the gradients
+        summed so far; the EMA's update count; ``iou_mean``; the step."""
+        st = self.state
+        params = [p for g in st.optimizer.param_groups for p in g["params"]]
+        return {"momentum": [st.optimizer.state[p]["momentum_buffer"] for p in params],
+                "grads": [p.grad for p in params] if st.optimizer.mini_step else None,
+                "updates": st.optimizer.updates, "mini_step": st.optimizer.mini_step,
+                "ema_updates": st.ema.updates if st.ema is not None else 0, "iou_mean": st.iou_mean, "step": st.step}
+
+    def _save(self, name: str, epoch: int, best_fitness: float) -> None:
+        """The weights and the EMA (an inference checkpoint) and, for 'last',
+        the whole train state to resume from."""
+        st = self.state
+        meta = {"names": self.data["names"], "epoch": int(epoch), "best_fitness": float(best_fitness),
+                "train_args": {k: v for k, v in vars(self.args).items()
+                               if v is None or isinstance(v, (int, float, str, bool))}}
+        save_checkpoint(self.save_dir / "weights" / f"{name}.pt", st.model, ema=st.ema.ema if st.ema else None,
+                        train_state=self._train_state() if name == "last" else None, meta=meta)
+
+    def _load_resume_state(self) -> Tuple[int, float]:
+        """Restore the state from ``args.resume``: a ``last.pt`` path, or True
+        for the newest ``weights/last.pt`` under the project, by mtime.
+        Returns (first epoch to run, best fitness so far)."""
+        resume = self.args.resume
+        if resume is True or str(resume).lower() == "true":
+            resume = get_latest_run(self.args.project or "runs/detect")
+            if not resume:
+                raise FileNotFoundError("resume=True but no previous run with a weights/last.pt was found")
+        ckpt = read_checkpoint(resume)
+        ts = ckpt.get("train_state")
+        if ts is None:
+            raise ValueError(f"{resume} holds no train state: resume from a run's weights/last.pt")
+        st, dev = self.state, self.model.device
+        st.model.load_state_dict(ckpt["model"], strict=True)
+        if st.ema is not None:
+            st.ema.ema.load_state_dict(ckpt["ema"], strict=True)
+            st.ema.updates = int(ts["ema_updates"])
+        params = [p for g in st.optimizer.param_groups for p in g["params"]]
+        with torch.no_grad():
+            for i, p in enumerate(params):
+                st.optimizer.state[p]["momentum_buffer"].copy_(ts["momentum"][i])
+                p.grad = ts["grads"][i].to(dev) if ts["grads"] is not None else None
+        st.optimizer.updates, st.optimizer.mini_step = int(ts["updates"]), int(ts["mini_step"])
+        st.iou_mean, st.step = ts["iou_mean"].to(dev), int(ts["step"])
+        return int(ckpt["epoch"]) + 1, float(ckpt["best_fitness"])

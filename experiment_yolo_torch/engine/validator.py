@@ -1,16 +1,19 @@
 """Detection validator: forward -> decode -> multi-label NMS -> matching -> mAP.
 
-Port of ``experiment_yolo_tpu/engine/validator.py:DetectionValidator`` for
-batches in memory. The card part (:meth:`DetectionValidator.infer`:
+Port of ``experiment_yolo_tpu/engine/validator.py:DetectionValidator``. The
+card part (:meth:`DetectionValidator.infer`:
 normalise, forward, decode with kernel K1, NMS with ``multi_label`` over a
 pool of 4,096 (kernel K5 for soft, K2 for hard)) runs where the model lives;
 the host part (:meth:`DetectionValidator.score_batch`: boxes and ground truth
 back to original-image space, matching, ``DetMetrics``) is numpy, as in the
 JAX package, so that mAP numbers are comparable.
 
-Datasets and image decoding wait for the data slice (ROADMAP.md queue 1 item
-3): until then the caller hands the batches that the JAX package's val
-``DataLoader`` yields.
+Called with a model alone it reads ``args.data``'s ``split`` through the
+port's val ``DataLoader`` (letterboxed, ``rect`` batches if asked, the last
+batch padded and cut back to the dataset's length); the dataset and the loader
+are built once per (model, data, imgsz, batch), so the trainer's per-epoch
+validation of its EMA model scans the split once. Batches in memory, as the
+JAX val ``DataLoader`` yields them, are taken too.
 """
 
 from __future__ import annotations
@@ -23,16 +26,21 @@ from typing import Dict, Iterable, List, Mapping, Optional
 import numpy as np
 import torch
 
-from experiment_yolo_torch.cfg import get_cfg
+from experiment_yolo_torch.cfg import check_imgsz, get_cfg
+from experiment_yolo_torch.data.build import DataLoader, build_yolo_dataset
+from experiment_yolo_torch.data.dataset import check_det_dataset
 from experiment_yolo_torch.ops.nms import non_max_suppression
+from experiment_yolo_torch.utils import LOGGER
 from experiment_yolo_torch.utils.metrics import IOUV, DetMetrics, box_iou_np, match_predictions
 
 VAL_PRE_NMS_TOPK = 4096  # the JAX validator's pool at conf 0.001 (the reference's max_nms is 30,000)
 
 
 class DetectionValidator:
-    """``DetectionValidator(overrides)(model, batches, names, n_images=None)``
-    -> the stats dict (precision, recall, mAP50, mAP50-95, fitness).
+    """``DetectionValidator(overrides)(model)`` on ``overrides['data']``, or
+    ``DetectionValidator(overrides)(model, batches, names, n_images=None)`` on
+    batches in memory -> the stats dict (precision, recall, mAP50, mAP50-95,
+    fitness).
 
     ``overrides`` are ``default.yaml`` keys; ``conf`` defaults to 0.001, and
     ``nms_type`` and ``soft_nms_quirk`` choose the NMS. ``plots=True`` raises:
@@ -46,6 +54,22 @@ class DetectionValidator:
         if self.args.plots:
             raise NotImplementedError("plots=True draws figures, which are not ported to experiment_yolo_torch yet "
                                       "(utils/plotting.py, ROADMAP.md catalogue item 15)")
+        self._cache_key = self._data = self._dataset = self._loader = None
+
+    def _setup(self, model):
+        """The split's dataset and val loader, built once per (model, data,
+        imgsz, batch)."""
+        args = self.args
+        args.imgsz = check_imgsz(int(args.imgsz), max(model.stride))
+        key = (id(model), str(args.data), int(args.imgsz), int(args.batch))
+        if self._cache_key != key:
+            data = check_det_dataset(args.data)
+            split = data.get(args.split or "val") or data["val"]
+            dataset = build_yolo_dataset(args, split, mode="val")
+            loader = DataLoader(dataset, args.batch, shuffle=False, workers=args.workers, drop_last=False,
+                                rect=bool(args.rect), stride=max(model.stride))
+            self._cache_key, self._data, self._dataset, self._loader = key, data, dataset, loader
+        return self._data, self._dataset, self._loader
 
     def nms(self, boxes: torch.Tensor, scores: torch.Tensor):
         """The validator's NMS on decoded (B, A, 4) xywh boxes and (B, A, nc)
@@ -103,14 +127,22 @@ class DetectionValidator:
                                   float(pb[j, 3] - pb[j, 1])], "score": float(d[j, 4])} for j in range(k)]
         return records
 
-    def __call__(self, model, batches: Iterable[Mapping], names: Dict[int, str],
+    def __call__(self, model, batches: Optional[Iterable[Mapping]] = None, names: Optional[Dict[int, str]] = None,
                  n_images: Optional[int] = None) -> Dict[str, float]:
-        """Validate ``model`` where it lives on ``batches``: dicts of ``img``
-        (B, H, W, 3) uint8 RGB letterboxed, ``bboxes`` (B, M, 4) normalised
-        xywh on the letterboxed image, ``cls`` and ``mask`` (B, M),
-        ``ori_shape`` (B, 2) and ``ratio_pad`` (B, 3) = (gain, padw, padh).
-        ``n_images`` cuts the padded tail of the last batch."""
+        """Validate ``model`` where it lives: on ``args.data``'s split when no
+        ``batches`` are given, else on ``batches``: dicts of ``img`` (B, H, W,
+        3) uint8 RGB letterboxed, ``bboxes`` (B, M, 4) normalised xywh on the
+        letterboxed image, ``cls`` and ``mask`` (B, M), ``ori_shape`` (B, 2)
+        and ``ratio_pad`` (B, 3) = (gain, padw, padh), with ``names``;
+        ``n_images`` cuts the padded tail of the last batch. COCO-style
+        ``image_id`` is the image file's stem on a dataset, the image's index
+        in ``batches``."""
         args = self.args
+        stems = None
+        if batches is None:
+            data, dataset, batches = self._setup(model)
+            names, n_images = data["names"], len(dataset)
+            stems = [Path(dataset.im_files[i]).stem for i in batches.image_order()]
         metrics = DetMetrics(names)
         seen, records = 0, []
         t0 = time.time()
@@ -122,14 +154,18 @@ class DetectionValidator:
                 break
             records += self.score_batch(metrics, det, counts, batch, n, first_id=seen)
             seen += n
+        if stems:
+            for r in records:
+                r["image_id"] = stems[r["image_id"]]
         if args.save_json:
             out = Path(args.project or "runs/detect") / "predictions.json"
             out.parent.mkdir(parents=True, exist_ok=True)
             out.write_text(json.dumps(records))
-            print(f"val: saved {len(records)} detections to {out}")
+            LOGGER.info(f"val: saved {len(records)} detections to {out}")
         stats = metrics.result()
         dt = time.time() - t0
         if args.verbose:
-            print(f"val: {seen} images  P {stats['precision']:.3f}  R {stats['recall']:.3f}  "
-                  f"mAP50 {stats['mAP50']:.3f}  mAP50-95 {stats['mAP50-95']:.3f}  ({seen / max(dt, 1e-9):.1f} img/s)")
+            LOGGER.info(f"val: {seen} images  P {stats['precision']:.3f}  R {stats['recall']:.3f}  "
+                        f"mAP50 {stats['mAP50']:.3f}  mAP50-95 {stats['mAP50-95']:.3f}  "
+                        f"({seen / max(dt, 1e-9):.1f} img/s)")
         return stats

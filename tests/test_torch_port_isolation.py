@@ -91,6 +91,41 @@ def test_port_sources_name_no_cv2_pil_or_jax():
                     f"{path.relative_to(ROOT)} imports {name}"
 
 
+_LOOP_PROBE = """
+import sys, tempfile
+from pathlib import Path
+import torch
+torch.set_num_threads(1)  # the test run's parallel workers would oversubscribe the CPUs
+from experiment_yolo_torch import DetectionModel, DetectionTrainer
+from experiment_yolo_torch.data import make_synthetic_dataset
+from experiment_yolo_torch.engine.checkpoint import load_checkpoint
+from experiment_yolo_torch.nn.tasks import yaml_model_load
+from experiment_yolo_torch.ops.kernels import dfl_decode, ldconv_gather, soft_nms
+root = Path(tempfile.mkdtemp())
+data = make_synthetic_dataset(root / "data", n_train=4, n_val=2, imgsz=64, seed=0)
+model = DetectionModel({**yaml_model_load("yolov8-LD-P2.yaml"), "nc": 3}, device="cpu")
+trainer = DetectionTrainer(model, {"data": str(data), "epochs": 1, "batch": 2, "imgsz": 64, "amp": False,
+                                   "optimizer": "SGD", "workers": 2, "project": str(root / "runs")})
+metrics = trainer.train()
+reloaded = load_checkpoint(trainer.save_dir / "weights" / "last.pt", device="cpu")
+launches = [dfl_decode.dfl_decode.launches, dfl_decode.dfl_decode_bwd.launches, ldconv_gather.ldconv_gather.launches,
+            ldconv_gather.ldconv_gather_bwd.launches, soft_nms.soft_nms.launches]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "cv2", "PIL", "matplotlib"))
+print(metrics["epochs_run"], trainer.state.step, reloaded.names, launches, bad)
+"""
+
+
+def test_training_loop_imports_no_jax_or_opencv_and_cpu_launches_nothing():
+    """In a fresh interpreter: write a synthetic BMP dataset, train LD-P2 for
+    one epoch from it with validation, and reload the checkpoint. Nothing of
+    JAX, the JAX package, OpenCV, PIL or matplotlib is loaded, and no kernel
+    launch is counted."""
+    out = subprocess.run([sys.executable, "-c", _LOOP_PROBE], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[-2] == "1 2 {0: 'circle', 1: 'square', 2: 'triangle'} [0, 0, 0, 0, 0] []"
+
+
 @pytest.mark.parametrize("name", ["default.yaml", "models/yolov8-LD-P2.yaml", "models/yolov8.yaml",
                                   "models/yolov8-ASF-P2P2.yaml"])
 def test_yaml_copies_equal_originals(name):
@@ -108,6 +143,17 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         DetectionModel("yolov8-LD-P2.yaml", device="cuda")
     model = DetectionModel("yolov8-LD-P2.yaml", device="cpu")
     assert DetectionPredictor(model, {"imgsz": 64}).device == torch.device("cpu")
+
+
+def test_load_checkpoint_defaults_to_the_card_and_raises_without_one(monkeypatch, tmp_path):
+    """``load_checkpoint`` rebuilds the model on the card unless asked for the CPU."""
+    from experiment_yolo_torch.engine.checkpoint import load_checkpoint, save_checkpoint
+
+    save_checkpoint(tmp_path / "last.pt", DetectionModel("yolov8-LD-P2.yaml", device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint(tmp_path / "last.pt")
+    assert load_checkpoint(tmp_path / "last.pt", device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
