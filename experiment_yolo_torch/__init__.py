@@ -7,9 +7,12 @@ LDConv bilinear gather and its backward, and the selective scan of the
 Mamba/VSS blocks. It imports neither JAX nor the JAX package.
 """
 
+__version__ = "0.1.0"
+
+from experiment_yolo_torch.engine.model import YOLO
 from experiment_yolo_torch.engine.predictor import DetectionPredictor
 from experiment_yolo_torch.engine.trainer import DetectionTrainer
 from experiment_yolo_torch.engine.validator import DetectionValidator
 from experiment_yolo_torch.nn.tasks import DetectionModel
 
-__all__ = ["DetectionModel", "DetectionPredictor", "DetectionTrainer", "DetectionValidator"]
+__all__ = ["YOLO", "DetectionModel", "DetectionPredictor", "DetectionTrainer", "DetectionValidator", "__version__"]

@@ -1,6 +1,7 @@
 """Configuration: the copied ``default.yaml`` plus overrides.
 
-Port of ``experiment_yolo_tpu/cfg/__init__.py`` (``get_cfg``/``check_imgsz``),
+Port of ``experiment_yolo_tpu/cfg/__init__.py`` (``get_cfg``,
+``check_dict_alignment``, ``check_imgsz``),
 with the checks of the keys the detect predict path, the training step and
 the training loop read. Every key of ``default.yaml`` is accepted as an
 override, so a config written for the JAX package loads here unchanged.
@@ -67,6 +68,18 @@ def _coerce(k: str, v: Any) -> Any:
     return v
 
 
+def check_dict_alignment(base: dict, custom: dict) -> None:
+    """Raise ``SyntaxError`` naming every key of ``custom`` that ``base``
+    lacks, with close-match suggestions."""
+    mismatched = [k for k in custom if k not in base]
+    if mismatched:
+        msgs = []
+        for k in mismatched:
+            close = difflib.get_close_matches(k, base.keys(), n=3, cutoff=0.5)
+            msgs.append(f"'{k}' is not a valid config key" + (f" — did you mean {close}?" if close else ""))
+        raise SyntaxError("\n".join(msgs))
+
+
 def get_cfg(overrides: Optional[dict] = None) -> SimpleNamespace:
     """Merge ``default.yaml`` < overrides into a validated namespace.
 
@@ -75,13 +88,7 @@ def get_cfg(overrides: Optional[dict] = None) -> SimpleNamespace:
     """
     base = default_cfg()
     overrides = dict(overrides or {})
-    unknown = [k for k in overrides if k not in base]
-    if unknown:
-        msgs = []
-        for k in unknown:
-            close = difflib.get_close_matches(k, base.keys(), n=3, cutoff=0.5)
-            msgs.append(f"'{k}' is not a valid config key" + (f" — did you mean {close}?" if close else ""))
-        raise SyntaxError("\n".join(msgs))
+    check_dict_alignment(base, overrides)
     merged = {**base, **overrides}
     return SimpleNamespace(**{k: _coerce(k, v) for k, v in merged.items()})
 

@@ -100,6 +100,18 @@
 // dx is zeroed by the caller. The products per channel are those of the
 // plain version; sums run in another order, and the adds' order varies from
 // run to run.
+//
+// bf16 forms (the sources of a bf16 model, ldconv_gather_bf16_launch and
+// ldconv_gather_bwd_bf16_launch): the kernels above templated on the source's
+// type. The JAX LDConv's bf16 gather (nn/modules.py:694-704, 800-805) widens
+// the bf16 corners and weighs them with f32 weights, so the sums and the
+// border multiplier stay f32: the forward widens each corner exactly
+// (__bfloat162float), does the f32 form's arithmetic bit for bit, and
+// rounds the product with the multiplier once to bf16 as it leaves the tile,
+// which is the rounding the JAX LDConv's bf16 projection makes of its input.
+// The backward reads the bf16 incoming gradient and source widened, adds
+// into an f32 dx (the wrapper rounds it to bf16 once, as the JAX VJP's
+// astype does) and writes doff in f32. Both read half the source's bytes.
 #include <math.h>
 #include "common.cuh"
 
@@ -163,8 +175,9 @@ __host__ __device__ inline int tile_row(int nc) { return nc | 1; }
 
 // T: pixels per tile, a multiple of 32. slices: the channels of a (32 pixels, n) unit are dealt to this
 // many warps, so that every warp of the block has work.
+template <typename TX, typename TO>
 __global__ void __launch_bounds__(GATHER_THREADS)
-ldconv_gather_kernel(const float* __restrict__ x, const float* __restrict__ off, float* __restrict__ out, Geom g,
+ldconv_gather_kernel(const TX* __restrict__ x, const float* __restrict__ off, TO* __restrict__ out, Geom g,
                      int T, int slices) {
   extern __shared__ __align__(16) float smem[];
   const int NC = g.N * g.C, hw = g.h * g.w, row = tile_row(NC), TN = T * g.N;
@@ -206,13 +219,13 @@ ldconv_gather_kernel(const float* __restrict__ x, const float* __restrict__ off,
     const float a00 = w00[q], a01 = w01[q], a10 = w10[q], a11 = w11[q], m = mul[q];
     const int j00 = i00[q], j01 = i01[q], j10 = i10[q], j11 = i11[q];
     float* cell = tile + (q - n * T) * row + n * g.C;
-    const float* xc = x + (static_cast<long long>(b) * g.C + first) * plane;
+    const TX* xc = x + (static_cast<long long>(b) * g.C + first) * plane;
 #pragma unroll 4
     for (int c = first; c < g.C; c += slices, xc += slices * plane) {
-      float v = __fmul_rn(a00, xc[j00]);
-      v = __fadd_rn(v, __fmul_rn(a01, xc[j01]));
-      v = __fadd_rn(v, __fmul_rn(a10, xc[j10]));
-      v = __fadd_rn(v, __fmul_rn(a11, xc[j11]));
+      float v = __fmul_rn(a00, widen(xc[j00]));
+      v = __fadd_rn(v, __fmul_rn(a01, widen(xc[j01])));
+      v = __fadd_rn(v, __fmul_rn(a10, widen(xc[j10])));
+      v = __fadd_rn(v, __fmul_rn(a11, widen(xc[j11])));
       cell[c] = __fmul_rn(v, m);
     }
   }
@@ -220,12 +233,12 @@ ldconv_gather_kernel(const float* __restrict__ x, const float* __restrict__ off,
 
   // 3. the tile is one contiguous run of out
   const int pixels = min(T, hw - p0);
-  float* o = out + (static_cast<long long>(b) * hw + p0) * NC;
+  TO* o = out + (static_cast<long long>(b) * hw + p0) * NC;
   if (row == NC) {
-    for (int i = threadIdx.x; i < pixels * NC; i += GATHER_THREADS) o[i] = tile[i];
+    for (int i = threadIdx.x; i < pixels * NC; i += GATHER_THREADS) store(o + i, tile[i]);
   } else {
     for (int p = warp; p < pixels; p += GATHER_WARPS)
-      for (int j = lane; j < NC; j += 32) o[p * NC + j] = tile[p * row + j];
+      for (int j = lane; j < NC; j += 32) store(o + p * NC + j, tile[p * row + j]);
   }
 }
 
@@ -279,8 +292,9 @@ __device__ __forceinline__ void add_row(float* __restrict__ dx, long long A, lon
 
 // One thread per (pixel, n, slice of channels), pixels fastest: a warp's offset loads, corner loads and adds
 // fall on neighbouring pixels of one channel plane.
+template <typename TX, typename TD>
 __global__ void __launch_bounds__(BWD_THREADS)
-ldconv_gather_bwd_kernel(const float* __restrict__ x, const float* __restrict__ off, const float* __restrict__ dy,
+ldconv_gather_bwd_kernel(const TX* __restrict__ x, const float* __restrict__ off, const TD* __restrict__ dy,
                          float* __restrict__ dx, float* __restrict__ doff, Geom g, long long total, int per_thread,
                          int slices) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -308,8 +322,8 @@ ldconv_gather_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   const bool aligned = (plane & 1) == 0;
   const RowPlan top = row_plan(k00, k01, live, lane, aligned), bottom = row_plan(k10, k11, live, lane, aligned);
 
-  const float* dyp = dy + (static_cast<long long>(b) * hw + p) * g.N * g.C + static_cast<long long>(n) * g.C + c0;
-  const float* xc = x + first;
+  const TD* dyp = dy + (static_cast<long long>(b) * hw + p) * g.N * g.C + static_cast<long long>(n) * g.C + c0;
+  const TX* xc = x + first;
   float* dxc = dx;  // plus a corner's offset: its cell in the plane of channel c0 + k
   float dpr = 0.f, dpc = 0.f;
   // Every lane runs per_thread channels, idle past c1 (the last slice may hold fewer), so that add_row's
@@ -318,8 +332,8 @@ ldconv_gather_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
     const bool on = live && c0 + k < c1;
     float d = 0.f;
     if (on) {
-      d = dyp[k] * s.mul;
-      const float v00 = xc[s.i00], v01 = xc[s.i01], v10 = xc[s.i10], v11 = xc[s.i11];
+      d = widen(dyp[k]) * s.mul;
+      const float v00 = widen(xc[s.i00]), v01 = widen(xc[s.i01]), v10 = widen(xc[s.i10]), v11 = widen(xc[s.i11]);
       dpr += d * ((v10 - v00) * s.wc0 + (v11 - v01) * s.wc1);
       dpc += d * ((v01 - v00) * s.wr0 + (v11 - v10) * s.wr1);
     }
@@ -341,12 +355,9 @@ ldconv_gather_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
 }
 
-// x: (B, C, H, W) f32; off: (B, 2N, h, w) f32, the first N channels row
-// offsets and the last N column offsets; out: (B, h*w, N*C) f32, n-major.
-extern "C" int ldconv_gather_launch(const float* x, const float* off, float* out, int B, int C, int H, int W,
-                                    int h, int w, int N, int base, int stride, int R, int Hp, int Wp,
-                                    cudaStream_t stream) {
-  const Geom g{B, C, H, W, h, w, N, base, stride, R, Hp, Wp};
+template <typename TX, typename TO>
+static int ldconv_gather_run(const TX* x, const float* off, TO* out, const Geom& g, cudaStream_t stream) {
+  const int B = g.B, C = g.C, h = g.h, w = g.w, N = g.N;
   if (B == 0 || h * w == 0 || N * C == 0) return static_cast<int>(cudaSuccess);
   if (B > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int NC = N * C;
@@ -354,8 +365,8 @@ extern "C" int ldconv_gather_launch(const float* x, const float* off, float* out
   while (T > 32 && T * NC > 4096) T /= 2;
   const size_t smem = (static_cast<size_t>(T) * tile_row(NC) + static_cast<size_t>(SAMPLE_WORDS) * T * N) * sizeof(float);
   if (smem > 48 * 1024) {  // wide layers: above 227 KB (N*C beyond about 1,800) the launch is refused
-    const cudaError_t e = cudaFuncSetAttribute(ldconv_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
+    const cudaError_t e = cudaFuncSetAttribute(ldconv_gather_kernel<TX, TO>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   // units * slices is the least common multiple of the units and the block's warps
@@ -367,17 +378,29 @@ extern "C" int ldconv_gather_launch(const float* x, const float* off, float* out
     r = t;
   }
   const dim3 grid((h * w + T - 1) / T, B);
-  ldconv_gather_kernel<<<grid, GATHER_THREADS, smem, stream>>>(x, off, out, g, T, GATHER_WARPS / gcd);
+  ldconv_gather_kernel<TX, TO><<<grid, GATHER_THREADS, smem, stream>>>(x, off, out, g, T, GATHER_WARPS / gcd);
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (B, C, H, W) f32; off: (B, 2N, h, w) f32; dy: (B, h*w, N*C) f32, n-major;
-// dx: (B, C, H, W) f32, zeroed by the caller (the kernel adds into it);
-// doff: (B, 2N, h, w) f32, every element written.
-extern "C" int ldconv_gather_bwd_launch(const float* x, const float* off, const float* dy, float* dx, float* doff,
-                                        int B, int C, int H, int W, int h, int w, int N, int base, int stride, int R,
-                                        int Hp, int Wp, cudaStream_t stream) {
-  const Geom g{B, C, H, W, h, w, N, base, stride, R, Hp, Wp};
+// x: (B, C, H, W) f32; off: (B, 2N, h, w) f32, the first N channels row
+// offsets and the last N column offsets; out: (B, h*w, N*C) f32, n-major.
+extern "C" int ldconv_gather_launch(const float* x, const float* off, float* out, int B, int C, int H, int W,
+                                    int h, int w, int N, int base, int stride, int R, int Hp, int Wp,
+                                    cudaStream_t stream) {
+  return ldconv_gather_run(x, off, out, Geom{B, C, H, W, h, w, N, base, stride, R, Hp, Wp}, stream);
+}
+
+// The same with x and out bf16; off stays f32.
+extern "C" int ldconv_gather_bf16_launch(const __nv_bfloat16* x, const float* off, __nv_bfloat16* out, int B, int C,
+                                         int H, int W, int h, int w, int N, int base, int stride, int R, int Hp,
+                                         int Wp, cudaStream_t stream) {
+  return ldconv_gather_run(x, off, out, Geom{B, C, H, W, h, w, N, base, stride, R, Hp, Wp}, stream);
+}
+
+template <typename TX, typename TD>
+static int ldconv_gather_bwd_run(const TX* x, const float* off, const TD* dy, float* dx, float* doff, const Geom& g,
+                                 cudaStream_t stream) {
+  const int B = g.B, C = g.C, h = g.h, w = g.w, N = g.N;
   if (B == 0 || h * w == 0 || N * C == 0) return static_cast<int>(cudaSuccess);
   // channels split over threads until the layer fills the card, each thread keeping BWD_MIN_CHANNELS or more
   const long long samples = static_cast<long long>(B) * N * h * w;
@@ -394,7 +417,23 @@ extern "C" int ldconv_gather_bwd_launch(const float* x, const float* off, const 
     const cudaError_t e = cudaMemsetAsync(doff, 0, static_cast<size_t>(B) * 2 * N * h * w * sizeof(float), stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  ldconv_gather_bwd_kernel<<<static_cast<unsigned>(blocks), BWD_THREADS, 0, stream>>>(x, off, dy, dx, doff, g, total,
-                                                                                       per_thread, slices);
+  ldconv_gather_bwd_kernel<TX, TD><<<static_cast<unsigned>(blocks), BWD_THREADS, 0, stream>>>(
+      x, off, dy, dx, doff, g, total, per_thread, slices);
   return static_cast<int>(cudaGetLastError());
+}
+
+// x: (B, C, H, W) f32; off: (B, 2N, h, w) f32; dy: (B, h*w, N*C) f32, n-major;
+// dx: (B, C, H, W) f32, zeroed by the caller (the kernel adds into it);
+// doff: (B, 2N, h, w) f32, every element written.
+extern "C" int ldconv_gather_bwd_launch(const float* x, const float* off, const float* dy, float* dx, float* doff,
+                                        int B, int C, int H, int W, int h, int w, int N, int base, int stride, int R,
+                                        int Hp, int Wp, cudaStream_t stream) {
+  return ldconv_gather_bwd_run(x, off, dy, dx, doff, Geom{B, C, H, W, h, w, N, base, stride, R, Hp, Wp}, stream);
+}
+
+// The same with x and dy bf16; dx (its f32 sums, rounded to bf16 by the caller) and doff stay f32.
+extern "C" int ldconv_gather_bwd_bf16_launch(const __nv_bfloat16* x, const float* off, const __nv_bfloat16* dy,
+                                             float* dx, float* doff, int B, int C, int H, int W, int h, int w, int N,
+                                             int base, int stride, int R, int Hp, int Wp, cudaStream_t stream) {
+  return ldconv_gather_bwd_run(x, off, dy, dx, doff, Geom{B, C, H, W, h, w, N, base, stride, R, Hp, Wp}, stream);
 }

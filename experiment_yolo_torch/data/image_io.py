@@ -16,6 +16,7 @@ decoding it waits for the libjpeg route (ROADMAP.md queue 1).
 
 from __future__ import annotations
 
+import io
 import struct
 from pathlib import Path
 from typing import Tuple
@@ -38,7 +39,7 @@ def _undecodable(path: Path) -> NotImplementedError:
         "for the libjpeg route, ROADMAP.md queue 1)")
 
 
-def _bmp_header(f, path: Path) -> Tuple[int, int, int, bool]:
+def _bmp_header(f, path) -> Tuple[int, int, int, bool]:
     """(offset, width, height, bottom_up) of a 24-bit uncompressed BMP."""
     head = f.read(_FILE_HEADER.size + _INFO_HEADER.size)
     if len(head) < _FILE_HEADER.size + _INFO_HEADER.size:
@@ -63,10 +64,19 @@ def imread(path: str | Path) -> np.ndarray:
             return np.load(sidecar(path))
         raise _undecodable(path)
     with open(path, "rb") as f:
-        offset, w, h, bottom_up = _bmp_header(f, path)
-        f.seek(offset)
-        stride = (w * 3 + 3) & ~3
-        data = f.read(stride * h)
+        return _bmp_read(f, path)
+
+
+def bmp_decode(data: bytes, name: str = "image") -> np.ndarray:
+    """An (H, W, 3) uint8 BGR image from the bytes of a 24-bit BMP file."""
+    return _bmp_read(io.BytesIO(data), name)
+
+
+def _bmp_read(f, path) -> np.ndarray:
+    offset, w, h, bottom_up = _bmp_header(f, path)
+    f.seek(offset)
+    stride = (w * 3 + 3) & ~3
+    data = f.read(stride * h)
     if len(data) < stride * h:
         raise ValueError(f"{path}: truncated BMP pixel data")
     img = np.frombuffer(data, np.uint8).reshape(h, stride)[:, :w * 3].reshape(h, w, 3)

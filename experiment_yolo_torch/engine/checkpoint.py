@@ -15,7 +15,9 @@ what the JAX package keeps in its Orbax state and ``meta.yaml``:
   count, Wise-IoU's ``iou_mean`` and the step, from which training resumes.
 
 Tensors are saved on the CPU, so a checkpoint written on the card loads on a
-CPU-only machine. Orbax checkpoints of the JAX package are not read: convert
+CPU-only machine. The weights are f32 whatever the model's compute dtype
+(parameters and buffers never leave f32); the dtype to compute in is chosen
+when the checkpoint is loaded. Orbax checkpoints of the JAX package are not read: convert
 their variables with ``utils/convert.py:jax_variables_to_state_dict``.
 """
 
@@ -82,12 +84,13 @@ def load_matching_variables(path: str | Path, model: torch.nn.Module, prefer_ema
     return len(take), len(dst)
 
 
-def load_checkpoint(path: str | Path, device="cuda", prefer_ema: bool = True) -> DetectionModel:
+def load_checkpoint(path: str | Path, device="cuda", prefer_ema: bool = True,
+                    dtype: torch.dtype = torch.float32) -> DetectionModel:
     """The model of a checkpoint, rebuilt from its YAML on ``device`` with its
     names and, by default, the EMA weights (the reference validates and
-    exports the EMA model)."""
+    exports the EMA model), computing in ``dtype``."""
     ckpt = read_checkpoint(path)
-    model = DetectionModel(ckpt["model_yaml"], device=device)
+    model = DetectionModel(ckpt["model_yaml"], device=device, dtype=dtype)
     model.load_state_dict(_weights(ckpt, prefer_ema), strict=True)
     model.names = {int(k): v for k, v in ckpt["names"].items()}
     return model

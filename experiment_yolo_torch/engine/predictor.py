@@ -50,8 +50,9 @@ class DetectionPredictor:
 
     @torch.no_grad()
     def infer(self, imgs: torch.Tensor):
-        """(B, H, W, 3) uint8 RGB on the device -> (detections (B, max_det, 6), counts (B,))."""
-        x = (imgs.permute(0, 3, 1, 2).float() / 255.0).contiguous()
+        """(B, H, W, 3) uint8 RGB on the device -> (detections (B, max_det, 6), counts (B,)).
+        The images are normalised in the model's compute dtype."""
+        x = (imgs.permute(0, 3, 1, 2).to(self.model.dtype) / 255.0).contiguous()
         return self._nms(*self.model.predict(x))
 
     def __call__(self, source: Union[np.ndarray, Sequence[np.ndarray]]) -> List[Results]:

@@ -3,7 +3,8 @@
 Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect branch:
 
 - :meth:`DetectionTrainer.train_step` is ``_make_train_step``'s step: a batch
-  as the JAX step takes it (uint8 NHWC images and padded labels), the forward
+  as the JAX step takes it (uint8 NHWC images and padded labels), the image
+  cast to the compute dtype and scaled by 1/255, the forward
   in train mode (BatchNorm statistics update), the loss (kernel K1 for the
   decode, TAL, BCE, CIoU or the paper's Wise-IoU v3 with the NWD blend, DFL),
   the backward (the K1 and K3 backward kernels on the card), the optimizer on
@@ -16,10 +17,17 @@ Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect branch:
   dataset-driven ``DetectionValidator``, ``results.csv``, the ``last``,
   ``best`` and ``epochN`` checkpoints, ``resume`` and ``EarlyStopping``.
 
-Not ported: bf16 (``amp=True``, ROADMAP.md queue 1 item 4); the mesh, FSDP,
-``autobatch`` and ``plots`` (ROADMAP.md catalogue item 15), each of which
-raises; the kernel-warehouse temperature and the task losses, whose models
-the port does not build (catalogue items 14 and 13).
+``amp=True`` (the default) trains as the JAX package does: the model computes
+in bf16 (its :attr:`~experiment_yolo_torch.nn.tasks.DetectionModel.dtype`,
+set in place where JAX rebuilds the model), the loss runs in mixed precision,
+and the parameters, the optimizer state and the EMA stay f32. ``train()``
+first runs :meth:`DetectionTrainer._check_amp`, which falls back to f32 when
+bf16 diverges; the per-epoch validation of the EMA model runs in the compute
+dtype, as JAX's ``_validate`` runs its bf16 rebuild.
+
+Not ported: the mesh, FSDP, ``autobatch`` and ``plots`` (ROADMAP.md catalogue
+item 15), each of which raises; the kernel-warehouse temperature and the task
+losses, whose models the port does not build (catalogue items 14 and 13).
 """
 
 from __future__ import annotations
@@ -95,18 +103,22 @@ class DetectionTrainer:
 
     ``overrides`` are ``default.yaml`` keys. Until :meth:`train` builds the
     optimizer for its loader, the warmup and LR schedules and the firing plan
-    assume ``NB`` batches per epoch.
+    assume ``NB`` batches per epoch. ``amp`` sets the model's compute dtype in
+    place: bf16 when True (the default), f32 when False; :meth:`train` gives
+    the model back in the compute dtype it came with.
     """
 
     def __init__(self, model: DetectionModel, overrides: Optional[Dict] = None):
         self.args = args = get_cfg(overrides)
-        if args.amp:
-            raise NotImplementedError("amp=True (bf16 compute) is not ported to experiment_yolo_torch yet "
-                                      "(ROADMAP.md queue 1 item 4); pass amp=False for f32")
         if args.batch == -1:
             raise NotImplementedError("batch=-1 (autobatch, utils/autobatch.py) is not ported to "
                                       "experiment_yolo_torch yet (ROADMAP.md catalogue item 15)")
         self.model = model
+        self.caller_dtype = model.dtype  # restored when train() returns
+        self.dtype = torch.bfloat16 if args.amp else torch.float32
+        model.dtype = self.dtype
+        self.amp_check: Optional[Dict] = None  # what _check_amp found, once train() ran it
+        self.best_state: Optional[Dict[str, torch.Tensor]] = None  # the best epoch's EMA weights, after train()
         self.callbacks = Callbacks()
         self.metrics: Dict[str, float] = {}
         self.save_dir = self._get_save_dir()
@@ -152,7 +164,7 @@ class DetectionTrainer:
         if st.optimizer.mini_step == 0:
             st.optimizer.zero_grad()  # a new accumulation window
         with record_function("forward"):
-            x = img.to(dev, non_blocking=True).permute(0, 3, 1, 2).float().div(255.0).contiguous()
+            x = img.to(dev, non_blocking=True).permute(0, 3, 1, 2).to(self.dtype).div(255.0).contiguous()
             feats = st.model(x)
         targets = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True) for k in ("bboxes", "cls", "mask")}
         with record_function("loss"):
@@ -196,7 +208,14 @@ class DetectionTrainer:
 
     def train(self) -> Dict[str, float]:
         """Train on ``args.data`` for ``args.epochs`` epochs; returns the last
-        epoch's validation metrics and ``epochs_run``."""
+        epoch's validation metrics and ``epochs_run``. The model leaves in the
+        compute dtype it had before the trainer was built."""
+        try:
+            return self._train()
+        finally:
+            self.model.dtype = self.caller_dtype
+
+    def _train(self) -> Dict[str, float]:
         args = self.args
         self.callbacks.run("on_pretrain_routine_start", trainer=self)
         self._check_unported()
@@ -218,6 +237,8 @@ class DetectionTrainer:
         if args.resume:
             start_epoch, best_fitness = self._load_resume_state()
             LOGGER.info(f"Resuming from epoch {start_epoch + 1} (best_fitness {best_fitness:.4f})")
+        if args.amp:
+            self._check_amp()
         stopper = EarlyStopping(args.patience)
         stopper.best_fitness = best_fitness
         stopper.best_epoch = max(start_epoch - 1, 0)
@@ -269,9 +290,50 @@ class DetectionTrainer:
                 LOGGER.info(f"EarlyStopping at epoch {epoch + 1} (best epoch {stopper.best_epoch + 1})")
                 break
 
+        if self.best_state is None:  # no epoch saved as best: the last one's
+            self.best_state = self._weights_copy()
         self.metrics["epochs_run"] = epoch + 1
         self.callbacks.run("on_train_end", trainer=self)
         return self.metrics
+
+    def _weights_copy(self) -> Dict[str, torch.Tensor]:
+        """A copy of the EMA model's state dict (the model's when ``ema`` is off)."""
+        st = self.state
+        return {k: v.detach().clone() for k, v in (st.ema.ema if st.ema else st.model).state_dict().items()}
+
+    def _check_amp(self) -> None:
+        """bf16 health check (the JAX package's ``_check_amp``, after the
+        reference's ``check_amp``): an f32 and a bf16 forward of the model in
+        eval mode on a uniform 64 px input; when any output's relative L2
+        distance exceeds 0.1, or a value is not finite, training falls back to
+        f32 compute with a log line. Its findings go to :attr:`amp_check`.
+        Unlike the JAX package's, an exception is not caught: a kernel that
+        fails to build or launch must not be hidden behind an f32 run."""
+        model = self.model
+        x = torch.rand((1, 3, 64, 64), generator=torch.Generator().manual_seed(0)).to(model.device)
+        training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                model.dtype = torch.float32
+                want = model(x)
+                model.dtype = torch.bfloat16
+                got = model(x)
+        finally:
+            model.train(training)
+        rel, finite = 0.0, True
+        for a, b in zip(got, want):
+            a = a.float()
+            finite = finite and bool(torch.isfinite(a).all())
+            rel = max(rel, float((a - b).norm() / (b.norm() + 1e-6)))
+        self.amp_check = {"rel_err": rel, "finite": finite, "passed": finite and rel <= 0.1}
+        if self.amp_check["passed"]:
+            LOGGER.info(f"AMP check ok (bf16 rel err {rel:.4f})")
+            return
+        LOGGER.info(f"AMP check failed (rel err {rel:.3f}) — disabling bf16 compute")
+        self.dtype = model.dtype = torch.float32
+        if self.state.ema is not None:
+            self.state.ema.ema.dtype = torch.float32
 
     def _rescale_batch(self, batch: Dict, rng: np.random.Generator) -> Dict:
         """Multi-scale training on a fixed bucket set of imgsz (stride-rounded):
@@ -284,8 +346,9 @@ class DetectionTrainer:
         return {**batch, "img": np.stack([resize_linear(im, (sz, sz)) for im in batch["img"]])}
 
     def _validate(self) -> Optional[float]:
-        """Validate the EMA model (the model itself when ``ema`` is off) with
-        one validator for the whole run: its dataset and loader are built once."""
+        """Validate the EMA model (the model itself when ``ema`` is off), in the
+        compute dtype, with one validator for the whole run: its dataset and
+        loader are built once."""
         from experiment_yolo_torch.engine.validator import DetectionValidator
 
         st = self.state
@@ -331,6 +394,8 @@ class DetectionTrainer:
                                if v is None or isinstance(v, (int, float, str, bool))}}
         save_checkpoint(self.save_dir / "weights" / f"{name}.pt", st.model, ema=st.ema.ema if st.ema else None,
                         train_state=self._train_state() if name == "last" else None, meta=meta)
+        if name == "best":
+            self.best_state = self._weights_copy()
 
     def _load_resume_state(self) -> Tuple[int, float]:
         """Restore the state from ``args.resume``: a ``last.pt`` path, or True

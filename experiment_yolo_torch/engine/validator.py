@@ -85,8 +85,9 @@ class DetectionValidator:
         """The card part: (B, H, W, 3) uint8 on the model's device ->
         (detections (B, max_det, 6) in letterbox pixels, counts (B,)). The
         model runs in eval mode, as the JAX package's ``predict`` does (a
-        model in training mode is put back in it afterwards)."""
-        x = (imgs.permute(0, 3, 1, 2).float() / 255.0).contiguous()
+        model in training mode is put back in it afterwards). The images are
+        normalised in the model's compute dtype."""
+        x = (imgs.permute(0, 3, 1, 2).to(model.dtype) / 255.0).contiguous()
         training = model.training
         model.eval()
         try:

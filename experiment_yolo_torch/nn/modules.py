@@ -14,6 +14,18 @@ Every BatchNorm uses eps 1e-3 and momentum 0.03, as in the JAX package (the
 fork's ``initialize_weights`` sets those on its BatchNorm2d layers), and in
 train mode updates its running variance with the biased batch variance, as
 the JAX package does (``BatchNorm2d``, ``BatchNorm3d`` below).
+
+Compute dtype (``dtype``, bf16 under ``amp``): parameters and BatchNorm
+buffers stay f32, and the JAX package's cast points are kept, with explicit
+casts rather than ``torch.autocast`` (whose op lists cast elsewhere): every
+convolution casts its input, weight and bias to the compute dtype (flax's
+``nn.Conv(dtype=...)``); BatchNorm in train mode normalises in f32 with f32
+statistics and casts back, in eval mode it folds scale and shift in f32,
+rounds them to the input's dtype and applies them there (``nn/norm.py``);
+activations run in the compute dtype; LDConv takes its offsets in f32 and
+its gather in f32 from the widened source, rounded once to the compute dtype
+before the (N, 1) projection (``nn/modules.py:780-805``). A model's modules
+take the dtype from :attr:`DetectionModel.dtype` (``nn/tasks.py``).
 """
 
 from __future__ import annotations
@@ -29,13 +41,33 @@ from experiment_yolo_torch.ops.kernels.ldconv_gather import ldconv_gather
 BN_EPS, BN_MOMENTUM = 1e-3, 0.03
 
 
+def cast_conv(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``conv`` (an ``nn.Conv2d`` or ``nn.Conv3d``) with its input, weight and
+    bias in ``dtype``, as flax's ``nn.Conv(dtype=...)`` computes; the f32
+    parameters stay as they are."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return conv._conv_forward(x.to(dtype), conv.weight.to(dtype), bias)
+
+
 class _BiasedRunningVar:
     """Train mode of the JAX package's BatchNorm (``nn/norm.py:72-78,155``):
     normalise with the batch's biased statistics, as PyTorch does, but move
     ``running_var`` towards the *biased* batch variance, where PyTorch's own
-    update uses the unbiased one. Eval mode is PyTorch's."""
+    update uses the unbiased one. Eval mode is PyTorch's.
+
+    An input of another dtype (bf16) is normalised as the JAX package does:
+    in train mode in f32, cast back to the input's dtype; in eval mode with
+    scale and shift folded in f32 and applied in the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            if self.training:
+                return self.forward(x.float()).to(x.dtype)
+            r = torch.rsqrt(self.running_var + self.eps)
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            g = (self.weight * r).to(x.dtype).view(shape)
+            b = (self.bias - self.running_mean * self.weight * r).to(x.dtype).view(shape)
+            return x * g + b
         if not self.training:
             return super().forward(x)
         # F.batch_norm moves a copy by momentum * (unbiased variance) and keeps it
@@ -61,13 +93,15 @@ class BatchNorm3d(_BiasedRunningVar, nn.BatchNorm3d):
 class Conv(nn.Module):
     """Conv2d (no bias) + BatchNorm + SiLU; 'same' padding k // 2."""
 
+    dtype = torch.float32  # the compute dtype
+
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, k // 2, bias=False)
         self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.bn(self.conv(x)))
+        return F.silu(self.bn(cast_conv(self.conv, x, self.dtype)))
 
 
 class Bottleneck(nn.Module):
@@ -141,6 +175,8 @@ class ScalSeq(nn.Module):
     to the finest, stacked on a scale axis, Conv3d 1x1x1 + BatchNorm3d over
     (B, scale, H, W) + LeakyReLU 0.1, then max over the scale axis."""
 
+    dtype = torch.float32  # the compute dtype of conv3d
+
     def __init__(self, inc: Sequence[int], c2: int):
         super().__init__()
         if inc[0] != c2:
@@ -157,7 +193,7 @@ class ScalSeq(nn.Module):
         size = p3.shape[2:]  # the pyramid's levels differ by integer factors
         p4 = F.interpolate(self.conv1(p4), size=size, mode="nearest")
         p5 = F.interpolate(self.conv2(p5), size=size, mode="nearest")
-        y = self.bn(self.conv3d(torch.stack([p3, p4, p5], 2)))  # (B, C, 3, H, W)
+        y = self.bn(cast_conv(self.conv3d, torch.stack([p3, p4, p5], 2), self.dtype))  # (B, C, 3, H, W)
         return F.leaky_relu(y, 0.1).amax(2)
 
 
@@ -170,7 +206,13 @@ class LDConv(nn.Module):
     The reference fork's quirks carried by the JAX package are kept: the border
     double count lives in the gather, ``p_conv`` starts with a zero weight and a
     uniform(+-1/sqrt(fan_in)) bias (:func:`init_weights`, :meth:`seeded_init`).
+
+    In bf16, as the JAX LDConv: ``p_conv`` runs in bf16 and its offsets go to
+    f32, positions and bilinear weights stay f32, K3 widens the bf16 source,
+    sums in f32 and rounds once to bf16, and the projection is a bf16 matmul.
     """
+
+    dtype = torch.float32  # the compute dtype
 
     def __init__(self, c1: int, c2: int, num_param: int = 3, stride: int = 1):
         super().__init__()
@@ -188,11 +230,12 @@ class LDConv(nn.Module):
         self.p_conv.weight.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        off = self.p_conv(x)  # (B, 2N, h, w)
+        dt = self.dtype
+        off = cast_conv(self.p_conv, x, dt).float()  # (B, 2N, h, w)
         b, _, h, w = off.shape
-        feat = ldconv_gather(x.contiguous(), off.contiguous(), self.stride)  # (B, h*w, N*C) n-major
+        feat = ldconv_gather(x.to(dt).contiguous(), off.contiguous(), self.stride)  # (B, h*w, N*C) n-major
         weight = self.conv[0].weight  # (O, C, N, 1) -> (O, N*C), n-major like feat
-        proj = weight[..., 0].transpose(1, 2).reshape(weight.shape[0], -1)
+        proj = weight[..., 0].transpose(1, 2).reshape(weight.shape[0], -1).to(dt)
         y = torch.matmul(proj, feat.transpose(1, 2)).reshape(b, -1, h, w)
         return self.conv[2](self.conv[1](y))
 
@@ -200,6 +243,8 @@ class LDConv(nn.Module):
 class Detect(nn.Module):
     """Decoupled anchor-free head: per level a box branch (cv2 -> 4*reg_max) and
     a class branch (cv3 -> nc); returns the raw maps (B, 4*reg_max + nc, H, W)."""
+
+    dtype = torch.float32  # the compute dtype of the last 1x1 convs; the maps come out in it
 
     def __init__(self, nc: int, ch: Sequence[int], reg_max: int = 16):
         super().__init__()
@@ -213,7 +258,10 @@ class Detect(nn.Module):
             nn.Sequential(Conv(c, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for c in ch)
 
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        return [torch.cat([box(x), cls(x)], 1) for x, box, cls in zip(xs, self.cv2, self.cv3)]
+        def branch(seq, x):
+            return cast_conv(seq[2], seq[1](seq[0](x)), self.dtype)
+
+        return [torch.cat([branch(box, x), branch(cls, x)], 1) for x, box, cls in zip(xs, self.cv2, self.cv3)]
 
 
 @torch.no_grad()

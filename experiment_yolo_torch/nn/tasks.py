@@ -21,7 +21,7 @@ from torch import nn
 
 from experiment_yolo_torch.cfg import CFG_DIR, yaml_load
 from experiment_yolo_torch.nn.modules import C2f, SPPF, Add, Concat, Conv, Detect, LDConv, ScalSeq, init_weights
-from experiment_yolo_torch.nn.zoo_blocks import INNER_BLOCKS, C2fX, C3X
+from experiment_yolo_torch.nn.zoo_blocks import INNER_BLOCKS, SS2D, C2fX, C3X
 from experiment_yolo_torch.ops.anchors import decode_detections
 from experiment_yolo_torch.utils import select_device
 
@@ -111,13 +111,17 @@ def parse_model(d: dict, ch: int = 3) -> Tuple[List[nn.Module], List[int], List[
 
 
 def yaml_model_load(path: Union[str, Path]) -> dict:
-    """Load a model YAML from a path, or by name from ``cfg/models/``."""
+    """Load a model YAML from a path, or by name from ``cfg/models/``, where a
+    scaled name stands for its family's file (``yolov8n.yaml`` is
+    ``yolov8.yaml`` at scale n)."""
     path = Path(path)
-    for cand in (path, CFG_DIR / "models" / path.name):
+    unified = re.sub(r"(\d+)([nslmx])(.*)$", r"\1\3", path.stem) + path.suffix  # yolov8n-p2 -> yolov8-p2
+    for cand in (path, CFG_DIR / "models" / path.name, CFG_DIR / "models" / unified):
         if cand.exists():
             d = yaml_load(cand)
             m = re.search(r"yolov\d+([nslmx])", path.stem)
             d["scale"] = m.group(1) if m else d.get("scale")
+            d["yaml_file"] = str(path)
             return d
     raise FileNotFoundError(f"model yaml {path} not found (searched {path} and {CFG_DIR / 'models'})")
 
@@ -130,10 +134,16 @@ class DetectionModel(nn.Module):
     sigmoid scores (B, A, nc). Weights are drawn from ``generator`` (a
     ``torch.Generator`` seeded with 0 when none is given), then the Detect
     bias priors are set.
+
+    ``dtype`` is the compute dtype (f32, or bf16 as under ``amp``): the input
+    is cast to it and every layer computes in it, while parameters and
+    BatchNorm buffers stay f32 (``nn/modules.py``). Setting :attr:`dtype`
+    later switches the compute dtype in place, as the JAX trainer's rebuild
+    with ``dtype=bfloat16`` does; the raw maps come out in it.
     """
 
     def __init__(self, cfg: Union[str, Path, dict] = "yolov8-LD-P2.yaml", device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         dev = select_device(device)
         self.yaml = dict(cfg) if isinstance(cfg, dict) else yaml_model_load(cfg)
@@ -148,6 +158,23 @@ class DetectionModel(nn.Module):
         self._bias_init()
         self.eval()
         self.to(dev)
+        self.dtype = dtype
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.detect.dtype
+
+    @dtype.setter
+    def dtype(self, dtype: torch.dtype) -> None:
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"compute dtype {dtype}: the port computes in torch.float32 or torch.bfloat16")
+        if dtype != torch.float32 and any(isinstance(m, SS2D) for m in self.modules()):
+            raise NotImplementedError(f"compute dtype {dtype} for the VSS family (SS2D) needs kernel K4 in bf16, "
+                                      "which is not ported yet (ROADMAP.md queue 1 item 9); use torch.float32 "
+                                      "(amp=False)")
+        for m in self.modules():
+            if isinstance(m, (Conv, LDConv, ScalSeq, Detect)):
+                m.dtype = dtype
 
     @torch.no_grad()
     def _bias_init(self) -> None:
@@ -173,6 +200,7 @@ class DetectionModel(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         self._check_input(x)
+        x = x.to(self.dtype)
         saved: Dict[int, torch.Tensor] = {}
         for m in self.model:
             if isinstance(m.f, list):

@@ -114,14 +114,26 @@ def launch(name: str, argtypes: Sequence, *args, device, lib: str | None = None)
         raise RuntimeError(f"{name} launch: CUDA error {rc} ({err(rc).decode()})")
 
 
+class Form:
+    """A further form of a kernel (its bf16 form): the name of its C entry
+    point, ``<name>_launch``, and the launches its wrapper made, counted as a
+    wrapper function's ``launches`` are."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
 def validate(t, what: str, dtype, ndim: int, dense_last_only: bool = False) -> None:
     """The checks every wrapper makes before handing a pointer to a kernel.
+    ``dtype``: one dtype, or a tuple of those the kernel has a form for.
     ``dense_last_only``: the kernel takes the other axes' strides, so only the
     last axis must be dense."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got one on {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what}: expected {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{what}: expected {ndim} dims, got shape {tuple(t.shape)}")
     if dense_last_only:

@@ -20,6 +20,17 @@ says how, and what bounds each.
 forward and backward launch the kernels for CUDA tensors and take
 :func:`ldconv_gather_plain` and :func:`ldconv_gather_bwd_plain` only for
 tensors on the CPU.
+
+Both kernels have an f32 and a bf16 form (the sources of a bf16 model,
+``nn/modules.py:780-805`` of the JAX package). The bf16 forward widens the
+source exactly, computes as the f32 form does (f32 offsets, positions,
+weights, multiplier and sums) and rounds its output once to bf16; the bf16
+backward reads the bf16 source and incoming gradient, sums ``dx`` in f32 and
+rounds it once to bf16 (``_ldconv_gather_bwd``'s ``astype``), and writes
+``doff`` in f32. Each form counts its own launches (``ldconv_gather.launches``,
+``ldconv_gather_bf16.launches``, ``ldconv_gather_bwd.launches``,
+``ldconv_gather_bwd_bf16.launches``); any other source dtype raises on the
+card.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from experiment_yolo_torch.ops.kernels import _build
 WINDOW_R = 2  # the JAX LDConv's window_r: the edge pad R before the base grid
 _ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 12
 _BWD_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 12
+DTYPES = (torch.float32, torch.bfloat16)  # the sources the kernels take
 
 
 def grid_points(num_param: int) -> List[Tuple[int, int]]:
@@ -112,9 +124,10 @@ def _corner_values(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def ldconv_gather_plain(x: torch.Tensor, off: torch.Tensor, stride: int) -> torch.Tensor:
     """Bilinear samples of ``x`` (B, C, H, W) at the LDConv positions given by
-    the offset-conv output ``off`` (B, 2N, h, w) -> (B, h*w, N*C) f32, n-major
+    the offset-conv output ``off`` (B, 2N, h, w) -> (B, h*w, N*C), n-major
     (see :func:`_samples` for the positions). The float order is the JAX
-    package's, so equal inputs give equal results.
+    package's, so equal inputs give equal results. A bf16 ``x`` is widened
+    first; the f32 result is rounded once to ``x``'s dtype.
     """
     b, c, hx, wx = x.shape
     _, _, h, w = off.shape
@@ -125,7 +138,7 @@ def ldconv_gather_plain(x: torch.Tensor, off: torch.Tensor, stride: int) -> torc
            + (wr0 * wc1)[..., None] * _corner_values(src, i01)
            + (wr1 * wc0)[..., None] * _corner_values(src, i10)
            + (wr1 * wc1)[..., None] * _corner_values(src, i11))
-    return (out * mul[..., None]).reshape(b, h * w, n * c)
+    return (out * mul[..., None]).reshape(b, h * w, n * c).to(x.dtype)
 
 
 def ldconv_gather_bwd_plain(x: torch.Tensor, off: torch.Tensor, dy: torch.Tensor, stride: int,
@@ -143,7 +156,9 @@ def ldconv_gather_bwd_plain(x: torch.Tensor, off: torch.Tensor, dy: torch.Tensor
 
     ``dtype=torch.float64`` takes the same float32 positions and weights but
     multiplies and sums in float64: a reference for the float32 sums, whose
-    order the kernel's atomics and ``scatter_add_`` each choose.
+    order the kernel's atomics and ``scatter_add_`` each choose. A bf16 ``x``
+    and ``dy`` are widened first; with ``dtype=torch.float32`` its ``dx`` is
+    the f32 sum rounded once to bf16, and ``doff`` stays f32.
     """
     b, c, hx, wx = x.shape
     _, n2, h, w = off.shape
@@ -163,11 +178,12 @@ def ldconv_gather_bwd_plain(x: torch.Tensor, off: torch.Tensor, dy: torch.Tensor
     for wgt, idx in zip((wr0 * wc0, wr0 * wc1, wr1 * wc0, wr1 * wc1), corners):
         upd = (wgt[..., None] * d).permute(0, 3, 1, 2).reshape(b, c, h * w * n)
         dx.scatter_add_(2, idx.reshape(b, 1, h * w * n).expand(b, c, h * w * n), upd)
-    return dx.reshape(b, c, hx, wx), doff
+    dx = dx.reshape(b, c, hx, wx)
+    return (dx.to(x.dtype) if dtype == torch.float32 else dx), doff
 
 
 def _check(x: torch.Tensor, off: torch.Tensor, what: str) -> None:
-    _build.validate(x, f"{what} x", torch.float32, 4)
+    _build.validate(x, f"{what} x", DTYPES, 4)
     _build.validate(off, f"{what} off", torch.float32, 4)
     n2 = off.shape[1]
     if off.shape[0] != x.shape[0] or n2 % 2 or n2 == 0 or off.device != x.device:
@@ -183,37 +199,45 @@ def _geom_args(x: torch.Tensor, off: torch.Tensor, stride: int):
 
 
 def ldconv_gather_fwd(x: torch.Tensor, off: torch.Tensor, stride: int) -> torch.Tensor:
-    """:func:`ldconv_gather_plain` through kernel K3 for CUDA tensors (no autograd)."""
+    """:func:`ldconv_gather_plain` through kernel K3 (its f32 or bf16 form, by
+    ``x``'s dtype) for CUDA tensors (no autograd)."""
     if x.device.type == "cpu":
         return ldconv_gather_plain(x, off, stride)
     _check(x, off, "ldconv_gather")
     b, c, _, _ = x.shape
     _, n2, h, w = off.shape
-    out = torch.empty((b, h * w, n2 // 2 * c), dtype=torch.float32, device=x.device)
-    _build.launch("ldconv_gather", _ARGS, x.data_ptr(), off.data_ptr(), out.data_ptr(), *_geom_args(x, off, stride),
-                  device=x.device)
-    ldconv_gather.launches += 1
+    out = torch.empty((b, h * w, n2 // 2 * c), dtype=x.dtype, device=x.device)
+    entry = ldconv_gather_bf16 if x.dtype == torch.bfloat16 else ldconv_gather
+    _build.launch(entry.__name__, _ARGS, x.data_ptr(), off.data_ptr(), out.data_ptr(), *_geom_args(x, off, stride),
+                  device=x.device, lib="ldconv_gather")
+    entry.launches += 1
     return out
 
 
 def ldconv_gather_bwd(x: torch.Tensor, off: torch.Tensor, dy: torch.Tensor,
                       stride: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`ldconv_gather_bwd_plain` through the K3 backward kernel for CUDA tensors."""
+    """:func:`ldconv_gather_bwd_plain` through the K3 backward kernel (its f32
+    or bf16 form, by ``x``'s dtype, which ``dy`` shares) for CUDA tensors."""
     if x.device.type == "cpu":
         return ldconv_gather_bwd_plain(x, off, dy, stride)
     _check(x, off, "ldconv_gather_bwd")
-    _build.validate(dy, "ldconv_gather_bwd dy", torch.float32, 3)
+    _build.validate(dy, "ldconv_gather_bwd dy", x.dtype, 3)
     b, c, _, _ = x.shape
     _, n2, h, w = off.shape
     if tuple(dy.shape) != (b, h * w, n2 // 2 * c) or dy.device != x.device:
         raise ValueError(f"ldconv_gather_bwd: dy {tuple(dy.shape)} must be (B, h*w, N*C) = "
                          f"{(b, h * w, n2 // 2 * c)} on the device of x")
-    dx = torch.zeros_like(x)
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)  # f32 sums, whatever x's dtype
     doff = torch.empty_like(off)
-    _build.launch("ldconv_gather_bwd", _BWD_ARGS, x.data_ptr(), off.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+    entry = ldconv_gather_bwd_bf16 if x.dtype == torch.bfloat16 else ldconv_gather_bwd
+    _build.launch(entry.__name__, _BWD_ARGS, x.data_ptr(), off.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                   doff.data_ptr(), *_geom_args(x, off, stride), device=x.device, lib="ldconv_gather")
-    ldconv_gather_bwd.launches += 1
-    return dx, doff
+    entry.launches += 1
+    return dx.to(x.dtype), doff
+
+
+ldconv_gather_bf16 = _build.Form("ldconv_gather_bf16")  # launched by ldconv_gather_fwd for a bf16 source
+ldconv_gather_bwd_bf16 = _build.Form("ldconv_gather_bwd_bf16")  # launched by ldconv_gather_bwd for a bf16 source
 
 
 class _LDConvGather(torch.autograd.Function):

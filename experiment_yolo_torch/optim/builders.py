@@ -186,11 +186,11 @@ def build_optimizer(model: nn.Module, name: str, lr0: float, momentum: float, we
     if name == "auto":
         if epochs < 50:
             raise NotImplementedError(f"optimizer=auto with epochs={epochs} < 50 resolves to AdamW, which is not "
-                                      "ported to experiment_yolo_torch (ROADMAP.md queue 1 item 9); use SGD")
+                                      "ported to experiment_yolo_torch (ROADMAP.md catalogue item 9); use SGD")
         name = "SGD"
     if name in ("Adam", "AdamW", "NAdam", "RAdam", "RMSProp", "SOAP"):
         raise NotImplementedError(f"optimizer {name!r} is not ported to experiment_yolo_torch "
-                                  "(ROADMAP.md queue 1 item 9); use SGD")
+                                  "(ROADMAP.md catalogue item 9); use SGD")
     if name != "SGD":
         raise ValueError(f"unknown optimizer {name!r}")
     lf = lr_lambda(epochs, lrf, cos_lr)

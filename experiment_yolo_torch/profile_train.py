@@ -2,17 +2,19 @@
 
 Usage, on a machine with an NVIDIA GPU and the CUDA toolkit:
 
-    python -m experiment_yolo_torch.profile_train
+    python -m experiment_yolo_torch.profile_train [f32|bf16]
 
 Builds ``yolov8-LD-P2.yaml`` (n scale) with seeded weights
 (``utils/seeded.py``) and trains it through ``DetectionTrainer.train_step`` on
-seeded labelled batches at imgsz 640, batch 8, f32 with TF32 off: warm-up
+seeded labelled batches at imgsz 640, batch 8, with TF32 off, in f32
+(``amp=False``, the default of this tool) or in bf16 (``amp=True``): warm-up
 steps, then timed steps without the profiler, then the same number under
 ``torch.profiler``. Prints one JSON line: wall ms per step with and without
 the profiler, device busy ms and idle share, and device ms per step by group:
 convolutions and BatchNorm forward and backward, the LDConv projection's
 matmuls, kernels K1 and K3 forward and backward, TAL and the loss, the rest of
-the forward and of the backward, the optimizer and the EMA. A kernel's phase is the
+the forward and of the backward, the optimizer and the EMA (the bf16 forms of K1
+and K3 in groups of their own). A kernel's phase is the
 ``record_function`` range of ``train_step`` it was launched from (the
 backward's kernels are launched from autograd's own thread).
 """
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import time
 from collections import defaultdict
 
@@ -51,9 +54,10 @@ def phase_of(evt) -> str:
 
 
 def group_of(kernel: str, phase: str) -> str:
+    name = kernel.removeprefix("void ")  # a template's demangled name starts with its return type
     for k, g in KERNELS.items():
-        if kernel == k or kernel.startswith(k + "("):
-            return g
+        if name == k or name.startswith((k + "(", k + "<")):
+            return g + (" bf16" if "__nv_bfloat16" in name.split("(")[0] else "")
     low = kernel.lower()
     if low.startswith(("memcpy", "memset")):
         return "copies"
@@ -111,15 +115,18 @@ def profile(trainer: DetectionTrainer, batches) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device; this measures the card")
+    dtype = sys.argv[1] if len(sys.argv) > 1 else "f32"
+    if dtype not in ("f32", "bf16"):
+        raise SystemExit(f"profile_train: unknown dtype {dtype!r}: f32 or bf16")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     model = DetectionModel("yolov8-LD-P2.yaml", device="cuda", generator=torch.Generator().manual_seed(SEED))
     he_normal_(model, SEED + 1)
-    trainer = DetectionTrainer(model, {"amp": False, "batch": BATCH, "imgsz": IMGSZ})
+    trainer = DetectionTrainer(model, {"amp": dtype == "bf16", "batch": BATCH, "imgsz": IMGSZ})
     batches = [seeded_batch(BATCH, IMGSZ, SEED + 10 + i, nc=model.nc) for i in range(4)]
-    print(json.dumps({**profile(trainer, batches), "card": card}), flush=True)
+    print(json.dumps({**profile(trainer, batches), "dtype": dtype, "card": card}), flush=True)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,13 @@ map decoded per level by kernel K1 straight from the NCHW map.
     per-level DFL decode (K1) -> TAL assign (no gradient) -> BCE cls + (W/C)IoU [+ NWD] box + DFL
 
 Wise-IoU keeps a running mean of 1 - IoU over foreground anchors, which the
-caller threads from step to step. The JAX ``LossConfig``'s other switches
+caller threads from step to step.
+
+Maps of a bf16 model are lost in mixed precision, as in the JAX package:
+geometry, the assigner and every reduction run in f32, the targets stay in
+the score dtype, and the big elementwise parts of BCE and DFL run in bf16 with
+f32 sums (``utils/loss.py:112-156``, ``:399-416``, ``:515-544``). For f32
+maps every cast is a no-op. The JAX ``LossConfig``'s other switches
 (the rest of the IoU zoo, Inner- and Focaler-IoU, the class-loss zoo, ATSS)
 raise ``NotImplementedError``.
 """
@@ -21,7 +27,6 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from experiment_yolo_torch.ops.anchors import bbox2dist, dist2bbox, make_anchors
 from experiment_yolo_torch.ops.boxes import WIOU_MOMENTUM, bbox_iou, wasserstein_similarity, wise_iou_loss, xywh2xyxy
@@ -81,11 +86,29 @@ def df_loss(pred_dist: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     reg_max = pred_dist.shape[2]
     t = target.clamp(max=reg_max - 1)[:, :, None]  # (B, 4, 1, A)
     bins = torch.arange(reg_max, dtype=t.dtype, device=t.device)[:, None]
-    hat = (1.0 - (bins - t).abs()).clamp(min=0.0)
+    hat = (1.0 - (bins - t).abs()).clamp(min=0.0).to(pred_dist.dtype)
     m = pred_dist.detach().amax(2, keepdim=True)
-    lse = m[:, :, 0] + torch.log(torch.exp(pred_dist - m).sum(2))
-    proj = (pred_dist * hat).sum(2)
+    lse = m[:, :, 0] + torch.log(torch.exp((pred_dist - m).float()).sum(2))
+    proj = (pred_dist * hat).sum(2, dtype=torch.float32)
     return (lse - proj).mean(1)
+
+
+class _BCESum(torch.autograd.Function):
+    """``sum(max(x, 0) - x * t + log1p(exp(-|x|)))`` over every element, in
+    the logits' dtype with an f32 sum, and the analytic backward
+    ``sigmoid(x) - t`` in f32, rounded once to the logits' dtype (the JAX
+    package's ``_bce_sum``). The targets take no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(logits, targets)
+        return (logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))).sum(
+            dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        logits, targets = ctx.saved_tensors
+        return ((torch.sigmoid(logits.float()) - targets.float()) * g).to(logits.dtype), None
 
 
 def per_level_decode(feats: Sequence[torch.Tensor], anchor_points: torch.Tensor, reg_max: int) -> torch.Tensor:
@@ -183,13 +206,13 @@ def detection_loss(feats: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor]
     res = tal.assign(torch.sigmoid(pred_scores.detach()), pred_bboxes.detach() * stride_tensor[None],
                      anchor_points * stride_tensor, batch["cls"], gt_bboxes, mask_gt, topk=cfg.tal_topk,
                      num_classes=nc, alpha=cfg.tal_alpha, beta=cfg.tal_beta)
-    target_scores, fg_mask = res.target_scores, res.fg_mask
+    target_scores, fg_mask = res.target_scores, res.fg_mask  # targets in the score dtype
     target_bboxes = res.target_bboxes / stride_tensor[None]  # grid units
-    target_scores_sum = target_scores.sum().clamp(min=1.0)
+    target_scores_sum = target_scores.sum(dtype=torch.float32).clamp(min=1.0)
 
-    # BCE with logits: the analytic backward sigmoid(x) - t of the JAX _bce_sum
-    loss_cls = F.binary_cross_entropy_with_logits(pred_scores, target_scores, reduction="sum") / target_scores_sum
-    weight = torch.where(fg_mask, target_scores.sum(-1), 0.0)  # (B, A)
+    loss_cls = _BCESum.apply(pred_scores, target_scores) / target_scores_sum
+    # one nonzero per anchor, so the sum is exact in bf16 too
+    weight = torch.where(fg_mask, target_scores.sum(-1), 0.0).float()  # (B, A)
     if iou_mean is None:
         iou_mean = torch.ones((), dtype=torch.float32, device=feats[0].device)
     loss_iou, loss_dfl, new_iou_mean = _box_dfl_losses(list(feats), pred_bboxes, anchor_points, target_bboxes,

@@ -104,6 +104,19 @@ def seeded_model(cfg, seed: int, device="cuda"):
     return model
 
 
+@torch.no_grad()
+def sized_boxes_(model: torch.nn.Module, side: float) -> None:
+    """Make every box of ``model``'s Detect about ``side`` px a side: each
+    level's box conv weights times 0.05 and its bins peaked at ``side / 2``
+    over the level's stride. A seeded model's boxes then have the size of a
+    synthetic dataset's objects, and some of them overlap an object enough
+    to count, so that its mAP there is small but not 0."""
+    bins = torch.arange(model.reg_max, dtype=torch.float32)
+    for box, stride in zip(model.detect.cv2, model.stride):
+        box[-1].weight.mul_(0.05)
+        box[-1].bias.copy_((-(bins - side / 2 / float(stride)) ** 2 / 2).repeat(4))
+
+
 def letterboxed(images: List[np.ndarray], imgsz: int) -> np.ndarray:
     """BGR ``images`` letterboxed to ``imgsz`` and flipped to RGB, as the
     predictor hands them to the model: (B, imgsz, imgsz, 3) uint8."""

@@ -92,4 +92,6 @@ def assign(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.T
     pos_align = align_metric.amax(-1, keepdim=True)  # (B, M, 1)
     pos_overlap = (overlaps * mask_pos).amax(-1, keepdim=True)
     norm = (align_metric * pos_overlap / (pos_align + eps)).amax(-2)[..., None]  # (B, A, 1)
-    return AssignResult(target_labels, target_bboxes, target_scores * norm, fg_mask, target_gt_idx)
+    # the targets stay in the score dtype (bf16 scores under amp), as in the JAX package
+    return AssignResult(target_labels, target_bboxes, target_scores * norm.to(target_scores.dtype), fg_mask,
+                        target_gt_idx)

@@ -2,6 +2,7 @@
 matplotlib, its own copies of the YAMLs, and no silent fall-back to the CPU."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -47,9 +48,27 @@ y = selective_scan.selective_scan(torch.rand(1, 2, 12, 8), torch.rand(1, 4, 12, 
 assert y.shape == (1, 4, 12, 8) and bool(torch.isfinite(y).all())
 from experiment_yolo_torch.engine.trainer import DetectionTrainer
 DetectionTrainer(model, {"amp": False, "batch": 2, "use_wiseiou": True, "nwd": True}).train_step(seeded_batch(2, 64, 0))
+DetectionTrainer(model, {"batch": 2}).train_step(seeded_batch(2, 64, 0))  # amp: bf16 through the kernels' bf16 forms
+import json, urllib.request
+from experiment_yolo_torch import YOLO
+from experiment_yolo_torch.cfg.cli import entrypoint
+from experiment_yolo_torch.data.image_io import imwrite
+from experiment_yolo_torch.serve import DetectionServer
+yolo = YOLO("yolov8-LD-P2.yaml", device="cpu")
+yolo.predict(imgs, imgsz=64, batch=1)
+entrypoint(["version"])
+server = DetectionServer(yolo, batch=1, imgsz=64, device="cpu")
+port = server.start(port=0)
+import tempfile, pathlib
+bmp = pathlib.Path(tempfile.mkdtemp()) / "a.bmp"
+imwrite(bmp, imgs[0])
+urllib.request.urlopen(urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=bmp.read_bytes()), timeout=60)
+server.stop()
 launches = [dfl_decode.dfl_decode.launches, ldconv_gather.ldconv_gather.launches, nms_suppress.nms_suppress.launches,
             dfl_decode.dfl_decode_bwd.launches, ldconv_gather.ldconv_gather_bwd.launches,
-            selective_scan.selective_scan.launches, soft_nms.soft_nms.launches]
+            selective_scan.selective_scan.launches, soft_nms.soft_nms.launches, dfl_decode.dfl_decode_bf16.launches,
+            dfl_decode.dfl_decode_bwd_bf16.launches, ldconv_gather.ldconv_gather_bf16.launches,
+            ldconv_gather.ldconv_gather_bwd_bf16.launches]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "cv2", "PIL", "matplotlib"))
 print(len(mods), launches, bad)
@@ -57,17 +76,21 @@ print(len(mods), launches, bad)
 
 
 def test_port_imports_no_jax_and_cpu_launches_nothing():
-    """In a fresh interpreter: import every port module, serve two CPU
-    predicts of LD-P2 and one of a small VSS model, validate LD-P2 with
-    soft-NMS in quirk mode and with hard NMS, and take one CPU training step
-    with Wise-IoU and NWD. Nothing of JAX, the JAX package, OpenCV, PIL or
-    matplotlib is loaded, and no kernel launch, forward or backward, is
-    counted: CPU tensors take the plain versions."""
-    assert len(MODULES) >= 20
+    """In a fresh interpreter: import every port module (``engine/model.py``,
+    ``cfg/cli.py`` and ``serve.py`` among them), serve two CPU predicts of
+    LD-P2 and one of a small VSS model, validate LD-P2 with soft-NMS in quirk
+    mode and with hard NMS, take one CPU training step with Wise-IoU and NWD
+    and one with the defaults (bf16), predict through ``YOLO``, run the CLI's
+    ``version`` and answer one request through ``DetectionServer``. Nothing
+    of JAX, the JAX package, OpenCV, PIL or matplotlib is loaded, and no
+    kernel launch of any form, forward or backward, f32 or bf16, is counted:
+    CPU tensors take the plain versions."""
+    assert len(MODULES) >= 23 and {"experiment_yolo_torch.engine.model", "experiment_yolo_torch.cfg.cli",
+                                    "experiment_yolo_torch.serve"} <= set(MODULES)
     out = subprocess.run([sys.executable, "-c", _PROBE, *MODULES], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[-2] == f"{len(MODULES)} [0, 0, 0, 0, 0, 0, 0] []"
+    assert out.stdout.split("\n")[-2] == f"{len(MODULES)} [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0] []"
 
 
 def test_port_sources_name_no_cv2_pil_or_jax():
@@ -124,6 +147,38 @@ def test_training_loop_imports_no_jax_or_opencv_and_cpu_launches_nothing():
     out = subprocess.run([sys.executable, "-c", _LOOP_PROBE], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[-2] == "1 2 {0: 'circle', 1: 'square', 2: 'triangle'} [0, 0, 0, 0, 0] []"
+
+
+_CLI_PROBE = """
+import runpy, sys
+sys.argv = ["yolo-torch", *sys.argv[1:]]
+try:
+    runpy.run_module("experiment_yolo_torch.cfg.cli", run_name="__main__")
+finally:
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "cv2", "PIL", "matplotlib"))
+    print("loaded", bad)
+"""
+
+
+def test_cli_process_imports_no_jax_or_opencv(tmp_path):
+    """The CLI as ``python -m experiment_yolo_torch.cfg.cli`` runs in a process
+    of its own: ``val`` of a checkpoint on a synthetic dataset at
+    ``device=cpu`` exits 0, prints its stats, and loads nothing of JAX, the
+    JAX package, OpenCV, PIL or matplotlib."""
+    from experiment_yolo_torch.data import make_synthetic_dataset
+    from experiment_yolo_torch.engine.checkpoint import save_checkpoint
+    from experiment_yolo_torch.nn.tasks import yaml_model_load
+
+    data = make_synthetic_dataset(tmp_path / "data", n_train=2, n_val=2, imgsz=64, seed=0)
+    ckpt = save_checkpoint(tmp_path / "m.pt", DetectionModel({**yaml_model_load("yolov8-LD-P2.yaml"), "nc": 3},
+                                                             device="cpu"))
+    out = subprocess.run([sys.executable, "-c", _CLI_PROBE, "val", f"model={ckpt}", f"data={data}", "imgsz=64",
+                          "batch=2", "workers=1", "device=cpu"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[-1] == "loaded []" and any(ln.startswith("val: {") for ln in lines)
 
 
 @pytest.mark.parametrize("name", ["default.yaml", "models/yolov8-LD-P2.yaml", "models/yolov8.yaml",
@@ -194,7 +249,9 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
 ENTRY_POINTS = {"dfl_decode": ("dfl_decode", "_ARGS"), "nms_suppress": ("nms_suppress", "_ARGS"),
                 "ldconv_gather": ("ldconv_gather", "_ARGS"), "dfl_decode_bwd": ("dfl_decode", "_BWD_ARGS"),
                 "ldconv_gather_bwd": ("ldconv_gather", "_BWD_ARGS"), "selective_scan": ("selective_scan", "_ARGS"),
-                "soft_nms": ("soft_nms", "_ARGS")}
+                "soft_nms": ("soft_nms", "_ARGS"), "dfl_decode_bf16": ("dfl_decode", "_ARGS"),
+                "dfl_decode_bwd_bf16": ("dfl_decode", "_BWD_ARGS"), "ldconv_gather_bf16": ("ldconv_gather", "_ARGS"),
+                "ldconv_gather_bwd_bf16": ("ldconv_gather", "_BWD_ARGS")}
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))

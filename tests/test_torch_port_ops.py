@@ -72,6 +72,29 @@ def test_dfl_decode_matches_jax_and_pallas_interpret():
     assert t_dfl.launches == before  # a CPU tensor takes the plain version
 
 
+def test_dfl_decode_plain_is_as_accurate_as_float64(monkeypatch):
+    """The plain DFL decode against the same softmax expectation in float64,
+    within 1e-5 bins (its f32 sums err about 4e-6), even where the host's f32
+    ``exp`` errs: here ``torch.exp`` on f32 is made to err by 1.5e-4 relative
+    (with a sign that varies from element to element), which moves a decode
+    that takes its exp in f32 by 6.7e-4 bins (2.7e-3 px at stride 4), past
+    ``chip_smoke.py``'s 1e-3 px gate against K1."""
+    exp = torch.exp
+
+    def inexact(t):
+        y = exp(t)
+        return y * (1 + 1.5e-4 * torch.sign(torch.sin(1e3 * t))) if y.dtype == torch.float32 else y
+
+    monkeypatch.setattr(torch, "exp", inexact)
+    rng = np.random.default_rng(11)
+    x = (6 * rng.standard_normal((2, 4 * REG_MAX + NC, 40, 40))).astype(np.float32)
+    got = dfl_decode_plain(torch.from_numpy(x), REG_MAX).double().numpy()
+    d = x[:, :4 * REG_MAX].reshape(2, 4, REG_MAX, -1).astype(np.float64)
+    e = np.exp(d - d.max(2, keepdims=True))
+    want = ((e * np.arange(REG_MAX)[:, None]).sum(2) / e.sum(2)).transpose(0, 2, 1)
+    assert np.abs(got - want).max() <= 1e-5
+
+
 @pytest.mark.parametrize("spread", [False, True])
 def test_dfl_decode_gradient_matches_pallas_vjp_and_jax_grad(spread):
     """The plain backward (and the autograd path that takes it on the CPU)

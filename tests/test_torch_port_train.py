@@ -219,9 +219,14 @@ def test_gather_passes_gradients_to_offsets_and_sources(run):
 
 
 def test_trainer_refuses_amp_and_unported_switches():
+    """``amp`` is ported: with the defaults (amp=True) the trainer computes in
+    bf16 and with amp=False in f32, the parameters staying f32; the switches
+    that are not ported still raise."""
     model = TorchModel(CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        DetectionTrainer(model, {"batch": 2})  # amp defaults to True
+    trainer = DetectionTrainer(model, {"batch": 2})  # amp defaults to True
+    assert trainer.args.amp and trainer.dtype == model.dtype == trainer.state.ema.ema.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert DetectionTrainer(model, OVERRIDES).dtype == model.dtype == torch.float32
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
         DetectionTrainer(model, {**OVERRIDES, "iou_type": "GIoU"})
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
