@@ -83,7 +83,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     plus weight decay) and update within 1e-3 relative L2 (an absolute floor
     of 1e-6 under a norm of 1e-5; an update also gets one f32 spacing of each
     new parameter, since each side rounds p + update once), and with the
-    recipe the new ``iou_mean`` within 1e-6 relative;
+    recipe the new ``iou_mean`` within 1e-6 relative; the CPU step takes the
+    card step's LDConv offsets (their gradient flows into its own
+    ``p_conv``), since a position within about 1e-6 of a whole number may
+    take the other bilinear corner pair or border multiplier on each side,
+    and ScalSeq's pick of scale (a max over three), and the line reports the
+    two sides' largest raw offset difference, the CPU positions' least
+    distance to a whole number and to a rail, the least gap of ScalSeq's two
+    largest scales and the worst tensor;
 12. write a synthetic BMP dataset with the port's ``make_synthetic_dataset``
     (64 train and 16 val images at 640, seed 0) under ``build/``, time the
     train loader alone (8 threads) over an epoch with and without mosaic, then
@@ -109,9 +116,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     K3's) within one bf16 spacing of the plain version's rounded result plus
     1e-5 of its largest value (f32 sums that cancel near 0), K3's f32
     ``doff`` within 1e-5 of its largest value; time each form as phase 5
-    does (K1's backward, as its f32 form, the kernel alone), its
-    bytes bound at bf16, and ``F.grid_sample``'s bf16 time beside K3 and its
-    backward;
+    does (K1's backward, as its f32 form, the kernel
+    alone), its bytes bound at bf16, and ``F.grid_sample``'s bf16 time beside
+    K3 and its backward, also layer by layer;
 14. take 20 timed bf16 training steps after 3 warm-up steps (exactly 3, 3,
     10, 10 launches of the bf16 forms of K1, K1-backward, K3, K3-backward a
     step, none of the f32 forms) and report img/s beside phase 10's f32
@@ -190,6 +197,7 @@ package is not beside it.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -310,6 +318,61 @@ def device_ms(fn, kernel: str, per_call: int, runs: int = 5, span: str | None = 
         print(f"chip_smoke: a trace held {launched} of the {runs * per_call} launches of {kernel}: "
               f"{ {e.key[:60]: e.count for e in events} }", file=sys.stderr, flush=True)
     return None
+
+
+def device_ms_each(fns, kernel: str, per_call: int, runs: int = 5):
+    """Device milliseconds of each of ``fns`` (called in turn, ``runs``
+    times) from one ``torch.profiler`` trace: the device events up to the end
+    of the device-side span of a ``record_function`` range around the call
+    and after the span before it (fills included); a trace counts only if it
+    holds all ``runs * len(fns) * per_call`` launches of the kernels named
+    ``kernel`` and under 1% of its device time falls after the last span.
+    None for each after five traces that do not. One trace for a layer set,
+    where ``device_ms`` per layer would open one trace a layer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+
+    tag = "chip_smoke_item_"
+
+    def once():
+        for i, fn in enumerate(fns):
+            with record_function(f"{tag}{i}"):
+                fn()
+
+    once()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            torch.cuda._sleep(100_000)
+            once()
+            torch.cuda.synchronize()
+            prof.step()
+            torch.cuda._sleep(100_000)
+            for _ in range(runs):
+                once()
+            torch.cuda.synchronize()
+            prof.step()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = [(e.time_range.start, e.time_range.end, int(e.name[len(tag):])) for e in device
+                 if e.name.startswith(tag)]  # a range's device-side span, first event to last
+        work = [e for e in device if not e.name.startswith(tag) and "spin_kernel" not in e.name]
+        launched = sum(kernel in e.name for e in work)
+        spans.sort()
+        sums, outside = [0.0] * len(fns), 0.0
+        for e in work:
+            # a range's device span starts at its first kernel: a memset ahead of it goes to the next range
+            item = next((i for start, end, i in spans if e.time_range.start <= end), None)
+            if item is None:
+                outside += e.time_range.elapsed_us()
+            else:
+                sums[item] += e.time_range.elapsed_us()
+        # a trace has been seen to hold one short device event after the last range; more than 1% is a miss
+        if launched == runs * len(fns) * per_call and outside <= 0.01 * sum(sums):
+            return [v / runs / 1e3 for v in sums]
+        print(f"chip_smoke: a trace held {launched} of the {runs * len(fns) * per_call} launches of {kernel}, "
+              f"{outside} us of device time in no range", file=sys.stderr, flush=True)
+    return [None] * len(fns)
 
 
 def bound(nbytes: float, ops: float):
@@ -927,17 +990,74 @@ def train_timed(trainer, batches, counters):
     return step_ms, launches, {k: v.item() for k, v in comps.items()}, moved, ema_moved
 
 
+def ldconv_position_margins(layers):
+    """The least distance of any sample position of ``layers`` ((source,
+    offsets, stride) of each LDConv) to a whole number, and to a rail: a
+    padded position 0 or size_padded - 1 (clamp and gate), or R or R + size
+    - 1 (the border multiplier), rows and columns alike."""
+    import torch
+
+    from experiment_yolo_torch.ops.kernels.ldconv_gather import WINDOW_R, _samples
+
+    whole = rail = math.inf
+    for x, off, stride in layers:
+        pr, pc, _, _, _, (hp, wp) = _samples(x, off, stride)
+        for pos, size, padded in ((pr, x.shape[2], hp), (pc, x.shape[3], wp)):
+            whole = min(whole, (pos - pos.round()).abs().min().item())
+            rails = torch.tensor([0.0, padded - 1.0, WINDOW_R, WINDOW_R + size - 1.0])
+            rail = min(rail, (pos[..., None] - rails).abs().min().item())
+    return whole, rail
+
+
 def compare_train_cpu(state_dict, batch, recipe=None):
     """One step from the same weights and batch on the card and on the CPU.
     Warmup is off and ``nbs`` is the batch, so the step fires at once and
     every group, the weight group with its decay included, moves at lr0.
     ``recipe``: loss switches (Wise-IoU, NWD); then the new ``iou_mean`` is
-    held too."""
+    held too.
+
+    The CPU step takes the card step's LDConv offsets (each ``p_conv``'s
+    output, as the gather receives it): the bilinear floor, the border
+    multiplier and the rail gate are step functions of the positions, and a
+    position within about 1e-6 of a whole number can take the other side of
+    one of them on each device, which moves ``p_conv``'s gradient by O(1)
+    while both sides are right (``tests/test_torch_port_ldconv.py:
+    test_positions_near_a_whole_number_move_p_conv_gradient_not_the_output``).
+    The offsets' values are the card's; their gradient flows into the CPU's
+    own ``p_conv``. ScalSeq's max over its three scales is another such step:
+    the CPU takes the card's pick of scale for each element. The report gives
+    the largest difference of the two sides' raw offsets, the least distance
+    of the CPU's own positions to a whole number and to a rail, the least gap
+    between the CPU's two largest scales, and the tensor of the largest
+    difference of gradients, momentum buffers and updates."""
     import numpy as np
     import torch
 
+    import experiment_yolo_torch.nn.modules as modules
     from experiment_yolo_torch import DetectionModel
     from experiment_yolo_torch.engine.trainer import DetectionTrainer
+
+    gather, scale_max = modules.ldconv_gather, modules.ScalSeq.scale_max
+    card_offsets, cpu_layers, card_picks, cpu_gaps = [], [], [], []
+
+    def card_gather(x, off, stride):
+        card_offsets.append(off.detach().cpu())
+        return gather(x, off, stride)
+
+    def cpu_gather(x, off, stride):
+        cpu_layers.append((x.detach(), off.detach().clone(), stride))
+        return gather(x, card_offsets[len(cpu_layers) - 1] + (off - off.detach()), stride)
+
+    # ScalSeq's max over its three scales is a step function of the same kind: where two scales lie within
+    # rounding of each other, each side may route the gradient to another one. The CPU takes the card's picks.
+    def card_max(z):
+        card_picks.append(z.detach().argmax(2, keepdim=True).cpu())
+        return scale_max(z)
+
+    def cpu_max(z):
+        top2 = z.detach().topk(2, dim=2).values
+        cpu_gaps.append((top2[:, :, 0] - top2[:, :, 1]).min().item())
+        return z.gather(2, card_picks[len(cpu_gaps) - 1]).squeeze(2)
 
     out = {}
     for dev in ("cuda", "cpu"):
@@ -948,7 +1068,12 @@ def compare_train_cpu(state_dict, batch, recipe=None):
                                            "warmup_epochs": 0.0, **(recipe or {})})
         opt = trainer.state.optimizer
         lrs = opt.schedules()
-        comps = trainer.train_step(batch)
+        modules.ldconv_gather = card_gather if dev == "cuda" else cpu_gather
+        modules.ScalSeq.scale_max = staticmethod(card_max if dev == "cuda" else cpu_max)
+        try:
+            comps = trainer.train_step(batch)
+        finally:
+            modules.ldconv_gather, modules.ScalSeq.scale_max = gather, staticmethod(scale_max)
         check(opt.updates == 1 and min(lrs[:2]) > 0, f"{dev}: the compared step fired {opt.updates} updates at "
                                                      f"(lr, bias lr, momentum) {lrs}: expected 1 with both LRs > 0")
         out[dev] = dict(comps={k: v.item() for k, v in comps.items()}, lrs=lrs, iou_mean=trainer.state.iou_mean.item(),
@@ -956,6 +1081,11 @@ def compare_train_cpu(state_dict, batch, recipe=None):
                         momentum={n: opt.state[p]["momentum_buffer"].cpu() for n, p in model.named_parameters()},
                         after={n: p.detach().cpu() for n, p in model.named_parameters()},
                         updates={n: p.detach().cpu() - before[n] for n, p in model.named_parameters()})
+    check(len(card_offsets) == len(cpu_layers) == 10 and len(card_picks) == len(cpu_gaps) == 1,
+          f"the card step gathered {len(card_offsets)} times and took {len(card_picks)} ScalSeq maxima, the CPU step "
+          f"{len(cpu_layers)} and {len(cpu_gaps)}: expected 10 LDConv layers and one ScalSeq each")
+    offset_diff = max((a - c).abs().max().item() for a, (_, c, _) in zip(card_offsets, cpu_layers))
+    to_whole, to_rail = ldconv_position_margins(cpu_layers)
     gpu, cpu = out["cuda"], out["cpu"]
     check(gpu["comps"]["fg"] == cpu["comps"]["fg"], f"foreground count {gpu['comps']['fg']} on the card, "
                                                       f"{cpu['comps']['fg']} on the CPU")
@@ -965,16 +1095,19 @@ def compare_train_cpu(state_dict, batch, recipe=None):
     def worst(a, b, slack=None):
         """Largest relative L2 difference over tensors, and the tensors that miss
         1e-3 relative (or 1e-6 absolute under a norm of 1e-5) by more than the
-        absolute L2 allowance ``slack[n]``."""
-        rels, bad = [], []
+        absolute L2 allowance ``slack[n]``; the tensor of the largest difference
+        is kept in ``worst_of``."""
+        rels, bad = {}, []
         for n in b:
             diff, norm = float(np.linalg.norm(a[n] - b[n])), float(np.linalg.norm(b[n]))
             ok = diff <= (1e-6 if norm < 1e-5 else 1e-3 * norm) + (slack[n] if slack else 0.0)
-            rels.append(diff / norm if norm >= 1e-5 else 0.0)
+            rels[n] = diff / norm if norm >= 1e-5 else 0.0
             if not ok:
                 bad.append(n)
-        return max(rels), bad
+        worst_of.append(max(rels, key=rels.get))
+        return max(rels.values()), bad
 
+    worst_of = []
     grad_rel, bad = worst(gpu["grads"], cpu["grads"])
     check(not bad, f"gradients differ from the CPU's beyond 1e-3 relative L2: {bad[:5]}")
     mom_rel, bad = worst(gpu["momentum"], cpu["momentum"])
@@ -991,7 +1124,10 @@ def compare_train_cpu(state_dict, batch, recipe=None):
             "lr_bias_lr_momentum": gpu["lrs"], "fg": gpu["comps"]["fg"],
             "iou_mean_card": gpu["iou_mean"], "iou_mean_cpu": cpu["iou_mean"], "iou_mean_rel_err": iou_rel,
             "loss_max_rel_err": loss_rel, "grad_max_rel_l2": grad_rel, "momentum_max_rel_l2": mom_rel,
-            "update_max_rel_l2": upd_rel,
+            "update_max_rel_l2": upd_rel, "worst_tensor_grad_momentum_update": worst_of,
+            "ldconv_offsets_card_vs_cpu_max_abs_diff": offset_diff,
+            "cpu_positions_least_distance_to_whole_number": to_whole, "cpu_positions_least_distance_to_rail": to_rail,
+            "cpu_scalseq_least_gap_of_top_two_scales": min(cpu_gaps),
             "loss_card": {k: gpu["comps"][k] for k in ("box", "cls", "dfl")},
             "loss_cpu": {k: cpu["comps"][k] for k in ("box", "cls", "dfl")}}
 
@@ -1608,14 +1744,24 @@ def check_bf16_forms(feats, ld, ld_train, levels):
         return [F.grid_sample(x, g, mode="bilinear", padding_mode="border", align_corners=True)
                 for (x, _, _, _), g in zip(main, grids)]
 
+    fwd_kernel = "ldconv_gather_bf16_kernel"
     nbytes = ops = 0
-    for x, o, _, _ in main:
+    fwd_layers = []
+    for x, o, _, s in main:
         b, n2, h, w = o.shape
         out_n = b * h * w * n2 // 2 * x.shape[1]
-        nbytes += x.numel() * 2 + o.numel() * 4 + out_n * 2  # bf16 source and output, f32 offsets
-        ops += out_n * 9 + b * h * w * (n2 // 2) * 24
+        cost = (x.numel() * 2 + o.numel() * 4 + out_n * 2,  # bf16 source and output, f32 offsets
+                out_n * 9 + b * h * w * (n2 // 2) * 24)
+        nbytes, ops = nbytes + cost[0], ops + cost[1]
+        fwd_layers.append({"shape": f"{tuple(x.shape)}->{(b, h * w, out_n // (b * h * w))}", "stride": s,
+                           "bound_ms": bound(*cost)[0]})
+    per_layer = device_ms_each([functools.partial(ldconv_gather_fwd, x, o, s) for x, o, _, s in main], fwd_kernel, 1)
+    per_library = device_ms_each([functools.partial(F.grid_sample, x, g, mode="bilinear", padding_mode="border",
+                                                    align_corners=True) for (x, _, _, _), g in zip(main, grids)],
+                                 "grid_sampler", 1)
+    for row, ms, lib_ms in zip(fwd_layers, per_layer, per_library):
+        row.update(device_ms=ms, grid_sample_device_ms=lib_ms)
     b_ms, b_by = bound(nbytes, ops)
-    fwd_kernel = "ldconv_gather_kernel<__nv_bfloat16"
     rows.append(dict(name="ldconv_gather_bf16", route="cuda", source="experiment_yolo_torch/csrc/ldconv_gather.cu",
                      replaces="experiment_yolo_tpu/ops/pallas/ldconv_kernel.py:29", max_abs_err=max(fwd_err.values()),
                      ms=cuda_ms(lambda: [ldconv_gather_fwd(x, o, s) for x, o, _, s in main]),
@@ -1628,7 +1774,7 @@ def check_bf16_forms(feats, ld, ld_train, levels):
                      f32_form_same_sources_device_ms=device_ms(
                          lambda: [ldconv_gather_fwd(x.float(), o, s) for x, o, _, s in main], "ldconv_gather_kernel<float",
                          len(main)),
-                     bit_equal_on=list(fwd_err), max_abs_err_by_kind=fwd_err))
+                     bit_equal_on=list(fwd_err), max_abs_err_by_kind=fwd_err, layers=fwd_layers))
 
     # the backward's yardstick: F.grid_sample's bf16 backward on the training step's positions and gradients
     tgrids = grid_sample_grids([(x, o, s) for x, o, _, s in train_kind])
@@ -1641,24 +1787,38 @@ def check_bf16_forms(feats, ld, ld_train, levels):
     def k3b():
         return [t for x, o, dy, s in train_kind for t in ldconv_gather_bwd(x, o, dy, s)]
 
+    bwd_kernel = "ldconv_gather_bwd_kernel<__nv_bfloat16"  # timed with every event of its calls
     nbytes = ops = 0
-    for x, o, dy, _ in train_kind:
+    bwd_layers = []
+    for x, o, dy, s in train_kind:
         b, n2, h, w = o.shape
-        nbytes += 2 * x.numel() * 2 + 2 * o.numel() * 4 + dy.numel() * 2  # x, dy bf16 read, dx bf16 written
-        ops += dy.numel() * 23 + b * h * w * (n2 // 2) * 30
+        cost = (2 * x.numel() * 2 + 2 * o.numel() * 4 + dy.numel() * 2,  # x, dy bf16 read, dx bf16 written
+                dy.numel() * 23 + b * h * w * (n2 // 2) * 30)
+        nbytes, ops = nbytes + cost[0], ops + cost[1]
+        bwd_layers.append({"shape": f"{tuple(dy.shape)}->{tuple(x.shape)},{tuple(o.shape)}", "stride": s,
+                           "bound_ms": bound(*cost)[0]})
+    per_layer = device_ms_each([functools.partial(ldconv_gather_bwd, x, o, dy, s) for x, o, dy, s in train_kind],
+                               bwd_kernel, 1)
+    # the library's backward called directly, on this thread (autograd runs it on a thread of its own, outside
+    # the ranges): bilinear (0), border (1), align_corners
+    per_library = device_ms_each([functools.partial(torch.ops.aten.grid_sampler_2d_backward, d, xi.detach(),
+                                                    gi.detach(), 0, 1, True, [True, True])
+                                  for xi, gi, d in zip(xs, gs, dys)], "grid_sampler_2d_backward", 1)
+    for row, ms, lib_ms in zip(bwd_layers, per_layer, per_library):
+        row.update(device_ms=ms, grid_sample_backward_device_ms=lib_ms)
     b_ms, b_by = bound(nbytes, ops)
     rows.append(dict(name="ldconv_gather_bwd_bf16", route="cuda",
                      source="experiment_yolo_torch/csrc/ldconv_gather.cu",
                      replaces="experiment_yolo_tpu/nn/modules.py:469",
                      max_abs_err=max(max(v["dx_max_abs_err"], v["doff_max_abs_err"]) for v in bwd.values()),
-                     ms=cuda_ms(k3b), device_ms=device_ms(k3b, "ldconv_gather_bwd_kernel<__nv_bfloat16", len(train_kind),
-                                                        span=""),
+                     ms=cuda_ms(k3b), device_ms=device_ms(k3b, bwd_kernel, len(train_kind), span=""),
                      plain_ms=cuda_ms(lambda: [t for x, o, dy, s in train_kind
                                                for t in ldconv_gather_bwd_plain(x, o, dy, s)]),
                      bound_ms=b_ms, bound_by=b_by,
                      library_ms=cuda_ms(lambda: torch.autograd.grad(outs, xs + gs, dys, retain_graph=True)),
-                     by_kind=bwd, device_ms_counts="every event of the wrapper's calls: the dx fill, a doff memset, "
-                                                   "the cast of dx to bf16"))
+                     by_kind=bwd, layers=bwd_layers,
+                     device_ms_counts="every event of the wrapper's calls: the memset of the f32 sums (and of "
+                                      "doff where channels split over threads), the adds, the rounding into dx"))
     return rows
 
 
@@ -2143,6 +2303,9 @@ def main() -> None:
                 f"({k['bound_by']})")
         log(f"  K3 bf16 bit-equal on {bf16_rows[2]['bit_equal_on']}; backward by kind "
             f"{json.dumps(bf16_rows[3]['by_kind'])}")
+        for label, row in [("K3 bf16", r) for r in bf16_rows[2]["layers"]] + [("K3 bwd bf16", r)
+                                                                            for r in bf16_rows[3]["layers"]]:
+            log(f"  {label} layer {row}")
 
         # 14. the bf16 training main path: train_step with the defaults; the card's bf16 step against the CPU's
         step_ms16, run, last16, moved16, ema_moved16 = train_timed(trainer16, batches, counters)

@@ -102,17 +102,55 @@
 // run to run.
 //
 // bf16 forms (the sources of a bf16 model, ldconv_gather_bf16_launch and
-// ldconv_gather_bwd_bf16_launch): the kernels above templated on the source's
-// type. The JAX LDConv's bf16 gather (nn/modules.py:694-704, 800-805) widens
-// the bf16 corners and weighs them with f32 weights, so the sums and the
-// border multiplier stay f32: the forward widens each corner exactly
-// (__bfloat162float), does the f32 form's arithmetic bit for bit, and
-// rounds the product with the multiplier once to bf16 as it leaves the tile,
-// which is the rounding the JAX LDConv's bf16 projection makes of its input.
-// The backward reads the bf16 incoming gradient and source widened, adds
-// into an f32 dx (the wrapper rounds it to bf16 once, as the JAX VJP's
-// astype does) and writes doff in f32. Both read half the source's bytes.
+// ldconv_gather_bwd_bf16_launch). The JAX LDConv's bf16 gather
+// (nn/modules.py:694-704, 800-805) widens the bf16 corners and weighs them
+// with f32 weights, so the sums and the border multiplier stay f32: the
+// forward widens each corner exactly, does the f32 form's arithmetic bit for
+// bit and rounds the product with the multiplier once to bf16 (the rounding
+// the JAX LDConv's bf16 projection makes of its input); the backward reads
+// the bf16 incoming gradient and source widened, sums dx in f32 and rounds it
+// once to bf16 (the JAX VJP's astype), and writes doff in f32.
+//
+// The bf16 forward (ldconv_gather_bf16_kernel): the f32 form's three steps
+// with a bf16 tile (rows of an odd number of 4-byte words; T by bytes, so a
+// 16 KB tile holds twice the pixels, halved while the grid has fewer than two
+// blocks a SM), samples packed in five words and taken one pixel a thread
+// (one division a thread), and the tile leaving as 16-byte stores (4-byte
+// reads of the tile where N*C is a multiple of 8). Measured on an H100 (the
+// ten LD-P2 layers at batch 8, 640, smooth offsets, the earlier bf16 form in
+// the same process): 0.217 ms against 0.222, the f32 form on the same
+// positions 0.226; the bound is 0.071 ms (bytes). What bounds it is neither
+// its bytes nor what changed: with parts of the earlier form removed, the
+// samples alone took 0.078 ms, the stores 0.04, the corner loads 0.07; here
+// 8 and 32 KB tiles moved the total by under 3%, and a row's two corners read
+// as one 4-byte pair where every lane of a warp had (even A, A + 1) by 0.6%
+// (left out). Left: a block's three dependent steps (offsets, then corners,
+// then stores, a barrier between) at eight blocks a SM.
+//
+// The bf16 backward: the f32 form's kernel on bf16 data, its adds into f32
+// sums in a scratch that the launch zeroes, then one rounding pass into dx
+// (16-byte stores) in the same launch; where a lane's 8-byte add starts on a
+// 16-byte boundary and the next lane's follows it, the two go as one 16-byte
+// add (quads, row_plan). What bounds it: the adds (operations in L2), then
+// zeroing and rounding the sums at device-memory rate. Measured as above:
+// 0.686-0.702 ms against 0.718-0.728 for the earlier bf16 form (the same
+// adds, its wrapper's f32 fill and cast); the quads 0.025 ms of that; the
+// bound is 0.114 ms. Tried and left out, each slower on every kind of
+// offsets: a dx cell owned by one block, written once in bf16 (a count, scan
+// and fill put each sample in the bucket of each 4 x 16 source tile its
+// corners touch; one block a tile sums its bucket in 64-bit fixed point, so
+// any order of the adds gives the same bits, and each sample's doff comes
+// from the tile of its corner 00): 1.33-2.92 ms on smooth offsets over four
+// versions (64-bit shared-memory atomics, which are a compare-and-swap loop
+// here, ATOMS.CAST.SPIN.64; cells owned by lanes, every warp walking every
+// entry; two native 32-bit atomics an add), 8-24 ms on seam offsets, whose
+// buckets hold thousands of entries for one block. Its walk took 0.5 ms of
+// 1.17, the rest a block's fixed costs at about 64 entries a tile. And
+// chunks of images whose sums stay in L2 (12 to 40 MB): 0.694-0.812 ms.
 #include <math.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 struct Geom {
@@ -125,19 +163,18 @@ struct Geom {
 struct Sample {
   float pr, pc, wr0, wr1, wc0, wc1, mul;
   int i00, i01, i10, i11;
+  int sr0, sr1, sc0, sc1;  // the corners' source rows and columns
 };
 
-__device__ __forceinline__ Sample sample_at(const float* __restrict__ off, const Geom& g, int b, int p, int n) {
-  const int hw = g.h * g.w;
-  const int i = p / g.w, j = p % g.w;
-  // the grid point of n: row-major over `base` columns, remainder on the last row
+// The grid point (row, col) of sampling point n: row-major over `base` columns, remainder on the last row.
+__device__ __forceinline__ int2 grid_point(const Geom& g, int n) {
   const int full = (g.N / g.base) * g.base;
-  const int gn_r = n < full ? n / g.base : g.N / g.base;
-  const int gn_c = n < full ? n % g.base : n - full;
+  return n < full ? make_int2(n / g.base, n % g.base) : make_int2(g.N / g.base, n - full);
+}
 
-  const float* ob = off + static_cast<long long>(b) * 2 * g.N * hw;
-  const float o_r = ob[static_cast<long long>(n) * hw + p];
-  const float o_c = ob[static_cast<long long>(g.N + n) * hw + p];
+// The sample of output pixel (i, j) at grid point gn with raw offsets (o_r, o_c).
+__device__ __forceinline__ Sample sample_from(float o_r, float o_c, int i, int j, int2 gn, const Geom& g) {
+  const int gn_r = gn.x, gn_c = gn.y;
   Sample s;
   s.pr = __fadd_rn(static_cast<float>(i * g.stride + g.R + gn_r), o_r);
   s.pc = __fadd_rn(static_cast<float>(j * g.stride + g.R + gn_c), o_c);
@@ -158,12 +195,23 @@ __device__ __forceinline__ Sample sample_at(const float* __restrict__ off, const
   s.i01 = sr0 * g.W + sc1;
   s.i10 = sr1 * g.W + sc0;
   s.i11 = sr1 * g.W + sc1;
+  s.sr0 = sr0;
+  s.sr1 = sr1;
+  s.sc0 = sc0;
+  s.sc1 = sc1;
 
   const float ar = __fsub_rn(s.pr, static_cast<float>(g.R)), ac = __fsub_rn(s.pc, static_cast<float>(g.R));
   const float mr = (ar < 0.f || ar >= static_cast<float>(g.H - 1)) ? 2.f : 1.f;
   const float mc = (ac < 0.f || ac >= static_cast<float>(g.W - 1)) ? 2.f : 1.f;
   s.mul = __fmul_rn(mr, mc);
   return s;
+}
+
+__device__ __forceinline__ Sample sample_at(const float* __restrict__ off, const Geom& g, int b, int p, int n) {
+  const int hw = g.h * g.w;
+  const float* ob = off + static_cast<long long>(b) * 2 * g.N * hw;
+  return sample_from(ob[static_cast<long long>(n) * hw + p], ob[static_cast<long long>(g.N + n) * hw + p], p / g.w,
+                     p % g.w, grid_point(g, n), g);
 }
 
 constexpr int GATHER_THREADS = 256;
@@ -256,9 +304,14 @@ constexpr int BWD_MIN_CHANNELS = 8;      // ... but a thread keeps at least this
 // once per thread; every value is added exactly once.
 struct RowPlan {
   bool merge, pair, cross, taken;  // taken: this lane's A goes with the lane before it
+  bool quad, quad_taken;  // bf16 form: this lane's 8-byte add and the next lane's as one 16-byte add
 };
 
-__device__ __forceinline__ RowPlan row_plan(long long A, long long B, bool live, int lane, bool aligned) {
+// QUADS (the bf16 form): a lane whose 8-byte add (pair or cross) starts on a 16-byte boundary, and whose next
+// lane's starts two cells on, adds both as one 16-byte value, and the next lane skips its own.
+template <bool QUADS>
+__device__ __forceinline__ RowPlan row_plan(long long A, long long B, bool live, int lane, bool aligned,
+                                            bool aligned4) {
   constexpr unsigned FULL = 0xffffffffu;
   const long long nextA = __shfl_down_sync(FULL, A, 1);
   const bool next_live = __shfl_down_sync(FULL, live, 1) && lane < 31;
@@ -270,24 +323,45 @@ __device__ __forceinline__ RowPlan row_plan(long long A, long long B, bool live,
   const bool left = __shfl_up_sync(FULL, r.merge || r.cross, 1) && lane > 0;
   r.taken = left;
   if (r.taken) r.pair = false;
+  r.quad = r.quad_taken = false;
+  if (QUADS) {
+    const bool has2 = r.pair || r.cross;
+    const long long X = r.pair ? A : B, nextX = __shfl_down_sync(FULL, X, 1);
+    const bool next_has2 = __shfl_down_sync(FULL, has2, 1) && lane < 31;
+    r.quad = aligned4 && has2 && next_has2 && nextX == X + 2 && (X & 3) == 0;
+    r.quad_taken = __shfl_up_sync(FULL, r.quad, 1) && lane > 0;
+  }
   return r;
 }
 
+template <bool QUADS>
 __device__ __forceinline__ void add_row(float* __restrict__ dx, long long A, long long B, float va, float vb,
                                         const RowPlan& r, bool live) {
   constexpr unsigned FULL = 0xffffffffu;
   const float next_va = __shfl_down_sync(FULL, va, 1);
-  if (!live) return;
   const float b_sum = r.merge ? vb + next_va : vb;
+  float n0 = 0.f, n1 = 0.f;  // the next lane's 8-byte add
+  if (QUADS) {
+    n0 = __shfl_down_sync(FULL, r.pair ? va : vb, 1);
+    n1 = __shfl_down_sync(FULL, r.pair ? b_sum : next_va, 1);
+  }
+  if (!live) return;
   if (r.pair) {
-    atomicAdd(reinterpret_cast<float2*>(dx + A), make_float2(va, b_sum));
+    if (QUADS && r.quad)
+      atomicAdd(reinterpret_cast<float4*>(dx + A), make_float4(va, b_sum, n0, n1));
+    else if (!(QUADS && r.quad_taken))
+      atomicAdd(reinterpret_cast<float2*>(dx + A), make_float2(va, b_sum));
     return;
   }
   if (!r.taken) atomicAdd(dx + A, va);
-  if (r.cross)
-    atomicAdd(reinterpret_cast<float2*>(dx + B), make_float2(vb, next_va));
-  else
+  if (r.cross) {
+    if (QUADS && r.quad)
+      atomicAdd(reinterpret_cast<float4*>(dx + B), make_float4(vb, next_va, n0, n1));
+    else if (!(QUADS && r.quad_taken))
+      atomicAdd(reinterpret_cast<float2*>(dx + B), make_float2(vb, next_va));
+  } else {
     atomicAdd(dx + B, b_sum);
+  }
 }
 
 // One thread per (pixel, n, slice of channels), pixels fastest: a warp's offset loads, corner loads and adds
@@ -318,9 +392,11 @@ ldconv_gather_bwd_kernel(const TX* __restrict__ x, const float* __restrict__ off
   // multiple of 32 holds two images or two channel slices, and their lanes' corners must never match.
   const long long first = (static_cast<long long>(b) * g.C + c0) * plane;
   const long long k00 = first + s.i00, k01 = first + s.i01, k10 = first + s.i10, k11 = first + s.i11;
-  // 8-byte adds need every channel plane to start on an even float
-  const bool aligned = (plane & 1) == 0;
-  const RowPlan top = row_plan(k00, k01, live, lane, aligned), bottom = row_plan(k10, k11, live, lane, aligned);
+  // 8-byte adds need every channel plane to start on an even float, 16-byte ones on a multiple of 4 floats
+  const bool aligned = (plane & 1) == 0, aligned4 = (plane & 3) == 0;
+  constexpr bool quads = !std::is_same<TX, float>::value;
+  const RowPlan top = row_plan<quads>(k00, k01, live, lane, aligned, aligned4);
+  const RowPlan bottom = row_plan<quads>(k10, k11, live, lane, aligned, aligned4);
 
   const TD* dyp = dy + (static_cast<long long>(b) * hw + p) * g.N * g.C + static_cast<long long>(n) * g.C + c0;
   const TX* xc = x + first;
@@ -337,8 +413,8 @@ ldconv_gather_bwd_kernel(const TX* __restrict__ x, const float* __restrict__ off
       dpr += d * ((v10 - v00) * s.wc0 + (v11 - v01) * s.wc1);
       dpc += d * ((v01 - v00) * s.wr0 + (v11 - v10) * s.wr1);
     }
-    add_row(dxc, k00, k01, w00 * d, w01 * d, top, on);
-    add_row(dxc, k10, k11, w10 * d, w11 * d, bottom, on);
+    add_row<quads>(dxc, k00, k01, w00 * d, w01 * d, top, on);
+    add_row<quads>(dxc, k10, k11, w10 * d, w11 * d, bottom, on);
   }
   if (!live) return;
   const bool in_r = s.pr >= 0.f && s.pr <= static_cast<float>(g.Hp - 1);
@@ -352,6 +428,170 @@ ldconv_gather_bwd_kernel(const TX* __restrict__ x, const float* __restrict__ off
   } else {  // the slices' sums meet in doff, which the launch zeroed
     if (in_r) atomicAdd(dr, dpr);
     if (in_c) atomicAdd(dc, dpc);
+  }
+}
+
+// ---- bf16 forms ----
+
+// The row length of a bf16 [pixel][N*C] tile in shared memory, in elements: even, with an odd number of
+// 4-byte words, so that 32 pixels of one column fall on 32 banks.
+__host__ __device__ inline int tile_row_bf16(int nc) {
+  const int r = (nc + 1) & ~1;
+  return (r / 2) % 2 ? r : r + 2;
+}
+
+// A sample in shared memory: the four weight products, and one word holding corner 00 (bits 0-27), the column
+// and row steps to the other corners (bits 28, 29: 0 where clamped) and log2 of the multiplier (bits 30-31).
+constexpr int PACKED_WORDS = 5;
+
+__device__ __forceinline__ int pack_corners(const Sample& s) {
+  const unsigned mul_log2 = s.mul == 1.f ? 0u : s.mul == 2.f ? 1u : 2u;
+  return static_cast<int>(static_cast<unsigned>(s.i00) | static_cast<unsigned>(s.sc1 - s.sc0) << 28 |
+                          static_cast<unsigned>(s.sr1 - s.sr0) << 29 | mul_log2 << 30);
+}
+
+// The samples of T pixels of image b from p0 (T a power of two, at most GATHER_THREADS): each thread takes one
+// pixel and every (GATHER_THREADS / T)-th sampling point, so its row and column divide once and its offset
+// loads run along pixels. Past the image's last pixel the last one again.
+__device__ __forceinline__ void packed_samples(const float* __restrict__ off, const Geom& g, int b, int p0, int T,
+                                               float* w, int* corner) {
+  const int hw = g.h * g.w, TN = T * g.N;
+  const int px = threadIdx.x % T, p = min(p0 + px, hw - 1), i = p / g.w, j = p - i * g.w;
+  const float* ob = off + static_cast<long long>(b) * 2 * g.N * hw + p;
+  for (int n = threadIdx.x / T; n < g.N; n += GATHER_THREADS / T) {
+    const Sample s = sample_from(ob[static_cast<long long>(n) * hw], ob[static_cast<long long>(g.N + n) * hw], i, j,
+                                 grid_point(g, n), g);
+    const int q = n * T + px;
+    w[q] = __fmul_rn(s.wr0, s.wc0);
+    w[TN + q] = __fmul_rn(s.wr0, s.wc1);
+    w[2 * TN + q] = __fmul_rn(s.wr1, s.wc0);
+    w[3 * TN + q] = __fmul_rn(s.wr1, s.wc1);
+    corner[q] = pack_corners(s);
+  }
+}
+
+// The bf16 forward: the f32 form's three steps with a bf16 tile. T: pixels per tile, a power of two from 32 to
+// 256; slices as in the f32 form.
+__global__ void __launch_bounds__(GATHER_THREADS)
+ldconv_gather_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ off,
+                          __nv_bfloat16* __restrict__ out, Geom g, int T, int slices) {
+  extern __shared__ __align__(16) float smem[];
+  const int NC = g.N * g.C, hw = g.h * g.w, row = tile_row_bf16(NC), TN = T * g.N;
+  float* w = smem;                                                        // [4][TN] weight products
+  int* corner = reinterpret_cast<int*>(w + 4 * TN);                       // [TN] packed corners
+  unsigned short* tile = reinterpret_cast<unsigned short*>(corner + TN);  // [T][row] bf16 values
+  const int b = blockIdx.y, p0 = blockIdx.x * T;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+  packed_samples(off, g, b, p0, T, w, corner);
+  __syncthreads();
+
+  const int units = TN / 32;
+  const long long plane = static_cast<long long>(g.H) * g.W;
+  for (int item = warp; item < units * slices; item += GATHER_WARPS) {
+    const int q = (item % units) * 32 + lane, first = item / units;
+    const int n = q / T;
+    const float a00 = w[q], a01 = w[TN + q], a10 = w[2 * TN + q], a11 = w[3 * TN + q];
+    const unsigned pk = static_cast<unsigned>(corner[q]);
+    const int j00 = pk & 0x0fffffff, j01 = j00 + (pk >> 28 & 1), j10 = j00 + static_cast<int>(pk >> 29 & 1) * g.W;
+    const int j11 = j10 + (pk >> 28 & 1);
+    const float m = static_cast<float>(1 << (pk >> 30));
+    unsigned short* cell = tile + (q - n * T) * row + n * g.C;
+    const __nv_bfloat16* xc = x + (static_cast<long long>(b) * g.C + first) * plane;
+#pragma unroll 4
+    for (int c = first; c < g.C; c += slices, xc += slices * plane) {
+      float v = __fmul_rn(a00, __bfloat162float(xc[j00]));
+      v = __fadd_rn(v, __fmul_rn(a01, __bfloat162float(xc[j01])));
+      v = __fadd_rn(v, __fmul_rn(a10, __bfloat162float(xc[j10])));
+      v = __fadd_rn(v, __fmul_rn(a11, __bfloat162float(xc[j11])));
+      cell[c] = __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(v, m)));
+    }
+  }
+  __syncthreads();
+
+  // 3. the tile's contiguous run of out as 16-byte stores of 8 values; the head before the first 16-byte
+  // boundary and the ragged tail one by one
+  const int total = min(T, hw - p0) * NC;
+  unsigned short* o = reinterpret_cast<unsigned short*>(out + (static_cast<long long>(b) * hw + p0) * NC);
+  const int head = min(total, static_cast<int>((16 - (reinterpret_cast<size_t>(o) & 15)) & 15) / 2);
+  const int vecs = (total - head) / 8;
+  if (NC % 8 == 0 && head == 0) {  // every piece lies in one row of the tile, at a 4-byte boundary (row is even)
+    for (int v = threadIdx.x; v < vecs; v += GATHER_THREADS) {
+      const int e = v * 8, p = e / NC;
+      const unsigned* t = reinterpret_cast<const unsigned*>(tile + p * row + e - p * NC);
+      *reinterpret_cast<uint4*>(o + e) = make_uint4(t[0], t[1], t[2], t[3]);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < head; i += GATHER_THREADS) o[i] = tile[i / NC * row + i % NC];
+  for (int v = threadIdx.x; v < vecs; v += GATHER_THREADS) {
+    const int e = head + v * 8;
+    int p = e / NC, j = e - p * NC;
+    unsigned u[4];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const unsigned t = tile[p * row + j];
+      u[k / 2] = k % 2 ? u[k / 2] | t << 16 : t;
+      if (++j == NC) {
+        j = 0;
+        ++p;
+      }
+    }
+    *reinterpret_cast<uint4*>(o + e) = make_uint4(u[0], u[1], u[2], u[3]);
+  }
+  for (int i = head + vecs * 8 + threadIdx.x; i < total; i += GATHER_THREADS) o[i] = tile[i / NC * row + i % NC];
+}
+
+static int ldconv_gather_bf16_run(const __nv_bfloat16* x, const float* off, __nv_bfloat16* out, const Geom& g,
+                                  cudaStream_t stream) {
+  const int B = g.B, C = g.C, h = g.h, w = g.w, N = g.N;
+  if (B == 0 || h * w == 0 || N * C == 0) return static_cast<int>(cudaSuccess);
+  // corner 00 of a packed sample has 28 bits
+  if (B > 65535 || static_cast<long long>(g.H) * g.W > (1 << 28)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int NC = N * C;
+  // the largest tile of at most 16 KB of bf16 values, and at least two blocks a SM (small layers)
+  static int sms = 0;
+  if (sms == 0) {
+    int device = 0;
+    const cudaError_t e = cudaGetDevice(&device);
+    if (e == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (sms == 0) return static_cast<int>(e == cudaSuccess ? cudaErrorInvalidDevice : e);
+  }
+  int T = 256;
+  while (T > 32 && (T * NC > 8192 || static_cast<long long>(B) * ((h * w + T - 1) / T) < 2LL * sms)) T /= 2;
+  const size_t smem = static_cast<size_t>(PACKED_WORDS) * T * N * sizeof(float) +
+                      static_cast<size_t>(T) * tile_row_bf16(NC) * sizeof(__nv_bfloat16);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(ldconv_gather_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int units = T * N / 32;
+  int gcd = units, r = GATHER_WARPS;
+  while (r) {
+    const int t = gcd % r;
+    gcd = r;
+    r = t;
+  }
+  const dim3 grid((h * w + T - 1) / T, B);
+  ldconv_gather_bf16_kernel<<<grid, GATHER_THREADS, smem, stream>>>(x, off, out, g, T, GATHER_WARPS / gcd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- bf16 backward ----
+
+// f32 sums of dx rounded once to bf16, 8 a thread: two 16-byte loads, one 16-byte store (src starts on a 16-byte
+// boundary; where dst does not, and at the ragged end, one by one).
+__global__ void __launch_bounds__(256)
+ldconv_gather_bwd_bf16_round_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst, long long n) {
+  const long long i = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 8;
+  if (i + 8 <= n && reinterpret_cast<size_t>(dst) % 16 == 0) {
+    const float4 a = reinterpret_cast<const float4*>(src + i)[0], b = reinterpret_cast<const float4*>(src + i)[1];
+    const __nv_bfloat162 q[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+                                 __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+    *reinterpret_cast<uint4*>(dst + i) = *reinterpret_cast<const uint4*>(q);
+  } else {
+    for (long long j = i; j < n && j < i + 8; ++j) dst[j] = __float2bfloat16_rn(src[j]);
   }
 }
 
@@ -394,7 +634,7 @@ extern "C" int ldconv_gather_launch(const float* x, const float* off, float* out
 extern "C" int ldconv_gather_bf16_launch(const __nv_bfloat16* x, const float* off, __nv_bfloat16* out, int B, int C,
                                          int H, int W, int h, int w, int N, int base, int stride, int R, int Hp,
                                          int Wp, cudaStream_t stream) {
-  return ldconv_gather_run(x, off, out, Geom{B, C, H, W, h, w, N, base, stride, R, Hp, Wp}, stream);
+  return ldconv_gather_bf16_run(x, off, out, Geom{B, C, H, W, h, w, N, base, stride, R, Hp, Wp}, stream);
 }
 
 template <typename TX, typename TD>
@@ -422,6 +662,22 @@ static int ldconv_gather_bwd_run(const TX* x, const float* off, const TD* dy, fl
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 form: the f32 sums of dx in the scratch, zeroed here, the adds above (with 16-byte quads), then one
+// rounding pass into dx.
+static int ldconv_gather_bwd_bf16_run(const __nv_bfloat16* x, const float* off, const __nv_bfloat16* dy,
+                                      __nv_bfloat16* dx, float* doff, float* sums, long long sums_size, const Geom& g,
+                                      cudaStream_t stream) {
+  const long long n = static_cast<long long>(g.B) * g.C * g.H * g.W;
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  if (sums_size < n || reinterpret_cast<size_t>(sums) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaMemsetAsync(sums, 0, static_cast<size_t>(n) * sizeof(float), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rc = ldconv_gather_bwd_run(x, off, dy, sums, doff, g, stream);
+  if (rc) return rc;
+  ldconv_gather_bwd_bf16_round_kernel<<<static_cast<unsigned>((n + 2047) / 2048), 256, 0, stream>>>(sums, dx, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // x: (B, C, H, W) f32; off: (B, 2N, h, w) f32; dy: (B, h*w, N*C) f32, n-major;
 // dx: (B, C, H, W) f32, zeroed by the caller (the kernel adds into it);
 // doff: (B, 2N, h, w) f32, every element written.
@@ -431,9 +687,12 @@ extern "C" int ldconv_gather_bwd_launch(const float* x, const float* off, const 
   return ldconv_gather_bwd_run(x, off, dy, dx, doff, Geom{B, C, H, W, h, w, N, base, stride, R, Hp, Wp}, stream);
 }
 
-// The same with x and dy bf16; dx (its f32 sums, rounded to bf16 by the caller) and doff stay f32.
+// x, dy, dx bf16 (dx: every element written); off, doff f32; sums: sums_size floats, 16-byte aligned, at least
+// one per element of x (scratch for dx's f32 sums).
 extern "C" int ldconv_gather_bwd_bf16_launch(const __nv_bfloat16* x, const float* off, const __nv_bfloat16* dy,
-                                             float* dx, float* doff, int B, int C, int H, int W, int h, int w, int N,
-                                             int base, int stride, int R, int Hp, int Wp, cudaStream_t stream) {
-  return ldconv_gather_bwd_run(x, off, dy, dx, doff, Geom{B, C, H, W, h, w, N, base, stride, R, Hp, Wp}, stream);
+                                             __nv_bfloat16* dx, float* doff, float* sums, long long sums_size,
+                                             int B, int C, int H, int W, int h, int w, int N, int base, int stride,
+                                             int R, int Hp, int Wp, cudaStream_t stream) {
+  return ldconv_gather_bwd_bf16_run(x, off, dy, dx, doff, sums, sums_size,
+                                    Geom{B, C, H, W, h, w, N, base, stride, R, Hp, Wp}, stream);
 }

@@ -1,9 +1,9 @@
-"""What bounds K2, K3, K3's backward, K4 and K5 on the card: time throwaway
-variants of their sources.
+"""What bounds K2, K3, K3's backward, their bf16 forms, K4 and K5 on the
+card: time throwaway variants of their sources.
 
 Usage, on a machine with an NVIDIA Hopper GPU and the CUDA toolkit:
 
-    python3 -m experiment_yolo_torch.kernel_variants [k2|k3|k3bwd|k4|k5|all] [--baseline ROOT]
+    python3 -m experiment_yolo_torch.kernel_variants [k2|k3|k3bwd|k3bf16|k3bwdbf16|k4|k5|all] [--baseline ROOT]
 
 Each variant is the kernel's source with a few pieces of text replaced (no
 exp, no shared-memory reads of B and C, no copies from device memory, another
@@ -30,13 +30,25 @@ catches a broken pre-test. One JSON line per variant; the card's name and
 power limit come first, and for K4 the real kernel's error against its
 plain version at L = 6,400 with step sizes near 0.01 and near 0.001.
 
-``--baseline ROOT`` also times K3's backward or K5 built from another
-checkout (say the parent commit, unpacked with ``git archive``) behind this
-one's wrapper, so that two versions are compared in one process; the two
-sources must have the same ``ldconv_gather_bwd_launch`` or
-``soft_nms_launch`` signature. A time comes only from a trace that holds
-every launch of the timed calls; where five traces in a row miss some, the
-row shows NaN.
+``k3bf16`` and ``k3bwdbf16`` time K3's bf16 forms per layer on bf16
+sources and incoming gradients and on smooth, random, contention and seam
+offsets (``bf16_layers``), each beside its bytes bound: the forward beside
+the f32 form on the same positions (the sources widened beforehand), with
+its bit-equality to the plain version on every kind; the backward with
+every launch of a call counted, its ``dx`` against the plain version in bf16
+spacings (the ``chip_smoke.py`` gate: at most 1 passes), ``doff``'s error
+and whether two calls give the same bits.
+
+``--baseline ROOT`` also times K3's backward, K3's bf16 forms or K5 built
+from another checkout (say the parent commit, unpacked with ``git
+archive``), so that two versions are compared in one process. K3's backward,
+K3's bf16 forward and K5 run behind this checkout's wrapper, so the two
+sources must have the same ``ldconv_gather_bwd_launch``,
+``ldconv_gather_bf16_launch`` or ``soft_nms_launch`` signature; the bf16
+backward's baseline is called through the earlier C signature, which took no
+scratch (an f32 ``dx`` filled with zeros, the kernel, the cast). A time comes
+only from a trace that holds every launch of the timed calls; where five
+traces in a row miss some, the row shows NaN.
 """
 
 from __future__ import annotations
@@ -50,13 +62,15 @@ from pathlib import Path
 import torch
 
 from experiment_yolo_torch.ops.kernels import _build
-from experiment_yolo_torch.ops.kernels.ldconv_gather import (ldconv_gather_bwd, ldconv_gather_bwd_plain,
-                                                             ldconv_gather_fwd, ldconv_gather_plain)
+from experiment_yolo_torch.ops.kernels.ldconv_gather import (_BWD_ARGS, _geom_args, ldconv_gather_bwd,
+                                                             ldconv_gather_bwd_plain, ldconv_gather_fwd,
+                                                             ldconv_gather_plain)
 from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress, nms_suppress_plain
 from experiment_yolo_torch.ops.kernels.selective_scan import chunk_length, selective_scan, selective_scan_plain
 from experiment_yolo_torch.ops.kernels.soft_nms import soft_nms, soft_nms_plain
-from experiment_yolo_torch.utils.seeded import (VAL_SEED, contention_offsets, letterboxed, model_input, seeded_batch,
-                                                seeded_images, seeded_model, soft_nms_cases, soft_nms_pools)
+from experiment_yolo_torch.utils.seeded import (VAL_SEED, contention_offsets, letterboxed, model_input, seam_offsets,
+                                                seeded_batch, seeded_images, seeded_model, soft_nms_cases,
+                                                soft_nms_pools)
 
 EXP = ("ex2(dtv * r.a2[n])", "(dtv * r.a2[n])")
 READ_B = ("const float4 bq = b4[q];", "const float4 bq = make_float4(dtv, xv, u, dtv);")
@@ -94,6 +108,25 @@ K3BWD_VARIANTS = {
     "at least 4 channels a thread": (("BWD_MIN_CHANNELS = 8;", "BWD_MIN_CHANNELS = 4;"),),
     "at least 16 channels a thread": (("BWD_MIN_CHANNELS = 8;", "BWD_MIN_CHANNELS = 16;"),),
 }
+# variant -> (old, new) pieces of csrc/ldconv_gather.cu, for the bf16 forward kernel
+K3BF16_VARIANTS = {
+    "as it is": (),
+    "no 4-byte tile reads in the stores": (("if (NC % 8 == 0 && head == 0) {", "if (NC < 0) {"),),
+    "tiles of 8 KB": (("T * NC > 8192 ||", "T * NC > 4096 ||"),),
+    "tiles of 32 KB": (("T * NC > 8192 ||", "T * NC > 16384 ||"),),
+    "no two blocks a SM rule": (("< 2LL * sms", "< 0LL * sms"),),
+}
+# variant -> (old, new) pieces of csrc/ldconv_gather.cu, for the bf16 backward
+K3BWDBF16_VARIANTS = {
+    "as it is": (),
+    "no 16-byte quads (the f32 form's adds)": (("constexpr bool quads = !std::is_same<TX, float>::value;",
+                                                "constexpr bool quads = false;"),),
+}
+# the kernel each call of a bf16 form launches once: the forward's by the source ("baseline": the parent
+# commit's template instantiation), the backward's in either
+BF16_FWD_KERNELS = {"as it is": "ldconv_gather_bf16_kernel", "baseline": "ldconv_gather_kernel<__nv_bfloat16"}
+BF16_BWD_KERNEL = "ldconv_gather_bwd_kernel<__nv_bfloat16"
+OFFSET_KINDS = ("smooth", "random", "contention", "seam")
 # variant -> (old, new) pieces of csrc/nms_suppress.cu
 K2_VARIANTS = {
     "as it is": (),
@@ -293,6 +326,115 @@ def gather_bwd_variants(gen: torch.Generator, baseline: Path | None) -> None:
         print(json.dumps(row), flush=True)
 
 
+def bf16_layers(gen: torch.Generator):
+    """The ten LD-P2 layers at batch 8, 640 in bf16: (bf16 source, {kind: offsets}, bf16 incoming gradient,
+    stride), the offsets smooth (one value per channel, as the seeded model's), random (N(0, 4^2) px, 2% pushed
+    40 px further), contention (90% of the samples on sixteen source positions) and seam."""
+    layers = []
+    for c, n, stride, size in GATHER_LAYERS:
+        h = size // stride
+        x = torch.randn(BATCH, c, size, size, generator=gen)
+        smooth = (torch.rand(2 * n, generator=gen) * 0.6 - 0.3)[None, :, None, None].expand(BATCH, 2 * n, h, h)
+        rand = torch.randn(BATCH, 2 * n, h, h, generator=gen) * 4
+        rand = torch.where(torch.rand(rand.shape, generator=gen) < 0.02, rand + 40 * rand.sign(), rand)
+        offs = {"smooth": smooth.contiguous(), "random": rand, "contention": contention_offsets(x, rand, stride, gen),
+                "seam": seam_offsets(x, rand, stride)}
+        dy = torch.randn(BATCH, h * h, n * c, generator=gen)
+        layers.append((x.cuda().bfloat16(), {k: v.cuda() for k, v in offs.items()}, dy.cuda().bfloat16(), stride))
+    return layers
+
+
+def _bf16_bounds(layers, backward: bool):
+    """Each layer's bytes bound (ms) at bf16: forward x, offsets read and out written; backward x, offsets, dy
+    read and dx, doff written."""
+    out = []
+    for x, offs, dy, _ in layers:
+        o = offs["smooth"]
+        nbytes = x.numel() * 2 * (2 if backward else 1) + o.numel() * 4 * (2 if backward else 1) + dy.numel() * 2
+        out.append(nbytes / 3.35e12 * 1e3)
+    return out
+
+
+def _within_bf16_spacing(got, want) -> float:
+    """The worst element's error over one bf16 spacing of the plain value plus 1e-5 of the largest plain value
+    (chip_smoke.py's bf16 dx gate: at most 1 passes)."""
+    want = want.float()
+    _, e = torch.frexp(want.abs().clamp(min=torch.finfo(torch.bfloat16).tiny))
+    allowed = torch.ldexp(torch.ones_like(want), e - 8) + 1e-5 * want.abs().max()
+    return ((got.float() - want).abs() / allowed).max().item()
+
+
+def gather_bf16_variants(gen: torch.Generator, baseline: Path | None) -> None:
+    """The bf16 forward per layer and offset kind, each variant (and the baseline's bf16 form) beside the f32
+    form on the same positions (the sources widened beforehand, not timed); bit-equality with the plain
+    version on every kind."""
+    layers = bf16_layers(gen)
+    wide = [x.float() for x, _, _, _ in layers]
+    bounds = _bf16_bounds(layers, False)
+    print(json.dumps({"kernel": "K3 bf16", "bound_ms": {"layers": bounds, "all": sum(bounds)}}), flush=True)
+    want = {kind: [ldconv_gather_plain(x, offs[kind], s) for x, offs, _, s in layers] for kind in OFFSET_KINDS}
+    for tag, lib in build_variants("ldconv_gather", K3BF16_VARIANTS, baseline).items():
+        swap_in("ldconv_gather", lib)
+        name = BF16_FWD_KERNELS["baseline" if tag == "baseline" else "as it is"]
+        row = {"kernel": "K3 bf16", "variant": tag,
+               "bit_equal": {kind: all(torch.equal(ldconv_gather_fwd(x, offs[kind], s), w)
+                                       for (x, offs, _, s), w in zip(layers, want[kind])) for kind in OFFSET_KINDS}}
+        for kind in OFFSET_KINDS:
+            per_layer = [sum(device_ms(lambda: ldconv_gather_fwd(x, offs[kind], s), name, 1, span="").values())
+                         for x, offs, _, s in layers]
+            f32 = [sum(device_ms(lambda: ldconv_gather_fwd(xw, offs[kind], s), "ldconv_gather_kernel<float", 1,
+                                 span="").values()) for xw, (_, offs, _, s) in zip(wide, layers)]
+            row[kind] = {"layers": per_layer, "all": sum(per_layer), "f32_form_layers": f32, "f32_form_all": sum(f32)}
+        print(json.dumps(row), flush=True)
+
+
+def _baseline_bwd_bf16(lib: ctypes.CDLL):
+    """The parent commit's bf16 backward as its wrapper called it: an f32 dx filled with zeros, the kernel's
+    adds, the cast to bf16 (its C entry point took no scratch)."""
+    fn = lib.ldconv_gather_bwd_bf16_launch
+    fn.restype, fn.argtypes = ctypes.c_int, [*_BWD_ARGS, ctypes.c_void_p]
+
+    def call(x, off, dy, stride):
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        doff = torch.empty_like(off)
+        rc = fn(x.data_ptr(), off.data_ptr(), dy.data_ptr(), dx.data_ptr(), doff.data_ptr(),
+                *_geom_args(x, off, stride), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"baseline ldconv_gather_bwd_bf16 launch: CUDA error {rc}")
+        return dx.to(x.dtype), doff
+
+    return call
+
+
+def gather_bwd_bf16_variants(gen: torch.Generator, baseline: Path | None) -> None:
+    """The bf16 backward per layer and offset kind, every launch of a call counted (the parent's dx fill and
+    cast, this one's bucket passes), beside the baseline's; its dx against the plain version in bf16 spacings
+    (at most 1 passes), doff's worst error over its largest plain value, and whether two calls give the same
+    bits."""
+    layers = bf16_layers(gen)
+    bounds = _bf16_bounds(layers, True)
+    print(json.dumps({"kernel": "K3 bwd bf16", "bound_ms": {"layers": bounds, "all": sum(bounds)}}), flush=True)
+    want = {kind: [ldconv_gather_bwd_plain(x, offs[kind], dy, s) for x, offs, dy, s in layers] for kind in OFFSET_KINDS}
+    for tag, lib in build_variants("ldconv_gather", K3BWDBF16_VARIANTS, baseline).items():
+        swap_in("ldconv_gather", lib)
+        call = _baseline_bwd_bf16(lib) if tag == "baseline" else ldconv_gather_bwd
+        row = {"kernel": "K3 bwd bf16", "variant": tag}
+        for kind in OFFSET_KINDS:
+            dx_sp = doff_rel = 0.0
+            repeatable = True
+            for (x, offs, dy, s), (want_dx, want_doff) in zip(layers, want[kind]):
+                dx, doff = call(x, offs[kind], dy, s)
+                dx2, doff2 = call(x, offs[kind], dy, s)
+                repeatable = repeatable and torch.equal(dx, dx2) and torch.equal(doff, doff2)
+                dx_sp = max(dx_sp, _within_bf16_spacing(dx, want_dx))
+                doff_rel = max(doff_rel, ((doff - want_doff).abs().max() / want_doff.abs().max()).item())
+            per_layer = [sum(device_ms(lambda: call(x, offs[kind], dy, s), BF16_BWD_KERNEL, 1, span="").values())
+                         for x, offs, dy, s in layers]
+            row[kind] = {"layers": per_layer, "all": sum(per_layer), "dx_err_over_gate": dx_sp,
+                         "doff_rel_err": doff_rel, "two_calls_bit_identical": repeatable}
+        print(json.dumps(row), flush=True)
+
+
 def nms_cases(gen: torch.Generator):
     """Clustered xyxy candidates of 8 images (about a fifth of them invalid)
     at K = 1,024 and 8,192, and the IoU threshold of the main path."""
@@ -369,8 +511,8 @@ def main() -> None:
         baseline = Path(args[i + 1]).resolve()
         del args[i:i + 2]
     which = args[0] if args else "all"
-    if which not in ("k2", "k3", "k3bwd", "k4", "k5", "all"):
-        sys.exit(f"kernel_variants: unknown target {which!r}: one of k2, k3, k3bwd, k4, k5, all")
+    if which not in ("k2", "k3", "k3bwd", "k3bf16", "k3bwdbf16", "k4", "k5", "all"):
+        sys.exit(f"kernel_variants: unknown target {which!r}: one of k2, k3, k3bwd, k3bf16, k3bwdbf16, k4, k5, all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}", flush=True)
@@ -382,6 +524,10 @@ def main() -> None:
             fn(gen)
     if which in ("k3bwd", "all"):
         gather_bwd_variants(gen, baseline)
+    if which in ("k3bf16", "all"):
+        gather_bf16_variants(gen, baseline)
+    if which in ("k3bwdbf16", "all"):
+        gather_bwd_bf16_variants(gen, baseline)
     if which in ("k2", "all"):
         nms_variants(gen)
     if which in ("k5", "all"):

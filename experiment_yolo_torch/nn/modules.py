@@ -194,7 +194,12 @@ class ScalSeq(nn.Module):
         p4 = F.interpolate(self.conv1(p4), size=size, mode="nearest")
         p5 = F.interpolate(self.conv2(p5), size=size, mode="nearest")
         y = self.bn(cast_conv(self.conv3d, torch.stack([p3, p4, p5], 2), self.dtype))  # (B, C, 3, H, W)
-        return F.leaky_relu(y, 0.1).amax(2)
+        return self.scale_max(F.leaky_relu(y, 0.1))
+
+    @staticmethod
+    def scale_max(z: torch.Tensor) -> torch.Tensor:
+        """The max over the scale axis (2) of (B, C, 3, H, W)."""
+        return z.amax(2)
 
 
 class LDConv(nn.Module):

@@ -24,10 +24,12 @@ tensors on the CPU.
 Both kernels have an f32 and a bf16 form (the sources of a bf16 model,
 ``nn/modules.py:780-805`` of the JAX package). The bf16 forward widens the
 source exactly, computes as the f32 form does (f32 offsets, positions,
-weights, multiplier and sums) and rounds its output once to bf16; the bf16
-backward reads the bf16 source and incoming gradient, sums ``dx`` in f32 and
-rounds it once to bf16 (``_ldconv_gather_bwd``'s ``astype``), and writes
-``doff`` in f32. Each form counts its own launches (``ldconv_gather.launches``,
+weights, multiplier and sums) and rounds its output once to bf16, through a
+bf16 tile left with 16-byte stores; the bf16 backward reads the bf16 source
+and incoming gradient, sums ``dx`` in f32 in a scratch that its launch
+zeroes, rounds it once into a bf16 ``dx`` in the same launch
+(``_ldconv_gather_bwd``'s ``astype``), and writes ``doff`` in f32. Each
+form counts its own launches (``ldconv_gather.launches``,
 ``ldconv_gather_bf16.launches``, ``ldconv_gather_bwd.launches``,
 ``ldconv_gather_bwd_bf16.launches``); any other source dtype raises on the
 card.
@@ -47,6 +49,7 @@ from experiment_yolo_torch.ops.kernels import _build
 WINDOW_R = 2  # the JAX LDConv's window_r: the edge pad R before the base grid
 _ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 12
 _BWD_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 12
+_BWD_BF16_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong,) + (ctypes.c_int,) * 12
 DTYPES = (torch.float32, torch.bfloat16)  # the sources the kernels take
 
 
@@ -227,13 +230,20 @@ def ldconv_gather_bwd(x: torch.Tensor, off: torch.Tensor, dy: torch.Tensor,
     if tuple(dy.shape) != (b, h * w, n2 // 2 * c) or dy.device != x.device:
         raise ValueError(f"ldconv_gather_bwd: dy {tuple(dy.shape)} must be (B, h*w, N*C) = "
                          f"{(b, h * w, n2 // 2 * c)} on the device of x")
-    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)  # f32 sums, whatever x's dtype
     doff = torch.empty_like(off)
-    entry = ldconv_gather_bwd_bf16 if x.dtype == torch.bfloat16 else ldconv_gather_bwd
-    _build.launch(entry.__name__, _BWD_ARGS, x.data_ptr(), off.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+    if x.dtype == torch.bfloat16:  # the launch zeroes the f32 sums, adds, and rounds them once into dx
+        dx = torch.empty_like(x)
+        sums = torch.empty(x.numel(), dtype=torch.float32, device=x.device)
+        _build.launch(ldconv_gather_bwd_bf16.__name__, _BWD_BF16_ARGS, x.data_ptr(), off.data_ptr(), dy.data_ptr(),
+                      dx.data_ptr(), doff.data_ptr(), sums.data_ptr(), sums.numel(), *_geom_args(x, off, stride),
+                      device=x.device, lib="ldconv_gather")
+        ldconv_gather_bwd_bf16.launches += 1
+        return dx, doff
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)  # the kernel adds into it
+    _build.launch("ldconv_gather_bwd", _BWD_ARGS, x.data_ptr(), off.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                   doff.data_ptr(), *_geom_args(x, off, stride), device=x.device, lib="ldconv_gather")
-    entry.launches += 1
-    return dx.to(x.dtype), doff
+    ldconv_gather_bwd.launches += 1
+    return dx, doff
 
 
 ldconv_gather_bf16 = _build.Form("ldconv_gather_bf16")  # launched by ldconv_gather_fwd for a bf16 source

@@ -251,7 +251,7 @@ ENTRY_POINTS = {"dfl_decode": ("dfl_decode", "_ARGS"), "nms_suppress": ("nms_sup
                 "ldconv_gather_bwd": ("ldconv_gather", "_BWD_ARGS"), "selective_scan": ("selective_scan", "_ARGS"),
                 "soft_nms": ("soft_nms", "_ARGS"), "dfl_decode_bf16": ("dfl_decode", "_ARGS"),
                 "dfl_decode_bwd_bf16": ("dfl_decode", "_BWD_ARGS"), "ldconv_gather_bf16": ("ldconv_gather", "_ARGS"),
-                "ldconv_gather_bwd_bf16": ("ldconv_gather", "_BWD_ARGS")}
+                "ldconv_gather_bwd_bf16": ("ldconv_gather", "_BWD_BF16_ARGS")}
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))

@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from experiment_yolo_torch.nn.modules import LDConv as TorchLDConv
-from experiment_yolo_torch.ops.kernels.ldconv_gather import (WINDOW_R, grid_points, ldconv_gather, ldconv_gather_bwd,
-                                                             ldconv_gather_bwd_plain, ldconv_gather_plain)
+from experiment_yolo_torch.ops.kernels.ldconv_gather import (WINDOW_R, _samples, grid_points, ldconv_gather,
+                                                             ldconv_gather_bwd, ldconv_gather_bwd_plain,
+                                                             ldconv_gather_plain)
 from experiment_yolo_torch.utils.seeded import contention_offsets, seam_offsets
 from experiment_yolo_tpu.nn.modules import LDConv as JaxLDConv
 from experiment_yolo_tpu.nn.modules import _ldconv_grid_pts, ldconv_bilinear_gather
@@ -288,3 +289,110 @@ def test_module_gradients_match_jax(sampling, n, stride, weight_scale):
     for leaf in ("mean", "var"):
         np.testing.assert_allclose(getattr(tm.conv[1], f"running_{leaf}").numpy(),
                                    np.asarray(jstats["batch_stats"]["bn"][leaf]), atol=1e-6, rtol=1e-5)
+
+
+def test_positions_near_a_whole_number_move_p_conv_gradient_not_the_output():
+    """Why a card step and a CPU step can both be right and still differ in
+    ``p_conv``'s gradient: the bilinear corner pair, the border multiplier
+    and the rail gate are step functions of a sample's position. One LDConv
+    on an 8 x 8 source (every position below 16) with ``p_conv``'s weight at
+    0, so that its bias is each sample's offset: at bias 0 every position is
+    a whole number, and two float32 spacings of 8 lower the floor of each to
+    the corner pair below. Away from the rails the samples move by less than
+    1e-5 relative L2 (the position moved by 2e-6), while ``p_conv``'s weight
+    gradient, a difference of the pair's two source values, moves by more
+    than 1e-3 relative L2; on the rails the multiplier jumps by 2x."""
+    c1, c2, n, hx = 4, 6, 3, 8
+    rng = np.random.default_rng(23)
+    module = TorchLDConv(c1, c2, n, 1)
+    with torch.no_grad():
+        module.conv[0].weight.copy_(torch.from_numpy(rng.standard_normal((c2, c1, n, 1)).astype(np.float32)))
+        module.p_conv.weight.zero_()
+    x = torch.from_numpy(rng.standard_normal((2, c1, hx, hx)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, c2, hx, hx)).astype(np.float32))
+    below = 2 * float(np.spacing(np.float32(8.0)))
+
+    def step(offset):
+        with torch.no_grad():
+            module.p_conv.bias.fill_(-offset)
+        module.zero_grad()
+        (module(x) * w).sum().backward()
+        off = module.p_conv(x).detach()
+        assert torch.all(off == -offset)
+        return ldconv_gather_plain(x, off, 1).reshape(2, hx * hx, n, c1), off, module.p_conv.weight.grad.clone()
+
+    samples, off, grad = step(0.0)
+    samples_below, off_below, grad_below = step(below)
+    pr, pc, _, _, _, _ = _samples(x, off, 1)
+    assert torch.equal(pr, pr.round()) and torch.equal(pc, pc.round()) and pr.max() < 16 and pc.max() < 16
+    pr_below, pc_below, _, _, _, _ = _samples(x, off_below, 1)
+    assert bool(((pr - pr_below > 0) & (pr - pr_below <= below)).all())  # a few spacings below every whole number
+    rails = torch.tensor([WINDOW_R, WINDOW_R + hx - 1.0])  # where the border multiplier steps
+    row_rail, col_rail = ((pos[..., None] == rails).any(-1)[..., None].expand_as(samples) for pos in (pr, pc))
+    away, one_rail = ~(row_rail | col_rail), row_rail ^ col_rail
+    assert away.any() and one_rail.any()
+    assert _rel(samples_below[away].numpy(), samples[away].numpy()) < 1e-5
+    assert _rel(grad_below.numpy(), grad.numpy()) > 1e-3
+    # on one rail the sample is doubled or halved (its value moves by the same 2e-6 of a pixel)
+    doubled, halved = ((samples_below - k * samples).abs() for k in (2.0, 0.5))
+    assert torch.minimum(doubled, halved)[one_rail].max() < 1e-4
+    assert (samples_below - samples)[one_rail].abs().max() > 0.1
+
+
+def test_bf16_backward_wrapper_hands_the_kernel_bf16_dx_and_scratch(monkeypatch):
+    """The bf16 backward's wrapper on the card's path, with tensors on
+    ``meta`` and the launch stubbed: it makes a bf16 ``dx``, an f32 ``doff``
+    and an f32 scratch for the sums, one float per element of ``x``, and
+    nothing else (no fill, no cast: the launch zeroes the sums and rounds
+    them into ``dx``), hands them to the bf16 entry point with the scratch's
+    length, and counts one launch a call; the f32 form still zero-fills its
+    f32 ``dx``; another dtype raises before any launch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from experiment_yolo_torch.ops.kernels import _build
+    from experiment_yolo_torch.ops.kernels import ldconv_gather as k3
+
+    def validate(t, what, dtype, ndim, dense_last_only=False):  # _build.validate without its device check
+        if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+            raise TypeError(f"{what}: {t.dtype}")
+        assert t.dim() == ndim and t.is_contiguous()
+
+    calls = []
+    monkeypatch.setattr(_build, "validate", validate)
+    monkeypatch.setattr(_build, "launch", lambda name, argtypes, *args, device, lib=None: calls.append(
+        (name, tuple(argtypes), args, lib)))
+
+    class Made(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.ops.append((func.__name__, out.dtype, tuple(out.shape)))
+            return out
+
+    x = torch.empty(2, 16, 16, 20, dtype=torch.bfloat16, device="meta")
+    off = torch.empty(2, 6, 8, 10, device="meta")
+    dy = torch.empty(2, 80, 48, dtype=torch.bfloat16, device="meta")
+    before, before_f32 = k3.ldconv_gather_bwd_bf16.launches, k3.ldconv_gather_bwd.launches
+    for n in (1, 2):
+        with Made() as made:
+            dx, doff = k3.ldconv_gather_bwd(x, off, dy, 2)
+        assert sorted(made.ops, key=str) == sorted([("empty_like.default", torch.float32, tuple(off.shape)),
+                                                    ("empty_like.default", torch.bfloat16, tuple(x.shape)),
+                                                    ("empty.memory_format", torch.float32, (x.numel(),))], key=str)
+        assert dx.dtype == torch.bfloat16 and doff.dtype == torch.float32
+        assert k3.ldconv_gather_bwd_bf16.launches == before + n
+    name, argtypes, args, lib = calls[-1]
+    assert (name, argtypes, lib) == ("ldconv_gather_bwd_bf16", k3._BWD_BF16_ARGS, "ldconv_gather")
+    assert len(args) == len(argtypes) and args[6] == x.numel()
+    assert args[7:] == (2, 16, 16, 20, 8, 10, 3, 2, 2, 2, *k3._geometry(x, off, 2)[2:])
+    assert k3.ldconv_gather_bwd.launches == before_f32
+    with Made() as made:
+        k3.ldconv_gather_bwd(x.float(), off, dy.float(), 2)
+    assert ("zeros.default", torch.float32, tuple(x.shape)) in made.ops and calls[-1][0] == "ldconv_gather_bwd"
+    assert k3.ldconv_gather_bwd.launches == before_f32 + 1
+    with pytest.raises(TypeError):
+        k3.ldconv_gather_bwd(x.half(), off, dy.half(), 2)
+    assert len(calls) == 3 and k3.ldconv_gather_bwd_bf16.launches == before + 2
