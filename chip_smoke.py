@@ -14,7 +14,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     from the main path: the Detect maps (K1), the ten LDConv sources and
     offsets (K3), the hard-NMS candidates (K2);
  5. hold each kernel against its plain PyTorch version on those inputs
-    (K1 and K3 within 1e-5 abs, K2 identical masks), K3 also on random
+    (K1 and K3 within 1e-5 abs, K2 identical masks), K1 in one launch for
+    the three levels, also under a +-200 logit spread, on random logits at
+    imgsz 608, on four narrow levels that take every narrower load width and
+    at reg_max 8 (:func:`hold_k1`), K3 also on random
     offsets at the same shapes that vary by pixel and image and reach 40 px
     out of bounds, K2 also on made-up candidates (a ragged K = 1,000, K =
     8,192, duplicates, IoUs exactly at the threshold, interleaved invalid
@@ -34,11 +37,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     plain version on the CPU) and hard-NMS detections; a second card forward
     of the batch (``model.predict``) reported beside, not gated (cuDNN may
     choose convolution algorithms whose sums differ from call to call), and
-    so is the host's f32 ``exp`` against float64 on the decode's logits;
+    so are the host's f32 ``exp`` against float64 on the decode's logits and,
+    per level, K1's and the plain decode's errors against a float64 decode of
+    the card's maps, in bins and px; on a failure of the decode gate the
+    worst element (level, image, anchor, side, its 16 logits as hex floats,
+    K1's, the plain and the float64 distance) is printed first;
  8. validate LD-P2 with ``DetectionValidator`` on 4 seeded labelled batches of
     8 at 640 (``ori_shape`` 640 x 640, ``ratio_pad`` (1, 0, 0)), soft-NMS in
     quirk mode and then hard NMS, counters at 0 just before each run and read
-    just after (exactly 3 K1 and 10 K3 per forward, 1 K5 per soft batch, 1 K2
+    just after (exactly 1 K1 and 10 K3 per forward, 1 K5 per soft batch, 1 K2
     per hard batch), and report img/s and the per-batch median and spread;
     hold K5 against its plain version on each batch's own candidate pools
     (multi-label, K = 4,096, quirk on and off) and on made-up pools (K = 1, a
@@ -71,7 +78,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     ``F.grid_sample``'s backward as K3's yardstick;
 10. take 20 timed training steps (CIoU) after 3 warm-up steps, 4 distinct
     seeded batches in turn, with every launch counter set to 0 just before and
-    read just after (exactly 3 K1, 3 K1-backward, 10 K3 and 10 K3-backward
+    read just after (exactly 1 K1, 3 K1-backward, 10 K3 and 10 K3-backward
     launches per step); every loss and gradient finite, parameters and EMA
     moved;
 11. take one step from the same weights and batch at 320, batch 2, on the card
@@ -98,8 +105,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     for 2 epochs at batch 8 (``close_mosaic=1``: the second without mosaic,
     default augment otherwise), validating the EMA model after each epoch
     (soft-NMS), with every launch counter at 0 just before and read just after
-    (exactly 3 K1, 3 K1-backward, 10 K3 and 10 K3-backward launches per step,
-    3 K1, 10 K3 and 1 K5 per val batch); gates: finite losses, ``last.pt`` and
+    (exactly 1 K1, 3 K1-backward, 10 K3 and 10 K3-backward launches per step,
+    1 K1, 10 K3 and 1 K5 per val batch); gates: finite losses, ``last.pt`` and
     ``best.pt`` written, ``load_checkpoint(last.pt)`` giving maps bit-equal to
     the trainer's EMA model's on a val batch, and ``resume=last.pt`` with
     ``epochs=3`` running exactly one more epoch of 8 steps; it reports the
@@ -112,14 +119,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     backward inputs, and hold the bf16 forms against their plain versions:
     K3's forward bit-equal on the main path's, random, contention and seam
     offsets and at 608 (random, contention, seam), and on the step's inputs;
-    K1 within 1e-5 (also under a +-200 logit spread); each bf16 ``dx`` (K1's,
+    K1 within 1e-5 on phase 5's cases in bf16; each bf16 ``dx`` (K1's,
     K3's) within one bf16 spacing of the plain version's rounded result plus
     1e-5 of its largest value (f32 sums that cancel near 0), K3's f32
     ``doff`` within 1e-5 of its largest value; time each form as phase 5
     does (K1's backward, as its f32 form, the kernel
     alone), its bytes bound at bf16, and ``F.grid_sample``'s bf16 time beside
     K3 and its backward, also layer by layer;
-14. take 20 timed bf16 training steps after 3 warm-up steps (exactly 3, 3,
+14. take 20 timed bf16 training steps after 3 warm-up steps (exactly 1, 3,
     10, 10 launches of the bf16 forms of K1, K1-backward, K3, K3-backward a
     step, none of the f32 forms) and report img/s beside phase 10's f32
     img/s; take one step at 320, batch 2, on the card in bf16 and on the CPU
@@ -135,9 +142,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 15. ``YOLO("yolov8-LD-P2.yaml", nc=3).train()`` on phase 12's dataset, 2
     epochs at batch 8, with no ``amp`` key (bf16; ``optimizer='SGD'``:
     ``auto`` would resolve to AdamW, which is not ported), counters at 0
-    just before and read just after: the AMP check's two forwards, 3 / 3 /
-    10 / 10 bf16 launches a step and 3 K1 + 10 K3 (bf16) + 1 K5 a per-epoch
-    val batch; then ``.val()`` (f32: 3 K1, 10 K3, 1 K5 a batch),
+    just before and read just after: the AMP check's two forwards, 1 / 3 /
+    10 / 10 bf16 launches a step and 1 K1 + 10 K3 (bf16) + 1 K5 a per-epoch
+    val batch; then ``.val()`` (f32: 1 K1, 10 K3, 1 K5 a batch),
     ``.predict()`` and ``YOLO(best.pt)``, whose maps equal the trained
     facade's bit for bit; reports the loop's img/s. Two epochs from scratch
     detect nothing, so a checkpoint of the seeded LD-P2 at nc=3 with boxes
@@ -154,7 +161,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 17. ``DetectionServer`` on a checkpoint of phase 4's seeded LD-P2 (batch 8
     at 640, soft NMS) on an ephemeral port of 127.0.0.1: 16 BMP requests from
     4 threads, every one answered, ``/health`` counting 16 requests in fewer
-    than 16 batches, 3 K1, 10 K3 and 1 K5 launches per batch, detections
+    than 16 batches, 1 K1, 10 K3 and 1 K5 launches per batch, detections
     equal to ``DetectionPredictor``'s on the same images (to JSON's
     rounding); reports the median request latency;
 18. build ``yolov8-C2f-VSS.yaml`` (n scale, nc=6: ten VSS blocks) on the card
@@ -177,7 +184,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     launch, and report it as the kernel's;
 20. serve 20 batches of 8 through ``DetectionPredictor`` on the VSS model, soft
     then hard NMS, counters at 0 just before and read just after: exactly 10
-    K4 and 3 K1 launches per forward, 1 K5 per soft batch, 1 K2 per hard
+    K4 and 1 K1 launch per forward, 1 K5 per soft batch, 1 K2 per hard
     batch, no K3;
 21. run 2 images of that batch through the same weights on the CPU (plain
     versions) and compare raw maps and hard-NMS detections as phase 7 does;
@@ -403,33 +410,81 @@ def capture_inputs(model, x):
     return feats, ld, soft_nms_pools(boxes, scores, val=False)[""][0]
 
 
-def check_k1(feats):
+def hold_k1(feats, gen):
+    """K1's forward, one launch for every level, against its plain version
+    (the levels' plain decodes concatenated) on a forward's maps ``feats`` and
+    on maps of their dtype that take every load width a path can take: the
+    same maps with a +-200 logit spread across the groups of one anchor (the
+    output must stay finite), random logits at RAGGED_IMGSZ (levels of 152,
+    76 and 38 squared), four levels whose anchor counts (38 x 38, 19 x 38,
+    19 x 19) or address (an 8 x 8 map one element into its buffer) take
+    narrower widths, and a map at reg_max 8 (the runtime-reg_max instance);
+    the cases must take every width (anchors a thread) up to the widest the
+    dtype allows. Returns each case's max abs error and the width of each
+    level."""
     import torch
 
-    # the kernel's own wrapper, without the autograd.Function around it
-    from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode_fwd as dfl_decode
-    from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode_plain
+    from experiment_yolo_torch.ops.kernels.dfl_decode import (MAX_LOAD_BYTES, dfl_decode_levels_fwd, dfl_decode_plain,
+                                                              level_table)
 
-    err = max((a - b).abs().max().item() for a, b in
-              zip([dfl_decode(f) for f in feats], [dfl_decode_plain(f) for f in feats]))
-    # a cross-group logit spread far past exp's range must stay finite
+    dtype, b, no = feats[0].dtype, feats[0].shape[0], feats[0].shape[1]
+
+    def rand(*shape):
+        return (torch.randn(*shape, generator=gen) * 3).to(feats[0].device, dtype)
+
     spread = feats[-1].clone()
     spread[:, 0:16, 0, 0] += 200.0
     spread[:, 16:32, 0, 0] -= 200.0
-    got, want = dfl_decode(spread), dfl_decode_plain(spread)
-    check(bool(torch.isfinite(got).all()), "K1 dfl_decode: non-finite output under a +-200 logit spread")
-    err = max(err, (got - want).abs().max().item())
+    sizes = [RAGGED_IMGSZ * f.shape[2] // IMGSZ for f in feats]
+    misaligned = rand(b * no * 64 + 1)[1:].view(b, no, 8, 8)
+    cases = {"main path": (feats, 16), "+-200 spread": ([*feats[:-1], spread], 16),
+             f"imgsz {RAGGED_IMGSZ}": ([rand(b, no, h, h) for h in sizes], 16),
+             "narrow, 4 levels": ([rand(b, no, 38, 38), rand(b, no, 19, 38), rand(b, no, 19, 19), misaligned], 16),
+             "reg_max 8": ([rand(b, 32 + no - 64, 40, 40)], 8)}
+    out = {}
+    for label, (maps, reg_max) in cases.items():
+        got = dfl_decode_levels_fwd(maps, reg_max)
+        check(bool(torch.isfinite(got).all()), f"K1 dfl_decode {dtype}: non-finite output on {label}")
+        want = torch.cat([dfl_decode_plain(f, reg_max) for f in maps], 1)
+        table = level_table([(f.shape[2] * f.shape[3], f.stride(0), f.data_ptr()) for f in maps],
+                            maps[0].element_size())
+        out[label] = {"max_abs_err": (got - want).abs().max().item(), "widths": [t.width for t in table]}
     torch.cuda.synchronize()
-    check(err <= 1e-5, f"K1 dfl_decode disagrees with its plain version: max abs err {err}")
-    ms = cuda_ms(lambda: [dfl_decode(f) for f in feats])
-    dev_ms = device_ms(lambda: [dfl_decode(f) for f in feats], "dfl_decode_kernel", len(feats))
-    plain_ms = cuda_ms(lambda: [dfl_decode_plain(f) for f in feats])
+    widths = {w for row in out.values() for w in row["widths"]}
+    widest = max(1, MAX_LOAD_BYTES // feats[0].element_size())
+    every = {1 << i for i in range(widest.bit_length())}
+    check(widths == every, f"K1 dfl_decode {dtype}: the cases took widths {sorted(widths)}, expected {sorted(every)}")
+    return out
+
+
+def k1_row(name, feats, cases, kernel):
+    """The kernels-line row of K1's forward (f32 or bf16) on a forward's maps:
+    one launch for every level, timed beside the plain version and the bytes
+    bound (each logit read once, each distance written once)."""
+    import torch
+
+    from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode_levels_fwd, dfl_decode_plain
+
+    err = max(row["max_abs_err"] for row in cases.values())
+    check(err <= 1e-5, f"K1 {name} disagrees with its plain version: max abs err {err} ({json.dumps(cases)})")
     groups = sum(f.shape[0] * f.shape[2] * f.shape[3] * 4 for f in feats)
-    nbytes = groups * 16 * 4 + groups * 4  # 16 bins read, one distance written, f32
-    b_ms, b_by = bound(nbytes, groups * (6 * 16 + 1))  # max, sub, exp, 2 sums (3 ops), one division
-    return dict(name="dfl_decode", route="cuda", source="experiment_yolo_torch/csrc/dfl_decode.cu",
-                replaces="experiment_yolo_tpu/ops/pallas/dfl_decode.py:46", max_abs_err=err, ms=ms,
-                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    b_ms, b_by = bound(groups * 16 * feats[0].element_size() + groups * 4, groups * (6 * 16 + 1))
+    return dict(name=name, route="cuda", source="experiment_yolo_torch/csrc/dfl_decode.cu",
+                replaces="experiment_yolo_tpu/ops/pallas/dfl_decode.py:46", max_abs_err=err,
+                ms=cuda_ms(lambda: dfl_decode_levels_fwd(feats)),
+                device_ms=device_ms(lambda: dfl_decode_levels_fwd(feats), kernel, 1),
+                plain_ms=cuda_ms(lambda: torch.cat([dfl_decode_plain(f) for f in feats], 1)), bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, per_call=1, cases=cases,
+                shapes=[f"{tuple(f.shape)} {str(f.dtype).removeprefix('torch.')}" for f in feats])
+
+
+def check_k1(feats):
+    """K1's f32 form on an f32 forward's maps and the cases of :func:`hold_k1`."""
+    import torch
+
+    cases = hold_k1(feats, torch.Generator().manual_seed(SEED + 3))
+    # the max, sub, exp, 2 sums (3 ops) of each bin, one division: the bound is the bytes
+    return k1_row("dfl_decode", feats, cases, "dfl_decode_kernel<float")
 
 
 def made_up_candidates(gen):
@@ -724,7 +779,7 @@ def validate_timed(model, batches, counters, card):
         stamps.append(time.perf_counter())
         run = {name: fn.launches for name, fn in counters.items()}
         want = dict.fromkeys(counters, 0)
-        want.update(dfl_decode=3 * n, ldconv_gather=10 * n)
+        want.update(dfl_decode=n, ldconv_gather=10 * n)
         want["soft_nms" if args["nms_type"] == "soft" else "nms_suppress"] = n
         check(run == want, f"the {label} val main path launched {run}, expected {want}")
         for name in launches:
@@ -782,14 +837,15 @@ def val_pools_and_plain_stats(model, batches):
 def capture_train_inputs(trainer, batch):
     """One training step with hooks on the two differentiable kernels: each
     LDConv's (source, offsets, stride, incoming gradient) and each level's
-    (Detect map, decoded distances, incoming gradient), as the step hands
-    them to K3, K1 and their backward kernels. Separate from
+    (Detect map, every level's decoded distances and their incoming gradient,
+    the level's first anchor in them), as the step hands them to K3, K1 and
+    their backward kernels. Separate from
     :func:`capture_inputs`, which runs under ``no_grad``."""
     import experiment_yolo_torch.nn.modules as modules
     import experiment_yolo_torch.utils.loss as loss
 
-    ld, levels = [], []
-    gather, decode = modules.ldconv_gather, loss.dfl_decode
+    ld, calls = [], []
+    gather, decode = modules.ldconv_gather, loss.dfl_decode_levels
 
     def keep_grad(out, entry):
         out.register_hook(lambda g: entry.append(g.detach().contiguous().clone()))
@@ -800,20 +856,25 @@ def capture_train_inputs(trainer, batch):
         keep_grad(out, ld[-1])
         return out
 
-    def decode_hook(feat, reg_max=16):
-        out = decode(feat, reg_max)
-        levels.append([feat.detach(), out.detach()])
-        keep_grad(out, levels[-1])
+    def decode_hook(feats, reg_max=16):
+        out = decode(feats, reg_max)
+        calls.append([[f.detach() for f in feats], out.detach()])
+        keep_grad(out, calls[-1])
         return out
 
-    modules.ldconv_gather, loss.dfl_decode = gather_hook, decode_hook
+    modules.ldconv_gather, loss.dfl_decode_levels = gather_hook, decode_hook
     try:
         trainer.train_step(batch)
     finally:
-        modules.ldconv_gather, loss.dfl_decode = gather, decode
+        modules.ldconv_gather, loss.dfl_decode_levels = gather, decode
     check(len(ld) == 10 and all(len(e) == 4 for e in ld), f"captured {len(ld)} LDConv backward inputs, expected 10")
-    check(len(levels) == 3 and all(len(e) == 3 for e in levels), f"captured {len(levels)} decode levels, expected 3")
-    return [tuple(e) for e in ld], [tuple(e) for e in levels]
+    check(len(calls) == 1 and len(calls[0]) == 3 and len(calls[0][0]) == 3,
+          f"captured {len(calls)} decode calls, expected one of 3 levels with its gradient")
+    (maps, y, g), levels, first = calls[0], [], 0
+    for f in maps:  # each level's backward reads y and g in place, from its first anchor
+        levels.append((f, y, g, first))
+        first += f.shape[2] * f.shape[3]
+    return [tuple(e) for e in ld], levels
 
 
 def _rel_err(got, want):
@@ -824,28 +885,37 @@ def _rel_err(got, want):
     return max(errs), max(e / max(b.abs().max().item(), 1e-30) for e, b in zip(errs, want))
 
 
-def check_k1_bwd(levels):
+def k1_bwd_calls(levels):
+    """K1's backward on a step's ``levels`` (Detect map, concatenated
+    distances, their gradient, the level's first anchor), one launch a level
+    reading ``y`` and ``g`` in place, and its plain version on each level's
+    slice of them."""
     from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode_bwd, dfl_decode_bwd_plain
 
     def kernel():
-        return [dfl_decode_bwd(f, y, g) for f, y, g in levels]
+        return [dfl_decode_bwd(f, y, g, 16, first) for f, y, g, first in levels]
 
     def plain():
-        return [dfl_decode_bwd_plain(f, y, g) for f, y, g in levels]
+        return [dfl_decode_bwd_plain(f, y[:, first:first + f.shape[2] * f.shape[3]],
+                                     g[:, first:first + f.shape[2] * f.shape[3]]) for f, y, g, first in levels]
 
+    return kernel, plain
+
+
+def check_k1_bwd(levels):
+    kernel, plain = k1_bwd_calls(levels)
     err, rel = _rel_err(kernel(), plain())
     check(rel <= BWD_RTOL, f"K1 dfl_decode_bwd disagrees with its plain version: max abs err {err} ({rel} relative)")
-    groups = sum(f.shape[0] * f.shape[2] * f.shape[3] * 4 for f, _, _ in levels)
+    groups = sum(f.shape[0] * f.shape[2] * f.shape[3] * 4 for f, *_ in levels)
     no = levels[0][0].shape[1]
     # per anchor: 64 box logits, y and g (4 each) read; the whole dx map (no channels) written
-    nbytes = sum(f.shape[0] * f.shape[2] * f.shape[3] * (64 + 4 + 4 + no) * 4 for f, _, _ in levels)
+    nbytes = sum(f.shape[0] * f.shape[2] * f.shape[3] * (64 + 4 + 4 + no) * 4 for f, *_ in levels)
     b_ms, b_by = bound(nbytes, groups * 16 * 10)  # per bin: max, 2 exps and subs, sum, then p*g*(r-y)
     return dict(name="dfl_decode_bwd", route="cuda", source="experiment_yolo_torch/csrc/dfl_decode.cu",
                 replaces="experiment_yolo_tpu/ops/pallas/dfl_decode.py:53", max_abs_err=err, rel_err=rel,
                 ms=cuda_ms(kernel), device_ms=device_ms(kernel, "dfl_decode_bwd_kernel", len(levels)),
-                plain_ms=cuda_ms(plain),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                shapes=[f"{tuple(f.shape)}->{tuple(f.shape)}" for f, _, _ in levels])
+                plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by, library_ms=None, per_call=len(levels),
+                shapes=[f"{tuple(f.shape)}->{tuple(f.shape)}" for f, *_ in levels])
 
 
 def check_k3_bwd(ld, rand_ld):
@@ -1216,7 +1286,7 @@ def trained_loop(root: Path, counters, card):
     launches = {name: fn.launches for name, fn in counters.items()}
     steps, val_batches = LOOP_EPOCHS * nb, LOOP_EPOCHS * math.ceil(LOOP_VAL / BATCH)
     want = dict.fromkeys(counters, 0)
-    want.update(dfl_decode=3 * (steps + val_batches), dfl_decode_bwd=3 * steps, ldconv_gather=10 * (steps + val_batches),
+    want.update(dfl_decode=steps + val_batches, dfl_decode_bwd=3 * steps, ldconv_gather=10 * (steps + val_batches),
                 ldconv_gather_bwd=10 * steps, soft_nms=val_batches)
     check(launches == want, f"the trained loop launched {launches}, expected {want}")
     check(metrics["epochs_run"] == LOOP_EPOCHS and trainer.state.step == steps,
@@ -1505,12 +1575,51 @@ def serve_timed(model, images, counters, per_forward, card, label):
     return served, launches
 
 
+def decode_against_float64(feats, strides, reg_max):
+    """The card's maps decoded three ways: by K1 on the card, by the plain
+    version on the CPU, and in float64 on the CPU (each group shifted by its
+    max). Returns, per level, the largest error of K1 and of the plain decode
+    against float64, in bins and in px (bins times the level's stride), and
+    the element where K1 and the plain decode differ most in px: its level,
+    image, anchor and side, its reg_max logits as hex floats, and the three
+    distances."""
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode_levels_fwd, dfl_decode_plain
+
+    kernel = dfl_decode_levels_fwd(feats, reg_max).cpu().double()
+    per_level, worst, first = [], None, 0
+    for i, (f, s) in enumerate(zip(feats, strides)):
+        x = f[:, : 4 * reg_max].cpu().double()
+        b, _, h, w = x.shape
+        a = h * w
+        x = x.reshape(b, 4, reg_max, a)
+        e = torch.exp(x - x.amax(2, keepdim=True))
+        f64 = ((e * torch.arange(reg_max, dtype=torch.float64)[:, None]).sum(2) / e.sum(2)).transpose(1, 2)
+        k1, plain = kernel[:, first:first + a], dfl_decode_plain(f.cpu(), reg_max).double()
+        k1_err, plain_err = (k1 - f64).abs().max().item(), (plain - f64).abs().max().item()
+        per_level.append({"level": i, "stride": s, "k1_max_err_bins": k1_err, "k1_max_err_px": k1_err * s,
+                          "plain_max_err_bins": plain_err, "plain_max_err_px": plain_err * s})
+        gap = (k1 - plain).abs() * s
+        if worst is None or gap.max().item() > worst["k1_minus_plain_px"]:
+            img, anchor, side = (int(v) for v in np.unravel_index(gap.argmax().item(), gap.shape))
+            worst = {"k1_minus_plain_px": gap.max().item(), "level": i, "image": img, "anchor": anchor, "side": side,
+                     "logits": [float(v).hex() for v in x[img, side, :, anchor].tolist()],
+                     "k1": k1[img, anchor, side].item(), "plain": plain[img, anchor, side].item(),
+                     "float64": f64[img, anchor, side].item()}
+        first += a
+    return per_level, worst
+
+
 def compare_serving_cpu(cfg, model, x):
     """Batch ``x`` through ``model`` on the card and through the same weights
     on the CPU, plain versions only: raw maps, decode, hard-NMS detections.
     The decode is held on one set of card maps, decoded on the card and on
     the CPU; how far ``model.predict``'s own forward of ``x`` lands from it is
-    reported, not gated."""
+    reported, not gated, and so are K1's and the plain decode's errors against
+    a float64 decode of those maps, per level (:func:`decode_against_float64`;
+    on a failure of the decode gate the worst element is printed first)."""
     import numpy as np
     import torch
 
@@ -1531,6 +1640,9 @@ def compare_serving_cpu(cfg, model, x):
     # decode and hard NMS on the card's own maps, once on the card (K1, K2) and once on the CPU (plain)
     cb, cs = decode_detections([f.cpu() for f in feats], model.stride, model.nc, model.reg_max)
     dec_err = (gpu_boxes.cpu() - cb).abs().max().item()
+    decode_vs_f64, worst = decode_against_float64(feats, model.stride, model.reg_max)
+    if dec_err > 1e-3:
+        log(f"{cfg}: the decode's worst element: {json.dumps(worst)}")
     check(dec_err <= 1e-3, f"{cfg}: decoded boxes differ from the CPU decode of the same maps by {dec_err} px")
     # reported, not gated: this host's f32 exp against float64 on the decode's logits, each group shifted by its
     # max (the plain decode takes its exp in float64 rather than trust it: ops/kernels/dfl_decode.py)
@@ -1557,7 +1669,8 @@ def compare_serving_cpu(cfg, model, x):
     frac = min(match_fraction(gd[i, :gn[i]], cd[i, :cn[i]]) for i in range(len(gn)))
     check(frac >= 0.95, f"{cfg}: only {frac:.3f} of an image's card detections are on the CPU path")
     return {"batch": len(gn), "map_max_abs_err": map_err, "decode_max_abs_err_px": dec_err,
-            "host_f32_exp_max_rel_err": exp_err, "host_cpu_capability": torch.backends.cpu.get_cpu_capability(),
+            "decode_vs_float64": decode_vs_f64, "host_f32_exp_max_rel_err": exp_err,
+            "host_cpu_capability": torch.backends.cpu.get_cpu_capability(),
             "predict_again_max_abs_err": repeat_err,
             "nms_same_maps_max_abs_err_px": det_err, "cpu_path_min_match_fraction": frac,
             "cpu_path_max_count_gap": int(np.abs(gn - cn).max()), "counts": gn.tolist()}
@@ -1654,8 +1767,8 @@ def bf16_offset_kinds(ld, gen):
 def check_bf16_forms(feats, ld, ld_train, levels):
     """The bf16 forms of K1, K1's backward, K3 and K3's backward against their
     plain versions: K3's forward bit-equal on every kind of offsets of
-    :func:`bf16_offset_kinds`, K1 within 1e-5 (also under a +-200 logit
-    spread), each bf16 ``dx`` within one bf16 spacing of plain's rounded
+    :func:`bf16_offset_kinds`, K1 within 1e-5 on the cases of
+    :func:`hold_k1`, each bf16 ``dx`` within one bf16 spacing of plain's rounded
     result (:func:`spacing_err`), K3's f32 ``doff`` within BWD_RTOL of its
     largest plain value. ``feats``, ``ld``: a bf16 forward's K1 and K3 inputs;
     ``ld_train``, ``levels``: a bf16 training step's K3 and K1 backward
@@ -1666,49 +1779,31 @@ def check_bf16_forms(feats, ld, ld_train, levels):
     import torch
     import torch.nn.functional as F
 
-    from experiment_yolo_torch.ops.kernels.dfl_decode import (dfl_decode_bwd, dfl_decode_bwd_plain, dfl_decode_fwd,
-                                                              dfl_decode_plain)
     from experiment_yolo_torch.ops.kernels.ldconv_gather import (ldconv_gather_bwd, ldconv_gather_bwd_plain,
                                                                  ldconv_gather_fwd, ldconv_gather_plain)
 
     rows = []
-    # K1 forward
-    err = max((dfl_decode_fwd(f) - dfl_decode_plain(f)).abs().max().item() for f in feats)
-    spread = feats[-1].clone()
-    spread[:, 0:16, 0, 0] += 200.0
-    spread[:, 16:32, 0, 0] -= 200.0
-    got = dfl_decode_fwd(spread)
-    check(bool(torch.isfinite(got).all()), "K1 dfl_decode bf16: non-finite output under a +-200 logit spread")
-    err = max(err, (got - dfl_decode_plain(spread)).abs().max().item())
-    check(err <= 1e-5, f"K1 dfl_decode bf16 disagrees with its plain version: max abs err {err}")
-    groups = sum(f.shape[0] * f.shape[2] * f.shape[3] * 4 for f in feats)
-    b_ms, b_by = bound(groups * 16 * 2 + groups * 4, groups * (6 * 16 + 1))  # bf16 bins read, f32 distance written
-    rows.append(dict(name="dfl_decode_bf16", route="cuda", source="experiment_yolo_torch/csrc/dfl_decode.cu",
-                     replaces="experiment_yolo_tpu/ops/pallas/dfl_decode.py:46", max_abs_err=err,
-                     ms=cuda_ms(lambda: [dfl_decode_fwd(f) for f in feats]),
-                     device_ms=device_ms(lambda: [dfl_decode_fwd(f) for f in feats],
-                                         "dfl_decode_kernel<__nv_bfloat16>", len(feats)),
-                     plain_ms=cuda_ms(lambda: [dfl_decode_plain(f) for f in feats]), bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, shapes=[f"{tuple(f.shape)} bf16" for f in feats]))
+    # K1 forward: one launch for every level
+    cases = hold_k1(feats, torch.Generator().manual_seed(SEED + 4))
+    rows.append(k1_row("dfl_decode_bf16", feats, cases, "dfl_decode_kernel<__nv_bfloat16"))
 
     # K1 backward
-    def k1b():
-        return [dfl_decode_bwd(f, y, g) for f, y, g in levels]
-
-    k1b_got, k1b_want = k1b(), [dfl_decode_bwd_plain(f, y, g) for f, y, g in levels]
+    k1b, k1b_plain = k1_bwd_calls(levels)
+    k1b_got, k1b_want = k1b(), k1b_plain()
     check(all(t.dtype == torch.bfloat16 for t in k1b_got), "K1 dfl_decode_bwd bf16: dx is not bf16")
     err, spacings, ok = spacing_err(k1b_got, k1b_want)
     check(ok, f"K1 dfl_decode_bwd bf16 disagrees with its plain version beyond one bf16 spacing: max abs err {err}, "
               f"{spacings} spacings")
     no = levels[0][0].shape[1]
-    nbytes = sum(f.shape[0] * f.shape[2] * f.shape[3] * ((64 + no) * 2 + (4 + 4) * 4) for f, _, _ in levels)
+    groups = sum(f.shape[0] * f.shape[2] * f.shape[3] * 4 for f, *_ in levels)
+    nbytes = sum(f.shape[0] * f.shape[2] * f.shape[3] * ((64 + no) * 2 + (4 + 4) * 4) for f, *_ in levels)
     b_ms, b_by = bound(nbytes, groups * 16 * 10)
     rows.append(dict(name="dfl_decode_bwd_bf16", route="cuda", source="experiment_yolo_torch/csrc/dfl_decode.cu",
                      replaces="experiment_yolo_tpu/ops/pallas/dfl_decode.py:53", max_abs_err=err,
                      max_bf16_spacings=spacings, ms=cuda_ms(k1b),
                      device_ms=device_ms(k1b, "dfl_decode_bwd_kernel<__nv_bfloat16>", len(levels)),
-                     plain_ms=cuda_ms(lambda: [dfl_decode_bwd_plain(f, y, g) for f, y, g in levels]),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                     plain_ms=cuda_ms(k1b_plain), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     per_call=len(levels)))
     del k1b_got, k1b_want
 
     # K3 forward and backward on every kind of offsets
@@ -1925,7 +2020,7 @@ def facade_phase(data: Path, root: Path, counters, card):
     launches = {name: fn.launches for name, fn in counters.items()}
     want = dict.fromkeys(counters, 0)
     want.update(ldconv_gather=10, ldconv_gather_bf16=10 + 10 * (steps + val_batches),  # the AMP check: f32, bf16
-                dfl_decode_bf16=3 * (steps + val_batches), dfl_decode_bwd_bf16=3 * steps,
+                dfl_decode_bf16=steps + val_batches, dfl_decode_bwd_bf16=3 * steps,
                 ldconv_gather_bwd_bf16=10 * steps, soft_nms=val_batches)
     check(launches == want, f"YOLO.train with the defaults launched {launches}, expected {want}")
     check(trainer.dtype == torch.bfloat16 and trainer.amp_check["passed"],
@@ -1943,7 +2038,7 @@ def facade_phase(data: Path, root: Path, counters, card):
     vlaunch = {name: fn.launches for name, fn in counters.items()}
     n_val = math.ceil(LOOP_VAL / BATCH)
     want = dict.fromkeys(counters, 0)
-    want.update(dfl_decode=3 * n_val, ldconv_gather=10 * n_val, soft_nms=n_val)
+    want.update(dfl_decode=n_val, ldconv_gather=10 * n_val, soft_nms=n_val)
     check(vlaunch == want, f"YOLO.val launched {vlaunch}, expected {want}")
     images = [imread(p) for p in sorted((data.parent / "images" / "val").iterdir())]
     results = yolo.predict(images[:BATCH], imgsz=IMGSZ, batch=BATCH, conf=0.001)
@@ -2098,7 +2193,7 @@ def server_phase(root: Path, images, counters, card):
           f"/health counted {batching}: expected 16 requests coalesced into fewer than 16 batches")
     n = batching["batches"]
     want = dict.fromkeys(counters, 0)
-    want.update(dfl_decode=3 * n, ldconv_gather=10 * n, soft_nms=n)
+    want.update(dfl_decode=n, ldconv_gather=10 * n, soft_nms=n)
     check(launches == want, f"the server launched {launches} for {n} batches, expected {want}")
     direct = DetectionPredictor(server.yolo.model, {"batch": BATCH, "imgsz": IMGSZ, "conf": 0.25})(images[:16])
     worst = 0.0
@@ -2201,7 +2296,7 @@ def main() -> None:
         log(f"  K3 layer {row}")
 
     # 6. the main path: DetectionPredictor, soft then hard NMS, one batch per call
-    served, launches = serve_timed(model, images, counters, {"dfl_decode": len(model.stride), "ldconv_gather": 10},
+    served, launches = serve_timed(model, images, counters, {"dfl_decode": 1, "ldconv_gather": 10},
                                    card, CFG)
     # 7. the same batch through the same weights on the CPU, plain versions only
     compare = compare_serving_cpu(CFG, model, x)
@@ -2247,7 +2342,7 @@ def main() -> None:
     # 10. the training main path: DetectionTrainer.train_step, one batch per call
     step_ms, run, last, moved, ema_moved = train_timed(trainer, batches, counters)
     want = dict.fromkeys(counters, 0)
-    want.update(dfl_decode=3 * TRAIN_STEPS, dfl_decode_bwd=3 * TRAIN_STEPS, ldconv_gather=10 * TRAIN_STEPS,
+    want.update(dfl_decode=TRAIN_STEPS, dfl_decode_bwd=3 * TRAIN_STEPS, ldconv_gather=10 * TRAIN_STEPS,
                 ldconv_gather_bwd=10 * TRAIN_STEPS)
     check(run == want, f"the training steps launched {run}, expected {want}")
     for name in launches:
@@ -2310,7 +2405,7 @@ def main() -> None:
         # 14. the bf16 training main path: train_step with the defaults; the card's bf16 step against the CPU's
         step_ms16, run, last16, moved16, ema_moved16 = train_timed(trainer16, batches, counters)
         want = dict.fromkeys(counters, 0)
-        want.update(dfl_decode_bf16=3 * TRAIN_STEPS, dfl_decode_bwd_bf16=3 * TRAIN_STEPS,
+        want.update(dfl_decode_bf16=TRAIN_STEPS, dfl_decode_bwd_bf16=3 * TRAIN_STEPS,
                     ldconv_gather_bf16=10 * TRAIN_STEPS, ldconv_gather_bwd_bf16=10 * TRAIN_STEPS)
         check(run == want, f"the bf16 training steps launched {run}, expected {want}")
         for name in launches:
@@ -2376,7 +2471,7 @@ def main() -> None:
     kernels += [k4, k5, *bf16_rows]
 
     # 20. the VSS main path: DetectionPredictor, soft then hard NMS
-    served_vss, run = serve_timed(vss, images, counters, {"dfl_decode": len(vss.stride),
+    served_vss, run = serve_timed(vss, images, counters, {"dfl_decode": 1,
                                                           "selective_scan": k4["launches_per_forward"]}, card, VSS_CFG)
     for name in launches:
         launches[name] += run[name]

@@ -1,9 +1,9 @@
-"""What bounds K2, K3, K3's backward, their bf16 forms, K4 and K5 on the
+"""What bounds K1, K2, K3, K3's backward, their bf16 forms, K4 and K5 on the
 card: time throwaway variants of their sources.
 
 Usage, on a machine with an NVIDIA Hopper GPU and the CUDA toolkit:
 
-    python3 -m experiment_yolo_torch.kernel_variants [k2|k3|k3bwd|k3bf16|k3bwdbf16|k4|k5|all] [--baseline ROOT]
+    python3 -m experiment_yolo_torch.kernel_variants [k1|k1bf16|k2|k3|k3bwd|k3bf16|k3bwdbf16|k4|k5|all] [--baseline ROOT]
 
 Each variant is the kernel's source with a few pieces of text replaced (no
 exp, no shared-memory reads of B and C, no copies from device memory, another
@@ -39,9 +39,24 @@ every launch of a call counted, its ``dx`` against the plain version in bf16
 spacings (the ``chip_smoke.py`` gate: at most 1 passes), ``doff``'s error
 and whether two calls give the same bits.
 
-``--baseline ROOT`` also times K3's backward, K3's bf16 forms or K5 built
+``k1`` and ``k1bf16`` time K1's forward (f32 and bf16 maps) on the seeded
+LD-P2 model's Detect maps at batch 8, 640 (a bf16 forward's for ``k1bf16``),
+on random logits at the same shapes and at imgsz 608 (levels of 152, 76 and
+38 squared): one launch for every level, and each level alone (one launch a
+level), beside the bytes bound; each variant's width per level, its error
+against the plain version and, with ``--baseline``, whether its output is
+bit-equal to the baseline's. The variants: loads of 2, 8 and 16 bytes a
+bin (the widest a level may take; 4 as built), 16-byte loads with the side
+groups of a thread in turn, at least 6 blocks a SM, half the sides' loads at
+a time, no exp, loads only, the runtime-``reg_max`` instance, and 64 or 256
+threads a block; the ptxas lines (registers, spills) of each build come
+first.
+
+``--baseline ROOT`` also times K1, K3's backward, K3's bf16 forms or K5 built
 from another checkout (say the parent commit, unpacked with ``git
-archive``), so that two versions are compared in one process. K3's backward,
+archive``), so that two versions are compared in one process. K1's baseline
+is called through the earlier C signature, one map a launch (the first
+design's); K3's backward,
 K3's bf16 forward and K5 run behind this checkout's wrapper, so the two
 sources must have the same ``ldconv_gather_bwd_launch``,
 ``ldconv_gather_bf16_launch`` or ``soft_nms_launch`` signature; the bf16
@@ -127,6 +142,36 @@ K3BWDBF16_VARIANTS = {
 BF16_FWD_KERNELS = {"as it is": "ldconv_gather_bf16_kernel", "baseline": "ldconv_gather_kernel<__nv_bfloat16"}
 BF16_BWD_KERNEL = "ldconv_gather_bwd_kernel<__nv_bfloat16"
 OFFSET_KINDS = ("smooth", "random", "contention", "seam")
+# variant -> ((old, new) pieces of csrc/dfl_decode.cu, settings of ops/kernels/dfl_decode.py)
+K1_EXP = ("const float e = expf(v[s][r][j] - m);", "const float e = v[s][r][j] - m;")
+
+
+def _k1_loads(n: int, *pieces):
+    """A thread's load a bin at most ``n`` bytes, in the source and in the wrapper, and further ``pieces``."""
+    return (("constexpr int MAX_LOAD_BYTES = 4;", f"constexpr int MAX_LOAD_BYTES = {n};"), *pieces), \
+        {"MAX_LOAD_BYTES": n}
+
+
+K1_VARIANTS = {
+    "as it is": ((), {}),
+    "2-byte loads (bf16: one anchor a thread)": _k1_loads(2),
+    "8-byte loads": _k1_loads(8),
+    "16-byte loads": _k1_loads(16),
+    "16-byte loads, side groups in turn": _k1_loads(16, ("#pragma unroll\n    for (int s0 = 0;",
+                                                         "#pragma unroll 1\n    for (int s0 = 0;")),
+    "at least 6 blocks a SM": ((("__launch_bounds__(DECODE_THREADS)", "__launch_bounds__(DECODE_THREADS, 6)"),), {}),
+    "half the sides' loads at a time": ((("constexpr int SIDES = 4 / R::WORDS;",
+                                          "constexpr int SIDES = (4 / R::WORDS + 1) / 2;"),), {}),
+    "no exp": ((K1_EXP,), {}),
+    "loads only: no max, no exp": ((K1_EXP, ("#pragma unroll\n          for (int r = 0; r < REG; ++r) "
+                                             "m = fmaxf(m, v[s][r][j]);", "m = 0.f;")), {}),
+    "runtime reg_max instance": ((("if (reg_max == REG_MAX)", "if (reg_max == -REG_MAX)"),), {}),
+    "64 threads a block": ((("constexpr int DECODE_THREADS = 128;", "constexpr int DECODE_THREADS = 64;"),),
+                           {"THREADS": 64}),
+    "256 threads a block": ((("constexpr int DECODE_THREADS = 128;", "constexpr int DECODE_THREADS = 256;"),),
+                            {"THREADS": 256}),
+}
+K1_OLD_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int)
 # variant -> (old, new) pieces of csrc/nms_suppress.cu
 K2_VARIANTS = {
     "as it is": (),
@@ -170,6 +215,8 @@ SCAN_LEVELS = ((25600, 32, 1), (6400, 64, 2), (1600, 128, 4), (400, 256, 8))  # 
 GATHER_LAYERS = ((3, 3, 2, 640), (16, 3, 2, 320), (32, 3, 2, 160), (64, 3, 2, 80), (128, 1, 1, 40), (64, 1, 1, 80),
                  (64, 1, 1, 80), (32, 1, 1, 160), (32, 3, 2, 160), (64, 3, 2, 80))  # C, N, stride, source size
 BATCH = 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+build_logs: dict = {}  # variant -> nvcc's output (ptxas registers and spills), of the last build_variants
 
 
 def build_variants(name: str, variants, baseline: Path | None = None) -> dict:
@@ -198,6 +245,7 @@ def build_variants(name: str, variants, baseline: Path | None = None) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {tag!r} of {name}.cu:\n{log}")
+        build_logs[tag] = log
         libs[tag] = ctypes.CDLL(str(lib))
     return libs
 
@@ -435,6 +483,92 @@ def gather_bwd_bf16_variants(gen: torch.Generator, baseline: Path | None) -> Non
         print(json.dumps(row), flush=True)
 
 
+def k1_cases(dtype: torch.dtype, gen: torch.Generator) -> dict:
+    """K1's timed inputs: the seeded LD-P2 model's Detect maps of one batch of 8
+    seeded images at 640 (computed in ``dtype``), random logits (N(0, 3^2)) at
+    the same shapes, and random logits at imgsz 608."""
+    model = seeded_model("yolov8-LD-P2.yaml", 0).eval()
+    model.dtype = dtype
+    with torch.no_grad():
+        maps = [f.contiguous() for f in model(model_input(letterboxed(seeded_images(BATCH, 0), 640), "cuda"))]
+    del model
+
+    def rand(shapes):
+        return [(torch.randn(s, generator=gen) * 3).to("cuda", dtype) for s in shapes]
+
+    return {"seeded LD-P2 maps": maps, "random logits": rand([f.shape for f in maps]),
+            "random logits at 608": rand([(BATCH, maps[0].shape[1], 608 // s, 608 // s) for s in (4, 8, 16)])}
+
+
+def _k1_parent(lib: ctypes.CDLL, dtype: torch.dtype):
+    """The baseline's forward as the first design's wrapper called it: one launch a map, then the levels
+    concatenated (the copy not timed: device_ms counts only the kernels)."""
+    fn = lib.dfl_decode_bf16_launch if dtype == torch.bfloat16 else lib.dfl_decode_launch
+    fn.restype, fn.argtypes = ctypes.c_int, [*K1_OLD_ARGS, ctypes.c_void_p]
+
+    def call(feats):
+        outs = []
+        for f in feats:
+            b, no, h, w = f.shape
+            out = torch.empty((b, h * w, 4), dtype=torch.float32, device=f.device)
+            if fn(f.data_ptr(), out.data_ptr(), b, h * w, no * h * w, 16, torch.cuda.current_stream().cuda_stream):
+                raise RuntimeError("baseline dfl_decode launch failed")
+            outs.append(out)
+        return torch.cat(outs, 1)
+
+    return call
+
+
+def dfl_variants(dtype: torch.dtype, gen: torch.Generator, baseline: Path | None) -> None:
+    """K1's forward in ``dtype`` per variant and input: one launch for every level and one a level, beside the
+    bytes bound (each logit read once, each distance written once); widths, error against plain, and bit-equality
+    with the baseline."""
+    from experiment_yolo_torch.ops.kernels import dfl_decode as k1
+
+    label = "K1 bf16" if dtype == torch.bfloat16 else "K1"
+    cases = k1_cases(dtype, gen)
+    bounds = {case: sum(f.shape[0] * f.shape[2] * f.shape[3] * (64 * f.element_size() + 16) for f in feats)
+              / HBM_BYTES_PER_S * 1e3 for case, feats in cases.items()}
+    print(json.dumps({"kernel": label, "bound_ms": bounds,
+                      "shapes": {case: [list(f.shape) for f in feats] for case, feats in cases.items()}}), flush=True)
+    plain = {case: k1.dfl_decode_levels_fwd([f.cpu() for f in feats]).cuda() for case, feats in cases.items()}
+    libs = build_variants("dfl_decode", {tag: pieces for tag, (pieces, _) in K1_VARIANTS.items()}, baseline)
+    print(json.dumps({"kernel": label, "ptxas": {tag: [ln.strip() for ln in log.splitlines()
+                                                       if "registers" in ln or "spill" in ln]
+                                                 for tag, log in build_logs.items()}}), flush=True)
+    parent = {}
+    if baseline is not None:
+        call = _k1_parent(libs["baseline"], dtype)
+        parent = {case: call(feats) for case, feats in cases.items()}
+        row = {"kernel": label, "variant": "baseline"}
+        for case, feats in cases.items():
+            row[case] = {"per_level_launches_ms": sum(device_ms(lambda: call(feats), "dfl_decode_kernel",
+                                                                len(feats)).values()),
+                         "max_abs_err_vs_plain": (parent[case] - plain[case]).abs().max().item()}
+        print(json.dumps(row), flush=True)
+    settings = {name: getattr(k1, name) for name in ("MAX_LOAD_BYTES", "THREADS")}
+    for tag, (_, overrides) in K1_VARIANTS.items():
+        swap_in("dfl_decode", libs[tag])
+        for name, value in {**settings, **overrides}.items():
+            setattr(k1, name, value)
+        row = {"kernel": label, "variant": tag}
+        for case, feats in cases.items():
+            got = k1.dfl_decode_levels_fwd(feats)
+            one = sum(device_ms(lambda: k1.dfl_decode_levels_fwd(feats), "dfl_decode_kernel", 1).values())
+            each = [sum(device_ms(lambda: k1.dfl_decode_levels_fwd([f]), "dfl_decode_kernel", 1).values())
+                    for f in feats]
+            table = k1.level_table([(f.shape[2] * f.shape[3], f.stride(0), f.data_ptr()) for f in feats],
+                                   feats[0].element_size())
+            row[case] = {"one_launch_ms": one, "bound_share": bounds[case] / one, "per_level_ms": each,
+                         "per_level_sum_ms": sum(each), "widths": [t.width for t in table],
+                         "max_abs_err_vs_plain": (got - plain[case]).abs().max().item()}
+            if parent:
+                row[case]["bit_equal_to_baseline"] = bool(torch.equal(got, parent[case]))
+        print(json.dumps(row), flush=True)
+    for name, value in settings.items():
+        setattr(k1, name, value)
+
+
 def nms_cases(gen: torch.Generator):
     """Clustered xyxy candidates of 8 images (about a fifth of them invalid)
     at K = 1,024 and 8,192, and the IoU threshold of the main path."""
@@ -511,13 +645,18 @@ def main() -> None:
         baseline = Path(args[i + 1]).resolve()
         del args[i:i + 2]
     which = args[0] if args else "all"
-    if which not in ("k2", "k3", "k3bwd", "k3bf16", "k3bwdbf16", "k4", "k5", "all"):
-        sys.exit(f"kernel_variants: unknown target {which!r}: one of k2, k3, k3bwd, k3bf16, k3bwdbf16, k4, k5, all")
+    if which not in ("k1", "k1bf16", "k2", "k3", "k3bwd", "k3bf16", "k3bwdbf16", "k4", "k5", "all"):
+        sys.exit(f"kernel_variants: unknown target {which!r}: one of k1, k1bf16, k2, k3, k3bwd, k3bf16, k3bwdbf16, "
+                 "k4, k5, all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}", flush=True)
     _build.build_all()
     gen = torch.Generator().manual_seed(0)
+    if which in ("k1", "all"):
+        dfl_variants(torch.float32, gen, baseline)
+    if which in ("k1bf16", "all"):
+        dfl_variants(torch.bfloat16, gen, baseline)
     targets = {"k4": scan_variants, "k3": gather_variants}
     for name, fn in targets.items():
         if which in (name, "all"):

@@ -13,7 +13,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode
+from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode_levels
 
 
 def make_anchors(feat_shapes: Sequence[Tuple[int, int]], strides: Sequence[int],
@@ -51,19 +51,14 @@ def decode_detections(feats: List[torch.Tensor], strides: Sequence[int], nc: int
     """Raw Detect maps [(B, 4*reg_max + nc, H_i, W_i)] -> boxes (B, A, 4) xywh in
     input pixels and sigmoid scores (B, A, nc).
 
-    Decodes per level, as the JAX package does: the box channels of each map
-    go straight to the DFL kernel, and the levels meet only as (B, A_i, 4) boxes.
+    The box channels of every map go straight to the DFL kernel, which decodes
+    all levels in one launch into the concatenated (B, A, 4) distances; the
+    elementwise box arithmetic after it gives each level's boxes exactly as a
+    decode per level, as the JAX package's, would.
     """
     b = feats[0].shape[0]
     shapes = [tuple(f.shape[2:4]) for f in feats]
     anchor_points, stride_t = make_anchors(shapes, strides, 0.5, device=feats[0].device)
-    boxes, cls = [], []
-    start = 0
-    for f, (h, w) in zip(feats, shapes):
-        a = h * w
-        dist = dfl_decode(f, reg_max)  # (B, a, 4)
-        ap, st = anchor_points[start:start + a], stride_t[start:start + a]
-        boxes.append(dist2bbox(dist, ap[None], xywh=True) * st[None])
-        cls.append(f[:, 4 * reg_max:].reshape(b, nc, a).transpose(1, 2))
-        start += a
-    return torch.cat(boxes, 1), torch.sigmoid(torch.cat(cls, 1))
+    boxes = dist2bbox(dfl_decode_levels(feats, reg_max), anchor_points[None], xywh=True) * stride_t[None]
+    cls = torch.cat([f[:, 4 * reg_max:].reshape(b, nc, h * w).transpose(1, 2) for f, (h, w) in zip(feats, shapes)], 1)
+    return boxes, torch.sigmoid(cls)

@@ -4,10 +4,11 @@ Port of ``experiment_yolo_tpu/utils/loss.py`` (``LossConfig``, ``_df_loss``,
 ``_bce_sum``, ``_cls_loss``, ``_box_dfl_losses``, ``_masked_wise_iou``,
 ``_plain_iou_loss``, ``_per_level_decode``, ``detection_loss``): TAL
 assignment, BCE class loss, CIoU or Wise-IoU v3 box loss (with the NWD blend
-on request) and the distribution focal loss, with the box half of each head
-map decoded per level by kernel K1 straight from the NCHW map.
+on request) and the distribution focal loss, with the box half of the head
+maps decoded by kernel K1, every level in one launch, straight from the NCHW
+maps.
 
-    per-level DFL decode (K1) -> TAL assign (no gradient) -> BCE cls + (W/C)IoU [+ NWD] box + DFL
+    DFL decode of every level (K1) -> TAL assign (no gradient) -> BCE cls + (W/C)IoU [+ NWD] box + DFL
 
 Wise-IoU keeps a running mean of 1 - IoU over foreground anchors, which the
 caller threads from step to step.
@@ -30,7 +31,7 @@ import torch
 
 from experiment_yolo_torch.ops.anchors import bbox2dist, dist2bbox, make_anchors
 from experiment_yolo_torch.ops.boxes import WIOU_MOMENTUM, bbox_iou, wasserstein_similarity, wise_iou_loss, xywh2xyxy
-from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode
+from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode_levels
 from experiment_yolo_torch.utils import tal
 
 
@@ -112,14 +113,11 @@ class _BCESum(torch.autograd.Function):
 
 
 def per_level_decode(feats: Sequence[torch.Tensor], anchor_points: torch.Tensor, reg_max: int) -> torch.Tensor:
-    """Each level's (B, no, H, W) map -> xyxy boxes in grid units, through
-    the differentiable DFL decode (kernel K1 on the card), concatenated to (B, A, 4)."""
-    parts, start = [], 0
-    for f in feats:
-        a = f.shape[2] * f.shape[3]
-        parts.append(dist2bbox(dfl_decode(f, reg_max), anchor_points[None, start:start + a], xywh=False))
-        start += a
-    return torch.cat(parts, 1)
+    """The levels' (B, no, H, W) maps -> xyxy boxes in grid units, (B, A, 4),
+    through the differentiable DFL decode of every level at once (one launch
+    of kernel K1 on the card); the box arithmetic is elementwise, so each
+    level's boxes are those of a decode per level."""
+    return dist2bbox(dfl_decode_levels(feats, reg_max), anchor_points[None], xywh=False)
 
 
 def _plain_iou_loss(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
