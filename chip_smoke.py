@@ -191,12 +191,44 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 22. build ``yolov8.yaml`` and ``yolov8-ASF-P2P2.yaml`` (n scale) on the card and
     push one batch through each: finite raw maps of the expected shapes,
     strides 8/16/32 and 4/8/16;
-23. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
+23. build ``yolov8-ASF-P2.yaml`` (n scale, nc=6: ZoomCat, two ScalSeq + Add
+    branches, a Detect on P2-P5, the reference fork's own training model) on
+    the card from the same seeds; hold K1's forward, one launch for the four
+    levels, against its plain version on the model's own maps in f32 and
+    bf16 at 640 (34,000 anchors) and at 608 (P5 19 x 19, an odd count),
+    within 1e-5, timed beside its bound; serve 20 batches of 8 through
+    ``DetectionPredictor``, soft then hard NMS, counters at 0 just before
+    and read just after (exactly 1 K1 a forward, 1 K5 or 1 K2 a batch, no K3
+    or K4); compare 2 images' raw maps and hard-NMS detections with the CPU
+    as phase 7 does;
+24. train ASF-P2: hold K1's backward on an f32 and a bf16 step's four
+    levels against its plain version (phase 9's and phase 13's gates); take
+    20 timed bf16 ``train_step``s at 640, batch 8 (exactly 1 K1 and 4
+    K1-backward launches a step, all bf16); one f32 step at 320, batch 2, on
+    the card and on the CPU with phase 11's gates (the CPU takes the card's
+    picks of ScalSeq's scale and of each window of ZoomCat's 2x2 max pool,
+    and the line reports both least gaps); then ``YOLO("yolov8-ASF-P2.yaml",
+    nc=3).train()`` for 1 epoch on phase 12's dataset with
+    ``optimizer='SGD'`` and no ``amp`` key, as the fork's ``train.py`` calls
+    it: the AMP check passed, 1 K1 and 4 K1-backward bf16 launches a step,
+    1 K1 (bf16) and 1 K5 a per-epoch val batch;
+25. the paper's two-stage inference on LD-P2 at full width, on phase 15's
+    ``detector.pt``: ``YOLO.double_predict`` on 8 images at 640, one call an
+    image (a first pass of 1 K1, 10 K3 and 1 K5, a batch of 16 crops of 1
+    K1, 10 K3 and 1 K2), and ``YOLO.sliced_predict`` on 2 frames of 1280 x
+    720 (slice 512, overlap 0.2: 6 slices, and the full image: 2 forwards
+    and 1 K5 a frame), counters at 0 just before each and read just after;
+    the same calls on the CPU for 2 of the images and both frames, where at
+    least 0.95 of each image's card detections must have a CPU detection of
+    the same class within 1e-2 px (phases 7 and 21's gate); img/s of each;
+26. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
     ...}``, a ``{"served_vss": ...}``, a ``{"validated": ...}``, a
-    ``{"trained_loop": ...}``, a ``{"trained_bf16": ...}`` and a ``{"facade":
-    ..., "cli": ..., "server": ...}`` line, then the ``{"kernels": [...]}``
-    line for the seven kernels and the four bf16 forms, the card's name and
-    power limit, and last ``{"ok": true, "device": {...}}``.
+    ``{"trained_loop": ...}``, a ``{"trained_bf16": ...}``, a ``{"facade":
+    ..., "cli": ..., "server": ...}``, an ``{"asf_p2": ...}`` and a
+    ``{"two_stage": ...}`` line, then the ``{"kernels": [...]}`` line for the
+    seven kernels and the four bf16 forms (launches summed over every main
+    path above), the card's name and power limit, and last ``{"ok": true,
+    "device": {...}}``.
 
 It exits non-zero and prints no result without a CUDA device, or when the
 package is not beside it.
@@ -204,6 +236,7 @@ package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -218,6 +251,8 @@ ROOT = Path(__file__).resolve().parent
 CFG = "yolov8-LD-P2.yaml"
 VSS_CFG = "yolov8-C2f-VSS.yaml"
 PLAIN_CONV_CFGS = {"yolov8.yaml": (8, 16, 32), "yolov8-ASF-P2P2.yaml": (4, 8, 16)}  # config -> expected strides
+ASF_CFG, ASF_STRIDES, ASF_CMP_BATCH = "yolov8-ASF-P2.yaml", (4, 8, 16, 32), 2  # the reference fork's train.py model
+TWO_STAGE_IMAGES, TWO_STAGE_CPU_IMAGES, SLICED_FRAMES, SLICE = 8, 2, 2, 512  # phase 25: double_predict, sliced_predict
 IMGSZ, BATCH, SEED = 640, 8, 0
 N_IMAGES, SERVE_BATCHES = 32, 20  # 4 distinct batches of seeded images, served in turn
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_BATCHES = 20, 3, 4  # timed steps, warm-up steps, distinct seeded batches
@@ -834,12 +869,13 @@ def val_pools_and_plain_stats(model, batches):
                    "detections_per_image": counts["kernel"]}
 
 
-def capture_train_inputs(trainer, batch):
+def capture_train_inputs(trainer, batch, n_ldconv=10, n_levels=3):
     """One training step with hooks on the two differentiable kernels: each
     LDConv's (source, offsets, stride, incoming gradient) and each level's
     (Detect map, every level's decoded distances and their incoming gradient,
     the level's first anchor in them), as the step hands them to K3, K1 and
-    their backward kernels. Separate from
+    their backward kernels; the model must have ``n_ldconv`` LDConv layers
+    and ``n_levels`` Detect levels. Separate from
     :func:`capture_inputs`, which runs under ``no_grad``."""
     import experiment_yolo_torch.nn.modules as modules
     import experiment_yolo_torch.utils.loss as loss
@@ -867,9 +903,10 @@ def capture_train_inputs(trainer, batch):
         trainer.train_step(batch)
     finally:
         modules.ldconv_gather, loss.dfl_decode_levels = gather, decode
-    check(len(ld) == 10 and all(len(e) == 4 for e in ld), f"captured {len(ld)} LDConv backward inputs, expected 10")
-    check(len(calls) == 1 and len(calls[0]) == 3 and len(calls[0][0]) == 3,
-          f"captured {len(calls)} decode calls, expected one of 3 levels with its gradient")
+    check(len(ld) == n_ldconv and all(len(e) == 4 for e in ld),
+          f"captured {len(ld)} LDConv backward inputs, expected {n_ldconv}")
+    check(len(calls) == 1 and len(calls[0]) == 3 and len(calls[0][0]) == n_levels,
+          f"captured {len(calls)} decode calls, expected one of {n_levels} levels with its gradient")
     (maps, y, g), levels, first = calls[0], [], 0
     for f in maps:  # each level's backward reads y and g in place, from its first anchor
         levels.append((f, y, g, first))
@@ -1079,8 +1116,10 @@ def ldconv_position_margins(layers):
     return whole, rail
 
 
-def compare_train_cpu(state_dict, batch, recipe=None):
-    """One step from the same weights and batch on the card and on the CPU.
+def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_scalseq=1, n_zoomcat=0):
+    """One step of ``cfg`` (with ``n_ldconv`` LDConv, ``n_scalseq`` ScalSeq
+    and ``n_zoomcat`` ZoomCat layers) from the same weights and batch on the
+    card and on the CPU.
     Warmup is off and ``nbs`` is the batch, so the step fires at once and
     every group, the weight group with its decay included, moves at lr0.
     ``recipe``: loss switches (Wise-IoU, NWD); then the new ``iou_mean`` is
@@ -1095,20 +1134,23 @@ def compare_train_cpu(state_dict, batch, recipe=None):
     test_positions_near_a_whole_number_move_p_conv_gradient_not_the_output``).
     The offsets' values are the card's; their gradient flows into the CPU's
     own ``p_conv``. ScalSeq's max over its three scales is another such step:
-    the CPU takes the card's pick of scale for each element. The report gives
+    the CPU takes the card's pick of scale for each element, and so it takes
+    the card's pick in each 2x2 window of ZoomCat's max pool. The report gives
     the largest difference of the two sides' raw offsets, the least distance
     of the CPU's own positions to a whole number and to a rail, the least gap
-    between the CPU's two largest scales, and the tensor of the largest
-    difference of gradients, momentum buffers and updates."""
+    between the CPU's two largest scales and two largest values of a window,
+    and the tensor of the largest difference of gradients, momentum buffers
+    and updates."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     import experiment_yolo_torch.nn.modules as modules
     from experiment_yolo_torch import DetectionModel
     from experiment_yolo_torch.engine.trainer import DetectionTrainer
 
-    gather, scale_max = modules.ldconv_gather, modules.ScalSeq.scale_max
-    card_offsets, cpu_layers, card_picks, cpu_gaps = [], [], [], []
+    gather, scale_max, window_max = modules.ldconv_gather, modules.ScalSeq.scale_max, modules.ZoomCat.window_max
+    card_offsets, cpu_layers, card_picks, cpu_gaps, card_windows, cpu_window_gaps = [], [], [], [], [], []
 
     def card_gather(x, off, stride):
         card_offsets.append(off.detach().cpu())
@@ -1129,9 +1171,23 @@ def compare_train_cpu(state_dict, batch, recipe=None):
         cpu_gaps.append((top2[:, :, 0] - top2[:, :, 1]).min().item())
         return z.gather(2, card_picks[len(cpu_gaps) - 1]).squeeze(2)
 
+    # ZoomCat's 2x2 max pool, the same kind of step: the CPU takes the card's pick in each window
+    def card_window_max(x):
+        y, idx = F.max_pool2d(x, 2, return_indices=True)
+        card_windows.append(idx.cpu())
+        return y
+
+    def cpu_window_max(x):
+        b, c, h, w = x.shape
+        windows = x.detach().reshape(b, c, h // 2, 2, w // 2, 2).transpose(3, 4).reshape(b, c, h // 2, w // 2, 4)
+        top2 = windows.topk(2, dim=-1).values
+        cpu_window_gaps.append((top2[..., 0] - top2[..., 1]).min().item())
+        idx = card_windows[len(cpu_window_gaps) - 1]
+        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
     out = {}
     for dev in ("cuda", "cpu"):
-        model = DetectionModel(CFG, device=dev)
+        model = DetectionModel(cfg, device=dev)
         model.load_state_dict(state_dict, strict=True)
         before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
         trainer = DetectionTrainer(model, {"amp": False, "batch": CMP_BATCH, "imgsz": CMP_IMGSZ, "nbs": CMP_BATCH,
@@ -1140,10 +1196,12 @@ def compare_train_cpu(state_dict, batch, recipe=None):
         lrs = opt.schedules()
         modules.ldconv_gather = card_gather if dev == "cuda" else cpu_gather
         modules.ScalSeq.scale_max = staticmethod(card_max if dev == "cuda" else cpu_max)
+        modules.ZoomCat.window_max = staticmethod(card_window_max if dev == "cuda" else cpu_window_max)
         try:
             comps = trainer.train_step(batch)
         finally:
             modules.ldconv_gather, modules.ScalSeq.scale_max = gather, staticmethod(scale_max)
+            modules.ZoomCat.window_max = staticmethod(window_max)
         check(opt.updates == 1 and min(lrs[:2]) > 0, f"{dev}: the compared step fired {opt.updates} updates at "
                                                      f"(lr, bias lr, momentum) {lrs}: expected 1 with both LRs > 0")
         out[dev] = dict(comps={k: v.item() for k, v in comps.items()}, lrs=lrs, iou_mean=trainer.state.iou_mean.item(),
@@ -1151,11 +1209,13 @@ def compare_train_cpu(state_dict, batch, recipe=None):
                         momentum={n: opt.state[p]["momentum_buffer"].cpu() for n, p in model.named_parameters()},
                         after={n: p.detach().cpu() for n, p in model.named_parameters()},
                         updates={n: p.detach().cpu() - before[n] for n, p in model.named_parameters()})
-    check(len(card_offsets) == len(cpu_layers) == 10 and len(card_picks) == len(cpu_gaps) == 1,
-          f"the card step gathered {len(card_offsets)} times and took {len(card_picks)} ScalSeq maxima, the CPU step "
-          f"{len(cpu_layers)} and {len(cpu_gaps)}: expected 10 LDConv layers and one ScalSeq each")
-    offset_diff = max((a - c).abs().max().item() for a, (_, c, _) in zip(card_offsets, cpu_layers))
-    to_whole, to_rail = ldconv_position_margins(cpu_layers)
+    check(len(card_offsets) == len(cpu_layers) == n_ldconv and len(card_picks) == len(cpu_gaps) == n_scalseq
+          and len(card_windows) == len(cpu_window_gaps) == n_zoomcat,
+          f"the card step gathered {len(card_offsets)} times, took {len(card_picks)} ScalSeq and {len(card_windows)} "
+          f"ZoomCat maxima, the CPU step {len(cpu_layers)}, {len(cpu_gaps)} and {len(cpu_window_gaps)}: expected "
+          f"{n_ldconv} LDConv layers, {n_scalseq} ScalSeq and {n_zoomcat} ZoomCat each")
+    offset_diff = max(((a - c).abs().max().item() for a, (_, c, _) in zip(card_offsets, cpu_layers)), default=None)
+    to_whole, to_rail = ldconv_position_margins(cpu_layers) if cpu_layers else (None, None)
     gpu, cpu = out["cuda"], out["cpu"]
     check(gpu["comps"]["fg"] == cpu["comps"]["fg"], f"foreground count {gpu['comps']['fg']} on the card, "
                                                       f"{cpu['comps']['fg']} on the CPU")
@@ -1198,6 +1258,7 @@ def compare_train_cpu(state_dict, batch, recipe=None):
             "ldconv_offsets_card_vs_cpu_max_abs_diff": offset_diff,
             "cpu_positions_least_distance_to_whole_number": to_whole, "cpu_positions_least_distance_to_rail": to_rail,
             "cpu_scalseq_least_gap_of_top_two_scales": min(cpu_gaps),
+            "cpu_zoomcat_least_gap_of_top_two_in_a_window": min(cpu_window_gaps, default=None),
             "loss_card": {k: gpu["comps"][k] for k in ("box", "cls", "dfl")},
             "loss_cpu": {k: cpu["comps"][k] for k in ("box", "cls", "dfl")}}
 
@@ -1764,6 +1825,30 @@ def bf16_offset_kinds(ld, gen):
     return kinds
 
 
+def k1_bwd_bf16_row(levels):
+    """K1's backward in bf16 on a bf16 step's ``levels`` against its plain
+    version: each ``dx`` within one bf16 spacing of plain's rounded result
+    (:func:`spacing_err`); timed as the f32 form, the bound at bf16."""
+    import torch
+
+    k1b, k1b_plain = k1_bwd_calls(levels)
+    k1b_got, k1b_want = k1b(), k1b_plain()
+    check(all(t.dtype == torch.bfloat16 for t in k1b_got), "K1 dfl_decode_bwd bf16: dx is not bf16")
+    err, spacings, ok = spacing_err(k1b_got, k1b_want)
+    check(ok, f"K1 dfl_decode_bwd bf16 disagrees with its plain version beyond one bf16 spacing: max abs err {err}, "
+              f"{spacings} spacings")
+    no = levels[0][0].shape[1]
+    groups = sum(f.shape[0] * f.shape[2] * f.shape[3] * 4 for f, *_ in levels)
+    nbytes = sum(f.shape[0] * f.shape[2] * f.shape[3] * ((64 + no) * 2 + (4 + 4) * 4) for f, *_ in levels)
+    b_ms, b_by = bound(nbytes, groups * 16 * 10)
+    return dict(name="dfl_decode_bwd_bf16", route="cuda", source="experiment_yolo_torch/csrc/dfl_decode.cu",
+                replaces="experiment_yolo_tpu/ops/pallas/dfl_decode.py:53", max_abs_err=err,
+                max_bf16_spacings=spacings, ms=cuda_ms(k1b),
+                device_ms=device_ms(k1b, "dfl_decode_bwd_kernel<__nv_bfloat16>", len(levels)),
+                plain_ms=cuda_ms(k1b_plain), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                per_call=len(levels))
+
+
 def check_bf16_forms(feats, ld, ld_train, levels):
     """The bf16 forms of K1, K1's backward, K3 and K3's backward against their
     plain versions: K3's forward bit-equal on every kind of offsets of
@@ -1788,23 +1873,7 @@ def check_bf16_forms(feats, ld, ld_train, levels):
     rows.append(k1_row("dfl_decode_bf16", feats, cases, "dfl_decode_kernel<__nv_bfloat16"))
 
     # K1 backward
-    k1b, k1b_plain = k1_bwd_calls(levels)
-    k1b_got, k1b_want = k1b(), k1b_plain()
-    check(all(t.dtype == torch.bfloat16 for t in k1b_got), "K1 dfl_decode_bwd bf16: dx is not bf16")
-    err, spacings, ok = spacing_err(k1b_got, k1b_want)
-    check(ok, f"K1 dfl_decode_bwd bf16 disagrees with its plain version beyond one bf16 spacing: max abs err {err}, "
-              f"{spacings} spacings")
-    no = levels[0][0].shape[1]
-    groups = sum(f.shape[0] * f.shape[2] * f.shape[3] * 4 for f, *_ in levels)
-    nbytes = sum(f.shape[0] * f.shape[2] * f.shape[3] * ((64 + no) * 2 + (4 + 4) * 4) for f, *_ in levels)
-    b_ms, b_by = bound(nbytes, groups * 16 * 10)
-    rows.append(dict(name="dfl_decode_bwd_bf16", route="cuda", source="experiment_yolo_torch/csrc/dfl_decode.cu",
-                     replaces="experiment_yolo_tpu/ops/pallas/dfl_decode.py:53", max_abs_err=err,
-                     max_bf16_spacings=spacings, ms=cuda_ms(k1b),
-                     device_ms=device_ms(k1b, "dfl_decode_bwd_kernel<__nv_bfloat16>", len(levels)),
-                     plain_ms=cuda_ms(k1b_plain), bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     per_call=len(levels)))
-    del k1b_got, k1b_want
+    rows.append(k1_bwd_bf16_row(levels))
 
     # K3 forward and backward on every kind of offsets
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -2214,6 +2283,269 @@ def server_phase(root: Path, images, counters, card):
             "box_max_abs_err_vs_predictor": worst, "launches": launches, "card": card}, launches
 
 
+def asf_k1(feats_by_case, name, kernel):
+    """K1's forward (f32 or bf16), one launch for ASF-P2's four levels,
+    against its plain version on the model's own maps at IMGSZ (34,000
+    anchors) and at RAGGED_IMGSZ (P5 then holds 19 x 19 = 361 anchors, an odd
+    count that takes the narrowest load): within 1e-5 (:func:`k1_row`'s
+    gate), timed on the IMGSZ maps beside the bytes bound."""
+    import torch
+
+    from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode_levels_fwd, dfl_decode_plain, level_table
+
+    cases = {}
+    for label, maps in feats_by_case.items():
+        check(len(maps) == 4, f"K1 {name} on {ASF_CFG} at {label}: {len(maps)} levels, expected 4")
+        got = dfl_decode_levels_fwd(maps)
+        check(bool(torch.isfinite(got).all()), f"K1 {name}: non-finite output on {ASF_CFG} at {label}")
+        want = torch.cat([dfl_decode_plain(f) for f in maps], 1)
+        table = level_table([(f.shape[2] * f.shape[3], f.stride(0), f.data_ptr()) for f in maps],
+                            maps[0].element_size())
+        cases[label] = {"max_abs_err": (got - want).abs().max().item(), "anchors": [t.anchors for t in table],
+                        "widths": [t.width for t in table]}
+    torch.cuda.synchronize()
+    return k1_row(name, feats_by_case[f"imgsz {IMGSZ}"], cases, kernel)
+
+
+def asf_served(asf, images, x, counters, card):
+    """Phase 23: ``yolov8-ASF-P2.yaml`` served. K1's forward on the model's
+    own 4-level maps in f32 and bf16 at IMGSZ and RAGGED_IMGSZ
+    (:func:`asf_k1`); SERVE_BATCHES batches through ``DetectionPredictor``,
+    soft then hard NMS (exactly 1 K1 a forward, 1 K5 or 1 K2 a batch, no K3
+    or K4); ASF_CMP_BATCH images of phase 4's batch against the CPU
+    (:func:`compare_serving_cpu`). Returns the ``asf_p2`` record's serving
+    part and the launches."""
+    import torch
+
+    from experiment_yolo_torch.utils.seeded import letterboxed, model_input
+
+    x_ragged = model_input(letterboxed(images[:BATCH], RAGGED_IMGSZ), "cuda")
+    with torch.no_grad():
+        f32 = {f"imgsz {IMGSZ}": asf(x), f"imgsz {RAGGED_IMGSZ}": asf(x_ragged)}
+        asf.dtype = torch.bfloat16
+        try:
+            bf16 = {f"imgsz {IMGSZ}": asf(x), f"imgsz {RAGGED_IMGSZ}": asf(x_ragged)}
+        finally:
+            asf.dtype = torch.float32
+    anchors = sum(f.shape[2] * f.shape[3] for f in f32[f"imgsz {IMGSZ}"])
+    check(anchors == sum((IMGSZ // s) ** 2 for s in ASF_STRIDES) and all(f.dtype == torch.bfloat16
+                                                                          for f in bf16[f"imgsz {IMGSZ}"]),
+          f"{ASF_CFG}: {anchors} anchors at {IMGSZ} or bf16 maps of another dtype")
+    k1 = [asf_k1(f32, "dfl_decode", "dfl_decode_kernel<float"),
+          asf_k1(bf16, "dfl_decode_bf16", "dfl_decode_kernel<__nv_bfloat16")]
+    del f32, bf16, x_ragged
+    served, launches = serve_timed(asf, images, counters, {"dfl_decode": 1}, card, ASF_CFG)
+    compare = compare_serving_cpu(ASF_CFG, asf, x[:ASF_CMP_BATCH])
+    log(f"{ASF_CFG} CPU comparison: {json.dumps(compare)}")
+    return {"k1_forward": k1, "anchors_at_imgsz": anchors, "served": served, "cpu_comparison": compare}, launches
+
+
+def asf_facade_train(data: Path, root: Path, counters, card):
+    """``YOLO(ASF_CFG, nc=LOOP_NC).train()`` as the reference fork's own
+    ``train.py`` calls it (``optimizer='SGD'``, no ``amp`` key: bf16) for one
+    epoch on phase 12's dataset, counters at 0 just before and read just
+    after: the AMP check passed, 1 K1 and 4 K1-backward bf16 launches a step,
+    1 K1 (bf16) and 1 K5 a per-epoch val batch, nothing else; finite losses."""
+    import torch
+
+    from experiment_yolo_torch import YOLO
+
+    yolo = YOLO(ASF_CFG, nc=LOOP_NC, seed=SEED)
+    losses = []
+    yolo.add_callback("on_fit_epoch_end", lambda trainer: losses.append(dict(trainer.loss_items)))
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    metrics = yolo.train(data=str(data), epochs=1, batch=BATCH, imgsz=IMGSZ, workers=8, optimizer="SGD",
+                         project=str(root / "asf_facade"), verbose=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    trainer = yolo.trainer
+    steps, val_batches = LOOP_TRAIN // BATCH, math.ceil(LOOP_VAL / BATCH)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode_bf16=steps + val_batches, dfl_decode_bwd_bf16=4 * steps, soft_nms=val_batches)
+    check(launches == want, f"YOLO({ASF_CFG!r}).train with the defaults launched {launches}, expected {want}")
+    check(trainer.dtype == torch.bfloat16 and trainer.amp_check["passed"],
+          f"YOLO({ASF_CFG!r}).train did not train in bf16 with a passed AMP check: {trainer.dtype}, "
+          f"{trainer.amp_check}")
+    check(all(math.isfinite(v) for row in losses for v in row.values()), f"an {ASF_CFG} epoch's loss: {losses}")
+    return {"cfg": ASF_CFG, "nc": LOOP_NC, "imgsz": IMGSZ, "batch": BATCH, "epochs": 1, "steps": steps,
+            "train_dtype": str(trainer.dtype), "amp_check": trainer.amp_check, "train_s": train_s,
+            "loop_img_per_s": steps * BATCH / train_s, "losses": losses,
+            "last_epoch_metrics": {k: v for k, v in metrics.items() if k != "epochs_run"}, "launches": launches,
+            "card": card}, launches
+
+
+def asf_trained(asf_state, batches, cmp_batch, data: Path, root: Path, counters, card):
+    """Phase 24: ``yolov8-ASF-P2.yaml`` trained. K1's backward on an f32 and
+    a bf16 step's four levels against its plain version (phase 9's gate,
+    BWD_RTOL; phase 13's, one bf16 spacing); TRAIN_STEPS timed bf16 steps
+    (exactly 1 K1 and 4 K1-backward launches a step, all bf16); one f32 step
+    at CMP_IMGSZ against the CPU's with phase 11's gates (the CPU takes the
+    card's ScalSeq and ZoomCat picks); then :func:`asf_facade_train`.
+    Returns the ``asf_p2`` record's training part and the launches."""
+    import torch
+
+    from experiment_yolo_torch import DetectionModel
+    from experiment_yolo_torch.engine.trainer import DetectionTrainer
+
+    def model():
+        m = DetectionModel(ASF_CFG, device="cuda")
+        m.load_state_dict(asf_state, strict=True)
+        return m
+
+    _, levels = capture_train_inputs(DetectionTrainer(model(), {"amp": False, "batch": BATCH, "imgsz": IMGSZ}),
+                                     batches[0], n_ldconv=0, n_levels=4)
+    k1_bwd = check_k1_bwd(levels)
+    del levels
+    trainer16 = DetectionTrainer(model(), {"batch": BATCH, "imgsz": IMGSZ})  # amp: the default, bf16
+    check(trainer16.dtype == torch.bfloat16, f"DetectionTrainer's defaults left {ASF_CFG} in {trainer16.dtype}")
+    _, levels16 = capture_train_inputs(trainer16, batches[0], n_ldconv=0, n_levels=4)
+    k1_bwd16 = k1_bwd_bf16_row(levels16)
+    del levels16
+    step_ms, run, last, moved, ema_moved = train_timed(trainer16, batches, counters)
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode_bf16=TRAIN_STEPS, dfl_decode_bwd_bf16=4 * TRAIN_STEPS)
+    check(run == want, f"the {ASF_CFG} bf16 training steps launched {run}, expected {want}")
+    launches = dict(run)
+    median = statistics.median(step_ms)
+    trained = {"steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP, "batch": BATCH, "imgsz": IMGSZ,
+               "dtype": "bfloat16", "step_ms_median": median, "step_ms_min": min(step_ms),
+               "step_ms_max": max(step_ms), "step_ms_p10_p90": statistics.quantiles(step_ms, n=10)[::8],
+               "img_per_s_at_median": BATCH / median * 1e3, "launches": run, "last_losses": last,
+               "params_moved": moved, "ema_moved": ema_moved,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del trainer16
+    torch.cuda.empty_cache()
+    log(f"trained {ASF_CFG} bf16: {TRAIN_STEPS} steps of {BATCH} at {IMGSZ}: median {median:.2f} ms per step, "
+        f"{trained['img_per_s_at_median']:.2f} img/s at the median, launches {run}, {card}")
+    cmp = compare_train_cpu(asf_state, cmp_batch, cfg=ASF_CFG, n_ldconv=0, n_scalseq=2, n_zoomcat=2)
+    log(f"{ASF_CFG} training CPU comparison: {json.dumps(cmp)}")
+    loop, run = asf_facade_train(data, root, counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    log(f"{ASF_CFG} facade: YOLO(...).train() 1 epoch: {loop['loop_img_per_s']:.2f} img/s over the loop "
+        f"({loop['train_dtype']}, AMP check {loop['amp_check']}), {card}")
+    return {"k1_backward": [k1_bwd, k1_bwd16], "trained_bf16": trained, "cpu_comparison": cmp,
+            "facade_train": loop}, launches
+
+
+def _replaced(refined, first):
+    """Rows of ``refined`` (N, 6) that are no row of ``first``: boxes a crop replaced."""
+    import numpy as np
+
+    return int(sum(not np.any(np.all(np.isclose(r, first), 1)) for r in refined)) if len(first) else len(refined)
+
+
+def two_stage_phase(detector: Path, images, counters, card):
+    """Phase 25: the paper's two-stage inference on LD-P2 at full width, on
+    phase 15's seeded ``detector.pt`` (f32). ``YOLO.double_predict`` on
+    TWO_STAGE_IMAGES images of mixed sizes at IMGSZ, one call an image (batch
+    1): exactly 1 K1, 10 K3 and 1 K5 for the first pass and 1 K1, 10 K3 and 1
+    K2 for its batch of 16 crops, every image with a first-pass detection;
+    then the two stages timed apart. ``YOLO.sliced_predict`` on SLICED_FRAMES
+    frames of 1280 x 720 at slice SLICE (overlap 0.2: 6 slices) with the full
+    image: exactly 2 forwards (1 K1 and 10 K3 each) and 1 K5 a frame. Then
+    the same calls on the CPU (plain versions) for TWO_STAGE_CPU_IMAGES
+    images and every frame: the gate, as phases 7 and 21, is that at least
+    0.95 of each image's card detections have a CPU detection of the same
+    class within 1e-2 px (:func:`match_fraction`); the reverse fraction and
+    the count gaps are reported. Reports img/s for each path."""
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch import YOLO
+    from experiment_yolo_torch.engine.double_inference import DoubleInference
+
+    yolo = YOLO(str(detector))
+    dbl_images = images[:TWO_STAGE_IMAGES]
+    frames = [img for img in images if img.shape[:2] == (720, 1280)][:SLICED_FRAMES]
+    check(len(frames) == SLICED_FRAMES, f"{len(frames)} frames of 1280 x 720 among the seeded images")
+    dbl_kw, sl_kw = {"imgsz": IMGSZ, "batch": 1}, {"slice": SLICE, "overlap": 0.2, "imgsz": IMGSZ}
+    yolo.double_predict([dbl_images[0]], **dbl_kw)  # warm-up: cuDNN picks its algorithms
+    yolo.sliced_predict(frames[0], **sl_kw)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    dbl, dbl_ms = [], []
+    for img in dbl_images:
+        t = time.perf_counter()
+        dbl += yolo.double_predict([img], **dbl_kw)
+        dbl_ms.append((time.perf_counter() - t) * 1e3)
+    run = {name: fn.launches for name, fn in counters.items()}
+    n = len(dbl_images)
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode=2 * n, ldconv_gather=20 * n, soft_nms=n, nms_suppress=n)
+    check(run == want, f"double_predict on {n} images launched {run}, expected {want}")
+    dbl_launches, launches = run, dict(run)
+    check(all(len(r) > 0 and np.isfinite(r.boxes.data).all() for r in dbl),
+          f"double_predict: an image has no detections or non-finite ones: {[len(r) for r in dbl]}")
+    first_ms, refine_ms, replaced = [], [], []
+    refiner = DoubleInference(yolo.model)
+    for img in dbl_images:
+        t = time.perf_counter()
+        first = yolo.predict([img], **dbl_kw)
+        t1 = time.perf_counter()
+        refined = refiner(first)
+        t2 = time.perf_counter()
+        first_ms.append((t1 - t) * 1e3)
+        refine_ms.append((t2 - t1) * 1e3)
+        replaced.append(_replaced(refined[0].boxes.data, first[0].boxes.data))
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    sliced, sliced_ms = [], []
+    for frame in frames:
+        t = time.perf_counter()
+        sliced += yolo.sliced_predict(frame, **sl_kw)
+        sliced_ms.append((time.perf_counter() - t) * 1e3)
+    run = {name: fn.launches for name, fn in counters.items()}
+    f = len(frames)
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode=2 * f, ldconv_gather=20 * f, soft_nms=f)
+    check(run == want, f"sliced_predict on {f} frames launched {run}, expected {want}")
+    check(all(len(r) > 0 and np.isfinite(r.boxes.data).all() for r in sliced),
+          f"sliced_predict: a frame has no detections or non-finite ones: {[len(r) for r in sliced]}")
+    for name in launches:
+        launches[name] += run[name]
+
+    cpu = YOLO(str(detector), device="cpu")
+    compare = {"double_predict": [], "sliced_predict": []}
+    pairs = [("double_predict", r, cpu.double_predict([img], **dbl_kw)[0])
+             for r, img in zip(dbl, dbl_images[:TWO_STAGE_CPU_IMAGES])]
+    pairs += [("sliced_predict", r, cpu.sliced_predict(frame, **sl_kw)[0]) for r, frame in zip(sliced, frames)]
+    for path, card_r, cpu_r in pairs:
+        a, b = card_r.boxes.data, cpu_r.boxes.data
+        compare[path].append({"count_card": len(a), "count_cpu": len(b), "match_card_in_cpu": match_fraction(a, b),
+                              "match_cpu_in_card": match_fraction(b, a)})
+    frac = min(row["match_card_in_cpu"] for rows in compare.values() for row in rows)
+    check(frac >= 0.95, f"two-stage: only {frac:.3f} of an image's card detections are on the CPU path: {compare}")
+    del cpu
+    record = {
+        "cfg": CFG, "checkpoint": "phase 15's detector.pt (seeded LD-P2, nc=3, boxes about 100 px)",
+        "double_predict": {
+            "images": n, "sizes": [list(img.shape[:2]) for img in dbl_images], "imgsz": IMGSZ, "batch": 1,
+            "crop_size": refiner.cfg.crop_size, "max_crops": refiner.cfg.max_crops,
+            "ms_per_image_median": statistics.median(dbl_ms), "ms_per_image": dbl_ms,
+            "img_per_s": n / sum(dbl_ms) * 1e3, "first_pass_ms_median": statistics.median(first_ms),
+            "refine_ms_median": statistics.median(refine_ms), "detections": [len(r) for r in dbl],
+            "boxes_replaced_by_a_crop": replaced, "launches": dbl_launches},
+        "sliced_predict": {
+            "frames": f, "size": [720, 1280], "slice": SLICE, "overlap": 0.2, "slices_per_frame": 6,
+            "include_full": True, "ms_per_frame": sliced_ms, "img_per_s": f / sum(sliced_ms) * 1e3,
+            "preprocess_ms": [r.speed["preprocess"] for r in sliced],
+            "inference_ms": [r.speed["inference"] for r in sliced], "detections": [len(r) for r in sliced],
+            "launches": run},
+        "cpu_comparison": compare, "card": card}
+    d = record["double_predict"]
+    log(f"two-stage on {CFG}: double_predict {d['img_per_s']:.2f} img/s (first pass {d['first_pass_ms_median']:.2f} "
+        f"ms, refine {d['refine_ms_median']:.2f} ms median), sliced_predict "
+        f"{record['sliced_predict']['img_per_s']:.2f} frames/s, CPU match {frac:.3f}, {card}")
+    return record, launches
+
+
 def main() -> None:
     import torch
 
@@ -2372,7 +2704,8 @@ def main() -> None:
 
     # 12. the dataset-driven main path: a synthetic dataset, train() with per-epoch validation, reload, resume
     (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+    work = tempfile.TemporaryDirectory(dir=ROOT / "build")  # phase 12's dataset, phase 15's detector: up to 25
+    with contextlib.nullcontext(work.name) as tmp:
         loop, run = trained_loop(Path(tmp), counters, card)
         for name in launches:
             launches[name] += run[name]
@@ -2494,7 +2827,30 @@ def main() -> None:
                            "map_abs_max": max(f.abs().max().item() for f in maps)}
     log(f"plain-Conv configs: {json.dumps(plain_conv)}")
 
-    # 23. the result lines
+    # 23. yolov8-ASF-P2.yaml served: K1 on its four levels, the predictor, the CPU
+    asf = logged_model(ASF_CFG)
+    check(asf.stride == ASF_STRIDES, f"{ASF_CFG}: strides {asf.stride}, expected {ASF_STRIDES}")
+    asf_state = {k: v.cpu().clone() for k, v in asf.state_dict().items()}
+    asf_params = sum(p.numel() for p in asf.parameters())
+    asf_p2, run = asf_served(asf, images, x, counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    del asf
+    torch.cuda.empty_cache()
+    # 24. yolov8-ASF-P2.yaml trained: K1's backward on four levels, bf16 steps, an f32 step against the CPU, train()
+    part, run = asf_trained(asf_state, batches, cmp_batches[0], Path(work.name) / "data" / "data.yaml",
+                            Path(work.name), counters, card)
+    asf_p2.update(part, cfg=ASF_CFG, params=asf_params, strides=list(ASF_STRIDES), card=card)
+    for name in launches:
+        launches[name] += run[name]
+    torch.cuda.empty_cache()
+    # 25. the paper's two-stage inference on LD-P2: double_predict and sliced_predict, then the CPU
+    two_stage, run = two_stage_phase(detector, images, counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    work.cleanup()
+
+    # 26. the result lines
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["kernel_ms"] = k["ms"]
@@ -2513,6 +2869,8 @@ def main() -> None:
     log(json.dumps({"trained_loop": loop}))
     log(json.dumps({"trained_bf16": trained_bf16, "card": card}))
     log(json.dumps({"facade": facade, "cli": cli, "server": server}))
+    log(json.dumps({"asf_p2": asf_p2}))
+    log(json.dumps({"two_stage": two_stage}))
     # last of the long lines, so that a reader of the output's tail gets it whole
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"card: {card}")

@@ -4,9 +4,11 @@ Port of ``experiment_yolo_tpu/engine/model.py:YOLO`` for detection. The model
 is a :class:`~experiment_yolo_torch.nn.tasks.DetectionModel` built from a YAML
 or a checkpoint of the port; ``train``, ``val`` and ``predict`` go to
 :class:`DetectionTrainer`, :class:`DetectionValidator` and
-:class:`DetectionPredictor` with the facade's overrides under the call's. The
-JAX facade's further methods raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+:class:`DetectionPredictor` with the facade's overrides under the call's, and
+the paper's two-stage inference, ``double_predict`` and ``sliced_predict``, to
+``engine/double_inference.py`` and ``engine/sliced.py``. The JAX facade's
+further methods raise ``NotImplementedError`` naming their ``ROADMAP.md``
+item.
 """
 
 from __future__ import annotations
@@ -23,6 +25,15 @@ from experiment_yolo_torch.utils import LOGGER
 
 _SOURCES = ("files, folders, videos and streams are read by data/loaders.py, which is not ported to "
             "experiment_yolo_torch yet (ROADMAP.md queue 1 item 3.3); pass (H, W, 3) uint8 BGR arrays")
+
+
+def _check_arrays(source) -> None:
+    """Raise unless ``source`` is an (H, W, 3) uint8 BGR array or a list of them."""
+    if isinstance(source, (str, Path)) or (
+            isinstance(source, (list, tuple)) and any(isinstance(s, (str, Path)) for s in source)):
+        raise NotImplementedError(_SOURCES)
+    if not isinstance(source, (np.ndarray, list, tuple)):
+        raise TypeError(f"unsupported source of type {type(source).__name__}; {_SOURCES}")
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -141,17 +152,38 @@ class YOLO:
     def predict(self, source, stream: bool = False, **kwargs) -> List:
         """Detect in one (H, W, 3) uint8 BGR image or a list of them with
         :class:`DetectionPredictor`, built again when the overrides change."""
-        if stream or isinstance(source, (str, Path)) or (
-                isinstance(source, (list, tuple)) and any(isinstance(s, (str, Path)) for s in source)):
+        if stream:
             raise NotImplementedError(_SOURCES)
-        if not isinstance(source, (np.ndarray, list, tuple)):
-            raise TypeError(f"predict: unsupported source of type {type(source).__name__}; {_SOURCES}")
+        _check_arrays(source)
         from experiment_yolo_torch.engine.predictor import DetectionPredictor
 
         key = {**self.overrides, **kwargs}
         if self.predictor is None or key != self._predictor_key:
             self.predictor, self._predictor_key = DetectionPredictor(self.model, key), key
         return self.predictor(source)
+
+    def sliced_predict(self, source, stream: bool = False, slice: int = 512, overlap: float = 0.2,
+                       include_full: bool = True, **kwargs):
+        """SAHI-style sliced inference for small objects (the reference's
+        SAHI example): an overlapping grid of ``slice``-px tiles of each
+        image, one batched forward of them (and of the letterboxed full image
+        when ``include_full``), one NMS over the image's merged candidates.
+        A list of :class:`Results`, or a generator of them with ``stream``."""
+        from experiment_yolo_torch.engine.sliced import SlicedPredictor
+
+        _check_arrays(source)
+        pred = SlicedPredictor(self.model, {**self.overrides, **kwargs}, slice=slice, overlap=overlap,
+                               include_full=include_full)
+        return pred(source, stream=stream)
+
+    def double_predict(self, source, **kwargs) -> List:
+        """Two-stage crop-and-refine inference (the reference's
+        ``double_inference.py``): :meth:`predict`, then each confident box
+        inferred again on its padded crop and replaced where the crop's box
+        beats it (:class:`DoubleInference`)."""
+        from experiment_yolo_torch.engine.double_inference import DoubleInference
+
+        return DoubleInference(self.model)(self.predict(source, **kwargs))
 
     def save(self, path: str | Path) -> Path:
         """Write the model (f32 weights, YAML, names) as a checkpoint ``YOLO`` and ``load`` read."""
@@ -174,12 +206,6 @@ class YOLO:
     # -- not ported -------------------------------------------------------------
     def track(self, *args, **kwargs):
         raise _unported("track (trackers/*)", "catalogue item 15")
-
-    def sliced_predict(self, *args, **kwargs):
-        raise _unported("sliced_predict (engine/sliced.py)", "catalogue item 12")
-
-    def double_predict(self, *args, **kwargs):
-        raise _unported("double_predict (engine/double_inference.py)", "catalogue item 12")
 
     def benchmark(self, *args, **kwargs):
         raise _unported("benchmark (utils/benchmarks.py)", "catalogue item 15")

@@ -2,8 +2,9 @@
 
 Port of the forward math of ``experiment_yolo_tpu/nn/modules.py``: ``Conv``
 (``ConvBN``), ``Bottleneck``, ``C2f``, ``SPPF``, ``Upsample``, ``Concat``,
-``Add``, ``ScalSeq``, ``LDConv`` and ``Detect``: every block of
-``yolov8.yaml``, ``yolov8-ASF-P2P2.yaml`` and ``yolov8-LD-P2.yaml``. The
+``Add``, ``ZoomCat``, ``ScalSeq``, ``LDConv`` and ``Detect``: every block of
+``yolov8.yaml``, ``yolov8-p2.yaml``, ``yolov8-ASF.yaml``,
+``yolov8-ASF-P2.yaml``, ``yolov8-ASF-P2P2.yaml`` and ``yolov8-LD-P2.yaml``. The
 Mamba/VSS blocks of ``yolov8-C2f-VSS.yaml`` are in ``nn/zoo_blocks.py``.
 Parameter and buffer names are those of the Ultralytics fork (``conv``/``bn``,
 ``cv1``/``cv2``/``m.{k}``, LDConv ``p_conv``/``conv.0``/``conv.1``, ScalSeq
@@ -168,6 +169,31 @@ class Add(nn.Module):
         for x in xs[1:]:
             out = out + x
         return out
+
+
+class ZoomCat(nn.Module):
+    """Scale-zoomed concat of (large, mid, small) levels (the fork's
+    ``Zoom_cat``): the large level max- plus average-pooled over exact 2x2
+    windows to the middle one's size, the small level upsampled (nearest) to
+    it, then all three concatenated on channels. No parameters; it computes
+    in its inputs' dtype."""
+
+    def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
+        large, mid, small = xs
+        h, w = mid.shape[2:]
+        if tuple(large.shape[2:]) != (2 * h, 2 * w):
+            raise ValueError(f"Zoom_cat: the large level is {tuple(large.shape[2:])}, expected twice the middle "
+                             f"level's {(h, w)}")
+        if h % small.shape[2] or w % small.shape[3]:
+            raise ValueError(f"Zoom_cat: the small level {tuple(small.shape[2:])} does not divide the middle "
+                             f"level's {(h, w)}")
+        pooled = self.window_max(large) + F.avg_pool2d(large, 2)
+        return torch.cat([pooled, mid, F.interpolate(small, size=(h, w), mode="nearest")], 1)
+
+    @staticmethod
+    def window_max(x: torch.Tensor) -> torch.Tensor:
+        """The max over each 2x2 window of (B, C, 2h, 2w)."""
+        return F.max_pool2d(x, 2)
 
 
 class ScalSeq(nn.Module):

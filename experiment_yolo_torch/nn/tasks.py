@@ -1,11 +1,14 @@
 """Model assembly: a YAML graph spec -> ``DetectionModel`` (an ``nn.Module``).
 
 Port of ``experiment_yolo_tpu/nn/tasks.py`` (``parse_model``,
-``DetectionModel``) for the module types of ``yolov8.yaml``,
-``yolov8-ASF-P2P2.yaml``, ``yolov8-LD-P2.yaml`` and ``yolov8-C2f-VSS.yaml``
-(``PORTED`` below): channel and depth scaling, savelist routing, strides from
-the graph's own downsampling, and the Detect bias priors. Layers live in ``self.model`` so that state-dict
-names read ``model.{i}.<module names>``, as in the Ultralytics fork.
+``DetectionModel``) for the module types of ``yolov8.yaml``, ``yolov8-p2.yaml``,
+``yolov8-ASF.yaml``, ``yolov8-ASF-P2.yaml``, ``yolov8-ASF-P2P2.yaml``,
+``yolov8-LD-P2.yaml`` and ``yolov8-C2f-VSS.yaml`` (``PORTED`` below): channel
+and depth scaling, savelist routing, strides from the graph's own
+downsampling (a ``Zoom_cat`` takes its middle source's), and the Detect bias
+priors, for a Detect on three or four levels. Layers live in ``self.model``
+so that state-dict names read ``model.{i}.<module names>``, as in the
+Ultralytics fork.
 """
 
 from __future__ import annotations
@@ -20,14 +23,15 @@ import torch
 from torch import nn
 
 from experiment_yolo_torch.cfg import CFG_DIR, yaml_load
-from experiment_yolo_torch.nn.modules import C2f, SPPF, Add, Concat, Conv, Detect, LDConv, ScalSeq, init_weights
+from experiment_yolo_torch.nn.modules import (C2f, SPPF, Add, Concat, Conv, Detect, LDConv, ScalSeq, ZoomCat,
+                                              init_weights)
 from experiment_yolo_torch.nn.zoo_blocks import INNER_BLOCKS, SS2D, C2fX, C3X
 from experiment_yolo_torch.ops.anchors import decode_detections
 from experiment_yolo_torch.utils import select_device
 
 
-PORTED = "Conv, LDConv, C2f, SPPF, nn.Upsample, Concat, Add, ScalSeq, Detect, and C2f_<X> / C3_<X> for X in " \
-         + ", ".join(INNER_BLOCKS)
+PORTED = "Conv, LDConv, C2f, SPPF, nn.Upsample, Concat, Add, ScalSeq, Zoom_cat, Detect, and C2f_<X> / C3_<X> " \
+         "for X in " + ", ".join(INNER_BLOCKS)
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -91,6 +95,12 @@ def parse_model(d: dict, ch: int = 3) -> Tuple[List[nn.Module], List[int], List[
             c2, mod, s_out = sum(chs[j] for j in src), Concat(), s_in
         elif mname == "Add":
             c2, mod, s_out = chs[src[-1]], Add(), s_in
+        elif mname == "Zoom_cat":  # (large, mid, small): the output has the middle source's stride
+            s_out = down[src[1]] if len(src) == 3 else None
+            if s_out is None or [down[j] for j in src] != [s_out / 2, s_out, s_out * 2]:
+                raise ValueError(f"layer {i}: Zoom_cat takes three sources of strides (s/2, s, 2s), got "
+                                 f"{[str(down[j]) for j in src]}")
+            c2, mod = sum(chs[j] for j in src), ZoomCat()
         elif mname == "ScalSeq":
             c2 = make_divisible(args[0] * width, 8)
             mod, s_out = ScalSeq([chs[j] for j in src], c2), s_in

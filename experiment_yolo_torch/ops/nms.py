@@ -22,8 +22,6 @@ from experiment_yolo_torch.ops.boxes import xywh2xyxy
 from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress
 from experiment_yolo_torch.ops.kernels.soft_nms import soft_nms
 
-_MAX_WH = 7680.0  # class offset of the boxes, so classes never overlap
-
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Largest k along the last dim, ties to the lower index."""
@@ -60,12 +58,15 @@ class Candidates(NamedTuple):
 
 
 def nms_candidates(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25, agnostic: bool = False,
-                   first_box: bool = False, multi_label: bool = False, pre_nms_topk: int = 1024) -> Candidates:
+                   first_box: bool = False, multi_label: bool = False, pre_nms_topk: int = 1024,
+                   max_wh: float = 7680.0) -> Candidates:
     """The top-k pre-filter and the class-offset trick on xywh boxes (B, A, 4)
     and scores (B, A, nc). The pool is the ``pre_nms_topk`` best of each
     anchor's best class, or with ``multi_label`` of every (anchor, class)
     score (flat index ``anchor * nc + class``). ``first_box`` adds the
-    soft-NMS quirk's first box: the lowest conf-passing index of that array."""
+    soft-NMS quirk's first box: the lowest conf-passing index of that array.
+    Each box is shifted by ``class * max_wh``, which must exceed every
+    coordinate, so that boxes of two classes never overlap."""
     boxes, scores = xywh2xyxy(boxes.float()), scores.float()
     b, a, nc = scores.shape
     if multi_label:
@@ -90,19 +91,21 @@ def nms_candidates(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float 
     else:
         cand_anchor, cand_cls = cand_idx, torch.gather(best_cls.float(), 1, cand_idx)
     cand_boxes = torch.gather(boxes, 1, cand_anchor[..., None].expand(b, k, 4))
-    shifted = cand_boxes if agnostic else cand_boxes + (cand_cls * _MAX_WH)[..., None]
+    shifted = cand_boxes if agnostic else cand_boxes + (cand_cls * max_wh)[..., None]
     return Candidates(cand_boxes, cand_cls, cand_scores, shifted, cand_scores > conf_thres, first_idx, n_valid)
 
 
 def non_max_suppression(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25,
                         iou_thres: float = 0.7, max_det: int = 300, agnostic: bool = False,
                         nms_type: str = "hard", soft_first_quirk: bool = False, multi_label: bool = False,
-                        pre_nms_topk: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+                        pre_nms_topk: int = 1024, max_wh: float = 7680.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched NMS: xywh boxes (B, A, 4) in input pixels and sigmoid scores
     (B, A, nc) -> detections (B, max_det, 6) [x1, y1, x2, y2, conf, cls],
     zero-padded, and counts (B,) int32. Each image keeps its
     ``pre_nms_topk`` best anchors (or, with ``multi_label``, (anchor, class)
-    pairs) before NMS.
+    pairs) before NMS. ``max_wh`` is the class offset of the boxes, larger
+    than every coordinate (``engine/sliced.py:nms_max_wh`` raises it for
+    boxes in original-image pixels).
 
     ``nms_type='hard'`` is greedy suppression (kernel K2 on the card);
     ``'soft'`` is the fork's Gaussian soft-NMS (kernel K5 on the card), and
@@ -112,7 +115,7 @@ def non_max_suppression(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: f
     if nms_type not in ("hard", "soft"):
         raise ValueError(f"nms_type={nms_type!r}: expected 'hard' or 'soft'")
     c = nms_candidates(boxes, scores, conf_thres, agnostic, first_box=nms_type == "soft" and soft_first_quirk,
-                       multi_label=multi_label, pre_nms_topk=pre_nms_topk)
+                       multi_label=multi_label, pre_nms_topk=pre_nms_topk, max_wh=max_wh)
     shifted = c.shifted.contiguous()
     if nms_type == "soft":
         keep_scores = soft_nms(shifted, c.scores.contiguous(), c.valid.contiguous(), iou_thres, max_det,

@@ -163,8 +163,7 @@ def test_scaled_names_and_dtype():
 
 
 @pytest.mark.parametrize("method,item", [
-    ("track", "catalogue item 15"), ("sliced_predict", "catalogue item 12"), ("double_predict", "catalogue item 12"),
-    ("benchmark", "catalogue item 15"), ("tune", "catalogue item 15"), ("export", "catalogue item 15"),
+    ("track", "catalogue item 15"), ("benchmark", "catalogue item 15"), ("tune", "catalogue item 15"), ("export", "catalogue item 15"),
     ("embed", "catalogue item 15"), ("profile", "catalogue item 15")])
 def test_unported_methods_raise_naming_their_item(method, item):
     with pytest.raises(NotImplementedError, match=f"YOLO.{method} .*ROADMAP.md {item}"):

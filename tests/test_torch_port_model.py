@@ -110,14 +110,12 @@ def test_predictor_matches_jax(pair, images, nms_type):
         _match(t.boxes.data, j.boxes.data)
 
 
-@pytest.mark.parametrize("cfg,strides,n_params", [("yolov8.yaml", (8, 16, 32), 3_157_184),
-                                                  ("yolov8-ASF-P2P2.yaml", (4, 8, 16), 997_186)])
-def test_plain_conv_configs_match_jax(cfg, strides, n_params):
-    """The two configs whose downsampling is a plain ``Conv`` layer, at n
-    scale: the converted JAX init loads with ``strict=True``, and the raw head
-    maps at imgsz 64 agree within 2e-3 abs, the bar LD-P2 is held to above."""
-    jm = JaxModel(cfg)
-    variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(1)))
+def check_config_matches_jax(cfg, strides, n_params, jm, variables):
+    """``cfg`` at n scale in both packages: the converted JAX ``variables``
+    load into the port with ``strict=True``, strides, class count and
+    parameter count agree with JAX and with ``strides`` and ``n_params``, and
+    the raw head maps at imgsz 64 agree within 2e-3 abs, the bar LD-P2 is
+    held to above. Returns the port model."""
     tm = TorchModel(cfg, device="cpu")
     tm.load_state_dict(jax_variables_to_state_dict(variables, tm), strict=True)
     assert tm.stride == tuple(jm.strides) == strides and tm.nc == jm.nc
@@ -127,8 +125,18 @@ def test_plain_conv_configs_match_jax(cfg, strides, n_params):
     j_feats = jm.apply(variables, x)
     with torch.no_grad():
         t_feats = tm(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
-    assert len(t_feats) == len(j_feats) == 3
+    assert len(t_feats) == len(j_feats) == len(strides)
     for tf, jf in zip(t_feats, j_feats):
         jf = np.transpose(np.asarray(jf), (0, 3, 1, 2))
         assert tf.shape == jf.shape and np.abs(jf).max() > 0.1
         np.testing.assert_allclose(tf.numpy(), jf, atol=2e-3, rtol=0)
+    return tm
+
+
+@pytest.mark.parametrize("cfg,strides,n_params", [("yolov8.yaml", (8, 16, 32), 3_157_184),
+                                                  ("yolov8-ASF-P2P2.yaml", (4, 8, 16), 997_186)])
+def test_plain_conv_configs_match_jax(cfg, strides, n_params):
+    """The two configs whose downsampling is a plain ``Conv`` layer, at n
+    scale, from a JAX init (:func:`check_config_matches_jax`)."""
+    jm = JaxModel(cfg)
+    check_config_matches_jax(cfg, strides, n_params, jm, jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(1))))
