@@ -6,9 +6,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero and nothing is caught:
  1. print the card's name and power limit (``nvidia-smi``);
  2. turn TF32 off for matmuls and cuDNN convolutions (full f32 throughout);
- 3. build the five CUDA libraries of ``experiment_yolo_torch/csrc`` (seven
-    kernels, four of them, K1, K1's backward, K3 and K3's backward, also in
-    a bf16 form) with nvcc;
+ 3. build the five CUDA libraries of ``experiment_yolo_torch/csrc`` (eight
+    kernels, K4's backward among them, four of them, K1, K1's backward, K3
+    and K3's backward, also in a bf16 form) with nvcc;
  4. build ``yolov8-LD-P2.yaml`` (n scale, nc=6) on the card from a seeded
     generator, and run one batch of 8 at 640 to take each kernel's inputs
     from the main path: the Detect maps (K1), the ten LDConv sources and
@@ -221,14 +221,42 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     the same calls on the CPU for 2 of the images and both frames, where at
     least 0.95 of each image's card detections must have a CPU detection of
     the same class within 1e-2 px (phases 7 and 21's gate); img/s of each;
-26. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
+26. train the VSS family (``vss_trained``): phase 18's ``yolov8-C2f-VSS.yaml``
+    weights and phase 9's batches; take the ten K4 calls of one f32
+    ``train_step`` at 640, batch 8, with the gradient each receives; (a)
+    hold K4's forward against a float64 plain version at the four levels on
+    those inputs (gated: within 1e-5 of the largest value) and on inputs with
+    step sizes near 1e-3 (reported), beside the f32 plain version's distance;
+    (b) hold K4's backward, through the autograd Function, against
+    ``selective_scan_bwd_plain`` in f32 and float64 on those calls with their
+    gradients, on random inputs at the /4 and /32 levels with step sizes from 1e-3 to 1
+    and other flags and sources, and at the ragged L = 1,003 with SS2D's
+    flags and with none: y and each of the six gradients within 1e-5 of its
+    largest f32 plain value, or no farther from float64 than the f32 plain
+    version is, both reported; time the step's ten backward calls (events)
+    and their plain versions (one run); (c) take the backward's device time
+    for the step's ten calls and per level from a fresh process
+    (``chip_smoke.py --k4-bwd-device-ms``); (d) 20 timed f32 and 20 timed
+    bf16 ``train_step``s after 3 warm-ups (exactly 10 K4 and 10
+    K4-backward launches a step, and 1 K1 and 3 K1-backward launches of the
+    step's dtype), img/s and peak memory; (e) one f32 step at 128, batch 2,
+    on the card and on the CPU with phase 11's gates, the CPU taking the
+    card's pick in each window of SPPF's max pools, and the bf16 steps within
+    1.5 times the CPU's bf16 distance over 3 seeded steps as phase 14 holds
+    them, with the CPU's seconds; (f) ``YOLO("yolov8-C2f-VSS.yaml",
+    nc=3).train()`` for 1 epoch on phase 12's dataset with phase 15's
+    arguments: the AMP check passed, 10 K4 and 10 K4-backward launches a
+    step (the AMP check's two forwards and each val batch 10 K4), 1 K1 and
+    3 K1-backward bf16 launches a step, 1 K1 (bf16) and 1 K5 a per-epoch
+    val batch; reports the loop's img/s and the phase's seconds;
+27. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
     ...}``, a ``{"served_vss": ...}``, a ``{"validated": ...}``, a
     ``{"trained_loop": ...}``, a ``{"trained_bf16": ...}``, a ``{"facade":
-    ..., "cli": ..., "server": ...}``, an ``{"asf_p2": ...}`` and a
-    ``{"two_stage": ...}`` line, then the ``{"kernels": [...]}`` line for the
-    seven kernels and the four bf16 forms (launches summed over every main
-    path above), the card's name and power limit, and last ``{"ok": true,
-    "device": {...}}``.
+    ..., "cli": ..., "server": ...}``, an ``{"asf_p2": ...}``, a
+    ``{"two_stage": ...}`` and a ``{"vss_trained": ...}`` line, then the
+    ``{"kernels": [...]}`` line for the eight kernels and the four bf16
+    forms (launches summed over every main path above), the card's name and
+    power limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result without a CUDA device, or when the
 package is not beside it.
@@ -258,6 +286,8 @@ N_IMAGES, SERVE_BATCHES = 32, 20  # 4 distinct batches of seeded images, served 
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_BATCHES = 20, 3, 4  # timed steps, warm-up steps, distinct seeded batches
 CMP_IMGSZ, CMP_BATCH = 320, 2  # the card-versus-CPU training step
 VSS_CMP_BATCH = 2  # the VSS card-versus-CPU batch: the CPU walks 25,600 scan steps one by one
+VSS_CMP_IMGSZ = 128  # the VSS card-versus-CPU training steps (batch CMP_BATCH): at 320 one CPU step walking every
+# scan step forwards and back took 17.8 s on the card's host, and phase 26 takes seven
 PLAIN_SCAN_RUNS = 3  # timed runs of K4's plain version: one forward's ten scans walk 76,800 steps in Python
 K4_RTOL = 1e-5  # K4 vs plain: each direction's max abs error over that direction's largest plain value
 BWD_RTOL = 1e-5  # backward kernels vs plain: max abs error over each output's largest plain value (atomics' order)
@@ -1116,10 +1146,11 @@ def ldconv_position_margins(layers):
     return whole, rail
 
 
-def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_scalseq=1, n_zoomcat=0):
-    """One step of ``cfg`` (with ``n_ldconv`` LDConv, ``n_scalseq`` ScalSeq
-    and ``n_zoomcat`` ZoomCat layers) from the same weights and batch on the
-    card and on the CPU.
+def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_scalseq=1, n_zoomcat=0, n_sppf=1,
+                      imgsz=CMP_IMGSZ):
+    """One step of ``cfg`` (with ``n_ldconv`` LDConv, ``n_scalseq`` ScalSeq,
+    ``n_zoomcat`` ZoomCat and ``n_sppf`` SPPF layers) from the same weights
+    and batch on the card and on the CPU.
     Warmup is off and ``nbs`` is the batch, so the step fires at once and
     every group, the weight group with its decay included, moves at lr0.
     ``recipe``: loss switches (Wise-IoU, NWD); then the new ``iou_mean`` is
@@ -1134,13 +1165,20 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
     test_positions_near_a_whole_number_move_p_conv_gradient_not_the_output``).
     The offsets' values are the card's; their gradient flows into the CPU's
     own ``p_conv``. ScalSeq's max over its three scales is another such step:
-    the CPU takes the card's pick of scale for each element, and so it takes
-    the card's pick in each 2x2 window of ZoomCat's max pool. The report gives
+    the CPU takes the card's pick of scale for each element. It takes the
+    card's side of ScalSeq's LeakyReLU kink at 0 too: one element within
+    rounding of 0 taking the other slope moves ScalSeq's ``bn.bias``
+    gradient by more than 1e-3 relative L2 (``tests/test_torch_port_model.py:
+    test_a_value_at_scalseqs_kink_moves_bn_bias_gradient_not_the_output``).
+    And it takes the card's
+    pick in each 2x2 window of ZoomCat's max pool and in each window of
+    SPPF's three max pools (the image size is ``imgsz``). The report gives
     the largest difference of the two sides' raw offsets, the least distance
     of the CPU's own positions to a whole number and to a rail, the least gap
     between the CPU's two largest scales and two largest values of a window,
-    and the tensor of the largest difference of gradients, momentum buffers
-    and updates."""
+    the least magnitude of the CPU's ScalSeq values at the kink, and the
+    tensor of the largest difference of gradients, momentum buffers and
+    updates."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1150,7 +1188,9 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
     from experiment_yolo_torch.engine.trainer import DetectionTrainer
 
     gather, scale_max, window_max = modules.ldconv_gather, modules.ScalSeq.scale_max, modules.ZoomCat.window_max
+    scale_act, sppf_forward = modules.ScalSeq.act, modules.SPPF.forward
     card_offsets, cpu_layers, card_picks, cpu_gaps, card_windows, cpu_window_gaps = [], [], [], [], [], []
+    card_pools, cpu_pool_gaps, card_signs, cpu_kink_gaps = [], [], [], []
 
     def card_gather(x, off, stride):
         card_offsets.append(off.detach().cpu())
@@ -1171,6 +1211,16 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
         cpu_gaps.append((top2[:, :, 0] - top2[:, :, 1]).min().item())
         return z.gather(2, card_picks[len(cpu_gaps) - 1]).squeeze(2)
 
+    # ScalSeq's LeakyReLU has a kink at 0: an element within rounding of 0 may take the slope 1 on one side and
+    # 0.1 on the other, which moves its gradient by 0.9 of it. The CPU takes the card's side of the kink.
+    def card_act(y):
+        card_signs.append((y.detach() > 0).cpu())
+        return scale_act(y)
+
+    def cpu_act(y):
+        cpu_kink_gaps.append(y.detach().abs().min().item())
+        return torch.where(card_signs[len(cpu_kink_gaps) - 1], y, 0.1 * y)
+
     # ZoomCat's 2x2 max pool, the same kind of step: the CPU takes the card's pick in each window
     def card_window_max(x):
         y, idx = F.max_pool2d(x, 2, return_indices=True)
@@ -1185,35 +1235,68 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
         idx = card_windows[len(cpu_window_gaps) - 1]
         return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
 
+    # SPPF's max pools (k x k, stride 1, padded with -inf), the same kind of step again: the CPU takes the card's
+    # pick in each window; the least gap of a window's two largest values is reported
+    def sppf_with(pool):
+        def forward(self, x):
+            ys = [self.cv1(x)]
+            for _ in range(3):
+                ys.append(pool(ys[-1], self.m.kernel_size, self.m.padding))
+            return self.cv2(torch.cat(ys, 1))
+        return forward
+
+    def card_pool(x, k, pad):
+        y, idx = F.max_pool2d(x, k, 1, pad, return_indices=True)
+        card_pools.append(idx.cpu())
+        return y
+
+    def cpu_pool(x, k, pad):
+        b, c, h, w = x.shape
+        windows = F.unfold(F.pad(x.detach(), (pad,) * 4, value=-math.inf), k).view(b, c, k * k, h * w)
+        top2 = windows.topk(2, dim=2).values
+        cpu_pool_gaps.append((top2[:, :, 0] - top2[:, :, 1]).min().item())
+        idx = card_pools[len(cpu_pool_gaps) - 1]
+        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
     out = {}
     for dev in ("cuda", "cpu"):
         model = DetectionModel(cfg, device=dev)
         model.load_state_dict(state_dict, strict=True)
         before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-        trainer = DetectionTrainer(model, {"amp": False, "batch": CMP_BATCH, "imgsz": CMP_IMGSZ, "nbs": CMP_BATCH,
+        trainer = DetectionTrainer(model, {"amp": False, "batch": CMP_BATCH, "imgsz": imgsz, "nbs": CMP_BATCH,
                                            "warmup_epochs": 0.0, **(recipe or {})})
         opt = trainer.state.optimizer
         lrs = opt.schedules()
         modules.ldconv_gather = card_gather if dev == "cuda" else cpu_gather
         modules.ScalSeq.scale_max = staticmethod(card_max if dev == "cuda" else cpu_max)
+        modules.ScalSeq.act = staticmethod(card_act if dev == "cuda" else cpu_act)
         modules.ZoomCat.window_max = staticmethod(card_window_max if dev == "cuda" else cpu_window_max)
+        if n_sppf:
+            modules.SPPF.forward = sppf_with(card_pool if dev == "cuda" else cpu_pool)
         try:
+            t = time.perf_counter()
             comps = trainer.train_step(batch)
+            step_s = time.perf_counter() - t
         finally:
             modules.ldconv_gather, modules.ScalSeq.scale_max = gather, staticmethod(scale_max)
-            modules.ZoomCat.window_max = staticmethod(window_max)
+            modules.ScalSeq.act = staticmethod(scale_act)
+            modules.ZoomCat.window_max, modules.SPPF.forward = staticmethod(window_max), sppf_forward
         check(opt.updates == 1 and min(lrs[:2]) > 0, f"{dev}: the compared step fired {opt.updates} updates at "
                                                      f"(lr, bias lr, momentum) {lrs}: expected 1 with both LRs > 0")
         out[dev] = dict(comps={k: v.item() for k, v in comps.items()}, lrs=lrs, iou_mean=trainer.state.iou_mean.item(),
+                        step_s=step_s,
                         grads={n: p.grad.cpu() for n, p in model.named_parameters()},
                         momentum={n: opt.state[p]["momentum_buffer"].cpu() for n, p in model.named_parameters()},
                         after={n: p.detach().cpu() for n, p in model.named_parameters()},
                         updates={n: p.detach().cpu() - before[n] for n, p in model.named_parameters()})
     check(len(card_offsets) == len(cpu_layers) == n_ldconv and len(card_picks) == len(cpu_gaps) == n_scalseq
-          and len(card_windows) == len(cpu_window_gaps) == n_zoomcat,
-          f"the card step gathered {len(card_offsets)} times, took {len(card_picks)} ScalSeq and {len(card_windows)} "
-          f"ZoomCat maxima, the CPU step {len(cpu_layers)}, {len(cpu_gaps)} and {len(cpu_window_gaps)}: expected "
-          f"{n_ldconv} LDConv layers, {n_scalseq} ScalSeq and {n_zoomcat} ZoomCat each")
+          and len(card_signs) == len(cpu_kink_gaps) == n_scalseq
+          and len(card_windows) == len(cpu_window_gaps) == n_zoomcat
+          and len(card_pools) == len(cpu_pool_gaps) == 3 * n_sppf,
+          f"the card step gathered {len(card_offsets)} times, took {len(card_picks)} ScalSeq, {len(card_windows)} "
+          f"ZoomCat and {len(card_pools)} SPPF maxima, the CPU step {len(cpu_layers)}, {len(cpu_gaps)}, "
+          f"{len(cpu_window_gaps)} and {len(cpu_pool_gaps)}: expected {n_ldconv} LDConv layers, {n_scalseq} ScalSeq, "
+          f"{n_zoomcat} ZoomCat and {3 * n_sppf} SPPF pools each")
     offset_diff = max(((a - c).abs().max().item() for a, (_, c, _) in zip(card_offsets, cpu_layers)), default=None)
     to_whole, to_rail = ldconv_position_margins(cpu_layers) if cpu_layers else (None, None)
     gpu, cpu = out["cuda"], out["cpu"]
@@ -1250,15 +1333,18 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
     if recipe:
         check(iou_rel <= 1e-6 and cpu["iou_mean"] != 1.0, f"iou_mean {gpu['iou_mean']} on the card, {cpu['iou_mean']} "
                                                           "on the CPU: not within 1e-6 relative, or it did not move")
-    return {"imgsz": CMP_IMGSZ, "batch": CMP_BATCH, "loss_switches": recipe or "CIoU",
+    return {"imgsz": imgsz, "batch": CMP_BATCH, "loss_switches": recipe or "CIoU",
             "lr_bias_lr_momentum": gpu["lrs"], "fg": gpu["comps"]["fg"],
             "iou_mean_card": gpu["iou_mean"], "iou_mean_cpu": cpu["iou_mean"], "iou_mean_rel_err": iou_rel,
             "loss_max_rel_err": loss_rel, "grad_max_rel_l2": grad_rel, "momentum_max_rel_l2": mom_rel,
             "update_max_rel_l2": upd_rel, "worst_tensor_grad_momentum_update": worst_of,
             "ldconv_offsets_card_vs_cpu_max_abs_diff": offset_diff,
             "cpu_positions_least_distance_to_whole_number": to_whole, "cpu_positions_least_distance_to_rail": to_rail,
-            "cpu_scalseq_least_gap_of_top_two_scales": min(cpu_gaps),
+            "cpu_scalseq_least_gap_of_top_two_scales": min(cpu_gaps, default=None),
+            "cpu_scalseq_least_magnitude_at_the_kink": min(cpu_kink_gaps, default=None),
             "cpu_zoomcat_least_gap_of_top_two_in_a_window": min(cpu_window_gaps, default=None),
+            "cpu_sppf_least_gap_of_top_two_in_a_window": min(cpu_pool_gaps, default=None),
+            "step_s_card": gpu["step_s"], "step_s_cpu": cpu["step_s"],
             "loss_card": {k: gpu["comps"][k] for k in ("box", "cls", "dfl")},
             "loss_cpu": {k: cpu["comps"][k] for k in ("box", "cls", "dfl")}}
 
@@ -1986,8 +2072,8 @@ def check_bf16_forms(feats, ld, ld_train, levels):
     return rows
 
 
-def compare_train_cpu_bf16(state_dict, batches):
-    """A bf16 step at CMP_IMGSZ, batch CMP_BATCH on the card against the
+def compare_train_cpu_bf16(state_dict, batches, cfg=CFG, imgsz=CMP_IMGSZ):
+    """A bf16 step of ``cfg`` at ``imgsz``, batch CMP_BATCH on the card against the
     CPU's f32 and bf16 steps from the same weights and batch (warmup off,
     ``nbs`` the batch: every group moves at lr0), for each of ``batches``,
     each step from ``state_dict``. The momentum buffers (the step's clipped
@@ -2013,10 +2099,10 @@ def compare_train_cpu_bf16(state_dict, batches):
     for label, dev, amp in (("cpu f32", "cpu", False), ("cpu bf16", "cpu", True), ("card bf16", "cuda", True)):
         steps = []
         for batch in batches:
-            model = DetectionModel(CFG, device=dev)
+            model = DetectionModel(cfg, device=dev)
             model.load_state_dict(state_dict, strict=True)
             before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-            trainer = DetectionTrainer(model, {"amp": amp, "batch": CMP_BATCH, "imgsz": CMP_IMGSZ, "nbs": CMP_BATCH,
+            trainer = DetectionTrainer(model, {"amp": amp, "batch": CMP_BATCH, "imgsz": imgsz, "nbs": CMP_BATCH,
                                                "warmup_epochs": 0.0})
             opt = trainer.state.optimizer
             comps = trainer.train_step(batch)
@@ -2034,7 +2120,7 @@ def compare_train_cpu_bf16(state_dict, batches):
         return float((a - b).norm() / b.norm())
 
     ref, cpu, card = out["cpu f32"], out["cpu bf16"], out["card bf16"]
-    result = {"imgsz": CMP_IMGSZ, "batch": CMP_BATCH, "steps": len(batches), "seconds": time.perf_counter() - t,
+    result = {"cfg": cfg, "imgsz": imgsz, "batch": CMP_BATCH, "steps": len(batches), "seconds": time.perf_counter() - t,
               "fg": {k: v["fg"] for k, v in out.items()}, "loss_cpu_f32": ref["comps"].tolist(),
               "loss_cpu_bf16": cpu["comps"].tolist(), "loss_card_bf16": card["comps"].tolist()}
     for what in ("comps", "momentum", "updates"):
@@ -2340,37 +2426,37 @@ def asf_served(asf, images, x, counters, card):
     return {"k1_forward": k1, "anchors_at_imgsz": anchors, "served": served, "cpu_comparison": compare}, launches
 
 
-def asf_facade_train(data: Path, root: Path, counters, card):
-    """``YOLO(ASF_CFG, nc=LOOP_NC).train()`` as the reference fork's own
+def facade_epoch(cfg, want_launches, data: Path, root: Path, counters, card):
+    """``YOLO(cfg, nc=LOOP_NC).train()`` as the reference fork's own
     ``train.py`` calls it (``optimizer='SGD'``, no ``amp`` key: bf16) for one
     epoch on phase 12's dataset, counters at 0 just before and read just
-    after: the AMP check passed, 1 K1 and 4 K1-backward bf16 launches a step,
-    1 K1 (bf16) and 1 K5 a per-epoch val batch, nothing else; finite losses."""
+    after: the AMP check passed, the launches ``want_launches(steps,
+    val_batches)`` (none of the kernels it does not name); finite losses."""
     import torch
 
     from experiment_yolo_torch import YOLO
 
-    yolo = YOLO(ASF_CFG, nc=LOOP_NC, seed=SEED)
+    yolo = YOLO(cfg, nc=LOOP_NC, seed=SEED)
     losses = []
     yolo.add_callback("on_fit_epoch_end", lambda trainer: losses.append(dict(trainer.loss_items)))
     for fn in counters.values():
         fn.launches = 0
     t = time.perf_counter()
     metrics = yolo.train(data=str(data), epochs=1, batch=BATCH, imgsz=IMGSZ, workers=8, optimizer="SGD",
-                         project=str(root / "asf_facade"), verbose=False)
+                         project=str(root / f"facade_{Path(cfg).stem}"), verbose=False)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t
     trainer = yolo.trainer
     steps, val_batches = LOOP_TRAIN // BATCH, math.ceil(LOOP_VAL / BATCH)
     launches = {name: fn.launches for name, fn in counters.items()}
     want = dict.fromkeys(counters, 0)
-    want.update(dfl_decode_bf16=steps + val_batches, dfl_decode_bwd_bf16=4 * steps, soft_nms=val_batches)
-    check(launches == want, f"YOLO({ASF_CFG!r}).train with the defaults launched {launches}, expected {want}")
+    want.update(want_launches(steps, val_batches))
+    check(launches == want, f"YOLO({cfg!r}).train with the defaults launched {launches}, expected {want}")
     check(trainer.dtype == torch.bfloat16 and trainer.amp_check["passed"],
-          f"YOLO({ASF_CFG!r}).train did not train in bf16 with a passed AMP check: {trainer.dtype}, "
+          f"YOLO({cfg!r}).train did not train in bf16 with a passed AMP check: {trainer.dtype}, "
           f"{trainer.amp_check}")
-    check(all(math.isfinite(v) for row in losses for v in row.values()), f"an {ASF_CFG} epoch's loss: {losses}")
-    return {"cfg": ASF_CFG, "nc": LOOP_NC, "imgsz": IMGSZ, "batch": BATCH, "epochs": 1, "steps": steps,
+    check(all(math.isfinite(v) for row in losses for v in row.values()), f"a {cfg} epoch's loss: {losses}")
+    return {"cfg": cfg, "nc": LOOP_NC, "imgsz": IMGSZ, "batch": BATCH, "epochs": 1, "steps": steps,
             "train_dtype": str(trainer.dtype), "amp_check": trainer.amp_check, "train_s": train_s,
             "loop_img_per_s": steps * BATCH / train_s, "losses": losses,
             "last_epoch_metrics": {k: v for k, v in metrics.items() if k != "epochs_run"}, "launches": launches,
@@ -2383,7 +2469,7 @@ def asf_trained(asf_state, batches, cmp_batch, data: Path, root: Path, counters,
     BWD_RTOL; phase 13's, one bf16 spacing); TRAIN_STEPS timed bf16 steps
     (exactly 1 K1 and 4 K1-backward launches a step, all bf16); one f32 step
     at CMP_IMGSZ against the CPU's with phase 11's gates (the CPU takes the
-    card's ScalSeq and ZoomCat picks); then :func:`asf_facade_train`.
+    card's ScalSeq and ZoomCat picks); then :func:`facade_epoch`.
     Returns the ``asf_p2`` record's training part and the launches."""
     import torch
 
@@ -2420,9 +2506,12 @@ def asf_trained(asf_state, batches, cmp_batch, data: Path, root: Path, counters,
     torch.cuda.empty_cache()
     log(f"trained {ASF_CFG} bf16: {TRAIN_STEPS} steps of {BATCH} at {IMGSZ}: median {median:.2f} ms per step, "
         f"{trained['img_per_s_at_median']:.2f} img/s at the median, launches {run}, {card}")
-    cmp = compare_train_cpu(asf_state, cmp_batch, cfg=ASF_CFG, n_ldconv=0, n_scalseq=2, n_zoomcat=2)
+    cmp = compare_train_cpu(asf_state, cmp_batch, cfg=ASF_CFG, n_ldconv=0, n_scalseq=2, n_zoomcat=2,
+                            n_sppf=1)
     log(f"{ASF_CFG} training CPU comparison: {json.dumps(cmp)}")
-    loop, run = asf_facade_train(data, root, counters, card)
+    loop, run = facade_epoch(ASF_CFG, lambda steps, val: dict(dfl_decode_bf16=steps + val,
+                                                              dfl_decode_bwd_bf16=4 * steps, soft_nms=val),
+                             data, root, counters, card)
     for name in launches:
         launches[name] += run[name]
     log(f"{ASF_CFG} facade: YOLO(...).train() 1 epoch: {loop['loop_img_per_s']:.2f} img/s over the loop "
@@ -2546,6 +2635,345 @@ def two_stage_phase(detector: Path, images, counters, card):
     return record, launches
 
 
+def capture_scan_train_calls(trainer, batch):
+    """One training step with a hook on every selective-scan call: its
+    arguments as SS2D hands them to K4 (detached; ``B`` and ``C`` keep their
+    strides), its keywords and the gradient that reaches its output, as the
+    step hands them to K4 and its backward kernel."""
+    import experiment_yolo_torch.nn.zoo_blocks as zoo
+
+    calls, scan = [], zoo.selective_scan
+
+    def scan_hook(*args, **kwargs):
+        out = scan(*args, **kwargs)
+        calls.append([tuple(a.detach() for a in args), kwargs])
+        out.register_hook(lambda g, entry=calls[-1]: entry.append(g.detach().contiguous().clone()))
+        return out
+
+    zoo.selective_scan = scan_hook
+    try:
+        trainer.train_step(batch)
+    finally:
+        zoo.selective_scan = scan
+    check(len(calls) == 10 and all(len(c) == 3 for c in calls),
+          f"captured {len(calls)} scan calls of a VSS step ({[len(c) for c in calls]} parts), expected 10 with their "
+          "gradients")
+    return [tuple(c) for c in calls]
+
+
+def first_of_each_level(calls):
+    """The first call of each sequence length, by length, and the check that they are the four levels."""
+    levels = {}
+    for call in calls:
+        levels.setdefault(call[0][1].shape[2], call)
+    check(sorted(levels) == [(IMGSZ // s) ** 2 for s in (32, 16, 8, 4)], f"scan lengths {sorted(levels)}")
+    return dict(sorted(levels.items()))
+
+
+def ss2d_like(bsz, length, dim, rank, gen, step, a=None):
+    """Random scan inputs in SS2D's form (two sequences for four directions, ``B`` and ``C`` as views of one
+    projection with rows of ``rank`` + 32 floats, A and D per direction): ``dt`` log-uniform over ``step`` (low,
+    high); ``a`` in place of minus the exp of a normal."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+
+    wide = randn(bsz, 4, length, rank + 2 * 16)
+    lo, hi = math.log(step[0]), math.log(step[1])
+    dt = torch.exp(lo + (hi - lo) * torch.rand((bsz, 4, length, dim), generator=gen)).cuda()
+    return (randn(bsz, 2, length, dim), dt, -torch.exp(randn(4, dim, 16)) if a is None else a,
+            wide[..., rank:rank + 16], wide[..., rank + 16:], randn(4, dim))
+
+
+def k4_against_float64(levels):
+    """Step 1 of the VSS training slice: K4's forward and the f32 plain
+    version against a float64 plain version, each as a fraction of the
+    largest float64 value, at each level on the seeded model's own inputs
+    (gated: K4 within K4_RTOL) and on inputs whose step sizes lie near 1e-3
+    (the model's decays A = -1 .. -16: its slowest state lives about 1,000
+    steps; reported, a fault where K4 is beyond K4_RTOL)."""
+    import torch
+
+    from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    gen = torch.Generator().manual_seed(SEED + 26)
+    rows = []
+    with torch.no_grad():
+        for length, (args, kwargs, _) in levels.items():
+            bsz, _, _, dim = args[1].shape
+            rank = args[3].stride(2) - 32
+            cases = {"main": args, "step 1e-3": ss2d_like(bsz, length, dim, rank, gen, step=(5e-4, 2e-3), a=args[2])}
+            row = {"L": length, "D": dim}
+            for kind, case in cases.items():
+                y64 = selective_scan_plain(*(t.double() for t in case), **kwargs)
+                top = y64.abs().max()
+                k4 = ((selective_scan(*case, **kwargs).double() - y64).abs().max() / top).item()
+                plain = ((selective_scan_plain(*case, **kwargs).double() - y64).abs().max() / top).item()
+                row[kind] = {"k4_vs_float64": k4, "f32_plain_vs_float64": plain, "dt_median": case[1].median().item()}
+            check(row["main"]["k4_vs_float64"] <= K4_RTOL,
+                  f"K4 is {row['main']['k4_vs_float64']} of the largest value from a float64 plain version on the "
+                  f"seeded model's inputs at L={length}, more than {K4_RTOL}")
+            rows.append(row)
+    return rows
+
+
+def k4_bwd_passes(args, sms: int) -> int:
+    """The kernels one call of K4's backward launches: the g ends and carry passes where L has more than one
+    chunk, the main pass, the dx sum, the channel groups' sum of dB and dC where D > 32, and dA and dD."""
+    from experiment_yolo_torch.ops.kernels.selective_scan import chunk_length
+
+    bsz, g, length, dim = args[1].shape
+    return 3 + 2 * (length > chunk_length(bsz * g, length, dim, sms)) + (dim > 32)
+
+
+def k4_bwd_cost(args):
+    """Bytes (x, dt, A, B, C, D and dy read once; dx, ddt, dA, dB, dC, dD written once, B and C as dense
+    (B, G, L, N)) and operations of one backward call: per (sequence, step, channel, state) 18 (the decay's
+    exponent and exp, g, a h, the four products that dB, dC, dx and ddt sum and their adds, dA's product and
+    add, the carried a g), per (sequence, step, channel) 4 (dx's scale and skip, dD's product and add)."""
+    x, dt, a, b, c, d = args
+    n = dt.numel()
+    return (2 * (x.numel() + a.numel() + 2 * b.shape.numel() + d.numel()) + 3 * n) * 4, n * (16 * 18 + 4)
+
+
+def check_k4_bwd(calls):
+    """K4's backward (through ``SelectiveScan``, so that the forward's carry
+    is the one the backward starts from) against ``selective_scan_bwd_plain``
+    in f32 and in float64: on one f32 training step's calls at each level
+    with their gradients, on random inputs at the widest and the narrowest
+    level with step sizes log-uniform from 1e-3 to 1 and a seeded ``dy``, with SS2D's flags and
+    sources, with other ones, and with none (four x directions), and at a
+    ragged L. Each of the seven outputs (y and the six gradients) must be
+    within BWD_RTOL of its largest f32 plain value, or else no farther from
+    the float64 plain version than the f32 plain version is; both distances
+    are reported. Timed over the step's ten calls: the backward alone
+    (autograd's backward of one forward, kept), against the plain version."""
+    import torch
+
+    from experiment_yolo_torch.ops.kernels.selective_scan import (chunk_length, selective_scan,
+                                                                  selective_scan_bwd_plain, selective_scan_plain)
+
+    names = ("y", "dx", "ddt", "dA", "dB", "dC", "dD")
+    gen = torch.Generator().manual_seed(SEED + 27)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def kernel_grads(args, kwargs, dy):
+        leaves = [t.detach().requires_grad_() for t in args]
+        y = selective_scan(*leaves, **kwargs)
+        return (y.detach(), *torch.autograd.grad(y, leaves, dy))
+
+    def plain(args, kwargs, dy, dtype):
+        args, dy = [t.to(dtype) for t in args], dy.to(dtype)
+        return (selective_scan_plain(*args, **kwargs), *selective_scan_bwd_plain(*args, dy, **kwargs))
+
+    def held(kind, args, kwargs, dy):
+        got, p32, p64 = kernel_grads(args, kwargs, dy), plain(args, kwargs, dy, torch.float32), \
+            plain(args, kwargs, dy, torch.float64)
+        torch.cuda.synchronize()
+        row = {}
+        for name, g, w32, w64 in zip(names, got, p32, p64):
+            top32, top64 = w32.abs().max(), w64.abs().max()
+            row[name] = {"max_abs_err": (g - w32).abs().max().item(),
+                         "vs_f32_plain": ((g - w32).abs().max() / top32).item(),
+                         "vs_float64": ((g.double() - w64).abs().max() / top64).item(),
+                         "f32_plain_vs_float64": ((w32.double() - w64).abs().max() / top64).item()}
+            r = row[name]
+            check(r["vs_f32_plain"] <= BWD_RTOL or r["vs_float64"] <= r["f32_plain_vs_float64"],
+                  f"K4's backward disagrees with its plain version on {kind} inputs at L={args[1].shape[2]}, {name}: "
+                  f"{r}")
+        return row
+
+    levels = first_of_each_level(calls)
+    detail, worst = [], 0.0
+    for length, (args, kwargs, dy) in levels.items():
+        bsz, _, _, dim = args[1].shape
+        rank = args[3].stride(2) - 32
+        row = {"shape_B_G_L_D": list(args[1].shape), "chunk_steps": chunk_length(bsz * 4, length, dim, sms),
+               "main": held("main", args, kwargs, dy)}
+        if length in (min(levels), max(levels)):  # the plain versions walk every step in Python
+            rand = ss2d_like(bsz, length, dim, rank, gen, step=(1e-3, 1.0))
+            rdy = torch.randn(dy.shape, generator=gen).cuda()
+            row["random"] = held("random", rand, {"reverse": (True, False, False, True), "source": (1, 0, 0, 1)}, rdy)
+        detail.append(row)
+    bsz, dim = detail[0]["shape_B_G_L_D"][0], detail[1]["shape_B_G_L_D"][3]
+    ragged = ss2d_like(bsz, RAGGED_SCAN_LENGTH, dim, 2, gen, step=(1e-3, 1.0))
+    rdy = torch.randn((bsz, 4, RAGGED_SCAN_LENGTH, dim), generator=gen).cuda()
+    other = {"ragged, SS2D's flags": held("ragged", ragged, {"reverse": (False, False, True, True),
+                                                             "source": (0, 1, 0, 1)}, rdy)}
+    four = (torch.randn((bsz, 4, RAGGED_SCAN_LENGTH, dim), generator=gen).cuda(), *ragged[1:])
+    other["ragged, no flags or sources"] = held("ragged, unflagged", four, {}, rdy)
+    for row in [r for d in detail for k, r in d.items() if k in ("main", "random")] + list(other.values()):
+        worst = max(worst, *(v["vs_f32_plain"] for v in row.values()))
+    err = max(v["max_abs_err"] for d in detail for v in d["main"].values())  # the main path's calls
+
+    # the backward alone over the step's ten calls: one forward each, kept, and autograd's backward of it
+    kept = []
+    for args, kwargs, dy in calls:
+        leaves = [t.detach().requires_grad_() for t in args]
+        kept.append((selective_scan(*leaves, **kwargs), leaves, dy))
+
+    def backward():
+        return [torch.autograd.grad(y, leaves, dy, retain_graph=True) for y, leaves, dy in kept]
+
+    ms = cuda_ms(backward)
+    plain_ms = cuda_ms(lambda: [selective_scan_bwd_plain(*args, dy, **kwargs) for args, kwargs, dy in calls],
+                       runs=1, warmup=0)
+    del kept
+    nbytes, ops = (sum(v) for v in zip(*(k4_bwd_cost(args) for args, _, _ in calls)))
+    b_ms, b_by = bound(nbytes, ops)
+    return dict(name="selective_scan_bwd", route="cuda", source="experiment_yolo_torch/csrc/selective_scan.cu",
+                replaces="experiment_yolo_tpu/ops/pallas/selective_scan.py:32", max_abs_err=err, rel_err=worst, ms=ms,
+                device_ms=None, plain_ms=plain_ms, plain_runs=1, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                launches_per_step=len(calls), bytes_per_step=nbytes, levels=detail, other=other)
+
+
+def k4_bwd_device_ms_main() -> None:
+    """Run as ``chip_smoke.py --k4-bwd-device-ms``, in a fresh process (as
+    :func:`k4_device_ms_main`): the VSS model's ten scan calls of one f32
+    training step at IMGSZ, batch BATCH, with their gradients, and the device
+    time of their ten backward calls (autograd's backward of one forward
+    each, kept), from a trace that holds every launch, also level by level.
+    Prints one JSON line."""
+    import torch
+
+    from experiment_yolo_torch.engine.trainer import DetectionTrainer
+    from experiment_yolo_torch.ops.kernels import _build
+    from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan
+    from experiment_yolo_torch.utils.seeded import seeded_batch, seeded_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    model = seeded_model(VSS_CFG, SEED)
+    calls = capture_scan_train_calls(DetectionTrainer(model, {"amp": False, "batch": BATCH, "imgsz": IMGSZ}),
+                                     seeded_batch(BATCH, IMGSZ, SEED + 10, nc=model.nc))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kept = []
+    for args, kwargs, dy in calls:
+        leaves = [t.detach().requires_grad_() for t in args]
+        kept.append((selective_scan(*leaves, **kwargs), leaves, dy, k4_bwd_passes(args, sms)))
+
+    def backward(items):
+        return lambda: [torch.autograd.grad(y, leaves, dy, retain_graph=True) for y, leaves, dy, _ in items]
+
+    total = device_ms(backward(kept), "selective_scan_bwd_kernel", sum(k[3] for k in kept))
+    levels = {}
+    for item in kept:
+        levels.setdefault(item[1][1].shape[2], item)
+    per_level = {length: device_ms(backward([item]), "selective_scan_bwd_kernel", item[3])
+                 for length, item in sorted(levels.items())}
+    print(json.dumps({"k4_bwd_device_ms": total, "calls": len(kept), "per_level_first_call": per_level,
+                      "launches_per_call": [k[3] for k in kept]}), flush=True)
+
+
+def k4_bwd_device_ms_fresh():
+    """K4's backward device time per training step from :func:`k4_bwd_device_ms_main` in a subprocess."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--k4-bwd-device-ms"], capture_output=True,
+                         text=True, timeout=600)
+    check(out.returncode == 0, f"the fresh K4 backward timing process failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def vss_trained(vss_state, batches, data: Path, root: Path, counters, card):
+    """Phase 26: the VSS family trained (``yolov8-C2f-VSS.yaml``, phase 18's
+    weights, phase 9's batches). (a) K4's forward against float64
+    (:func:`k4_against_float64`) and (b) its backward against its plain
+    versions (:func:`check_k4_bwd`), both on the K4 calls of one f32 step;
+    (c) the backward's device time from a fresh process; (d) TRAIN_STEPS
+    timed f32 and bf16 ``train_step``s (exactly 10 K4 and 10 K4-backward
+    launches a step, and the K1 forms of the step's dtype); (e) one f32 step
+    at VSS_CMP_IMGSZ against the CPU's with phase 11's gates, the CPU taking
+    the card's picks in SPPF's windows, and the bf16 steps within 1.5x the
+    CPU's bf16 distance over BF16_CMP_STEPS seeded steps (seeded batches of
+    CMP_BATCH at VSS_CMP_IMGSZ); (f)
+    ``YOLO(VSS_CFG, nc=3).train()`` for an epoch with the defaults. Returns
+    the ``vss_trained`` record, the K4 backward kernel's row and the
+    launches."""
+    import torch
+
+    from experiment_yolo_torch import DetectionModel
+    from experiment_yolo_torch.engine.trainer import DetectionTrainer
+    from experiment_yolo_torch.utils.seeded import seeded_batch
+
+    t0 = time.perf_counter()
+
+    def trainer(**overrides):
+        m = DetectionModel(VSS_CFG, device="cuda")
+        m.load_state_dict(vss_state, strict=True)
+        return DetectionTrainer(m, {"batch": BATCH, "imgsz": IMGSZ, **overrides})
+
+    parts, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        parts[name], t = time.perf_counter() - t, time.perf_counter()
+
+    calls = capture_scan_train_calls(trainer(amp=False), batches[0])
+    levels = first_of_each_level(calls)
+    float64 = k4_against_float64(levels)
+    faults = [r for r in float64 if r["step 1e-3"]["k4_vs_float64"] > K4_RTOL]
+    lap("(a) capture and float64")
+    k4_bwd = check_k4_bwd(calls)
+    del calls, levels
+    lap("(b) backward against plain")
+    fresh = k4_bwd_device_ms_fresh()
+    lap("(c) fresh process")
+    k4_bwd["device_ms"], k4_bwd["device_ms_per_level"] = fresh["k4_bwd_device_ms"], fresh["per_level_first_call"]
+    log(f"selective_scan_bwd: {k4_bwd['rel_err']} of the largest plain value at worst, kernel {k4_bwd['ms']:.4f} ms "
+        f"(device {k4_bwd['device_ms']} ms, per level {k4_bwd['device_ms_per_level']}) for a step's 10 calls, plain "
+        f"{k4_bwd['plain_ms']:.1f} ms (1 run), library none, bound {k4_bwd['bound_ms']:.4f} ms ({k4_bwd['bound_by']})")
+    log(f"  K4 against float64 (fraction of the largest value): {json.dumps(float64)}")
+    for row in k4_bwd["levels"]:
+        log(f"  K4 bwd level {json.dumps(row)}")
+    log(f"  K4 bwd other {json.dumps(k4_bwd['other'])}")
+    launches, timed = dict.fromkeys(counters, 0), {}
+    for label, amp, k1 in (("float32", False, ("dfl_decode", "dfl_decode_bwd")),
+                           ("bfloat16", True, ("dfl_decode_bf16", "dfl_decode_bwd_bf16"))):
+        tr = trainer(amp=amp)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, run, last, moved, ema_moved = train_timed(tr, batches, counters)
+        want = dict.fromkeys(counters, 0)
+        want.update({"selective_scan": 10 * TRAIN_STEPS, "selective_scan_bwd": 10 * TRAIN_STEPS, k1[0]: TRAIN_STEPS,
+                     k1[1]: 3 * TRAIN_STEPS})
+        check(run == want, f"the {VSS_CFG} {label} training steps launched {run}, expected {want}")
+        for name in launches:
+            launches[name] += run[name]
+        median = statistics.median(step_ms)
+        timed[label] = {"steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP, "batch": BATCH, "imgsz": IMGSZ,
+                        "dtype": str(tr.dtype), "step_ms_median": median, "step_ms_min": min(step_ms),
+                        "step_ms_max": max(step_ms), "step_ms_p10_p90": statistics.quantiles(step_ms, n=10)[::8],
+                        "img_per_s_at_median": BATCH / median * 1e3, "launches": run, "last_losses": last,
+                        "params_moved": moved, "ema_moved": ema_moved,
+                        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        log(f"trained {VSS_CFG} {label}: {TRAIN_STEPS} steps of {BATCH} at {IMGSZ}: median {median:.2f} ms per step, "
+            f"{timed[label]['img_per_s_at_median']:.2f} img/s at the median, peak "
+            f"{timed[label]['peak_memory_gib']:.2f} GiB, launches {run}, {card}")
+        del tr
+        torch.cuda.empty_cache()
+    lap("(d) timed steps")
+    cmp_batches = [seeded_batch(CMP_BATCH, VSS_CMP_IMGSZ, SEED + 20 + i, nc=6) for i in range(BF16_CMP_STEPS)]
+    cmp = compare_train_cpu(vss_state, cmp_batches[0], cfg=VSS_CFG, n_ldconv=0, n_scalseq=0, n_sppf=1,
+                            imgsz=VSS_CMP_IMGSZ)
+    log(f"{VSS_CFG} training CPU comparison: {json.dumps(cmp)}")
+    cmp16 = compare_train_cpu_bf16(vss_state, cmp_batches, cfg=VSS_CFG, imgsz=VSS_CMP_IMGSZ)
+    log(f"{VSS_CFG} bf16 training CPU comparison: {json.dumps(cmp16)}")
+    lap("(e) against the CPU")
+    loop, run = facade_epoch(VSS_CFG, lambda steps, val: dict(
+        selective_scan=10 * (2 + steps + val), selective_scan_bwd=10 * steps, dfl_decode_bf16=steps + val,
+        dfl_decode_bwd_bf16=3 * steps, soft_nms=val), data, root, counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    log(f"{VSS_CFG} facade: YOLO(...).train() 1 epoch: {loop['loop_img_per_s']:.2f} img/s over the loop "
+        f"({loop['train_dtype']}, AMP check {loop['amp_check']}), {card}")
+    lap("(f) YOLO(...).train()")
+    seconds = time.perf_counter() - t0
+    log(f"phase 26 took {seconds:.1f} s: {json.dumps(parts)}")
+    return {"cfg": VSS_CFG, "k4_vs_float64": float64, "k4_small_step_faults": [r["L"] for r in faults],
+            "trained": timed, "cpu_comparison": cmp, "cpu_comparison_bf16": cmp16, "facade_train": loop,
+            "seconds": seconds, "seconds_by_part": parts, "card": card}, k4_bwd, launches
+
+
 def main() -> None:
     import torch
 
@@ -2557,6 +2985,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:] == ["--k4-device-ms"]:
         return k4_device_ms_main()
+    if sys.argv[1:] == ["--k4-bwd-device-ms"]:
+        return k4_bwd_device_ms_main()
 
     import experiment_yolo_torch
     from experiment_yolo_torch.engine.trainer import DetectionTrainer
@@ -2569,7 +2999,8 @@ def main() -> None:
     counters = {"dfl_decode": dfl_decode.dfl_decode, "dfl_decode_bwd": dfl_decode.dfl_decode_bwd,
                 "nms_suppress": nms_suppress.nms_suppress, "ldconv_gather": ldconv_gather.ldconv_gather,
                 "ldconv_gather_bwd": ldconv_gather.ldconv_gather_bwd,
-                "selective_scan": selective_scan.selective_scan, "soft_nms": soft_nms.soft_nms,
+                "selective_scan": selective_scan.selective_scan,
+                "selective_scan_bwd": selective_scan.selective_scan_bwd, "soft_nms": soft_nms.soft_nms,
                 "dfl_decode_bf16": dfl_decode.dfl_decode_bf16, "dfl_decode_bwd_bf16": dfl_decode.dfl_decode_bwd_bf16,
                 "ldconv_gather_bf16": ldconv_gather.ldconv_gather_bf16,
                 "ldconv_gather_bwd_bf16": ldconv_gather.ldconv_gather_bwd_bf16}
@@ -2811,6 +3242,7 @@ def main() -> None:
     # 21. a smaller batch through the same weights on the CPU, plain versions only
     compare_vss = compare_serving_cpu(VSS_CFG, vss, x[:VSS_CMP_BATCH])
     log(f"VSS CPU comparison: {json.dumps(compare_vss)}")
+    vss_state = {k: v.cpu().clone() for k, v in vss.state_dict().items()}
     del vss
 
     # 22. the plain-Conv configs: one batch each
@@ -2848,9 +3280,16 @@ def main() -> None:
     two_stage, run = two_stage_phase(detector, images, counters, card)
     for name in launches:
         launches[name] += run[name]
+    torch.cuda.empty_cache()
+    # 26. the VSS family trained: K4 against float64, K4's backward, f32 and bf16 steps, the CPU, YOLO(...).train()
+    vss_record, k4_bwd, run = vss_trained(vss_state, batches, Path(work.name) / "data" / "data.yaml",
+                                          Path(work.name), counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    kernels.insert(kernels.index(k4) + 1, k4_bwd)
     work.cleanup()
 
-    # 26. the result lines
+    # 27. the result lines
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["kernel_ms"] = k["ms"]
@@ -2871,6 +3310,7 @@ def main() -> None:
     log(json.dumps({"facade": facade, "cli": cli, "server": server}))
     log(json.dumps({"asf_p2": asf_p2}))
     log(json.dumps({"two_stage": two_stage}))
+    log(json.dumps({"vss_trained": vss_record}))
     # last of the long lines, so that a reader of the output's tail gets it whole
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"card: {card}")

@@ -321,3 +321,308 @@ extern "C" int selective_scan_launch(const float* x, const float* dt, const floa
   if (bits % 8 == 0) return launch_passes<2>(a, B, stream);
   return launch_passes<1>(a, B, stream);
 }
+
+// ---------------------------------------------------------------------------------------------------------
+// Backward. Replaces JAX's autodiff of experiment_yolo_tpu/ops/pallas/selective_scan.py:selective_scan_reference
+// (the Pallas kernel has no backward; the JAX package trains through the associative scan). With
+// a_t = exp(dt_t A) and, per state, g_t = C_t dy_t + a_{t+1} g_{t+1} (the gradient reaching h_t), in reverse
+// over each direction's steps:
+//   dC_t = sum_d h_t dy_t             dB_t = sum_d g_t dt_t x_t        dx_t = dt_t sum_n g_t B_t + D dy_t
+//   ddt_t = sum_n g_t (A a_t h_{t-1} + B_t x_t)     dA = sum_{b,t} g_t dt_t a_t h_{t-1}     dD = sum_{b,t} x_t dy_t
+//
+// Bound on this card: bytes. At the widest level (B = 8, G = 4, L = 25,600, D = 32) the call must read x, dt, B,
+// C and dy and write dx, ddt, dB and dC, about 630 MB: 0.19 ms at 3.35 TB/s; its one exp per (state, step) on
+// the special-function units takes 0.10 ms and its 18 other operations per (state, step) 0.11 ms at the f32 rate.
+// This first kernel is far from it (kernel_variants.py k4bwd, H100 SXM at 700 W, one call a level on inputs like
+// the seeded model's): 4.45 ms at the widest level, of it 3.51 in pass 3 and 0.67 in pass 1, and 8.33 ms for one
+// call at each of the four levels. It walks every step three times (below) and computes three exps per (state,
+// step), but neither bounds it: without the exps a call is 2-3% faster, and with one block an SM instead of two
+// no slower. An earlier form that held the states of 64-step stretches and of 8-step tiles in registers (128
+// registers, one block an SM, four walks) took 6.85 and 12.99 ms.
+//
+// Design, what is hard and what it does about it:
+// - The reverse walk needs h_{t-1} in reverse order. Storing h for every step, (B, G, L, D, N), would take 1.68
+//   GB at the widest level, and running the recurrence backwards by division, h_{t-1} = (h_t - b_t) / a_t, blows
+//   up where a_t underflows (dt A near -16 gives 1e-7). So h is recomputed forwards from the chunk start states
+//   that the forward's passes 1-2 left in its carry buffer (the autograd Function keeps it): one walk over the
+//   chunk keeps the state at the start of every 8-step tile in shared memory (chunk_len * 256 bytes a block,
+//   at most 128 KB: the wrapper caps the chunk length at 512 steps); then for each tile, last first, a walk
+//   keeps each step's previous state and decay in registers, and the reverse walk over that tile computes the
+//   gradients, reading the tile's x, dt and B again from L1.
+// - One thread per (image and direction, chunk, state, channel): a block is 16 warps, warp n holds state n of
+//   32 neighbouring channels, so a thread's state is one register and its history of a tile eight. x, dt and
+//   dy are read by the 32 lanes of a warp side by side, B_t and C_t as one broadcast word a warp.
+// - g is a linear recurrence like h, run backwards. Chunks run side by side as the forward's do: pass 1
+//   (selective_scan_bwd_kernel_gends) walks every chunk but the first backwards from g = 0 and keeps
+//   e_c = a_{s0} g_{s0}; pass 2 (selective_scan_bwd_kernel_gcarry) walks the chunks of each (sequence, state,
+//   channel) from the last, q_{c-1} = exp(A sum dt_c) q_c + e_c, with the sums of dt the forward kept; pass 3
+//   (selective_scan_bwd_kernel_main) starts each chunk's reverse walk from q_c.
+// - Sums, each in a fixed order, so that two calls give the same bits: over the 32 channels of a warp with
+//   shuffles (dB, dC), over the 16 states through shared memory once a tile (dx, ddt), then over channel groups
+//   (dB, dC where D > 32), over the images and chunks (dA, dD, from per-chunk partials) and over the directions
+//   that share an x (dx) in finishing kernels. No atomics.
+// - exp is ex2.approx with A scaled by log2(e), as in the forward, so that the recomputed h follows the
+//   forward's; the carry of g uses expf, as the forward's carry does.
+constexpr int BWD_TILE = 8;           // steps whose previous state and decay a thread holds in registers
+constexpr int BWD_MAX_CHUNK = 512;    // steps of a chunk: its tiles' start states fill at most 128 KB
+constexpr int BWD_THREADS = N_STATE * LANES;  // 16 warps: warp n holds state n of 32 channels
+
+struct BwdArgs {
+  const float *x, *dt, *A, *Bm, *Cm, *Dskip, *dy, *fcarry;
+  float *gcarry, *dxg, *ddt, *dBp, *dCp, *dA_part, *dD_part;
+  int G, Gx, L, D;
+  int b_sb, b_sg, b_sl, c_sb, c_sg, c_sl;
+  int reverse_mask, source_pack, chunk_len, chunks, groups;
+};
+
+// What one thread works on: state n of channel d in one chunk of one (image, direction).
+struct BwdLane {
+  const float *xs, *dts, *dys, *bs, *cs;  // at step 0 of the sequence: x, dt, dy at channel d; B, C at state n
+  int n, lane, group, d, seq, g, chunk, s0, s1;
+  bool live, rev;
+};
+
+__device__ __forceinline__ BwdLane bwd_lane(const BwdArgs& a, int first_chunk) {
+  BwdLane w;
+  w.n = threadIdx.x / LANES;
+  w.lane = threadIdx.x % LANES;
+  w.group = blockIdx.x % a.groups;
+  w.chunk = blockIdx.x / a.groups + first_chunk;
+  const int d = w.group * LANES + w.lane;
+  w.live = d < a.D;  // a ragged last group keeps its lanes for the sums and the barriers
+  w.d = w.live ? d : a.D - 1;
+  w.seq = blockIdx.y;  // b * G + g
+  w.g = w.seq % a.G;
+  const long long b = w.seq / a.G;
+  w.rev = (a.reverse_mask >> w.g) & 1;
+  const int gx = (a.source_pack >> (4 * w.g)) & 15;
+  w.s0 = w.chunk * a.chunk_len;
+  w.s1 = min(w.s0 + a.chunk_len, a.L);
+  w.xs = a.x + (b * a.Gx + gx) * a.L * a.D + w.d;
+  w.dts = a.dt + static_cast<long long>(w.seq) * a.L * a.D + w.d;
+  w.dys = a.dy + static_cast<long long>(w.seq) * a.L * a.D + w.d;
+  w.bs = a.Bm + b * a.b_sb + static_cast<long long>(w.g) * a.b_sg + w.n;
+  w.cs = a.Cm + b * a.c_sb + static_cast<long long>(w.g) * a.c_sg + w.n;
+  return w;
+}
+
+__device__ __forceinline__ long long bwd_index(const BwdLane& w, int s, int L) { return w.rev ? L - 1 - s : s; }
+
+// h after steps s0 .. s1-1 from h, computed as the forward's pass 3 computes it.
+__device__ __forceinline__ float walk_h(const BwdArgs& a, const BwdLane& w, float a2, int s0, int s1, float h) {
+#pragma unroll 8
+  for (int s = s0; s < s1; ++s) {
+    const long long t = bwd_index(w, s, a.L);
+    const float dtv = __ldg(w.dts + t * a.D), xv = __ldg(w.xs + t * a.D), bv = __ldg(w.bs + t * a.b_sl);
+    h = fmaf(h, ex2(dtv * a2), (dtv * xv) * bv);
+  }
+  return h;
+}
+
+// Pass 1: every chunk c > 0 backwards from g = 0; e_c = a_{s0} g_{s0} goes to carry slot c - 1.
+__global__ void __launch_bounds__(BWD_THREADS) selective_scan_bwd_kernel_gends(BwdArgs a) {
+  const BwdLane w = bwd_lane(a, 1);
+  const float a2 = a.A[(static_cast<long long>(w.g) * a.D + w.d) * N_STATE + w.n] * LOG2E;
+  float ga = 0.f;
+#pragma unroll 8
+  for (int s = w.s1 - 1; s >= w.s0; --s) {
+    const long long t = bwd_index(w, s, a.L);
+    const float dtv = __ldg(w.dts + t * a.D), dyv = __ldg(w.dys + t * a.D), cv = __ldg(w.cs + t * a.c_sl);
+    ga = ex2(dtv * a2) * fmaf(cv, dyv, ga);
+  }
+  if (w.live)
+    a.gcarry[((static_cast<long long>(w.seq) * (a.chunks - 1) + w.chunk - 1) * N_STATE + w.n) * a.D + w.d] = ga;
+}
+
+// Pass 2: one thread per (sequence, state, channel), the chunks from the last: slot j becomes q_j, the term
+// a_{s1} g_{s1} that enters chunk j at its last step.
+__global__ void selective_scan_bwd_kernel_gcarry(BwdArgs a, long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int d = static_cast<int>(i % a.D);
+  const int n = static_cast<int>(i / a.D % N_STATE);
+  const long long seq = i / a.D / N_STATE;
+  const float an = a.A[((seq % a.G) * a.D + d) * N_STATE + n];
+  const long long q_stride = static_cast<long long>(N_STATE) * a.D, f_stride = static_cast<long long>(CARRY) * a.D;
+  float* q = a.gcarry + seq * (a.chunks - 1) * q_stride + static_cast<long long>(n) * a.D + d;
+  const float* sums = a.fcarry + seq * (a.chunks - 1) * f_stride + static_cast<long long>(N_STATE) * a.D + d;
+  float v = 0.f;
+  for (int j = a.chunks - 2; j >= 0; --j) {
+    const float e = q[j * q_stride];
+    // the forward's slot j + 1 holds the sum of dt over chunk j + 1; the last chunk passes nothing on
+    v = (j == a.chunks - 2) ? e : fmaf(expf(an * sums[(j + 1) * f_stride]), v, e);
+    q[j * q_stride] = v;
+  }
+}
+
+// Pass 3: the gradients, chunk by chunk, each chunk backwards from its true g. Two blocks fit an SM where the
+// chunk's tile states leave room (at most 64 registers a thread).
+__global__ void __launch_bounds__(BWD_THREADS, 2) selective_scan_bwd_kernel_main(BwdArgs a) {
+  extern __shared__ float at_tile[];                   // [tile][thread]: the state at the start of each tile
+  __shared__ float red[BWD_TILE][2][N_STATE][LANES];  // a tile's shares of dx / dt and of ddt, by state and channel
+  __shared__ float bc[BWD_TILE][2][N_STATE];           // a tile's dB and dC over the block's channels
+  const BwdLane w = bwd_lane(a, 0);
+  const float an = a.A[(static_cast<long long>(w.g) * a.D + w.d) * N_STATE + w.n], a2 = an * LOG2E;
+  const float dskip = a.Dskip ? a.Dskip[static_cast<long long>(w.g) * a.D + w.d] : 0.f;
+  const long long slot = static_cast<long long>(w.seq) * (a.chunks - 1) + w.chunk;  // this chunk's g carry
+  float h = w.chunk > 0 ? a.fcarry[((slot - 1) * CARRY + w.n) * a.D + w.d] : 0.f;
+  float ga = w.chunk < a.chunks - 1 ? a.gcarry[(slot * N_STATE + w.n) * a.D + w.d] : 0.f;
+
+  // walk 1: the state at the start of each tile
+  const int tiles = (w.s1 - w.s0 + BWD_TILE - 1) / BWD_TILE;
+  for (int j = 0; j < tiles; ++j) {
+    at_tile[j * BWD_THREADS + threadIdx.x] = h;
+    h = walk_h(a, w, a2, w.s0 + j * BWD_TILE, min(w.s0 + (j + 1) * BWD_TILE, w.s1), h);
+  }
+  float dA = 0.f, dD = 0.f;
+  for (int j = tiles - 1; j >= 0; --j) {
+    const int s = w.s0 + j * BWD_TILE, steps = min(BWD_TILE, w.s1 - s);
+    // walk 2: each step's decay and previous state (past a ragged end: the last step again, unused)
+    float hprev[BWD_TILE], dec[BWD_TILE];
+    h = at_tile[j * BWD_THREADS + threadIdx.x];
+#pragma unroll
+    for (int i = 0; i < BWD_TILE; ++i) {
+      const long long t = bwd_index(w, s + min(i, steps - 1), a.L);
+      const float dtv = __ldg(w.dts + t * a.D), xv = __ldg(w.xs + t * a.D), bv = __ldg(w.bs + t * a.b_sl);
+      dec[i] = ex2(dtv * a2);
+      hprev[i] = h;
+      h = fmaf(h, dec[i], (dtv * xv) * bv);
+    }
+    // walk 3: back over the tile (steps is the same for the whole block, so the shuffles see every lane)
+#pragma unroll
+    for (int i = BWD_TILE - 1; i >= 0; --i) {
+      if (i < steps) {
+        const long long t = bwd_index(w, s + i, a.L);
+        const float dtv = __ldg(w.dts + t * a.D), xv = __ldg(w.xs + t * a.D), bv = __ldg(w.bs + t * a.b_sl);
+        const float dyv = __ldg(w.dys + t * a.D), cv = __ldg(w.cs + t * a.c_sl);
+        const float g = fmaf(cv, dyv, ga);
+        const float u = dtv * xv;
+        const float ah = dec[i] * hprev[i];
+        const float ht = fmaf(hprev[i], dec[i], u * bv);
+        // dB and dC over the warp's channels: lanes 0-15 carry dB, 16-31 dC, and lanes 0 and 16 end with the sums
+        const float pb = w.live ? g * u : 0.f, pc = w.live ? ht * dyv : 0.f;
+        float sum = (w.lane < 16 ? pb : pc) + __shfl_xor_sync(0xffffffffu, w.lane < 16 ? pc : pb, 16);
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if ((w.lane & 15) == 0) bc[i][w.lane >> 4][w.n] = sum;
+        red[i][0][w.n][w.lane] = g * bv;
+        red[i][1][w.n][w.lane] = g * fmaf(an, ah, bv * xv);
+        dA = fmaf(g * dtv, ah, dA);
+        dD = fmaf(xv, dyv, dD);
+        ga = dec[i] * g;
+      }
+    }
+    __syncthreads();
+    {  // each thread sums one (step, output, channel) over the 16 states: 8 x 2 x 32 = the block's 512 threads
+      const int i = threadIdx.x / (2 * LANES), kind = threadIdx.x / LANES % 2;
+      if (i < steps && w.live) {
+        float v = 0.f;
+#pragma unroll
+        for (int n = 0; n < N_STATE; ++n) v += red[i][kind][n][w.lane];
+        const long long at = (static_cast<long long>(w.seq) * a.L + bwd_index(w, s + i, a.L)) * a.D + w.d;
+        if (kind == 0)
+          a.dxg[at] = fmaf(__ldg(a.dt + at), v, dskip * __ldg(a.dy + at));
+        else
+          a.ddt[at] = v;
+      }
+      if (threadIdx.x < BWD_TILE * 2 * N_STATE) {  // dB and dC of the tile's steps: 8 x 2 x 16
+        const int i2 = threadIdx.x / (2 * N_STATE), kind2 = threadIdx.x / N_STATE % 2, n2 = threadIdx.x % N_STATE;
+        if (i2 < steps) {
+          const long long at = ((static_cast<long long>(w.group) * gridDim.y + w.seq) * a.L +
+                                bwd_index(w, s + i2, a.L)) * N_STATE + n2;
+          (kind2 ? a.dCp : a.dBp)[at] = bc[i2][kind2][n2];
+        }
+      }
+    }
+    __syncthreads();  // the next tile writes red and bc again
+  }
+  const long long part = static_cast<long long>(w.seq) * a.chunks + w.chunk;
+  if (w.live) {
+    a.dA_part[(part * N_STATE + w.n) * a.D + w.d] = dA;
+    if (w.n == 0) a.dD_part[part * a.D + w.d] = dD;
+  }
+}
+
+// dx of each x direction: the sum, in direction order, of the directions that read it (0 where none does).
+__global__ void selective_scan_bwd_kernel_dx(BwdArgs a, float* dx, long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long per = static_cast<long long>(a.L) * a.D;
+  const long long rest = i % per, bx = i / per;  // bx = b * Gx + gx
+  const int gx = static_cast<int>(bx % a.Gx);
+  const long long b = bx / a.Gx;
+  float v = 0.f;
+  for (int g = 0; g < a.G; ++g)
+    if (((a.source_pack >> (4 * g)) & 15) == gx) v += a.dxg[(b * a.G + g) * per + rest];
+  dx[i] = v;
+}
+
+// dB and dC where D > 32: the channel groups' partial sums in group order.
+__global__ void selective_scan_bwd_kernel_bc(BwdArgs a, float* dB, float* dC, long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= 2 * total) return;
+  const bool is_c = i >= total;
+  const long long j = is_c ? i - total : i;
+  const float* part = is_c ? a.dCp : a.dBp;
+  float v = 0.f;
+  for (int k = 0; k < a.groups; ++k) v += part[k * total + j];
+  (is_c ? dC : dB)[j] = v;
+}
+
+// dA (G, D, N) and dD (G, D): the per-chunk partials summed over images, then chunks, in order.
+__global__ void selective_scan_bwd_kernel_params(BwdArgs a, float* dA, float* dD, int B) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(a.G) * N_STATE * a.D) return;
+  const int d = static_cast<int>(i % a.D), n = static_cast<int>(i / a.D % N_STATE);
+  const int g = static_cast<int>(i / a.D / N_STATE);
+  float va = 0.f, vd = 0.f;
+  for (int b = 0; b < B; ++b) {
+    const long long seq = static_cast<long long>(b) * a.G + g;
+    for (int c = 0; c < a.chunks; ++c) {
+      va += a.dA_part[((seq * a.chunks + c) * N_STATE + n) * a.D + d];
+      if (n == 0) vd += a.dD_part[(seq * a.chunks + c) * a.D + d];
+    }
+  }
+  dA[(static_cast<long long>(g) * a.D + d) * N_STATE + n] = va;
+  if (n == 0 && dD) dD[static_cast<long long>(g) * a.D + d] = vd;
+}
+
+// The gradients of sum(y * dy) for selective_scan_launch's inputs, with its shapes, strides, flags and sources,
+// and chunk_len the length it was called with. fcarry: its carry buffer after the call (chunk c + 1's start
+// state and chunk c's sum of dt in slot c), or null for a single chunk; dy, dx (B, Gx, L, D), ddt, dA, dB, dC
+// (B, G, L, N, dense), dD (or null with Dskip): f32 contiguous. Scratch: gcarry (B * G * (chunks - 1) * N * D,
+// or null for a single chunk), dxg (B * G * L * D), dBp and dCp (groups * B * G * L * N with groups =
+// ceil(D / 32); dB and dC themselves where groups is 1), dA_part (B * G * chunks * N * D), dD_part
+// (B * G * chunks * D).
+extern "C" int selective_scan_bwd_launch(const float* x, const float* dt, const float* A, const float* Bm,
+                                         const float* Cm, const float* Dskip, const float* dy, const float* fcarry,
+                                         float* gcarry, float* dxg, float* dBp, float* dCp, float* dA_part,
+                                         float* dD_part, float* dx, float* ddt, float* dA, float* dB, float* dC,
+                                         float* dD, int B, int G, int Gx, int L, int D, int N, int b_sb, int b_sg,
+                                         int b_sl, int c_sb, int c_sg, int c_sl, int reverse_mask, int source_pack,
+                                         int chunk_len, cudaStream_t stream) {
+  if (N != N_STATE || G > 8 || chunk_len < 1 || chunk_len > BWD_MAX_CHUNK || B * G > 65535 ||
+      (Dskip == nullptr) != (dD == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (L + chunk_len - 1) / chunk_len, groups = (D + LANES - 1) / LANES;
+  if (chunks > 1 && (!fcarry || !gcarry)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{x, dt, A, Bm, Cm, Dskip, dy, fcarry, gcarry, dxg, ddt, dBp, dCp, dA_part, dD_part, G, Gx, L, D,
+                  b_sb, b_sg, b_sl, c_sb, c_sg, c_sl, reverse_mask, source_pack, chunk_len, chunks, groups};
+  if (chunks > 1) {
+    selective_scan_bwd_kernel_gends<<<dim3((chunks - 1) * groups, B * G), BWD_THREADS, 0, stream>>>(a);
+    const long long total = static_cast<long long>(B) * G * N_STATE * D;
+    selective_scan_bwd_kernel_gcarry<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(a, total);
+  }
+  const int tile_bytes = (chunk_len + BWD_TILE - 1) / BWD_TILE * BWD_THREADS * static_cast<int>(sizeof(float));
+  cudaFuncSetAttribute(selective_scan_bwd_kernel_main, cudaFuncAttributeMaxDynamicSharedMemorySize, tile_bytes);
+  selective_scan_bwd_kernel_main<<<dim3(chunks * groups, B * G), BWD_THREADS, tile_bytes, stream>>>(a);
+  const long long nx = static_cast<long long>(B) * Gx * L * D;
+  selective_scan_bwd_kernel_dx<<<static_cast<unsigned>((nx + 255) / 256), 256, 0, stream>>>(a, dx, nx);
+  if (groups > 1) {
+    const long long nbc = static_cast<long long>(B) * G * L * N_STATE;
+    selective_scan_bwd_kernel_bc<<<static_cast<unsigned>((2 * nbc + 255) / 256), 256, 0, stream>>>(a, dB, dC, nbc);
+  }
+  const long long np = static_cast<long long>(G) * N_STATE * D;
+  selective_scan_bwd_kernel_params<<<static_cast<unsigned>((np + 255) / 256), 256, 0, stream>>>(a, dA, dD, B);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,9 +1,9 @@
-"""What bounds K1, K2, K3, K3's backward, their bf16 forms, K4 and K5 on the
-card: time throwaway variants of their sources.
+"""What bounds K1, K2, K3, K3's backward, their bf16 forms, K4, K4's backward
+and K5 on the card: time throwaway variants of their sources.
 
 Usage, on a machine with an NVIDIA Hopper GPU and the CUDA toolkit:
 
-    python3 -m experiment_yolo_torch.kernel_variants [k1|k1bf16|k2|k3|k3bwd|k3bf16|k3bwdbf16|k4|k5|all] [--baseline ROOT]
+    python3 -m experiment_yolo_torch.kernel_variants [k1|k1bf16|k2|k3|k3bwd|k3bf16|k3bwdbf16|k4|k4bwd|k5|all] [--baseline ROOT]
 
 Each variant is the kernel's source with a few pieces of text replaced (no
 exp, no shared-memory reads of B and C, no copies from device memory, another
@@ -52,7 +52,12 @@ a time, no exp, loads only, the runtime-``reg_max`` instance, and 64 or 256
 threads a block; the ptxas lines (registers, spills) of each build come
 first.
 
-``--baseline ROOT`` also times K1, K3's backward, K3's bf16 forms or K5 built
+``k4bwd`` times K4's backward by kernel name at the four levels, through
+the autograd Function (one forward kept, its backward run again), on the K4
+inputs above with a seeded ``dy``, with each variant's largest error against
+the f32 plain backward over the six gradients; the ptxas lines come first.
+
+``--baseline ROOT`` also times K1, K3's backward, K3's bf16 forms, K4's backward or K5 built
 from another checkout (say the parent commit, unpacked with ``git
 archive``), so that two versions are compared in one process. K1's baseline
 is called through the earlier C signature, one map a launch (the first
@@ -81,7 +86,8 @@ from experiment_yolo_torch.ops.kernels.ldconv_gather import (_BWD_ARGS, _geom_ar
                                                              ldconv_gather_bwd_plain, ldconv_gather_fwd,
                                                              ldconv_gather_plain)
 from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress, nms_suppress_plain
-from experiment_yolo_torch.ops.kernels.selective_scan import chunk_length, selective_scan, selective_scan_plain
+from experiment_yolo_torch.ops.kernels.selective_scan import (chunk_length, selective_scan, selective_scan_bwd_plain,
+                                                              selective_scan_plain)
 from experiment_yolo_torch.ops.kernels.soft_nms import soft_nms, soft_nms_plain
 from experiment_yolo_torch.utils.seeded import (VAL_SEED, contention_offsets, letterboxed, model_input, seam_offsets,
                                                 seeded_batch, seeded_images, seeded_model, soft_nms_cases,
@@ -104,6 +110,23 @@ K4_VARIANTS = {
     "2 stages": (("constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),),
     "tiles of 4 steps": (("constexpr int TILE = 8; ", "constexpr int TILE = 4; "),),
     "4 warps a block": (("constexpr int WARPS = 2;", "constexpr int WARPS = 4;"),),
+}
+# variant -> (old, new) pieces of csrc/selective_scan.cu, for the backward kernels
+K4BWD_VARIANTS = {
+    "as it is": (),
+    "no exps": (("ex2(dtv * a2)", "(dtv * a2)"),),
+    "one block an SM": (("__launch_bounds__(BWD_THREADS, 2) selective_scan_bwd_kernel_main",
+                         "__launch_bounds__(BWD_THREADS) selective_scan_bwd_kernel_main"),),
+    "no walk 1": (("    h = walk_h(a, w, a2, w.s0 + j * BWD_TILE, min(w.s0 + (j + 1) * BWD_TILE, w.s1), h);\n", ""),),
+    "no tile sums": (("if (i < steps && w.live) {", "if (i < steps && w.live && a.L < 0) {"),
+                     ("if (threadIdx.x < BWD_TILE * 2 * N_STATE) {",
+                      "if (threadIdx.x < BWD_TILE * 2 * N_STATE && a.L < 0) {")),
+    "no shuffles": (("float sum = (w.lane < 16 ? pb : pc) + __shfl_xor_sync(0xffffffffu, w.lane < 16 ? pc : pb, 16);",
+                     "float sum = pb + pc;"),
+                    ("for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);",
+                     "for (int off = 8; off > 0; off >>= 1) sum += off;")),
+    "pass 1 unrolled by 16": (("#pragma unroll 8\n  for (int s = w.s1 - 1; s >= w.s0; --s) {",
+                               "#pragma unroll 16\n  for (int s = w.s1 - 1; s >= w.s0; --s) {"),),
 }
 # variant -> (old, new) pieces of csrc/ldconv_gather.cu
 K3_VARIANTS = {
@@ -316,6 +339,40 @@ def scan_variants(gen: torch.Generator) -> None:
                 passes = device_ms(lambda: selective_scan(*args, **kw), "selective_scan_kernel", kernels)
                 row[f"L{length}"] = {**passes, "all": sum(passes.values())}
             print(json.dumps(row), flush=True)
+
+
+def scan_bwd_variants(gen: torch.Generator, baseline: Path | None) -> None:
+    kw = dict(reverse=(False, False, True, True), source=(0, 1, 0, 1))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    calls = {}
+    for length, dim, rank in SCAN_LEVELS:
+        dbl = torch.randn(BATCH, 4, length, rank + 32, generator=gen).cuda()
+        args = (torch.randn(BATCH, 2, length, dim, generator=gen).cuda(),
+                (0.01 + 1e-4 * torch.randn(BATCH, 4, length, dim, generator=gen)).cuda(),
+                -torch.arange(1, 17, dtype=torch.float32).expand(4, dim, 16).contiguous().cuda(),
+                dbl[..., rank:rank + 16], dbl[..., rank + 16:], torch.randn(4, dim, generator=gen).cuda())
+        dy = torch.randn(BATCH, 4, length, dim, generator=gen).cuda()
+        chunked = length > chunk_length(BATCH * 4, length, dim, sms)
+        launches = 3 + 2 * chunked + (dim > 32)  # g's ends and carry where chunked, main, dx, dB/dC groups, dA/dD
+        calls[length] = (args, dy, launches, selective_scan_bwd_plain(*args, dy, **kw))
+    libs = build_variants("selective_scan", K4BWD_VARIANTS, baseline)
+    kept = ("registers", "spill", "bwd_kernel_main")
+    ptxas = {tag: [ln.strip() for ln in log.splitlines() if any(k in ln for k in kept)] for tag, log in build_logs.items()}
+    print(json.dumps({"kernel": "K4 bwd", "ptxas": ptxas}), flush=True)
+    for tag, lib in libs.items():
+        swap_in("selective_scan", lib)
+        row, err = {"kernel": "K4 bwd", "variant": tag}, 0.0
+        for length, (args, dy, launches, want) in calls.items():
+            leaves = [t.detach().requires_grad_() for t in args]
+            y = selective_scan(*leaves, **kw)
+            got = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+            err = max(err, *(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)))
+            passes = device_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+                               "selective_scan_bwd_kernel", launches)
+            row[f"L{length}"] = {**passes, "all": sum(passes.values())}
+        row["rel_err_vs_plain"] = err
+        row["all_levels"] = sum(v["all"] for k, v in row.items() if k.startswith("L"))
+        print(json.dumps(row), flush=True)
 
 
 def gather_variants(gen: torch.Generator) -> None:
@@ -645,9 +702,9 @@ def main() -> None:
         baseline = Path(args[i + 1]).resolve()
         del args[i:i + 2]
     which = args[0] if args else "all"
-    if which not in ("k1", "k1bf16", "k2", "k3", "k3bwd", "k3bf16", "k3bwdbf16", "k4", "k5", "all"):
+    if which not in ("k1", "k1bf16", "k2", "k3", "k3bwd", "k3bf16", "k3bwdbf16", "k4", "k4bwd", "k5", "all"):
         sys.exit(f"kernel_variants: unknown target {which!r}: one of k1, k1bf16, k2, k3, k3bwd, k3bf16, k3bwdbf16, "
-                 "k4, k5, all")
+                 "k4, k4bwd, k5, all")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}", flush=True)
@@ -661,6 +718,8 @@ def main() -> None:
     for name, fn in targets.items():
         if which in (name, "all"):
             fn(gen)
+    if which in ("k4bwd", "all"):
+        scan_bwd_variants(gen, baseline)
     if which in ("k3bwd", "all"):
         gather_bwd_variants(gen, baseline)
     if which in ("k3bf16", "all"):

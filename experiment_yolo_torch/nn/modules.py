@@ -220,7 +220,12 @@ class ScalSeq(nn.Module):
         p4 = F.interpolate(self.conv1(p4), size=size, mode="nearest")
         p5 = F.interpolate(self.conv2(p5), size=size, mode="nearest")
         y = self.bn(cast_conv(self.conv3d, torch.stack([p3, p4, p5], 2), self.dtype))  # (B, C, 3, H, W)
-        return self.scale_max(F.leaky_relu(y, 0.1))
+        return self.scale_max(self.act(y))
+
+    @staticmethod
+    def act(y: torch.Tensor) -> torch.Tensor:
+        """LeakyReLU 0.1."""
+        return F.leaky_relu(y, 0.1)
 
     @staticmethod
     def scale_max(z: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,7 @@ from torch import nn
 from experiment_yolo_torch.cfg import CFG_DIR, yaml_load
 from experiment_yolo_torch.nn.modules import (C2f, SPPF, Add, Concat, Conv, Detect, LDConv, ScalSeq, ZoomCat,
                                               init_weights)
-from experiment_yolo_torch.nn.zoo_blocks import INNER_BLOCKS, SS2D, C2fX, C3X
+from experiment_yolo_torch.nn.zoo_blocks import INNER_BLOCKS, SS2D, C2fX, C3X, VSSBlock
 from experiment_yolo_torch.ops.anchors import decode_detections
 from experiment_yolo_torch.utils import select_device
 
@@ -178,12 +178,8 @@ class DetectionModel(nn.Module):
     def dtype(self, dtype: torch.dtype) -> None:
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"compute dtype {dtype}: the port computes in torch.float32 or torch.bfloat16")
-        if dtype != torch.float32 and any(isinstance(m, SS2D) for m in self.modules()):
-            raise NotImplementedError(f"compute dtype {dtype} for the VSS family (SS2D) needs kernel K4 in bf16, "
-                                      "which is not ported yet (ROADMAP.md queue 1 item 9); use torch.float32 "
-                                      "(amp=False)")
         for m in self.modules():
-            if isinstance(m, (Conv, LDConv, ScalSeq, Detect)):
+            if isinstance(m, (Conv, LDConv, ScalSeq, Detect, SS2D, VSSBlock)):
                 m.dtype = dtype
 
     @torch.no_grad()

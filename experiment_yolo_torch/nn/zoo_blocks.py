@@ -18,6 +18,16 @@ axis first: ``x_proj_weight`` (4, dt_rank + 2N, d_inner), ``dt_projs_weight``
 
 Both LayerNorms use eps 1e-6, as the JAX package does (flax's default for
 ``out_norm``, explicit for ``ln_1``); ``torch.nn.LayerNorm`` defaults to 1e-5.
+
+Compute dtype (``dtype``, bf16 under ``amp``, set by
+:attr:`~experiment_yolo_torch.nn.tasks.DetectionModel.dtype`): as in the JAX
+package's ``SS2D`` (``zoo_blocks.py:1016-1046``), ``in_proj``, the depthwise
+``conv2d``, ``out_norm``, the gate and ``out_proj`` compute in it with their
+f32 parameters cast at each forward, and the two LayerNorms take their
+statistics in f32 as flax's ``nn.LayerNorm(dtype=...)`` does, returning the
+compute dtype; the sequences are widened to f32 for the ``x_proj`` and
+``dt_proj`` products, the softplus, ``-exp(A_logs)`` and the scan (K4 and its
+backward take f32 only), and ``y`` is cast back before ``out_norm``.
 """
 
 from __future__ import annotations
@@ -29,13 +39,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from experiment_yolo_torch.nn.modules import Conv
+from experiment_yolo_torch.nn.modules import Conv, cast_conv
 from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan
 
 LN_EPS = 1e-6
 # SS2D's four scans: row-major, column-major, and each of the two from its end
 REVERSED = (False, False, True, True)
 SOURCE = (0, 1, 0, 1)  # the sequence each direction reads
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``ln`` with its statistics and its affine step in f32, returned in
+    ``dtype``: flax's ``nn.LayerNorm(dtype=...)``, which widens a bf16 input
+    and rounds its result once."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
 
 
 class SS2D(nn.Module):
@@ -45,6 +62,8 @@ class SS2D(nn.Module):
     projections to ``dt``, ``B``, ``C`` and kernel K4, one call for the four,
     which walks the reversed directions backwards in place -> un-transpose
     and sum -> LayerNorm -> ``* silu(z)`` -> ``out_proj``."""
+
+    dtype = torch.float32  # the compute dtype around the scan; the scan itself runs in f32
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 3, expand: int = 2):
         super().__init__()
@@ -76,12 +95,12 @@ class SS2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bsz, h, w, _ = x.shape
-        d, n, r = self.d_inner, self.d_state, self.dt_rank
-        xc, z = self.in_proj(x).chunk(2, -1)
-        xc = F.silu(self.conv2d(xc.permute(0, 3, 1, 2)))  # (B, d, H, W)
+        d, n, r, dtype = self.d_inner, self.d_state, self.dt_rank, self.dtype
+        xc, z = F.linear(x.to(dtype), self.in_proj.weight.to(dtype)).chunk(2, -1)
+        xc = F.silu(cast_conv(self.conv2d, xc.permute(0, 3, 1, 2), dtype))  # (B, d, H, W)
         row = xc.permute(0, 2, 3, 1).reshape(bsz, h * w, d)
         col = xc.permute(0, 3, 2, 1).reshape(bsz, h * w, d)
-        xs = torch.stack([row, col], 1)  # (B, 2, L, d): the row-major and the column-major sequence
+        xs = torch.stack([row, col], 1).float()  # (B, 2, L, d): the row-major and the column-major sequence
         # Directions 2 and 3 scan the same two sequences from their ends. The projections are pointwise over
         # L, so all four run on the unreversed sequences, each with its own weights; K4 walks 2 and 3
         # backwards, reads their x from 0 and 1, and returns every y in the order of its sequence.
@@ -93,12 +112,15 @@ class SS2D(nn.Module):
         y = ys[:, 0] + ys[:, 2]
         ycol = ys[:, 1] + ys[:, 3]
         y = y + ycol.reshape(bsz, w, h, d).transpose(1, 2).reshape(bsz, h * w, d)
-        y = self.out_norm(y.reshape(bsz, h, w, d)) * F.silu(z)
-        return self.out_proj(y)
+        y = layer_norm(self.out_norm, y.reshape(bsz, h, w, d).to(dtype), dtype) * F.silu(z)
+        return F.linear(y, self.out_proj.weight.to(dtype))
 
 
 class VSSBlock(nn.Module):
-    """LayerNorm over channels -> SS2D -> residual, on an NCHW map."""
+    """LayerNorm over channels -> SS2D -> residual, on an NCHW map, in the
+    compute dtype ``dtype`` (its SS2D takes the same)."""
+
+    dtype = torch.float32
 
     def __init__(self, c: int, d_state: int = 16):
         super().__init__()
@@ -106,8 +128,8 @@ class VSSBlock(nn.Module):
         self.self_attention = SS2D(c, d_state=d_state)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.permute(0, 2, 3, 1)
-        return (y + self.self_attention(self.ln_1(y))).permute(0, 3, 1, 2)
+        y = x.permute(0, 2, 3, 1).to(self.dtype)
+        return (y + self.self_attention(layer_norm(self.ln_1, y, self.dtype))).permute(0, 3, 1, 2)
 
 
 class VSSBottleneck(nn.Module):

@@ -47,17 +47,23 @@ def _torch_step_plan(nb: int, epochs: int, warmup_epochs: float, k_full: int) ->
     return np.asarray(ks, np.int32), np.asarray(nis, np.int32)
 
 
+# the normalisation layers, as the reference's build_optimizer finds them: every torch.nn class named *Norm*
+NORM_LAYERS = tuple(v for k, v in nn.__dict__.items() if "Norm" in k and isinstance(v, type))
+
+
 def param_group_label(name: str, module: nn.Module) -> str:
     """'bias' | 'norm' | 'weight' for parameter ``name`` of ``module``.
 
-    As the reference (and the JAX package) test ``bias`` first, BatchNorm
-    biases join the bias group; BatchNorm weights form the norm group; every
-    other weight (convolutions, LDConv's ``conv.0`` and ``p_conv``, ScalSeq's
-    ``conv3d``) is in the weight group, the only one with weight decay.
+    As the reference (and the JAX package) test ``bias`` first, normalisation
+    biases join the bias group; the weights of normalisation layers
+    (BatchNorm, and VSS's LayerNorms, whose flax parameter is a ``scale``)
+    form the norm group; every other weight (convolutions, LDConv's ``conv.0``
+    and ``p_conv``, ScalSeq's ``conv3d``, SS2D's projections and raw scan
+    parameters) is in the weight group, the only one with weight decay.
     """
     if name.rsplit(".", 1)[-1] == "bias":
         return "bias"
-    if isinstance(module, nn.modules.batchnorm._BatchNorm):
+    if isinstance(module, NORM_LAYERS):
         return "norm"
     return "weight"
 

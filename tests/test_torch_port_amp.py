@@ -368,12 +368,20 @@ def test_wrappers_refuse_other_dtypes_on_the_card():
 
 
 def test_vss_models_refuse_bf16():
-    """A VSS model in bf16 needs K4 in bf16, which is not ported: building or
-    switching one raises, naming the queue item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        TorchModel("yolov8-C2f-VSS.yaml", device="cpu", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        DetectionTrainer(TorchModel("yolov8-C2f-VSS.yaml", device="cpu"), {"batch": BATCH})
+    """VSS models no longer refuse bf16: the JAX package's SS2D runs its scan
+    in f32 inside a bf16 model, and so does the port's. A VSS model builds
+    in bf16 and switches to it, every SS2D and VSSBlock with it, and
+    ``DetectionTrainer``'s defaults (amp=True) train it in bf16."""
+    from experiment_yolo_torch.nn.zoo_blocks import SS2D, VSSBlock
+
+    model = TorchModel("yolov8-C2f-VSS.yaml", device="cpu", dtype=torch.bfloat16)
+    blocks = [m for m in model.modules() if isinstance(m, (SS2D, VSSBlock))]
+    assert model.dtype == torch.bfloat16 and len(blocks) == 20 and all(m.dtype == torch.bfloat16 for m in blocks)
+    model.dtype = torch.float32
+    assert all(m.dtype == torch.float32 for m in blocks)
+    trainer = DetectionTrainer(model, {"batch": BATCH})
+    assert trainer.dtype == model.dtype == trainer.state.ema.ema.dtype == torch.bfloat16
+    assert all(m.dtype == torch.bfloat16 for m in blocks)
 
 
 def test_checkpoints_hold_f32_weights_whatever_the_compute_dtype(tmp_path):

@@ -279,7 +279,8 @@ def test_kernel_variants_substitutions_are_in_the_sources():
 
     sources = {"K1_VARIANTS": "dfl_decode", "K2_VARIANTS": "nms_suppress", "K3_VARIANTS": "ldconv_gather",
                "K3BWD_VARIANTS": "ldconv_gather", "K3BF16_VARIANTS": "ldconv_gather",
-               "K3BWDBF16_VARIANTS": "ldconv_gather", "K4_VARIANTS": "selective_scan", "K5_VARIANTS": "soft_nms"}
+               "K3BWDBF16_VARIANTS": "ldconv_gather", "K4_VARIANTS": "selective_scan",
+               "K4BWD_VARIANTS": "selective_scan", "K5_VARIANTS": "soft_nms"}
     for table, lib in sources.items():
         text = (_build.CSRC / f"{lib}.cu").read_text()
         for tag, variant in getattr(kv, table).items():

@@ -140,3 +140,55 @@ def test_plain_conv_configs_match_jax(cfg, strides, n_params):
     scale, from a JAX init (:func:`check_config_matches_jax`)."""
     jm = JaxModel(cfg)
     check_config_matches_jax(cfg, strides, n_params, jm, jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(1))))
+
+
+def test_a_value_at_scalseqs_kink_moves_bn_bias_gradient_not_the_output(monkeypatch):
+    """Why a card step and a CPU step can both be right and still differ in
+    ScalSeq's ``bn.bias`` gradient: its LeakyReLU has a kink at 0, so an
+    element within rounding of 0 takes the slope 1 on one device and 0.1 on
+    the other. One ScalSeq in training mode: moving ``bn.bias`` by 2e-6 on
+    the channel of the picked element nearest 0 carries that element across
+    0; the output moves by less than 1e-5 relative L2 and ``bn.bias``'s
+    gradient, a plain sum of the slopes' products, by more than 1e-3. Given
+    the other side's signs (as ``chip_smoke.py``'s card-versus-CPU step
+    gives the CPU the card's), the gradients agree again."""
+    from experiment_yolo_torch.nn.modules import ScalSeq
+
+    rng = np.random.default_rng(29)
+    module = ScalSeq([8, 16, 32], 8).train()
+    xs = [torch.from_numpy(rng.standard_normal((2, c, s, s)).astype(np.float32))
+          for c, s in ((8, 16), (16, 8), (32, 4))]
+    w = torch.from_numpy(rng.standard_normal((2, 8, 16, 16)).astype(np.float32))
+    pre = []
+    module.bn.register_forward_hook(lambda m, args, y: pre.append(y.detach()))
+
+    def step(bias):
+        with torch.no_grad():
+            module.bn.bias.copy_(bias)
+        module.zero_grad()
+        out = module(xs)
+        (out * w).sum().backward()
+        return out.detach(), module.bn.bias.grad.clone(), pre[-1]
+
+    bias = module.bn.bias.detach().clone()
+    _, _, y = step(bias)
+    picks = torch.nn.functional.leaky_relu(y, 0.1).argmax(2, keepdim=True)
+    near = torch.full_like(y, float("inf")).scatter(2, picks, y.gather(2, picks).abs())
+    at = np.unravel_index(int(near.flatten().argmin()), tuple(y.shape))
+    delta = 1e-6
+    shifted = [bias.clone(), bias.clone()]
+    shifted[0][at[1]] += delta - y[at]
+    shifted[1][at[1]] -= delta + y[at]
+    out_a, grad_a, y_a = step(shifted[0])
+    out_b, grad_b, y_b = step(shifted[1])
+    assert y_a[at] > 0 > y_b[at]
+    assert _rel(out_b, out_a) < 1e-5
+    assert _rel(grad_b, grad_a) > 1e-3
+    signs = y_a > 0
+    monkeypatch.setattr(ScalSeq, "act", staticmethod(lambda z: torch.where(signs, z, 0.1 * z)))
+    _, grad_given, _ = step(shifted[1])
+    assert _rel(grad_given, grad_a) < 1e-5
+
+
+def _rel(got, want):
+    return float((got - want).norm() / want.norm())

@@ -167,9 +167,11 @@ def test_cpu_gradients_match_jax():
 
 
 def test_wrapper_raises_where_the_card_would_need_a_gradient(monkeypatch):
-    """K4 has no backward kernel: with the device check stubbed, tensors that
-    are not on the CPU and ask for a gradient raise before any launch; under
-    ``no_grad`` the same call goes on to the launch."""
+    """K4 has a backward kernel now, so nothing raises: with the device check
+    stubbed, tensors that are not on the CPU and ask for a gradient go
+    through the autograd Function ``SelectiveScan``, one forward launch, and
+    ``backward()`` makes one launch of K4's backward kernel; under
+    ``no_grad`` the same call is the forward launch alone."""
     launched = []
     monkeypatch.setattr(_build, "validate", lambda *a, **k: None)
     monkeypatch.setattr(_build, "launch", lambda *a, **k: launched.append(a[0]))
@@ -177,14 +179,18 @@ def test_wrapper_raises_where_the_card_would_need_a_gradient(monkeypatch):
     x, dt, a, bs, cs, dv = (torch.zeros(s, device="meta") for s in
                             ((1, 8, 4), (1, 8, 4), (4, 16), (1, 8, 16), (1, 8, 16), (4,)))
     a.requires_grad_()
-    before = selective_scan.launches
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        selective_scan(x, dt, a, bs, cs, dv)
-    assert not launched and selective_scan.launches == before
+    before = selective_scan.launches, scan_module.selective_scan_bwd.launches
+    y = selective_scan(x, dt, a, bs, cs, dv)
+    assert y.shape == (1, 8, 4)  # the single-direction form: the Function's output, its direction axis taken off
+    assert "SelectiveScan" in type(y.grad_fn.next_functions[0][0]).__name__
+    assert launched == ["selective_scan"] and selective_scan.launches == before[0] + 1
+    y.sum().backward()
+    assert launched == ["selective_scan", "selective_scan_bwd"] and a.grad is not None and a.grad.shape == (4, 16)
+    assert scan_module.selective_scan_bwd.launches == before[1] + 1
     with torch.no_grad():
         assert selective_scan(x, dt, a, bs, cs, dv).shape == (1, 8, 4)
-    assert launched == ["selective_scan"] and selective_scan.launches == before + 1
-    selective_scan.launches = before
+    assert launched == ["selective_scan", "selective_scan_bwd", "selective_scan"]
+    selective_scan.launches, scan_module.selective_scan_bwd.launches = before
 
 
 def test_wrapper_hands_the_kernel_flags_sources_strides_and_one_count_per_call(monkeypatch):
