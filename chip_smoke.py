@@ -2719,12 +2719,13 @@ def k4_against_float64(levels):
 
 
 def k4_bwd_passes(args, sms: int) -> int:
-    """The kernels one call of K4's backward launches: the g ends and carry passes where L has more than one
-    chunk, the main pass, the dx sum, the channel groups' sum of dB and dC where D > 32, and dA and dD."""
+    """The kernels one call of K4's backward launches: the tile start states (and g's chunk ends), g's carry
+    where L has more than one chunk, the main pass, the dx sum, the channel groups' sum of dB and dC where
+    D > 32, and dA and dD."""
     from experiment_yolo_torch.ops.kernels.selective_scan import chunk_length
 
     bsz, g, length, dim = args[1].shape
-    return 3 + 2 * (length > chunk_length(bsz * g, length, dim, sms)) + (dim > 32)
+    return 4 + (length > chunk_length(bsz * g, length, dim, sms)) + (dim > 32)
 
 
 def k4_bwd_cost(args):
@@ -2747,8 +2748,10 @@ def check_k4_bwd(calls):
     ragged L. Each of the seven outputs (y and the six gradients) must be
     within BWD_RTOL of its largest f32 plain value, or else no farther from
     the float64 plain version than the f32 plain version is; both distances
-    are reported. Timed over the step's ten calls: the backward alone
-    (autograd's backward of one forward, kept), against the plain version."""
+    are reported. On the main path's calls two backward calls of one forward
+    must give the same bits (every sum is taken in a fixed order). Timed over
+    the step's ten calls: the backward alone (autograd's backward of one
+    forward, kept), against the plain version."""
     import torch
 
     from experiment_yolo_torch.ops.kernels.selective_scan import (chunk_length, selective_scan,
@@ -2784,13 +2787,21 @@ def check_k4_bwd(calls):
                   f"{r}")
         return row
 
+    def same_bits(args, kwargs, dy):
+        leaves = [t.detach().requires_grad_() for t in args]
+        y = selective_scan(*leaves, **kwargs)
+        first, second = (torch.autograd.grad(y, leaves, dy, retain_graph=True) for _ in range(2))
+        return all(torch.equal(a, b) for a, b in zip(first, second))
+
     levels = first_of_each_level(calls)
     detail, worst = [], 0.0
     for length, (args, kwargs, dy) in levels.items():
         bsz, _, _, dim = args[1].shape
         rank = args[3].stride(2) - 32
         row = {"shape_B_G_L_D": list(args[1].shape), "chunk_steps": chunk_length(bsz * 4, length, dim, sms),
-               "main": held("main", args, kwargs, dy)}
+               "main": held("main", args, kwargs, dy), "same_bits_twice": same_bits(args, kwargs, dy)}
+        check(row["same_bits_twice"], f"two calls of K4's backward on the main path's inputs at L={length} gave "
+              f"different bits")
         if length in (min(levels), max(levels)):  # the plain versions walk every step in Python
             rand = ss2d_like(bsz, length, dim, rank, gen, step=(1e-3, 1.0))
             rdy = torch.randn(dy.shape, generator=gen).cuda()
@@ -2863,8 +2874,9 @@ def k4_bwd_device_ms_main() -> None:
         levels.setdefault(item[1][1].shape[2], item)
     per_level = {length: device_ms(backward([item]), "selective_scan_bwd_kernel", item[3])
                  for length, item in sorted(levels.items())}
+    bounds = {length: bound(*k4_bwd_cost([t.detach() for t in item[1]]))[0] for length, item in sorted(levels.items())}
     print(json.dumps({"k4_bwd_device_ms": total, "calls": len(kept), "per_level_first_call": per_level,
-                      "launches_per_call": [k[3] for k in kept]}), flush=True)
+                      "bound_ms_per_level": bounds, "launches_per_call": [k[3] for k in kept]}), flush=True)
 
 
 def k4_bwd_device_ms_fresh():
@@ -2920,9 +2932,13 @@ def vss_trained(vss_state, batches, data: Path, root: Path, counters, card):
     fresh = k4_bwd_device_ms_fresh()
     lap("(c) fresh process")
     k4_bwd["device_ms"], k4_bwd["device_ms_per_level"] = fresh["k4_bwd_device_ms"], fresh["per_level_first_call"]
+    k4_bwd["bound_ms_per_level"] = fresh["bound_ms_per_level"]
     log(f"selective_scan_bwd: {k4_bwd['rel_err']} of the largest plain value at worst, kernel {k4_bwd['ms']:.4f} ms "
-        f"(device {k4_bwd['device_ms']} ms, per level {k4_bwd['device_ms_per_level']}) for a step's 10 calls, plain "
-        f"{k4_bwd['plain_ms']:.1f} ms (1 run), library none, bound {k4_bwd['bound_ms']:.4f} ms ({k4_bwd['bound_by']})")
+        f"(device {k4_bwd['device_ms']} ms) for a step's 10 calls, plain {k4_bwd['plain_ms']:.1f} ms (1 run), library "
+        f"none, bound {k4_bwd['bound_ms']:.4f} ms ({k4_bwd['bound_by']})")
+    for length, ms in fresh["per_level_first_call"].items():
+        log(f"  K4 bwd first call at L={length}: device {json.dumps(ms)} ms, bound "
+            f"{fresh['bound_ms_per_level'][length]:.4f} ms")
     log(f"  K4 against float64 (fraction of the largest value): {json.dumps(float64)}")
     for row in k4_bwd["levels"]:
         log(f"  K4 bwd level {json.dumps(row)}")

@@ -56,6 +56,9 @@
 // model's inputs (step sizes of 0.01), not bit for bit. The slower the decay, the longer a difference
 // between ex2.approx and the plain version's exp lives in the state.
 #include <math.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 constexpr int N_STATE = 16;  // states per channel, all in one thread's registers
@@ -333,63 +336,99 @@ extern "C" int selective_scan_launch(const float* x, const float* dt, const floa
 // Bound on this card: bytes. At the widest level (B = 8, G = 4, L = 25,600, D = 32) the call must read x, dt, B,
 // C and dy and write dx, ddt, dB and dC, about 630 MB: 0.19 ms at 3.35 TB/s; its one exp per (state, step) on
 // the special-function units takes 0.10 ms and its 18 other operations per (state, step) 0.11 ms at the f32 rate.
-// This first kernel is far from it (kernel_variants.py k4bwd, H100 SXM at 700 W, one call a level on inputs like
-// the seeded model's): 4.45 ms at the widest level, of it 3.51 in pass 3 and 0.67 in pass 1, and 8.33 ms for one
-// call at each of the four levels. It walks every step three times (below) and computes three exps per (state,
-// step), but neither bounds it: without the exps a call is 2-3% faster, and with one block an SM instead of two
-// no slower. An earlier form that held the states of 64-step stretches and of 8-step tiles in registers (128
-// registers, one block an SM, four walks) took 6.85 and 12.99 ms.
+// Measured (kernel_variants.py k4bwd, H100 SXM 80 GB at 700 W, one call a level on inputs like the seeded model's,
+// one process): 0.93 ms at the widest level, 5x its bound (0.54 in the main pass, 0.31 in pass 1), and 1.87 ms for
+// one call at each of the four levels, against 4.47 and 8.35 ms for the first design, which ran one thread per
+// (state, channel) and paid each channel's loads, index arithmetic and sums 16 times. No single part bounds it:
+// the main pass is 2.5% faster without its exps (two a state and step there, one in pass 1), 16% without its
+// sums over channels and 10% without its copies from device memory; pass 1 is twice as fast without its copies
+// (0.16 ms), besides which it writes the tile start states, 0.42 GB at the widest level, which the main pass
+// reads back. What sets the tile length is shared
+// memory: tiles of 8 steps (30 KB a warp, 7 warps an SM) made the main pass 0.89 ms, of 2 steps (start states
+// four times as dense) pass 1 0.47 ms; a history without its row pad (bank conflicts in the sums) 1.30 ms; a
+// third ring stage, two warps a block or a cap of 96 registers (spills) were slower too.
 //
 // Design, what is hard and what it does about it:
 // - The reverse walk needs h_{t-1} in reverse order. Storing h for every step, (B, G, L, D, N), would take 1.68
 //   GB at the widest level, and running the recurrence backwards by division, h_{t-1} = (h_t - b_t) / a_t, blows
-//   up where a_t underflows (dt A near -16 gives 1e-7). So h is recomputed forwards from the chunk start states
-//   that the forward's passes 1-2 left in its carry buffer (the autograd Function keeps it): one walk over the
-//   chunk keeps the state at the start of every 8-step tile in shared memory (chunk_len * 256 bytes a block,
-//   at most 128 KB: the wrapper caps the chunk length at 512 steps); then for each tile, last first, a walk
-//   keeps each step's previous state and decay in registers, and the reverse walk over that tile computes the
-//   gradients, reading the tile's x, dt and B again from L1.
-// - One thread per (image and direction, chunk, state, channel): a block is 16 warps, warp n holds state n of
-//   32 neighbouring channels, so a thread's state is one register and its history of a tile eight. x, dt and
-//   dy are read by the 32 lanes of a warp side by side, B_t and C_t as one broadcast word a warp.
-// - g is a linear recurrence like h, run backwards. Chunks run side by side as the forward's do: pass 1
-//   (selective_scan_bwd_kernel_gends) walks every chunk but the first backwards from g = 0 and keeps
-//   e_c = a_{s0} g_{s0}; pass 2 (selective_scan_bwd_kernel_gcarry) walks the chunks of each (sequence, state,
-//   channel) from the last, q_{c-1} = exp(A sum dt_c) q_c + e_c, with the sums of dt the forward kept; pass 3
-//   (selective_scan_bwd_kernel_main) starts each chunk's reverse walk from q_c.
-// - Sums, each in a fixed order, so that two calls give the same bits: over the 32 channels of a warp with
-//   shuffles (dB, dC), over the 16 states through shared memory once a tile (dx, ddt), then over channel groups
-//   (dB, dC where D > 32), over the images and chunks (dA, dD, from per-chunk partials) and over the directions
-//   that share an x (dx) in finishing kernels. No atomics.
-// - exp is ex2.approx with A scaled by log2(e), as in the forward, so that the recomputed h follows the
-//   forward's; the carry of g uses expf, as the forward's carry does.
-constexpr int BWD_TILE = 8;           // steps whose previous state and decay a thread holds in registers
-constexpr int BWD_MAX_CHUNK = 512;    // steps of a chunk: its tiles' start states fill at most 128 KB
-constexpr int BWD_THREADS = N_STATE * LANES;  // 16 warps: warp n holds state n of 32 channels
+//   up where a_t underflows (dt A near -16 gives 1e-7). So h is recomputed forwards: pass 1
+//   (selective_scan_bwd_kernel_starts) walks every chunk from the start state that the forward's passes 1-2
+//   left in its carry buffer (the autograd Function keeps it), as the forward's pass 3 walks it, and writes the
+//   state at the start of every BWD_TILE-step tile to scratch; the main pass walks each tile again from there,
+//   keeps its h_t in shared memory, and walks it backwards.
+// - One thread per (image and direction, chunk, channel) with the channel's 16 states in registers, as K4's
+//   forward: x, dt and dy are read, and the index arithmetic and the loop paid, once a channel and step; the
+//   sums over states of dx and ddt and the partials of dA stay in registers. A warp is 32 neighbouring channels
+//   of one chunk and shares nothing with other warps: no block barrier, only __syncwarp.
+// - Each walk streams its tiles through the warp's own ring in shared memory, filled by cp.async ahead of use
+//   (x, dt, dy of its 32 channels, B and C 16, 8 or 4 bytes at a time, and in the main pass the tile's start
+//   state), so each input is read from device memory once per walk, chunk and channel group: the main pass
+//   takes its tiles of BWD_TILE steps last first, one in flight; pass 1 tiles of WALK_TILE steps, two in
+//   flight. The main pass's ring and history take 17 KB a warp: 12 warps an SM.
+// - The sums over the warp's 32 channels (dB, dC) are taken once a tile from the history in shared memory, a
+//   (step, state) row of 32 channels for each output, a lane taking two states of one step: dC_t from h_t right
+//   after the tile's forward walk, dB_t from g_t, which the reverse walk writes over h_t, and dt_t x_t, which it
+//   writes over x_t. A row is 36 floats, so that eight lanes' 16-byte reads of eight rows fall in distinct banks.
+// - g is a linear recurrence like h, run backwards. Chunks run side by side as the forward's do: pass 1 also sums
+//   e_c = sum_t (a_{s0} ... a_t) C_t dy_t, the g that chunk c passes back when nothing enters it from later
+//   steps, multiplied by a_{s0}; pass 2 (selective_scan_bwd_kernel_gcarry) walks the chunks of each (sequence,
+//   state, channel) from the last, q_{c-1} = exp(A sum dt_c) q_c + e_c, with the sums of dt the forward kept;
+//   the main pass (selective_scan_bwd_kernel_main) starts each chunk's reverse walk from q_c.
+// - Sums, each in a fixed order, so that two calls give the same bits: over the 32 channels of a warp once a
+//   tile (dB, dC), over the 16 states in registers (dx, ddt), then over channel groups (dB, dC where D > 32),
+//   over the images and chunks (dA, dD, from per-chunk partials) and over the directions that share an x (dx)
+//   in finishing kernels. No atomics.
+// - exp is ex2.approx with A scaled by log2(e), as in the forward, so that the recomputed h is the forward's;
+//   the carry of g uses expf, as the forward's carry does.
+constexpr int BWD_TILE = 4;      // steps of a tile: a ring stage, and the stretch whose h_t a warp keeps
+constexpr int BWD_STAGES = 2;    // tiles in a warp's ring: one consumed while the next lands
+constexpr int BWD_WARPS = 1;     // warps a block of the main pass, each with its own shared memory
+constexpr int WALK_TILE = 8;     // steps of a tile of pass 1's ring (a multiple of BWD_TILE)
+constexpr int WALK_STAGES = 3;   // tiles in a warp's ring in pass 1: two in flight while one is consumed
+constexpr int WALK_WARPS = 2;    // warps a block of pass 1
+constexpr int HIST_ROW = LANES + 4;  // floats a row of the history: 32 channels and a pad of 4
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int T>
+struct __align__(16) InTile {  // T steps of a warp's inputs: 512 bytes a step
+  float x[T][LANES], dt[T][LANES], dy[T][LANES], b[T][N_STATE], c[T][N_STATE];
+};
+using BwdTile = InTile<BWD_TILE>;
+
+struct __align__(16) BwdStage {  // the main pass's ring stage: a tile and the state before its first step
+  BwdTile in;
+  float h0[N_STATE][LANES];
+};
+
+struct __align__(16) BwdWarp {  // the main pass's shared memory a warp: 17 KB
+  BwdStage ring[BWD_STAGES];
+  float hist[BWD_TILE][N_STATE][HIST_ROW];  // h_t after the tile's forward walk, g_t after its reverse walk
+};
 
 struct BwdArgs {
   const float *x, *dt, *A, *Bm, *Cm, *Dskip, *dy, *fcarry;
-  float *gcarry, *dxg, *ddt, *dBp, *dCp, *dA_part, *dD_part;
+  float *gcarry, *hs, *dxg, *ddt, *dBp, *dCp, *dA_part, *dD_part;
   int G, Gx, L, D;
   int b_sb, b_sg, b_sl, c_sb, c_sg, c_sl;
-  int reverse_mask, source_pack, chunk_len, chunks, groups;
+  int reverse_mask, source_pack, chunk_len, chunks, groups, tiles;  // tiles: of a chunk, ceil(chunk_len / BWD_TILE)
 };
 
-// What one thread works on: state n of channel d in one chunk of one (image, direction).
-struct BwdLane {
-  const float *xs, *dts, *dys, *bs, *cs;  // at step 0 of the sequence: x, dt, dy at channel d; B, C at state n
-  int n, lane, group, d, seq, g, chunk, s0, s1;
+// What one warp works on: 32 channels of one chunk of one (image, direction).
+struct BwdWork {
+  const float *xs, *dts, *dys, *bs, *cs;  // at step 0 of the sequence: x, dt, dy at this lane's channel; B, C
+  float* hs;                              // the start states of this (sequence, chunk, channel group)'s tiles
+  int lane, group, d, seq, g, chunk, s0, s1;
   bool live, rev;
 };
 
-__device__ __forceinline__ BwdLane bwd_lane(const BwdArgs& a, int first_chunk) {
-  BwdLane w;
-  w.n = threadIdx.x / LANES;
+__device__ __forceinline__ bool bwd_work(const BwdArgs& a, int warps, BwdWork& w) {
+  const int item = blockIdx.x * warps + threadIdx.x / LANES;
+  if (item >= a.chunks * a.groups) return false;
   w.lane = threadIdx.x % LANES;
-  w.group = blockIdx.x % a.groups;
-  w.chunk = blockIdx.x / a.groups + first_chunk;
+  w.chunk = item / a.groups;
+  w.group = item % a.groups;
   const int d = w.group * LANES + w.lane;
-  w.live = d < a.D;  // a ragged last group keeps its lanes for the sums and the barriers
+  w.live = d < a.D;  // a ragged last group keeps its lanes for the copies and the sums, with x = dy = 0
   w.d = w.live ? d : a.D - 1;
   w.seq = blockIdx.y;  // b * G + g
   w.g = w.seq % a.G;
@@ -401,37 +440,116 @@ __device__ __forceinline__ BwdLane bwd_lane(const BwdArgs& a, int first_chunk) {
   w.xs = a.x + (b * a.Gx + gx) * a.L * a.D + w.d;
   w.dts = a.dt + static_cast<long long>(w.seq) * a.L * a.D + w.d;
   w.dys = a.dy + static_cast<long long>(w.seq) * a.L * a.D + w.d;
-  w.bs = a.Bm + b * a.b_sb + static_cast<long long>(w.g) * a.b_sg + w.n;
-  w.cs = a.Cm + b * a.c_sb + static_cast<long long>(w.g) * a.c_sg + w.n;
-  return w;
+  w.bs = a.Bm + b * a.b_sb + static_cast<long long>(w.g) * a.b_sg;
+  w.cs = a.Cm + b * a.c_sb + static_cast<long long>(w.g) * a.c_sg;
+  w.hs = a.hs + ((static_cast<long long>(w.seq) * a.chunks + w.chunk) * a.groups + w.group) * a.tiles * N_STATE * LANES;
+  return true;
 }
 
-__device__ __forceinline__ long long bwd_index(const BwdLane& w, int s, int L) { return w.rev ? L - 1 - s : s; }
+__device__ __forceinline__ long long bwd_index(const BwdWork& w, int s, int L) { return w.rev ? L - 1 - s : s; }
 
-// h after steps s0 .. s1-1 from h, computed as the forward's pass 3 computes it.
-__device__ __forceinline__ float walk_h(const BwdArgs& a, const BwdLane& w, float a2, int s0, int s1, float h) {
-#pragma unroll 8
-  for (int s = s0; s < s1; ++s) {
-    const long long t = bwd_index(w, s, a.L);
-    const float dtv = __ldg(w.dts + t * a.D), xv = __ldg(w.xs + t * a.D), bv = __ldg(w.bs + t * a.b_sl);
-    h = fmaf(h, ex2(dtv * a2), (dtv * xv) * bv);
+// Start the copy of steps s .. s+T-1 into one tile. Past the end of the chunk the last step is copied again and
+// never used. VEC floats of B and C go in one copy.
+template <int VEC, int T>
+__device__ __forceinline__ void load_bwd_tile(InTile<T>& st, const BwdArgs& a, const BwdWork& w, int s) {
+  const long long t = bwd_index(w, s, a.L);
+  const int dir = w.rev ? -1 : 1, last = min(T, w.s1 - s) - 1;
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    const long long at = (t + min(i, last) * dir) * a.D;
+    cp_async<4>(&st.x[i][w.lane], w.xs + at);
+    cp_async<4>(&st.dt[i][w.lane], w.dts + at);
+    cp_async<4>(&st.dy[i][w.lane], w.dys + at);
   }
-  return h;
+  constexpr int PER_STEP = N_STATE / VEC;
+#pragma unroll
+  for (int k = w.lane; k < T * PER_STEP; k += LANES) {
+    const long long row = t + min(k / PER_STEP, last) * dir;
+    const int j = (k % PER_STEP) * VEC;
+    cp_async<4 * VEC>(&st.b[k / PER_STEP][j], w.bs + row * a.b_sl + j);
+    cp_async<4 * VEC>(&st.c[k / PER_STEP][j], w.cs + row * a.c_sl + j);
+  }
 }
 
-// Pass 1: every chunk c > 0 backwards from g = 0; e_c = a_{s0} g_{s0} goes to carry slot c - 1.
-__global__ void __launch_bounds__(BWD_THREADS) selective_scan_bwd_kernel_gends(BwdArgs a) {
-  const BwdLane w = bwd_lane(a, 1);
-  const float a2 = a.A[(static_cast<long long>(w.g) * a.D + w.d) * N_STATE + w.n] * LOG2E;
-  float ga = 0.f;
-#pragma unroll 8
-  for (int s = w.s1 - 1; s >= w.s0; --s) {
-    const long long t = bwd_index(w, s, a.L);
-    const float dtv = __ldg(w.dts + t * a.D), dyv = __ldg(w.dys + t * a.D), cv = __ldg(w.cs + t * a.c_sl);
-    ga = ex2(dtv * a2) * fmaf(cv, dyv, ga);
+// A walk's per-lane state: the channel's 16 states, their scaled decay rates and the sums the walk carries.
+struct BwdLane {
+  float a2[N_STATE], h[N_STATE], p[N_STATE], e[N_STATE];  // pass 1: p the product of the decays so far
+};
+
+// Pass 1, one tile of its ring from step s: h as the forward's pass 3 computes it, and e; the state before
+// every BWD_TILE-th step of the chunk goes to hs.
+template <bool GUARD>
+__device__ __forceinline__ void starts_tile(const BwdWork& w, const InTile<WALK_TILE>& st, BwdLane& r, int s,
+                                            int steps) {
+#pragma unroll
+  for (int i = 0; i < WALK_TILE; ++i) {
+    if (GUARD && i >= steps) break;
+    if (i % BWD_TILE == 0) {
+      float* out = w.hs + static_cast<long long>((s + i - w.s0) / BWD_TILE) * N_STATE * LANES + w.lane;
+#pragma unroll
+      for (int n = 0; n < N_STATE; ++n) out[n * LANES] = r.h[n];
+    }
+    const float dtv = st.dt[i][w.lane];
+    const float xv = w.live ? st.x[i][w.lane] : 0.f, dyv = w.live ? st.dy[i][w.lane] : 0.f;
+    const float u = dtv * xv;
+    const float4* b4 = reinterpret_cast<const float4*>(st.b[i]);
+    const float4* c4 = reinterpret_cast<const float4*>(st.c[i]);
+#pragma unroll
+    for (int q = 0; q < N_STATE / 4; ++q) {
+      const float4 bq = b4[q], cq = c4[q];
+      const float bv[4] = {bq.x, bq.y, bq.z, bq.w}, cv[4] = {cq.x, cq.y, cq.z, cq.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = 4 * q + j;
+        const float dec = ex2(dtv * r.a2[n]);
+        r.h[n] = fmaf(r.h[n], dec, u * bv[j]);
+        r.p[n] *= dec;
+        r.e[n] = fmaf(r.p[n], cv[j] * dyv, r.e[n]);
+      }
+    }
   }
-  if (w.live)
-    a.gcarry[((static_cast<long long>(w.seq) * (a.chunks - 1) + w.chunk - 1) * N_STATE + w.n) * a.D + w.d] = ga;
+}
+
+// Pass 1: every chunk forwards from its true start state. The state before each of the main pass's tiles goes to
+// hs, and for c > 0, e_c = sum_t (a_{s0} ... a_t) C_t dy_t to carry slot c - 1.
+template <int VEC>
+__global__ void __launch_bounds__(WALK_WARPS * LANES) selective_scan_bwd_kernel_starts(BwdArgs a) {
+  static_assert(WALK_TILE % BWD_TILE == 0, "pass 1's tiles hold whole tiles of the main pass");
+  __shared__ InTile<WALK_TILE> ring[WALK_WARPS][WALK_STAGES];
+  BwdWork w;
+  if (!bwd_work(a, WALK_WARPS, w)) return;
+  InTile<WALK_TILE>* st = ring[threadIdx.x / LANES];
+  BwdLane r;
+  const float* arow = a.A + (static_cast<long long>(w.g) * a.D + w.d) * N_STATE;
+  const long long slot = static_cast<long long>(w.seq) * (a.chunks - 1) + w.chunk - 1;  // chunk c's carry: c - 1
+#pragma unroll
+  for (int n = 0; n < N_STATE; ++n) {
+    r.a2[n] = arow[n] * LOG2E;
+    r.h[n] = (w.chunk > 0 && w.live) ? a.fcarry[(slot * CARRY + n) * a.D + w.d] : 0.f;
+    r.p[n] = 1.f;
+    r.e[n] = 0.f;
+  }
+  const int tiles = (w.s1 - w.s0 + WALK_TILE - 1) / WALK_TILE;
+  for (int k = 0; k < WALK_STAGES - 1; ++k) {
+    if (k < tiles) load_bwd_tile<VEC>(st[k], a, w, w.s0 + k * WALK_TILE);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int k = 0; k < tiles; ++k) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(WALK_STAGES - 2));  // this lane's copies of tile k have landed
+    __syncwarp();  // so have the other lanes', and every lane is done with tile k-1, whose stage is refilled next
+    if (k + WALK_STAGES - 1 < tiles)
+      load_bwd_tile<VEC>(st[(k + WALK_STAGES - 1) % WALK_STAGES], a, w, w.s0 + (k + WALK_STAGES - 1) * WALK_TILE);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const int s = w.s0 + k * WALK_TILE;
+    if (s + WALK_TILE <= w.s1)
+      starts_tile<false>(w, st[k % WALK_STAGES], r, s, WALK_TILE);
+    else
+      starts_tile<true>(w, st[k % WALK_STAGES], r, s, w.s1 - s);
+  }
+  if (w.chunk > 0 && w.live) {
+#pragma unroll
+    for (int n = 0; n < N_STATE; ++n) a.gcarry[(slot * N_STATE + n) * a.D + w.d] = r.e[n];
+  }
 }
 
 // Pass 2: one thread per (sequence, state, channel), the chunks from the last: slot j becomes q_j, the term
@@ -446,183 +564,300 @@ __global__ void selective_scan_bwd_kernel_gcarry(BwdArgs a, long long total) {
   const long long q_stride = static_cast<long long>(N_STATE) * a.D, f_stride = static_cast<long long>(CARRY) * a.D;
   float* q = a.gcarry + seq * (a.chunks - 1) * q_stride + static_cast<long long>(n) * a.D + d;
   const float* sums = a.fcarry + seq * (a.chunks - 1) * f_stride + static_cast<long long>(N_STATE) * a.D + d;
+  constexpr int AHEAD = 8;
   float v = 0.f;
-  for (int j = a.chunks - 2; j >= 0; --j) {
-    const float e = q[j * q_stride];
-    // the forward's slot j + 1 holds the sum of dt over chunk j + 1; the last chunk passes nothing on
-    v = (j == a.chunks - 2) ? e : fmaf(expf(an * sums[(j + 1) * f_stride]), v, e);
-    q[j * q_stride] = v;
+  for (int j0 = a.chunks - 2; j0 >= 0; j0 -= AHEAD) {
+    float e[AHEAD], sum[AHEAD];
+#pragma unroll
+    for (int k = 0; k < AHEAD; ++k) {
+      const int j = max(j0 - k, 0);
+      e[k] = q[j * q_stride];
+      sum[k] = sums[min(j + 1, a.chunks - 2) * f_stride];  // the forward's slot j + 1: the sum of dt over chunk j + 1
+    }
+#pragma unroll
+    for (int k = 0; k < AHEAD; ++k) {
+      const int j = j0 - k;
+      if (j >= 0) {
+        v = (j == a.chunks - 2) ? e[k] : fmaf(expf(an * sum[k]), v, e[k]);  // the last chunk passes nothing on
+        q[j * q_stride] = v;
+      }
+    }
   }
 }
 
-// Pass 3: the gradients, chunk by chunk, each chunk backwards from its true g. Two blocks fit an SM where the
-// chunk's tile states leave room (at most 64 registers a thread).
-__global__ void __launch_bounds__(BWD_THREADS, 2) selective_scan_bwd_kernel_main(BwdArgs a) {
-  extern __shared__ float at_tile[];                   // [tile][thread]: the state at the start of each tile
-  __shared__ float red[BWD_TILE][2][N_STATE][LANES];  // a tile's shares of dx / dt and of ddt, by state and channel
-  __shared__ float bc[BWD_TILE][2][N_STATE];           // a tile's dB and dC over the block's channels
-  const BwdLane w = bwd_lane(a, 0);
-  const float an = a.A[(static_cast<long long>(w.g) * a.D + w.d) * N_STATE + w.n], a2 = an * LOG2E;
-  const float dskip = a.Dskip ? a.Dskip[static_cast<long long>(w.g) * a.D + w.d] : 0.f;
-  const long long slot = static_cast<long long>(w.seq) * (a.chunks - 1) + w.chunk;  // this chunk's g carry
-  float h = w.chunk > 0 ? a.fcarry[((slot - 1) * CARRY + w.n) * a.D + w.d] : 0.f;
-  float ga = w.chunk < a.chunks - 1 ? a.gcarry[(slot * N_STATE + w.n) * a.D + w.d] : 0.f;
+// The main pass's per-lane state: the scaled decay rates, a_{t+1} g_{t+1} and dA's partial sums of 16 states.
+struct RevLane {
+  float a2[N_STATE], ga[N_STATE], dA[N_STATE], dskip, dD;
+};
 
-  // walk 1: the state at the start of each tile
-  const int tiles = (w.s1 - w.s0 + BWD_TILE - 1) / BWD_TILE;
-  for (int j = 0; j < tiles; ++j) {
-    at_tile[j * BWD_THREADS + threadIdx.x] = h;
-    h = walk_h(a, w, a2, w.s0 + j * BWD_TILE, min(w.s0 + (j + 1) * BWD_TILE, w.s1), h);
+// The sums over the warp's 32 channels of hist[i][n][channel] * v[i][channel] for the steps i of the tile and
+// the 16 states n (dB or dC of this channel group). A lane takes BWD_TILE / 2 states of one step, n = r, r + R,
+// ... with R = 32 / BWD_TILE lanes a step, and reads that step's row of v once for them; the eight lanes of a
+// quarter-warp read eight neighbouring rows of the history, whose pad puts them in distinct banks.
+template <bool GUARD>
+__device__ __forceinline__ void channel_sums(const BwdArgs& a, const BwdWork& w, const BwdWarp& sw,
+                                             const float (*v)[LANES], float* out, int s, int steps) {
+  constexpr int R = LANES / BWD_TILE, PER_LANE = N_STATE / R;
+  const int i = w.lane / R, r = w.lane % R;
+  if (GUARD && i >= steps) return;
+  const float4* vr = reinterpret_cast<const float4*>(v[i]);
+  float acc[PER_LANE][2];
+#pragma unroll
+  for (int m = 0; m < PER_LANE; ++m) acc[m][0] = acc[m][1] = 0.f;
+#pragma unroll
+  for (int q = 0; q < LANES / 4; ++q) {
+    const float4 vq = vr[q];
+#pragma unroll
+    for (int m = 0; m < PER_LANE; ++m) {
+      const float4 hq = reinterpret_cast<const float4*>(sw.hist[i][r + R * m])[q];
+      acc[m][0] = fmaf(hq.x, vq.x, fmaf(hq.z, vq.z, acc[m][0]));
+      acc[m][1] = fmaf(hq.y, vq.y, fmaf(hq.w, vq.w, acc[m][1]));
+    }
   }
-  float dA = 0.f, dD = 0.f;
-  for (int j = tiles - 1; j >= 0; --j) {
-    const int s = w.s0 + j * BWD_TILE, steps = min(BWD_TILE, w.s1 - s);
-    // walk 2: each step's decay and previous state (past a ragged end: the last step again, unused)
-    float hprev[BWD_TILE], dec[BWD_TILE];
-    h = at_tile[j * BWD_THREADS + threadIdx.x];
+  float* row = out + ((static_cast<long long>(w.group) * gridDim.y + w.seq) * a.L + bwd_index(w, s + i, a.L)) * N_STATE;
 #pragma unroll
-    for (int i = 0; i < BWD_TILE; ++i) {
-      const long long t = bwd_index(w, s + min(i, steps - 1), a.L);
-      const float dtv = __ldg(w.dts + t * a.D), xv = __ldg(w.xs + t * a.D), bv = __ldg(w.bs + t * a.b_sl);
-      dec[i] = ex2(dtv * a2);
-      hprev[i] = h;
-      h = fmaf(h, dec[i], (dtv * xv) * bv);
-    }
-    // walk 3: back over the tile (steps is the same for the whole block, so the shuffles see every lane)
+  for (int m = 0; m < PER_LANE; ++m) row[r + R * m] = acc[m][0] + acc[m][1];
+}
+
+// One tile of the main pass, the first `steps` steps of it (all BWD_TILE when GUARD is false).
+template <bool GUARD>
+__device__ __forceinline__ void reverse_tile(const BwdArgs& a, const BwdWork& w, BwdWarp& sw, BwdStage& st,
+                                             RevLane& r, int s, int steps) {
+  // the tile forwards from its start state: h_t into the history
+  float h[N_STATE];
 #pragma unroll
-    for (int i = BWD_TILE - 1; i >= 0; --i) {
-      if (i < steps) {
-        const long long t = bwd_index(w, s + i, a.L);
-        const float dtv = __ldg(w.dts + t * a.D), xv = __ldg(w.xs + t * a.D), bv = __ldg(w.bs + t * a.b_sl);
-        const float dyv = __ldg(w.dys + t * a.D), cv = __ldg(w.cs + t * a.c_sl);
-        const float g = fmaf(cv, dyv, ga);
-        const float u = dtv * xv;
-        const float ah = dec[i] * hprev[i];
-        const float ht = fmaf(hprev[i], dec[i], u * bv);
-        // dB and dC over the warp's channels: lanes 0-15 carry dB, 16-31 dC, and lanes 0 and 16 end with the sums
-        const float pb = w.live ? g * u : 0.f, pc = w.live ? ht * dyv : 0.f;
-        float sum = (w.lane < 16 ? pb : pc) + __shfl_xor_sync(0xffffffffu, w.lane < 16 ? pc : pb, 16);
+  for (int n = 0; n < N_STATE; ++n) h[n] = st.h0[n][w.lane];
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        if ((w.lane & 15) == 0) bc[i][w.lane >> 4][w.n] = sum;
-        red[i][0][w.n][w.lane] = g * bv;
-        red[i][1][w.n][w.lane] = g * fmaf(an, ah, bv * xv);
-        dA = fmaf(g * dtv, ah, dA);
-        dD = fmaf(xv, dyv, dD);
-        ga = dec[i] * g;
+  for (int i = 0; i < BWD_TILE; ++i) {
+    if (GUARD && i >= steps) break;
+    const float dtv = st.in.dt[i][w.lane];
+    const float u = dtv * (w.live ? st.in.x[i][w.lane] : 0.f);
+    const float4* b4 = reinterpret_cast<const float4*>(st.in.b[i]);
+#pragma unroll
+    for (int q = 0; q < N_STATE / 4; ++q) {
+      const float4 bq = b4[q];
+      const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = 4 * q + j;
+        h[n] = fmaf(h[n], ex2(dtv * r.a2[n]), u * bv[j]);
+        sw.hist[i][n][w.lane] = h[n];
       }
     }
-    __syncthreads();
-    {  // each thread sums one (step, output, channel) over the 16 states: 8 x 2 x 32 = the block's 512 threads
-      const int i = threadIdx.x / (2 * LANES), kind = threadIdx.x / LANES % 2;
-      if (i < steps && w.live) {
-        float v = 0.f;
+  }
+  __syncwarp();
+  channel_sums<GUARD>(a, w, sw, st.in.dy, a.dCp, s, steps);  // dC_t = sum_d h_t dy_t
+  __syncwarp();  // every lane has read the rows that the reverse walk overwrites
+  // the tile backwards
 #pragma unroll
-        for (int n = 0; n < N_STATE; ++n) v += red[i][kind][n][w.lane];
-        const long long at = (static_cast<long long>(w.seq) * a.L + bwd_index(w, s + i, a.L)) * a.D + w.d;
-        if (kind == 0)
-          a.dxg[at] = fmaf(__ldg(a.dt + at), v, dskip * __ldg(a.dy + at));
-        else
-          a.ddt[at] = v;
-      }
-      if (threadIdx.x < BWD_TILE * 2 * N_STATE) {  // dB and dC of the tile's steps: 8 x 2 x 16
-        const int i2 = threadIdx.x / (2 * N_STATE), kind2 = threadIdx.x / N_STATE % 2, n2 = threadIdx.x % N_STATE;
-        if (i2 < steps) {
-          const long long at = ((static_cast<long long>(w.group) * gridDim.y + w.seq) * a.L +
-                                bwd_index(w, s + i2, a.L)) * N_STATE + n2;
-          (kind2 ? a.dCp : a.dBp)[at] = bc[i2][kind2][n2];
-        }
+  for (int i = BWD_TILE - 1; i >= 0; --i) {
+    if (GUARD && i >= steps) continue;
+    const float dtv = st.in.dt[i][w.lane];
+    const float xv = w.live ? st.in.x[i][w.lane] : 0.f, dyv = w.live ? st.in.dy[i][w.lane] : 0.f;
+    const float4* b4 = reinterpret_cast<const float4*>(st.in.b[i]);
+    const float4* c4 = reinterpret_cast<const float4*>(st.in.c[i]);
+    float sb[4] = {0.f, 0.f, 0.f, 0.f}, sa[4] = {0.f, 0.f, 0.f, 0.f};  // sum_n g B_n and sum_n g A_n a h_{t-1} / ln 2
+#pragma unroll
+    for (int q = 0; q < N_STATE / 4; ++q) {
+      const float4 bq = b4[q], cq = c4[q];
+      const float bv[4] = {bq.x, bq.y, bq.z, bq.w}, cv[4] = {cq.x, cq.y, cq.z, cq.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = 4 * q + j;
+        const float hp = i > 0 ? sw.hist[i - 1][n][w.lane] : st.h0[n][w.lane];  // h_{t-1}
+        const float dec = ex2(dtv * r.a2[n]);
+        const float g = fmaf(cv[j], dyv, r.ga[n]);
+        const float p = g * (dec * hp);
+        sb[j] = fmaf(g, bv[j], sb[j]);
+        sa[j] = fmaf(r.a2[n], p, sa[j]);
+        r.dA[n] = fmaf(dtv, p, r.dA[n]);
+        r.ga[n] = dec * g;
+        sw.hist[i][n][w.lane] = g;
       }
     }
-    __syncthreads();  // the next tile writes red and bc again
+    st.in.x[i][w.lane] = dtv * xv;  // dB's dt_t x_t
+    const float sB = (sb[0] + sb[1]) + (sb[2] + sb[3]), sA = (sa[0] + sa[1]) + (sa[2] + sa[3]);
+    if (w.live) {
+      const long long at = (static_cast<long long>(w.seq) * a.L + bwd_index(w, s + i, a.L)) * a.D + w.d;
+      a.dxg[at] = fmaf(dtv, sB, r.dskip * dyv);
+      a.ddt[at] = fmaf(LN2, sA, xv * sB);
+    }
+    r.dD = fmaf(xv, dyv, r.dD);
+  }
+  __syncwarp();
+  channel_sums<GUARD>(a, w, sw, st.in.x, a.dBp, s, steps);  // dB_t = sum_d g_t dt_t x_t
+}
+
+// Pass 3: the gradients, each chunk backwards from its true g, a tile at a time from the last.
+template <int VEC>
+__global__ void __launch_bounds__(BWD_WARPS * LANES) selective_scan_bwd_kernel_main(BwdArgs a) {
+  extern __shared__ __align__(16) float bwd_smem[];
+  BwdWork w;
+  if (!bwd_work(a, BWD_WARPS, w)) return;
+  BwdWarp& sw = reinterpret_cast<BwdWarp*>(bwd_smem)[threadIdx.x / LANES];
+  RevLane r;
+  const long long gd = static_cast<long long>(w.g) * a.D + w.d;
+  const long long slot = static_cast<long long>(w.seq) * (a.chunks - 1) + w.chunk;  // this chunk's g carry
+  const bool carried = w.live && w.chunk < a.chunks - 1;
+#pragma unroll
+  for (int n = 0; n < N_STATE; ++n) {
+    r.a2[n] = a.A[gd * N_STATE + n] * LOG2E;
+    r.ga[n] = carried ? a.gcarry[(slot * N_STATE + n) * a.D + w.d] : 0.f;
+    r.dA[n] = 0.f;
+  }
+  r.dskip = a.Dskip ? a.Dskip[gd] : 0.f;
+  r.dD = 0.f;
+  const int tiles = (w.s1 - w.s0 + BWD_TILE - 1) / BWD_TILE;
+  auto load = [&](int k) {  // the k-th tile taken, tile tiles - 1 - k of the chunk, into its stage
+    BwdStage& dst = sw.ring[k % BWD_STAGES];
+    const int j = tiles - 1 - k;
+    load_bwd_tile<VEC>(dst.in, a, w, w.s0 + j * BWD_TILE);
+    const float* src = w.hs + static_cast<long long>(j) * N_STATE * LANES;
+#pragma unroll
+    for (int m = w.lane; m < N_STATE * LANES / 4; m += LANES) cp_async<16>(&dst.h0[0][0] + 4 * m, src + 4 * m);
+  };
+  for (int k = 0; k < BWD_STAGES - 1; ++k) {
+    if (k < tiles) load(k);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int k = 0; k < tiles; ++k) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(BWD_STAGES - 2));  // this lane's copies of tile k have landed
+    __syncwarp();  // so have the other lanes', and every lane is done with the last tile's stage and history
+    if (k + BWD_STAGES - 1 < tiles) load(k + BWD_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const int s = w.s0 + (tiles - 1 - k) * BWD_TILE;
+    if (s + BWD_TILE <= w.s1)
+      reverse_tile<false>(a, w, sw, sw.ring[k % BWD_STAGES], r, s, BWD_TILE);
+    else
+      reverse_tile<true>(a, w, sw, sw.ring[k % BWD_STAGES], r, s, w.s1 - s);
   }
   const long long part = static_cast<long long>(w.seq) * a.chunks + w.chunk;
   if (w.live) {
-    a.dA_part[(part * N_STATE + w.n) * a.D + w.d] = dA;
-    if (w.n == 0) a.dD_part[part * a.D + w.d] = dD;
+#pragma unroll
+    for (int n = 0; n < N_STATE; ++n) a.dA_part[(part * N_STATE + n) * a.D + w.d] = r.dA[n];
+    a.dD_part[part * a.D + w.d] = r.dD;
   }
 }
 
-// dx of each x direction: the sum, in direction order, of the directions that read it (0 where none does).
-__global__ void selective_scan_bwd_kernel_dx(BwdArgs a, float* dx, long long total) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long per = static_cast<long long>(a.L) * a.D;
-  const long long rest = i % per, bx = i / per;  // bx = b * Gx + gx
-  const int gx = static_cast<int>(bx % a.Gx);
-  const long long b = bx / a.Gx;
-  float v = 0.f;
-  for (int g = 0; g < a.G; ++g)
-    if (((a.source_pack >> (4 * g)) & 15) == gx) v += a.dxg[(b * a.G + g) * per + rest];
-  dx[i] = v;
+// dx of each x direction: the sum, in direction order, of the directions that read it (0 where none does). One
+// block row (blockIdx.y) per (image, x direction); VEC floats a thread.
+template <int VEC>
+__global__ void selective_scan_bwd_kernel_dx(BwdArgs a, float* dx) {
+  using V = typename std::conditional<VEC == 4, float4, float>::type;
+  const int per = a.L * a.D / VEC, j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= per) return;
+  const int gx = blockIdx.y % a.Gx, b = blockIdx.y / a.Gx;
+  V v = {};
+  for (int g = 0; g < a.G; ++g) {
+    if (((a.source_pack >> (4 * g)) & 15) != gx) continue;
+    const V u = reinterpret_cast<const V*>(a.dxg)[(static_cast<long long>(b) * a.G + g) * per + j];
+    if constexpr (VEC == 4) {
+      v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+    } else {
+      v += u;
+    }
+  }
+  reinterpret_cast<V*>(dx)[static_cast<long long>(blockIdx.y) * per + j] = v;
 }
 
-// dB and dC where D > 32: the channel groups' partial sums in group order.
+// dB and dC where D > 32: the channel groups' partial sums in group order, four floats a thread (total: float4s
+// of each).
 __global__ void selective_scan_bwd_kernel_bc(BwdArgs a, float* dB, float* dC, long long total) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= 2 * total) return;
   const bool is_c = i >= total;
   const long long j = is_c ? i - total : i;
-  const float* part = is_c ? a.dCp : a.dBp;
-  float v = 0.f;
-  for (int k = 0; k < a.groups; ++k) v += part[k * total + j];
-  (is_c ? dC : dB)[j] = v;
+  const float4* part = reinterpret_cast<const float4*>(is_c ? a.dCp : a.dBp);
+  float4 v = part[j];
+  for (int k = 1; k < a.groups; ++k) {
+    const float4 u = part[k * total + j];
+    v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+  }
+  reinterpret_cast<float4*>(is_c ? dC : dB)[j] = v;
 }
 
-// dA (G, D, N) and dD (G, D): the per-chunk partials summed over images, then chunks, in order.
-__global__ void selective_scan_bwd_kernel_params(BwdArgs a, float* dA, float* dD, int B) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(a.G) * N_STATE * a.D) return;
-  const int d = static_cast<int>(i % a.D), n = static_cast<int>(i / a.D % N_STATE);
-  const int g = static_cast<int>(i / a.D / N_STATE);
+// dA (G, D, N) and dD (G, D): the per-chunk partials summed over images and chunks in a fixed order. A block is
+// 32 channels of one (direction, state); warp k sums the (image, chunk) items k, k + PARAM_WARPS, ... in order,
+// then the warps' sums are added in warp order.
+constexpr int PARAM_WARPS = 32;
+__global__ void __launch_bounds__(PARAM_WARPS * LANES) selective_scan_bwd_kernel_params(BwdArgs a, float* dA,
+                                                                                       float* dD, int B) {
+  __shared__ float sums[PARAM_WARPS][2][LANES];
+  const int lane = threadIdx.x % LANES, k0 = threadIdx.x / LANES, d = blockIdx.x * LANES + lane;
+  const int n = blockIdx.y % N_STATE, g = blockIdx.y / N_STATE;
   float va = 0.f, vd = 0.f;
-  for (int b = 0; b < B; ++b) {
-    const long long seq = static_cast<long long>(b) * a.G + g;
-    for (int c = 0; c < a.chunks; ++c) {
-      va += a.dA_part[((seq * a.chunks + c) * N_STATE + n) * a.D + d];
-      if (n == 0) vd += a.dD_part[(seq * a.chunks + c) * a.D + d];
+  if (d < a.D) {
+#pragma unroll 4
+    for (int k = k0; k < B * a.chunks; k += PARAM_WARPS) {  // k = b * chunks + c
+      const long long part = (static_cast<long long>(k / a.chunks) * a.G + g) * a.chunks + k % a.chunks;
+      va += a.dA_part[(part * N_STATE + n) * a.D + d];
+      if (n == 0) vd += a.dD_part[part * a.D + d];
     }
   }
-  dA[(static_cast<long long>(g) * a.D + d) * N_STATE + n] = va;
-  if (n == 0 && dD) dD[static_cast<long long>(g) * a.D + d] = vd;
+  sums[k0][0][lane] = va;
+  sums[k0][1][lane] = vd;
+  __syncthreads();
+  if (k0 == 0 && d < a.D) {
+    for (int k = 1; k < PARAM_WARPS; ++k) va += sums[k][0][lane], vd += sums[k][1][lane];
+    dA[(static_cast<long long>(g) * a.D + d) * N_STATE + n] = va;
+    if (n == 0 && dD) dD[static_cast<long long>(g) * a.D + d] = vd;
+  }
+}
+
+template <int VEC>
+static int launch_bwd_passes(const BwdArgs& a, int B, float* dx, float* dA, float* dB, float* dC, float* dD,
+                             cudaStream_t stream) {
+  const int items = a.chunks * a.groups;
+  selective_scan_bwd_kernel_starts<VEC><<<dim3((items + WALK_WARPS - 1) / WALK_WARPS, B * a.G), WALK_WARPS * LANES,
+                                          0, stream>>>(a);
+  if (a.chunks > 1) {
+    const long long total = static_cast<long long>(B) * a.G * N_STATE * a.D;
+    selective_scan_bwd_kernel_gcarry<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(a, total);
+  }
+  const int smem = BWD_WARPS * static_cast<int>(sizeof(BwdWarp));
+  cudaFuncSetAttribute(selective_scan_bwd_kernel_main<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  selective_scan_bwd_kernel_main<VEC><<<dim3((items + BWD_WARPS - 1) / BWD_WARPS, B * a.G), BWD_WARPS * LANES, smem,
+                                        stream>>>(a);
+  const bool by4 = (a.L * a.D) % 4 == 0;  // rows of L * D floats: dxg and dx come from the allocator 16-byte aligned
+  const dim3 dx_grid((a.L * a.D / (by4 ? 4 : 1) + 255) / 256, B * a.Gx);
+  if (by4)
+    selective_scan_bwd_kernel_dx<4><<<dx_grid, 256, 0, stream>>>(a, dx);
+  else
+    selective_scan_bwd_kernel_dx<1><<<dx_grid, 256, 0, stream>>>(a, dx);
+  if (a.groups > 1) {
+    const long long nbc = static_cast<long long>(B) * a.G * a.L * N_STATE / 4;
+    selective_scan_bwd_kernel_bc<<<static_cast<unsigned>((2 * nbc + 255) / 256), 256, 0, stream>>>(a, dB, dC, nbc);
+  }
+  selective_scan_bwd_kernel_params<<<dim3((a.D + LANES - 1) / LANES, a.G * N_STATE), PARAM_WARPS * LANES, 0,
+                                     stream>>>(a, dA, dD, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The gradients of sum(y * dy) for selective_scan_launch's inputs, with its shapes, strides, flags and sources,
-// and chunk_len the length it was called with. fcarry: its carry buffer after the call (chunk c + 1's start
-// state and chunk c's sum of dt in slot c), or null for a single chunk; dy, dx (B, Gx, L, D), ddt, dA, dB, dC
-// (B, G, L, N, dense), dD (or null with Dskip): f32 contiguous. Scratch: gcarry (B * G * (chunks - 1) * N * D,
-// or null for a single chunk), dxg (B * G * L * D), dBp and dCp (groups * B * G * L * N with groups =
-// ceil(D / 32); dB and dC themselves where groups is 1), dA_part (B * G * chunks * N * D), dD_part
-// (B * G * chunks * D).
+// and chunk_len the length it was called with. fcarry: its carry buffer after the call (chunk
+// c + 1's start state and chunk c's sum of dt in slot c), or null for a single chunk; dy, dx (B, Gx, L, D), ddt,
+// dA, dB, dC (B, G, L, N, dense), dD (or null with Dskip): f32 contiguous. Scratch: gcarry (B * G * (chunks - 1)
+// * N * D, or null for a single chunk), hs (B * G * chunks * groups * ceil(chunk_len / BWD_TILE) * N * 32,
+// 16-byte aligned), dxg (B * G * L * D), dBp and dCp (groups * B * G * L * N with groups = ceil(D / 32); dB and dC
+// themselves where groups is 1), dA_part (B * G * chunks * N * D), dD_part (B * G * chunks * D).
 extern "C" int selective_scan_bwd_launch(const float* x, const float* dt, const float* A, const float* Bm,
                                          const float* Cm, const float* Dskip, const float* dy, const float* fcarry,
-                                         float* gcarry, float* dxg, float* dBp, float* dCp, float* dA_part,
+                                         float* gcarry, float* hs, float* dxg, float* dBp, float* dCp, float* dA_part,
                                          float* dD_part, float* dx, float* ddt, float* dA, float* dB, float* dC,
                                          float* dD, int B, int G, int Gx, int L, int D, int N, int b_sb, int b_sg,
                                          int b_sl, int c_sb, int c_sg, int c_sl, int reverse_mask, int source_pack,
                                          int chunk_len, cudaStream_t stream) {
-  if (N != N_STATE || G > 8 || chunk_len < 1 || chunk_len > BWD_MAX_CHUNK || B * G > 65535 ||
-      (Dskip == nullptr) != (dD == nullptr))
+  if (N != N_STATE || G > 8 || chunk_len < 1 || B * G > 65535 || B * Gx > 65535 ||
+      static_cast<long long>(L) * D >= (1LL << 31) || !hs || (Dskip == nullptr) != (dD == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (L + chunk_len - 1) / chunk_len, groups = (D + LANES - 1) / LANES;
   if (chunks > 1 && (!fcarry || !gcarry)) return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a{x, dt, A, Bm, Cm, Dskip, dy, fcarry, gcarry, dxg, ddt, dBp, dCp, dA_part, dD_part, G, Gx, L, D,
-                  b_sb, b_sg, b_sl, c_sb, c_sg, c_sl, reverse_mask, source_pack, chunk_len, chunks, groups};
-  if (chunks > 1) {
-    selective_scan_bwd_kernel_gends<<<dim3((chunks - 1) * groups, B * G), BWD_THREADS, 0, stream>>>(a);
-    const long long total = static_cast<long long>(B) * G * N_STATE * D;
-    selective_scan_bwd_kernel_gcarry<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(a, total);
-  }
-  const int tile_bytes = (chunk_len + BWD_TILE - 1) / BWD_TILE * BWD_THREADS * static_cast<int>(sizeof(float));
-  cudaFuncSetAttribute(selective_scan_bwd_kernel_main, cudaFuncAttributeMaxDynamicSharedMemorySize, tile_bytes);
-  selective_scan_bwd_kernel_main<<<dim3(chunks * groups, B * G), BWD_THREADS, tile_bytes, stream>>>(a);
-  const long long nx = static_cast<long long>(B) * Gx * L * D;
-  selective_scan_bwd_kernel_dx<<<static_cast<unsigned>((nx + 255) / 256), 256, 0, stream>>>(a, dx, nx);
-  if (groups > 1) {
-    const long long nbc = static_cast<long long>(B) * G * L * N_STATE;
-    selective_scan_bwd_kernel_bc<<<static_cast<unsigned>((2 * nbc + 255) / 256), 256, 0, stream>>>(a, dB, dC, nbc);
-  }
-  const long long np = static_cast<long long>(G) * N_STATE * D;
-  selective_scan_bwd_kernel_params<<<static_cast<unsigned>((np + 255) / 256), 256, 0, stream>>>(a, dA, dD, B);
-  return static_cast<int>(cudaGetLastError());
+  const BwdArgs a{x, dt, A, Bm, Cm, Dskip, dy, fcarry, gcarry, hs, dxg, ddt, dBp, dCp, dA_part, dD_part, G, Gx, L, D,
+                  b_sb, b_sg, b_sl, c_sb, c_sg, c_sl, reverse_mask, source_pack, chunk_len, chunks, groups,
+                  (chunk_len + BWD_TILE - 1) / BWD_TILE};
+  const auto bits = reinterpret_cast<unsigned long long>(Bm) | reinterpret_cast<unsigned long long>(Cm) |
+                    static_cast<unsigned long long>(4LL * (b_sb | b_sg | b_sl | c_sb | c_sg | c_sl));
+  if (bits % 16 == 0) return launch_bwd_passes<4>(a, B, dx, dA, dB, dC, dD, stream);
+  if (bits % 8 == 0) return launch_bwd_passes<2>(a, B, dx, dA, dB, dC, dD, stream);
+  return launch_bwd_passes<1>(a, B, dx, dA, dB, dC, dD, stream);
 }

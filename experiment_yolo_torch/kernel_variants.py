@@ -55,13 +55,19 @@ first.
 ``k4bwd`` times K4's backward by kernel name at the four levels, through
 the autograd Function (one forward kept, its backward run again), on the K4
 inputs above with a seeded ``dy``, with each variant's largest error against
-the f32 plain backward over the six gradients; the ptxas lines come first.
+the f32 plain backward over the six gradients and whether two calls gave the
+same bits; the ptxas lines come first. Its variants leave out the exps, the
+sums over channels, or the copies into the ring, or change the history's row
+pad, the tile length (in the source and the wrapper together), the ring's
+stages and the warps a block; ``--baseline`` calls the other checkout's
+backward through the parent commit's C signature, which took no scratch for
+the tile start states.
 
 ``--baseline ROOT`` also times K1, K3's backward, K3's bf16 forms, K4's backward or K5 built
 from another checkout (say the parent commit, unpacked with ``git
 archive``), so that two versions are compared in one process. K1's baseline
 is called through the earlier C signature, one map a launch (the first
-design's); K3's backward,
+design's), K4's backward's through the one without the tile start states; K3's backward,
 K3's bf16 forward and K5 run behind this checkout's wrapper, so the two
 sources must have the same ``ldconv_gather_bwd_launch``,
 ``ldconv_gather_bf16_launch`` or ``soft_nms_launch`` signature; the bf16
@@ -111,23 +117,47 @@ K4_VARIANTS = {
     "tiles of 4 steps": (("constexpr int TILE = 8; ", "constexpr int TILE = 4; "),),
     "4 warps a block": (("constexpr int WARPS = 2;", "constexpr int WARPS = 4;"),),
 }
-# variant -> (old, new) pieces of csrc/selective_scan.cu, for the backward kernels
+# variant -> ((old, new) pieces of csrc/selective_scan.cu, settings of ops/kernels/selective_scan.py), for the
+# backward kernels
+BWD_LOADS = (("    if (k < tiles) load_bwd_tile<VEC>(st[k]", "    if (k < tiles && a.L < 0) load_bwd_tile<VEC>(st[k]"),
+             ("    if (k + WALK_STAGES - 1 < tiles)\n      load_bwd_tile",
+              "    if (k + WALK_STAGES - 1 < tiles && a.L < 0)\n      load_bwd_tile"),
+             ("    if (k < tiles) load(k);", "    if (k < tiles && a.L < 0) load(k);"),
+             ("    if (k + BWD_STAGES - 1 < tiles) load(", "    if (k + BWD_STAGES - 1 < tiles && a.L < 0) load("))
+
+
+def _bwd_tile(n: int):
+    """Tiles of ``n`` steps, in the source and in the wrapper (which sizes the tile start states' scratch)."""
+    return (("constexpr int BWD_TILE = 4;", f"constexpr int BWD_TILE = {n};"),), {"BWD_TILE": n}
+
+
 K4BWD_VARIANTS = {
-    "as it is": (),
-    "no exps": (("ex2(dtv * a2)", "(dtv * a2)"),),
-    "one block an SM": (("__launch_bounds__(BWD_THREADS, 2) selective_scan_bwd_kernel_main",
-                         "__launch_bounds__(BWD_THREADS) selective_scan_bwd_kernel_main"),),
-    "no walk 1": (("    h = walk_h(a, w, a2, w.s0 + j * BWD_TILE, min(w.s0 + (j + 1) * BWD_TILE, w.s1), h);\n", ""),),
-    "no tile sums": (("if (i < steps && w.live) {", "if (i < steps && w.live && a.L < 0) {"),
-                     ("if (threadIdx.x < BWD_TILE * 2 * N_STATE) {",
-                      "if (threadIdx.x < BWD_TILE * 2 * N_STATE && a.L < 0) {")),
-    "no shuffles": (("float sum = (w.lane < 16 ? pb : pc) + __shfl_xor_sync(0xffffffffu, w.lane < 16 ? pc : pb, 16);",
-                     "float sum = pb + pc;"),
-                    ("for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);",
-                     "for (int off = 8; off > 0; off >>= 1) sum += off;")),
-    "pass 1 unrolled by 16": (("#pragma unroll 8\n  for (int s = w.s1 - 1; s >= w.s0; --s) {",
-                               "#pragma unroll 16\n  for (int s = w.s1 - 1; s >= w.s0; --s) {"),),
+    "as it is": ((), {}),
+    "no exps": ((("ex2(dtv * r.a2[n])", "(dtv * r.a2[n])"),), {}),
+    "no channel sums (dB, dC)": ((("  if (GUARD && i >= steps) return;", "  if (a.L > 0) return;"),), {}),
+    "no ring: no copies from device memory": (BWD_LOADS, {}),
+    "history rows of 32 floats (no pad)": ((("constexpr int HIST_ROW = LANES + 4;", "constexpr int HIST_ROW = LANES;"),),
+                                           {}),
+    "tiles of 2 steps": _bwd_tile(2),
+    "tiles of 8 steps": _bwd_tile(8),
+    "3 stages": ((("constexpr int BWD_STAGES = 2;", "constexpr int BWD_STAGES = 3;"),), {}),
+    "2 warps a block": ((("constexpr int BWD_WARPS = 1;", "constexpr int BWD_WARPS = 2;"),), {}),
+    "pass 1 in tiles of 4 steps, 2 stages": ((("constexpr int WALK_TILE = 8;", "constexpr int WALK_TILE = 4;"),
+                                              ("constexpr int WALK_STAGES = 3;", "constexpr int WALK_STAGES = 2;")), {}),
+    "pass 1 in tiles of 16 steps, 2 stages": ((("constexpr int WALK_TILE = 8;", "constexpr int WALK_TILE = 16;"),
+                                               ("constexpr int WALK_STAGES = 3;", "constexpr int WALK_STAGES = 2;")), {}),
+    "pass 1 in blocks of 4 warps": ((("constexpr int WALK_WARPS = 2;", "constexpr int WALK_WARPS = 4;"),), {}),
+    "pass 1 at most 80 registers": ((("__launch_bounds__(WALK_WARPS * LANES) selective_scan_bwd_kernel_starts",
+                                      "__launch_bounds__(WALK_WARPS * LANES, 12) selective_scan_bwd_kernel_starts"),),
+                                    {}),
+    "main pass at most 96 registers": ((("__launch_bounds__(BWD_WARPS * LANES) selective_scan_bwd_kernel_main",
+                                         "__launch_bounds__(BWD_WARPS * LANES, 21) selective_scan_bwd_kernel_main"),),
+                                       {}),
+    "params in blocks of 8 warps": ((("constexpr int PARAM_WARPS = 32;", "constexpr int PARAM_WARPS = 8;"),), {}),
 }
+# the parent commit's C signature of selective_scan_bwd_launch took no scratch for the tile start states (the
+# tenth pointer now)
+K4BWD_HS_ARG = 9
 # variant -> (old, new) pieces of csrc/ldconv_gather.cu
 K3_VARIANTS = {
     "as it is": (),
@@ -341,7 +371,21 @@ def scan_variants(gen: torch.Generator) -> None:
             print(json.dumps(row), flush=True)
 
 
+def _k4bwd_old_signature(launch):
+    """``_build.launch`` for the parent's backward library: its entry point as the wrapper calls it, without the
+    tile start states' scratch."""
+    def call(name, argtypes, *args, **kw):
+        if name == "selective_scan_bwd":
+            argtypes = (*argtypes[:K4BWD_HS_ARG], *argtypes[K4BWD_HS_ARG + 1:])
+            args = (*args[:K4BWD_HS_ARG], *args[K4BWD_HS_ARG + 1:])
+        return launch(name, argtypes, *args, **kw)
+
+    return call
+
+
 def scan_bwd_variants(gen: torch.Generator, baseline: Path | None) -> None:
+    from experiment_yolo_torch.ops.kernels import selective_scan as k4
+
     kw = dict(reverse=(False, False, True, True), source=(0, 1, 0, 1))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     calls = {}
@@ -353,26 +397,37 @@ def scan_bwd_variants(gen: torch.Generator, baseline: Path | None) -> None:
                 dbl[..., rank:rank + 16], dbl[..., rank + 16:], torch.randn(4, dim, generator=gen).cuda())
         dy = torch.randn(BATCH, 4, length, dim, generator=gen).cuda()
         chunked = length > chunk_length(BATCH * 4, length, dim, sms)
-        launches = 3 + 2 * chunked + (dim > 32)  # g's ends and carry where chunked, main, dx, dB/dC groups, dA/dD
+        # the starts, g's carry where chunked, main, dx, dB/dC groups, dA/dD; the parent's (the baseline): g's ends
+        # and carry where chunked, main, dx, dB/dC groups, dA/dD
+        launches = (4 + chunked + (dim > 32), 3 + 2 * chunked + (dim > 32))
         calls[length] = (args, dy, launches, selective_scan_bwd_plain(*args, dy, **kw))
-    libs = build_variants("selective_scan", K4BWD_VARIANTS, baseline)
-    kept = ("registers", "spill", "bwd_kernel_main")
+    libs = build_variants("selective_scan", {tag: pieces for tag, (pieces, _) in K4BWD_VARIANTS.items()}, baseline)
+    kept = ("registers", "spill", "bwd_kernel")
     ptxas = {tag: [ln.strip() for ln in log.splitlines() if any(k in ln for k in kept)] for tag, log in build_logs.items()}
     print(json.dumps({"kernel": "K4 bwd", "ptxas": ptxas}), flush=True)
+    settings, launch = {"BWD_TILE": k4.BWD_TILE}, _build.launch
     for tag, lib in libs.items():
         swap_in("selective_scan", lib)
+        for name, value in {**settings, **K4BWD_VARIANTS.get(tag, ((), {}))[1]}.items():
+            setattr(k4, name, value)
+        _build.launch = _k4bwd_old_signature(launch) if tag == "baseline" else launch
         row, err = {"kernel": "K4 bwd", "variant": tag}, 0.0
         for length, (args, dy, launches, want) in calls.items():
             leaves = [t.detach().requires_grad_() for t in args]
             y = selective_scan(*leaves, **kw)
             got = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+            again = torch.autograd.grad(y, leaves, dy, retain_graph=True)
             err = max(err, *(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)))
             passes = device_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
-                               "selective_scan_bwd_kernel", launches)
-            row[f"L{length}"] = {**passes, "all": sum(passes.values())}
+                               "selective_scan_bwd_kernel", launches[tag == "baseline"])
+            row[f"L{length}"] = {**passes, "all": sum(passes.values()),
+                                 "same_bits_twice": all(torch.equal(a, b) for a, b in zip(got, again))}
         row["rel_err_vs_plain"] = err
         row["all_levels"] = sum(v["all"] for k, v in row.items() if k.startswith("L"))
         print(json.dumps(row), flush=True)
+    _build.launch = launch
+    for name, value in settings.items():
+        setattr(k4, name, value)
 
 
 def gather_variants(gen: torch.Generator) -> None:

@@ -51,16 +51,19 @@ import torch
 from experiment_yolo_torch.ops.kernels import _build
 
 _ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 15
-_BWD_ARGS = (ctypes.c_void_p,) * 20 + (ctypes.c_int,) * 15
+_BWD_ARGS = (ctypes.c_void_p,) * 21 + (ctypes.c_int,) * 15
 N_STATE = 16  # the kernel keeps a channel's states in 16 registers
 CHUNK = 256  # steps whose decays and inputs the plain version computes at once
 MAX_DIRECTIONS = 8  # the kernel takes the direction flags and sources packed into two ints
 # How the kernel cuts L (mirrors csrc/selective_scan.cu): a warp scans 32 channels of one chunk, an SM
 # holds 24 such warps (12 blocks of 2, by registers and shared memory), and a chunk is a whole number
-# of 8-step tiles and no shorter than 32 steps, below which the carry between chunks costs more than
-# it wins. The backward keeps the state at the start of each of a chunk's 8-step tiles in shared memory, at
-# most 128 KB a block, so no chunk is longer than 512 steps.
+# of 8-step tiles, no shorter than 32 steps, below which the carry between chunks costs more than it
+# wins, and no longer than 512 steps: the chunking with which K4's times were measured (the backward
+# takes any length).
 LANES, WARPS_PER_SM, TILE, MIN_CHUNK, MAX_CHUNK = 32, 24, 8, 32, 512
+# Steps of the backward's tiles (mirrors BWD_TILE in csrc/selective_scan.cu): its first pass keeps the
+# state before each of a chunk's tiles, 16 x 32 floats a channel group, in scratch that the wrapper sizes.
+BWD_TILE = 4
 
 Flags = Optional[Sequence[bool]]
 Sources = Optional[Sequence[int]]
@@ -349,9 +352,9 @@ def _launch_bwd(x4, dt4, a3, b4, c4, d2, dy4, reverse, source, carry, chunk):
         raise ValueError(f"selective_scan: dy {tuple(dy4.shape)} must be {tuple(dt4.shape)}")
     bsz, g, l, dim = dt4.shape
     gx = x4.shape[1]
-    if chunk is None or chunk % TILE or not 0 < chunk <= MAX_CHUNK:
-        raise ValueError(f"selective_scan_bwd: the forward's chunk length, a multiple of {TILE} up to {MAX_CHUNK}, "
-                         f"is needed; got {chunk}")
+    if chunk is None or chunk % TILE or chunk <= 0:
+        raise ValueError(f"selective_scan_bwd: the forward's chunk length, a positive multiple of {TILE}, is needed; "
+                         f"got {chunk}")
     chunks, groups = math.ceil(l / chunk), math.ceil(dim / LANES)
     if chunks > 1 and (carry is None or tuple(carry.shape) != (bsz * g, chunks - 1, N_STATE + 1, dim)):
         got = None if carry is None else tuple(carry.shape)
@@ -367,8 +370,9 @@ def _launch_bwd(x4, dt4, a3, b4, c4, d2, dy4, reverse, source, carry, chunk):
     if not dt4.numel():
         return tuple(None if t is None else t.zero_() for t in (dx, ddt, da, db, dc, dd))
     gcarry = empty(bsz * g, chunks - 1, N_STATE, dim) if chunks > 1 else None
+    starts = empty(bsz * g, chunks, groups, math.ceil(chunk / BWD_TILE), N_STATE, LANES)  # each tile's start state
     dbp, dcp = (empty(groups, bsz, g, l, N_STATE), empty(groups, bsz, g, l, N_STATE)) if groups > 1 else (db, dc)
-    scratch = (gcarry, empty(bsz, g, l, dim), dbp, dcp, empty(bsz * g, chunks, N_STATE, dim),
+    scratch = (gcarry, starts, empty(bsz, g, l, dim), dbp, dcp, empty(bsz * g, chunks, N_STATE, dim),
                empty(bsz * g, chunks, dim))
     ptrs = [None if t is None else t.data_ptr() for t in (x4, dt4, a3, b4, c4, d2, dy4, carry, *scratch,
                                                             dx, ddt, da, db, dc, dd)]

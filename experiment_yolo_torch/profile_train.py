@@ -40,7 +40,7 @@ KERNELS = {"dfl_decode_kernel": "K1 dfl_decode", "dfl_decode_bwd_kernel": "K1 df
            "ldconv_gather_kernel": "K3 ldconv_gather", "ldconv_gather_bwd_kernel": "K3 ldconv_gather_bwd",
            **{f"selective_scan_kernel_{p}": "K4 selective_scan" for p in ("ends", "carry", "outputs")},
            **{f"selective_scan_bwd_kernel_{p}": "K4 selective_scan_bwd"
-              for p in ("gends", "gcarry", "main", "dx", "bc", "params")}}
+              for p in ("starts", "gcarry", "main", "dx", "bc", "params")}}
 PHASES = ("forward", "loss", "backward", "optimizer", "ema")
 BN_WORDS = ("bn_fw", "bn_bw", "batch_norm", "batchnorm")  # cuDNN's and PyTorch's own BatchNorm kernels
 LN_WORDS = ("layer_norm", "layernorm", "gammabeta")  # PyTorch's LayerNorm kernels, forward and backward

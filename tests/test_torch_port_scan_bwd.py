@@ -174,9 +174,10 @@ def _meta(b, gx, g, length, d, rank=1):
 def test_backward_wrapper_hands_the_kernel_its_shapes_strides_flags_and_chunk(stubbed_card, dim, with_d):
     """Through the Function on the card: one forward launch, then on
     ``backward`` one launch of K4's backward, counted once, with the
-    pointers of the six inputs, ``dy``, the forward's carry, six scratch
-    buffers and six outputs (``dD`` None without ``D``), and the forward's
-    chunk length, which the backward takes from the forward."""
+    pointers of the six inputs, ``dy``, the forward's carry, seven scratch
+    buffers (the g carry, the tile start states, ...) and six outputs (``dD``
+    None without ``D``), and the forward's chunk length, which the backward
+    takes from the forward."""
     x, dt, a, bs, cs, dv = _meta(2, 2, 4, 1003, dim)
     leaves = [t.requires_grad_() for t in (x, dt, a, dv)]
     before = selective_scan_bwd.launches
@@ -185,14 +186,14 @@ def test_backward_wrapper_hands_the_kernel_its_shapes_strides_flags_and_chunk(st
     assert [c[0] for c in stubbed_card] == ["selective_scan"]
     y.sum().backward()
     (name, argtypes, args), = stubbed_card[1:]
-    assert name == "selective_scan_bwd" and len(argtypes) == len(args) == 35
+    assert name == "selective_scan_bwd" and len(argtypes) == len(args) == 36
     assert selective_scan_bwd.launches == before + 1 and all(t.grad is not None for t in leaves[:3])
     row = 33
     chunk = chunk_length(8, 1003, dim, 132)
-    assert args[20:] == (2, 4, 2, 1003, dim, 16, 4 * 1003 * row, 1003 * row, row, 4 * 1003 * row, 1003 * row, row,
+    assert args[21:] == (2, 4, 2, 1003, dim, 16, 4 * 1003 * row, 1003 * row, row, 4 * 1003 * row, 1003 * row, row,
                          0b1100, 0x1010, chunk)
-    assert args[20:][-1] == stubbed_card[0][2][-1]  # the forward's chunk length
-    assert (args[19] is None) == (not with_d) and (args[5] is None) == (not with_d)  # dD with D only
+    assert args[21:][-1] == stubbed_card[0][2][-1]  # the forward's chunk length
+    assert (args[20] is None) == (not with_d) and (args[5] is None) == (not with_d)  # dD with D only
     assert dv.grad is None or with_d
 
 
@@ -204,12 +205,14 @@ def test_backward_wrapper_counts_each_call_and_refuses_a_missing_carry(stubbed_c
         selective_scan_bwd(x, dt, a, bs, cs, dv, dy, source=(0, 1, 0, 1), chunk=136)
     with pytest.raises(ValueError, match="chunk length"):
         selective_scan_bwd(x, dt, a, bs, cs, dv, dy, source=(0, 1, 0, 1), chunk=100)
-    with pytest.raises(ValueError, match="chunk length"):  # longer than the kernel holds
-        selective_scan_bwd(x, dt, a, bs, cs, dv, dy, source=(0, 1, 0, 1), chunk=1008)
+    with pytest.raises(ValueError, match="chunk length"):
+        selective_scan_bwd(x, dt, a, bs, cs, dv, dy, source=(0, 1, 0, 1), chunk=0)
     assert selective_scan_bwd.launches == before
+    selective_scan_bwd(x, dt, a, bs, cs, dv, dy, source=(0, 1, 0, 1), chunk=1008)  # past the forward's cap: one chunk
+    assert selective_scan_bwd.launches == before + 1
     carry = torch.zeros((4, 7, 17, 64), device="meta")  # 1,003 steps in chunks of 136: 8 chunks, 7 carried
     grads = selective_scan_bwd(x, dt, a, bs, cs, dv, dy, source=(0, 1, 0, 1), carry=carry, chunk=136)
-    assert selective_scan_bwd.launches == before + 1
+    assert selective_scan_bwd.launches == before + 2
     assert [tuple(g.shape) for g in grads] == [tuple(x.shape), tuple(dt.shape), tuple(a.shape), (1, 4, 1003, 16),
                                                (1, 4, 1003, 16), tuple(dv.shape)]
 
@@ -226,18 +229,19 @@ def test_backward_wrapper_on_the_cpu_is_the_plain_version_and_launches_nothing()
 
 @pytest.mark.parametrize("sequences,length,dim", [(32, 204_800, 32), (4, 25_600, 32), (512, 25_600, 32)])
 def test_chunk_length_is_at_most_what_the_backward_holds(sequences, length, dim):
-    """The backward keeps a chunk's states at 64-step intervals in eight
-    registers: no chunk is longer than 512 steps, however few chunks would
-    fill the card, and it stays a whole number of tiles."""
+    """No chunk is longer than 512 steps, however few chunks would fill the
+    card (the cap the forward keeps; the backward takes any length), and it
+    stays a whole number of the forward's tiles and of the backward's."""
     got = chunk_length(sequences, length, dim, sms=132)
-    assert got <= scan_module.MAX_CHUNK == 512 and got % scan_module.TILE == 0
+    assert got <= scan_module.MAX_CHUNK == 512 and got % scan_module.TILE == 0 and got % scan_module.BWD_TILE == 0
     assert got == 512 or -(-length // got) * sequences * -(-dim // 32) <= 132 * scan_module.WARPS_PER_SM
 
 
 @pytest.mark.parametrize("kernel,phase,group", [
     ("void selective_scan_kernel_outputs<4>(ScanArgs)", "forward", "K4 selective_scan"),
     ("selective_scan_kernel_carry(ScanArgs, long long)", "forward", "K4 selective_scan"),
-    ("selective_scan_bwd_kernel_main(BwdArgs)", "backward", "K4 selective_scan_bwd"),
+    ("void selective_scan_bwd_kernel_main<4>(BwdArgs)", "backward", "K4 selective_scan_bwd"),
+    ("void selective_scan_bwd_kernel_starts<2>(BwdArgs)", "backward", "K4 selective_scan_bwd"),
     ("selective_scan_bwd_kernel_gcarry(BwdArgs, long long)", "backward", "K4 selective_scan_bwd"),
     ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float, float, false>(int, float, "
      "float const*, float const*, float const*, float*, float*, float*)", "forward", "LayerNorm forward"),

@@ -55,9 +55,10 @@ def _host_source(text):
                   r".*?\n\}\n", "template <int BYTES>\ninline void cp_async(void* smem, const void* gmem) "
                   "{ std::memcpy(smem, gmem, BYTES); }\n", text, flags=re.S)
     text = text.replace('asm volatile("cp.async.commit_group;\\n" ::);', "")
-    text = text.replace('asm volatile("cp.async.wait_group %0;\\n" ::"n"(STAGES - 2));', "")
+    text = re.sub(r'asm volatile\("cp\.async\.wait_group %0;\\n" ::"n"\(\w+ - 2\)\);', "", text)
     text = text.replace('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));', "r = exp2f(v);")
-    text = re.sub(r"extern __shared__ float (\w+)\[\];", r"float* \1 = emu::dynamic_smem.data();", text)
+    text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];", r"float* \1 = emu::dynamic_smem.data();",
+                  text)
 
     def launch(m):
         grid, block, smem = _split_top(m.group(2))[:3]
@@ -147,8 +148,14 @@ def test_emulated_kernels_match_the_plain_versions(on_emulator, b, gx, length, d
 
 
 def test_emulator_rewrites_every_launch_and_piece_of_ptx():
-    """The rewrite leaves no PTX and no ``<<<`` launch in the source, and
-    turns each of its launches into a call of the emulator."""
+    """The rewrite leaves no PTX (copies, their commits and waits, ``ex2``),
+    no dynamic shared memory declaration (aligned or not) and no ``<<<``
+    launch in the source, and turns each of its launches into a call of the
+    emulator."""
     text = (_build.CSRC / "selective_scan.cu").read_text()
     host = _host_source(text)
     assert host.count("emu::launch(") == text.count("<<<") >= 8
+    assert "extern __shared__" not in host and host.count("emu::dynamic_smem.data()") == text.count("extern __shared__")
+    code = "\n".join(line.split("//")[0] for line in host.splitlines())
+    for piece in ("cp.async", "wait_group", "commit_group", "ex2.approx"):
+        assert piece in text and piece not in code, piece
