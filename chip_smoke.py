@@ -140,8 +140,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     numbers a step are too few for the ratio: see
     ``compare_train_cpu_bf16``); ``_check_amp`` must pass on LD-P2;
 15. ``YOLO("yolov8-LD-P2.yaml", nc=3).train()`` on phase 12's dataset, 2
-    epochs at batch 8, with no ``amp`` key (bf16; ``optimizer='SGD'``:
-    ``auto`` would resolve to AdamW, which is not ported), counters at 0
+    epochs at batch 8, with no ``amp`` key (bf16; ``optimizer='SGD'``, as
+    the reference fork's ``train.py`` passes it; phase 27 trains with
+    ``auto``), counters at 0
     just before and read just after: the AMP check's two forwards, 1 / 3 /
     10 / 10 bf16 launches a step and 1 K1 + 10 K3 (bf16) + 1 K5 a per-epoch
     val batch; then ``.val()`` (f32: 1 K1, 10 K3, 1 K5 a batch),
@@ -249,11 +250,31 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     step (the AMP check's two forwards and each val batch 10 K4), 1 K1 and
     3 K1-backward bf16 launches a step, 1 K1 (bf16) and 1 K5 a per-epoch
     val batch; reports the loop's img/s and the phase's seconds;
-27. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
+27. the training recipe's switches (``recipes_phase``): (a) two recipes,
+    each of f32 LD-P2 steps at 320, batch 2, from phase 11's weights, a
+    new one of phase 14's three seeded batches each step, on the card and on
+    the CPU (:func:`compare_recipe_cpu`): R1,
+    ``optimizer='auto'`` with ``epochs=10`` (AdamW), SIoU with Inner-IoU,
+    and through ``LossConfig`` the varifocal class loss and ATSS, one step;
+    R2, Wise-IoU of ``wiou_ltype='MPDIoU'`` with Focaler-IoU and NWD,
+    EMASlide with its ``slide_mean`` threaded, and SOAP, three steps (the
+    first applies no update). Each CPU step starts from the card's state and
+    takes the card's picks (phase 11's, and ATSS's where a tie splits the
+    sides, reported with the least gaps); phase 11's gates for losses,
+    gradients and the optimizers' moments, and the card's update within 1e-5
+    of the CPU optimizer's step on the card's own gradients; counters at 0
+    just before and read just after: 1, 3, 10, 10 launches a card step. (b)
+    ``YOLO("yolov8-LD-P2.yaml", nc=3).train()`` for an epoch on phase 12's
+    dataset with no ``optimizer`` argument (``auto``: AdamW) and phase 15's
+    other arguments: the AMP check passed, phase 15's bf16 launches a step
+    and a val batch, finite losses; then ``resume`` from its ``last.pt``
+    for a second epoch; reports the loop's img/s and the phase's seconds;
+28. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
     ...}``, a ``{"served_vss": ...}``, a ``{"validated": ...}``, a
     ``{"trained_loop": ...}``, a ``{"trained_bf16": ...}``, a ``{"facade":
     ..., "cli": ..., "server": ...}``, an ``{"asf_p2": ...}``, a
-    ``{"two_stage": ...}`` and a ``{"vss_trained": ...}`` line, then the
+    ``{"two_stage": ...}``, a ``{"vss_trained": ...}`` and a ``{"recipes":
+    ...}`` line, then the
     ``{"kernels": [...]}`` line for the eight kernels and the four bf16
     forms (launches summed over every main path above), the card's name and
     power limit, and last ``{"ok": true, "device": {...}}``.
@@ -317,6 +338,11 @@ K5_RTOL = 1e-6  # K5 vs plain: kept scores' relative error (the same rounded ope
 VAL_PROTOCOLS = {"soft-quirk": {"nms_type": "soft", "soft_nms_quirk": True},  # PARITY.md's protocol
                  "hard": {"nms_type": "hard", "soft_nms_quirk": False}}
 RECIPE = {"use_wiseiou": True, "wiou_ltype": "WIoU", "nwd": True, "iou_ratio": 0.5}  # EXPERIMENTS.md's box loss
+# phase 27's recipes: (trainer overrides, LossConfig fields, steps, thread EMASlide's slide_mean)
+RECIPES = {"R1": ({"optimizer": "auto", "epochs": 10, "iou_type": "SIoU", "inner_iou": True},
+                  {"cls_loss": "varifocal", "assigner": "atss"}, 1, False),
+           "R2": ({"optimizer": "SOAP", "use_wiseiou": True, "wiou_ltype": "MPDIoU", "focaler_iou": True, "nwd": True},
+                  {"cls_loss": "emaslide"}, 3, True)}
 
 
 def fail(msg: str) -> None:
@@ -1146,6 +1172,136 @@ def ldconv_position_margins(layers):
     return whole, rail
 
 
+class CardPicks:
+    """The card's picks at the step functions of a forward, handed to the CPU.
+
+    The bilinear floor, the border multiplier and the rail gate of LDConv's
+    gather, ScalSeq's max over its three scales and the kink of its
+    LeakyReLU, ZoomCat's 2x2 max pool and SPPF's max pools are step functions
+    of their inputs: a value within rounding of a step may fall on the other
+    side on each device, which moves a gradient by O(1) while both sides are
+    right. Under :meth:`on` with ``"cuda"`` each of them records its pick;
+    under ``"cpu"`` each takes the card's next one, in call order, and
+    records its own margin (the gradient of LDConv's offsets flows into the
+    CPU's own ``p_conv``)."""
+
+    def __init__(self):
+        self.offsets, self.cpu_layers, self.scales, self.scale_gaps = [], [], [], []
+        self.windows, self.window_gaps, self.pools, self.pool_gaps = [], [], [], []
+        self.signs, self.kink_gaps = [], []
+
+    def counts(self, all_lists=False):
+        """(LDConv, ScalSeq, ZoomCat, SPPF) picks taken on both sides, or
+        every list's length."""
+        lists = (self.offsets, self.cpu_layers, self.scales, self.scale_gaps, self.signs, self.kink_gaps,
+                 self.windows, self.window_gaps, self.pools, self.pool_gaps)
+        if all_lists:
+            return [len(x) for x in lists]
+        pairs = [(len(a), len(b)) for a, b in zip(lists[::2], lists[1::2])]
+        if any(a != b for a, b in pairs) or pairs[1] != pairs[2]:
+            return None
+        return pairs[0][0], pairs[1][0], pairs[3][0], pairs[4][0]
+
+    @contextlib.contextmanager
+    def on(self, dev: str, n_sppf: int = 1):
+        import torch
+        import torch.nn.functional as F
+
+        import experiment_yolo_torch.nn.modules as modules
+
+        gather, scale_max, window_max = modules.ldconv_gather, modules.ScalSeq.scale_max, modules.ZoomCat.window_max
+        scale_act, sppf_forward = modules.ScalSeq.act, modules.SPPF.forward
+        card = dev == "cuda"
+
+        def card_gather(x, off, stride):
+            self.offsets.append(off.detach().cpu())
+            return gather(x, off, stride)
+
+        def cpu_gather(x, off, stride):
+            self.cpu_layers.append((x.detach(), off.detach().clone(), stride))
+            return gather(x, self.offsets[len(self.cpu_layers) - 1] + (off - off.detach()), stride)
+
+        def card_max(z):
+            self.scales.append(z.detach().argmax(2, keepdim=True).cpu())
+            return scale_max(z)
+
+        def cpu_max(z):
+            top2 = z.detach().topk(2, dim=2).values
+            self.scale_gaps.append((top2[:, :, 0] - top2[:, :, 1]).min().item())
+            return z.gather(2, self.scales[len(self.scale_gaps) - 1]).squeeze(2)
+
+        def card_act(y):
+            self.signs.append((y.detach() > 0).cpu())
+            return scale_act(y)
+
+        def cpu_act(y):
+            self.kink_gaps.append(y.detach().abs().min().item())
+            return torch.where(self.signs[len(self.kink_gaps) - 1], y, 0.1 * y)
+
+        def card_window_max(x):
+            y, idx = F.max_pool2d(x, 2, return_indices=True)
+            self.windows.append(idx.cpu())
+            return y
+
+        def cpu_window_max(x):
+            b, c, h, w = x.shape
+            windows = x.detach().reshape(b, c, h // 2, 2, w // 2, 2).transpose(3, 4).reshape(b, c, h // 2, w // 2, 4)
+            top2 = windows.topk(2, dim=-1).values
+            self.window_gaps.append((top2[..., 0] - top2[..., 1]).min().item())
+            idx = self.windows[len(self.window_gaps) - 1]
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+        # SPPF's max pools (k x k, stride 1, padded with -inf)
+        def sppf_with(pool):
+            def forward(self_, x):
+                ys = [self_.cv1(x)]
+                for _ in range(3):
+                    ys.append(pool(ys[-1], self_.m.kernel_size, self_.m.padding))
+                return self_.cv2(torch.cat(ys, 1))
+            return forward
+
+        def card_pool(x, k, pad):
+            y, idx = F.max_pool2d(x, k, 1, pad, return_indices=True)
+            self.pools.append(idx.cpu())
+            return y
+
+        def cpu_pool(x, k, pad):
+            b, c, h, w = x.shape
+            windows = F.unfold(F.pad(x.detach(), (pad,) * 4, value=-math.inf), k).view(b, c, k * k, h * w)
+            top2 = windows.topk(2, dim=2).values
+            self.pool_gaps.append((top2[:, :, 0] - top2[:, :, 1]).min().item())
+            idx = self.pools[len(self.pool_gaps) - 1]
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+        modules.ldconv_gather = card_gather if card else cpu_gather
+        modules.ScalSeq.scale_max = staticmethod(card_max if card else cpu_max)
+        modules.ScalSeq.act = staticmethod(card_act if card else cpu_act)
+        modules.ZoomCat.window_max = staticmethod(card_window_max if card else cpu_window_max)
+        if n_sppf:
+            modules.SPPF.forward = sppf_with(card_pool if card else cpu_pool)
+        try:
+            yield self
+        finally:
+            modules.ldconv_gather, modules.ScalSeq.scale_max = gather, staticmethod(scale_max)
+            modules.ScalSeq.act = staticmethod(scale_act)
+            modules.ZoomCat.window_max, modules.SPPF.forward = staticmethod(window_max), sppf_forward
+
+    def report(self):
+        """The largest difference of the two sides' raw offsets, the least
+        distance of the CPU's own positions to a whole number and to a rail,
+        and the least gap or magnitude at each other step."""
+        offset_diff = max(((a - c).abs().max().item() for a, (_, c, _) in zip(self.offsets, self.cpu_layers)),
+                          default=None)
+        to_whole, to_rail = ldconv_position_margins(self.cpu_layers) if self.cpu_layers else (None, None)
+        return {"ldconv_offsets_card_vs_cpu_max_abs_diff": offset_diff,
+                "cpu_positions_least_distance_to_whole_number": to_whole,
+                "cpu_positions_least_distance_to_rail": to_rail,
+                "cpu_scalseq_least_gap_of_top_two_scales": min(self.scale_gaps, default=None),
+                "cpu_scalseq_least_magnitude_at_the_kink": min(self.kink_gaps, default=None),
+                "cpu_zoomcat_least_gap_of_top_two_in_a_window": min(self.window_gaps, default=None),
+                "cpu_sppf_least_gap_of_top_two_in_a_window": min(self.pool_gaps, default=None)}
+
+
 def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_scalseq=1, n_zoomcat=0, n_sppf=1,
                       imgsz=CMP_IMGSZ):
     """One step of ``cfg`` (with ``n_ldconv`` LDConv, ``n_scalseq`` ScalSeq,
@@ -1180,84 +1336,11 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
     tensor of the largest difference of gradients, momentum buffers and
     updates."""
     import numpy as np
-    import torch
-    import torch.nn.functional as F
 
-    import experiment_yolo_torch.nn.modules as modules
     from experiment_yolo_torch import DetectionModel
     from experiment_yolo_torch.engine.trainer import DetectionTrainer
 
-    gather, scale_max, window_max = modules.ldconv_gather, modules.ScalSeq.scale_max, modules.ZoomCat.window_max
-    scale_act, sppf_forward = modules.ScalSeq.act, modules.SPPF.forward
-    card_offsets, cpu_layers, card_picks, cpu_gaps, card_windows, cpu_window_gaps = [], [], [], [], [], []
-    card_pools, cpu_pool_gaps, card_signs, cpu_kink_gaps = [], [], [], []
-
-    def card_gather(x, off, stride):
-        card_offsets.append(off.detach().cpu())
-        return gather(x, off, stride)
-
-    def cpu_gather(x, off, stride):
-        cpu_layers.append((x.detach(), off.detach().clone(), stride))
-        return gather(x, card_offsets[len(cpu_layers) - 1] + (off - off.detach()), stride)
-
-    # ScalSeq's max over its three scales is a step function of the same kind: where two scales lie within
-    # rounding of each other, each side may route the gradient to another one. The CPU takes the card's picks.
-    def card_max(z):
-        card_picks.append(z.detach().argmax(2, keepdim=True).cpu())
-        return scale_max(z)
-
-    def cpu_max(z):
-        top2 = z.detach().topk(2, dim=2).values
-        cpu_gaps.append((top2[:, :, 0] - top2[:, :, 1]).min().item())
-        return z.gather(2, card_picks[len(cpu_gaps) - 1]).squeeze(2)
-
-    # ScalSeq's LeakyReLU has a kink at 0: an element within rounding of 0 may take the slope 1 on one side and
-    # 0.1 on the other, which moves its gradient by 0.9 of it. The CPU takes the card's side of the kink.
-    def card_act(y):
-        card_signs.append((y.detach() > 0).cpu())
-        return scale_act(y)
-
-    def cpu_act(y):
-        cpu_kink_gaps.append(y.detach().abs().min().item())
-        return torch.where(card_signs[len(cpu_kink_gaps) - 1], y, 0.1 * y)
-
-    # ZoomCat's 2x2 max pool, the same kind of step: the CPU takes the card's pick in each window
-    def card_window_max(x):
-        y, idx = F.max_pool2d(x, 2, return_indices=True)
-        card_windows.append(idx.cpu())
-        return y
-
-    def cpu_window_max(x):
-        b, c, h, w = x.shape
-        windows = x.detach().reshape(b, c, h // 2, 2, w // 2, 2).transpose(3, 4).reshape(b, c, h // 2, w // 2, 4)
-        top2 = windows.topk(2, dim=-1).values
-        cpu_window_gaps.append((top2[..., 0] - top2[..., 1]).min().item())
-        idx = card_windows[len(cpu_window_gaps) - 1]
-        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
-
-    # SPPF's max pools (k x k, stride 1, padded with -inf), the same kind of step again: the CPU takes the card's
-    # pick in each window; the least gap of a window's two largest values is reported
-    def sppf_with(pool):
-        def forward(self, x):
-            ys = [self.cv1(x)]
-            for _ in range(3):
-                ys.append(pool(ys[-1], self.m.kernel_size, self.m.padding))
-            return self.cv2(torch.cat(ys, 1))
-        return forward
-
-    def card_pool(x, k, pad):
-        y, idx = F.max_pool2d(x, k, 1, pad, return_indices=True)
-        card_pools.append(idx.cpu())
-        return y
-
-    def cpu_pool(x, k, pad):
-        b, c, h, w = x.shape
-        windows = F.unfold(F.pad(x.detach(), (pad,) * 4, value=-math.inf), k).view(b, c, k * k, h * w)
-        top2 = windows.topk(2, dim=2).values
-        cpu_pool_gaps.append((top2[:, :, 0] - top2[:, :, 1]).min().item())
-        idx = card_pools[len(cpu_pool_gaps) - 1]
-        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
-
+    picks = CardPicks()
     out = {}
     for dev in ("cuda", "cpu"):
         model = DetectionModel(cfg, device=dev)
@@ -1267,20 +1350,10 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
                                            "warmup_epochs": 0.0, **(recipe or {})})
         opt = trainer.state.optimizer
         lrs = opt.schedules()
-        modules.ldconv_gather = card_gather if dev == "cuda" else cpu_gather
-        modules.ScalSeq.scale_max = staticmethod(card_max if dev == "cuda" else cpu_max)
-        modules.ScalSeq.act = staticmethod(card_act if dev == "cuda" else cpu_act)
-        modules.ZoomCat.window_max = staticmethod(card_window_max if dev == "cuda" else cpu_window_max)
-        if n_sppf:
-            modules.SPPF.forward = sppf_with(card_pool if dev == "cuda" else cpu_pool)
-        try:
+        with picks.on(dev, n_sppf):
             t = time.perf_counter()
             comps = trainer.train_step(batch)
             step_s = time.perf_counter() - t
-        finally:
-            modules.ldconv_gather, modules.ScalSeq.scale_max = gather, staticmethod(scale_max)
-            modules.ScalSeq.act = staticmethod(scale_act)
-            modules.ZoomCat.window_max, modules.SPPF.forward = staticmethod(window_max), sppf_forward
         check(opt.updates == 1 and min(lrs[:2]) > 0, f"{dev}: the compared step fired {opt.updates} updates at "
                                                      f"(lr, bias lr, momentum) {lrs}: expected 1 with both LRs > 0")
         out[dev] = dict(comps={k: v.item() for k, v in comps.items()}, lrs=lrs, iou_mean=trainer.state.iou_mean.item(),
@@ -1289,16 +1362,10 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
                         momentum={n: opt.state[p]["momentum_buffer"].cpu() for n, p in model.named_parameters()},
                         after={n: p.detach().cpu() for n, p in model.named_parameters()},
                         updates={n: p.detach().cpu() - before[n] for n, p in model.named_parameters()})
-    check(len(card_offsets) == len(cpu_layers) == n_ldconv and len(card_picks) == len(cpu_gaps) == n_scalseq
-          and len(card_signs) == len(cpu_kink_gaps) == n_scalseq
-          and len(card_windows) == len(cpu_window_gaps) == n_zoomcat
-          and len(card_pools) == len(cpu_pool_gaps) == 3 * n_sppf,
-          f"the card step gathered {len(card_offsets)} times, took {len(card_picks)} ScalSeq, {len(card_windows)} "
-          f"ZoomCat and {len(card_pools)} SPPF maxima, the CPU step {len(cpu_layers)}, {len(cpu_gaps)}, "
-          f"{len(cpu_window_gaps)} and {len(cpu_pool_gaps)}: expected {n_ldconv} LDConv layers, {n_scalseq} ScalSeq, "
-          f"{n_zoomcat} ZoomCat and {3 * n_sppf} SPPF pools each")
-    offset_diff = max(((a - c).abs().max().item() for a, (_, c, _) in zip(card_offsets, cpu_layers)), default=None)
-    to_whole, to_rail = ldconv_position_margins(cpu_layers) if cpu_layers else (None, None)
+    check(picks.counts() == (n_ldconv, n_scalseq, n_zoomcat, 3 * n_sppf),
+          f"the card and CPU steps took {picks.counts(all_lists=True)} LDConv offsets, ScalSeq picks and signs, "
+          f"ZoomCat and SPPF maxima: expected {n_ldconv} LDConv layers, {n_scalseq} ScalSeq, {n_zoomcat} ZoomCat and "
+          f"{3 * n_sppf} SPPF pools each")
     gpu, cpu = out["cuda"], out["cpu"]
     check(gpu["comps"]["fg"] == cpu["comps"]["fg"], f"foreground count {gpu['comps']['fg']} on the card, "
                                                       f"{cpu['comps']['fg']} on the CPU")
@@ -1338,12 +1405,7 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
             "iou_mean_card": gpu["iou_mean"], "iou_mean_cpu": cpu["iou_mean"], "iou_mean_rel_err": iou_rel,
             "loss_max_rel_err": loss_rel, "grad_max_rel_l2": grad_rel, "momentum_max_rel_l2": mom_rel,
             "update_max_rel_l2": upd_rel, "worst_tensor_grad_momentum_update": worst_of,
-            "ldconv_offsets_card_vs_cpu_max_abs_diff": offset_diff,
-            "cpu_positions_least_distance_to_whole_number": to_whole, "cpu_positions_least_distance_to_rail": to_rail,
-            "cpu_scalseq_least_gap_of_top_two_scales": min(cpu_gaps, default=None),
-            "cpu_scalseq_least_magnitude_at_the_kink": min(cpu_kink_gaps, default=None),
-            "cpu_zoomcat_least_gap_of_top_two_in_a_window": min(cpu_window_gaps, default=None),
-            "cpu_sppf_least_gap_of_top_two_in_a_window": min(cpu_pool_gaps, default=None),
+            **picks.report(),
             "step_s_card": gpu["step_s"], "step_s_cpu": cpu["step_s"],
             "loss_card": {k: gpu["comps"][k] for k in ("box", "cls", "dfl")},
             "loss_cpu": {k: cpu["comps"][k] for k in ("box", "cls", "dfl")}}
@@ -2139,8 +2201,8 @@ def compare_train_cpu_bf16(state_dict, batches, cfg=CFG, imgsz=CMP_IMGSZ):
 
 def facade_phase(data: Path, root: Path, counters, card):
     """The facade with the defaults: ``YOLO(CFG, nc=LOOP_NC).train(...)``
-    with no ``amp`` key (bf16 compute; ``optimizer='SGD'``, since ``auto``
-    with fewer than 50 epochs resolves to AdamW, which the port lacks), then
+    with no ``amp`` key (bf16 compute; ``optimizer='SGD'``, as the reference
+    fork's ``train.py`` passes it), then
     ``.val()``, ``.predict()``, and ``YOLO(best.pt)``. Gates: the launches of
     the bf16 forms (the AMP check's two forwards, every step, every
     per-epoch validation batch: the bf16 K3 and K1), ``_check_amp`` passed,
@@ -2426,12 +2488,15 @@ def asf_served(asf, images, x, counters, card):
     return {"k1_forward": k1, "anchors_at_imgsz": anchors, "served": served, "cpu_comparison": compare}, launches
 
 
-def facade_epoch(cfg, want_launches, data: Path, root: Path, counters, card):
+def facade_epoch(cfg, want_launches, data: Path, root: Path, counters, card, optimizer="SGD", **train_args):
     """``YOLO(cfg, nc=LOOP_NC).train()`` as the reference fork's own
     ``train.py`` calls it (``optimizer='SGD'``, no ``amp`` key: bf16) for one
     epoch on phase 12's dataset, counters at 0 just before and read just
     after: the AMP check passed, the launches ``want_launches(steps,
-    val_batches)`` (none of the kernels it does not name); finite losses."""
+    val_batches)`` (none of the kernels it does not name); finite losses.
+    ``optimizer=None`` passes no ``optimizer`` (``auto``); ``train_args``
+    go to ``train()`` too. The record names the optimizer built and the
+    run's ``weights`` folder."""
     import torch
 
     from experiment_yolo_torch import YOLO
@@ -2442,8 +2507,9 @@ def facade_epoch(cfg, want_launches, data: Path, root: Path, counters, card):
     for fn in counters.values():
         fn.launches = 0
     t = time.perf_counter()
-    metrics = yolo.train(data=str(data), epochs=1, batch=BATCH, imgsz=IMGSZ, workers=8, optimizer="SGD",
-                         project=str(root / f"facade_{Path(cfg).stem}"), verbose=False)
+    metrics = yolo.train(**{"data": str(data), "epochs": 1, "batch": BATCH, "imgsz": IMGSZ, "workers": 8,
+                            "project": str(root / f"facade_{Path(cfg).stem}"), "verbose": False,
+                            **({"optimizer": optimizer} if optimizer else {}), **train_args})
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t
     trainer = yolo.trainer
@@ -2456,9 +2522,13 @@ def facade_epoch(cfg, want_launches, data: Path, root: Path, counters, card):
           f"YOLO({cfg!r}).train did not train in bf16 with a passed AMP check: {trainer.dtype}, "
           f"{trainer.amp_check}")
     check(all(math.isfinite(v) for row in losses for v in row.values()), f"a {cfg} epoch's loss: {losses}")
-    return {"cfg": cfg, "nc": LOOP_NC, "imgsz": IMGSZ, "batch": BATCH, "epochs": 1, "steps": steps,
-            "train_dtype": str(trainer.dtype), "amp_check": trainer.amp_check, "train_s": train_s,
+    opt = trainer.state.optimizer
+    return {"cfg": cfg, "nc": LOOP_NC, "imgsz": IMGSZ, "batch": BATCH, "epochs": metrics["epochs_run"],
+            "steps": steps, "train_dtype": str(trainer.dtype), "amp_check": trainer.amp_check, "train_s": train_s,
             "loop_img_per_s": steps * BATCH / train_s, "losses": losses,
+            "optimizer": {"arg": trainer.args.optimizer, "built": type(opt).__name__,
+                          "family": getattr(opt, "family", None), "updates": opt.updates},
+            "weights": str(trainer.save_dir / "weights"),
             "last_epoch_metrics": {k: v for k, v in metrics.items() if k != "epochs_run"}, "launches": launches,
             "card": card}, launches
 
@@ -2990,6 +3060,291 @@ def vss_trained(vss_state, batches, data: Path, root: Path, counters, card):
             "seconds": seconds, "seconds_by_part": parts, "card": card}, k4_bwd, launches
 
 
+def _cpu_copy(obj):
+    """A copy of a nest of tensors (an optimizer's ``state_dict``) on the CPU."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: _cpu_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu_copy(v) for v in obj)
+    return obj
+
+
+def atss_margins(anc_points, stride_tensor, feat_shapes, gt_bboxes, mask_gt, topk=9):
+    """On ``atss.assign``'s inputs: the least gap between a valid gt's k-th
+    and (k+1)-th nearest anchor of a level (a tie there picks by index), and
+    the least distance of a candidate's IoU to its gt's threshold."""
+    import torch
+
+    from experiment_yolo_torch.ops.boxes import box_iou
+    from experiment_yolo_torch.utils.atss import anchor_boxes_from_points
+
+    b, m = mask_gt.shape
+    centres = (gt_bboxes[..., :2] + gt_bboxes[..., 2:4]) / 2
+    dist = ((centres[:, :, None] - anc_points[None, None]) ** 2).sum(-1).sqrt()[mask_gt]  # (valid gts, A)
+    overlaps = box_iou(gt_bboxes.reshape(-1, 4), anchor_boxes_from_points(anc_points, stride_tensor))
+    overlaps = overlaps.reshape(b, m, -1)[mask_gt]
+    gap, cand, start = math.inf, torch.zeros_like(dist, dtype=torch.bool), 0
+    for h, w in feat_shapes:
+        d = dist[:, start:start + h * w]
+        k = min(topk, h * w)
+        srt, idx = torch.sort(d, dim=-1, stable=True)
+        if k < h * w:
+            gap = min(gap, (srt[:, k] - srt[:, k - 1]).min().item())
+        cand[:, start:start + h * w].scatter_(1, idx[:, :k], True)
+        start += h * w
+    n = sum(min(topk, h * w) for h, w in feat_shapes)
+    mean = torch.where(cand, overlaps, 0.0).sum(1, keepdim=True) / n
+    thr = mean + (torch.where(cand, (overlaps - mean) ** 2, 0.0).sum(1, keepdim=True) / max(n - 1, 1)).sqrt()
+    return gap, (overlaps - thr).abs()[cand].min().item()
+
+
+def compare_recipe_cpu(state_dict, batches, overrides, loss_fields, steps, slide=False):
+    """``steps`` f32 steps of LD-P2 at CMP_IMGSZ, batch CMP_BATCH (step i on
+    ``batches[i]``, as a training run takes a new batch each step), warmup off
+    and ``nbs`` the batch, with the trainer ``overrides`` (the optimizer and
+    the box loss's switches) and the ``LossConfig`` fields ``loss_fields``
+    (the class loss, the assigner), on the card and on the CPU. ``slide``
+    threads EMASlide's ``slide_mean`` through the trainer's state from 1.
+
+    Each CPU step starts from the card's state before that step (weights,
+    BatchNorm statistics, the optimizer's state, ``iou_mean``,
+    ``slide_mean``) and takes the card's picks at the step functions of the
+    forward (:class:`CardPicks`), and ATSS's assignment when the two differ
+    (reported, with the least distance gap at a level's k-th anchor and the
+    least IoU gap to a threshold). Gates, each step: the same foreground
+    count; losses within 1e-4 relative; every parameter's gradient as the
+    optimizer applies it (clipped, as phase 11 holds it), the unclipped
+    gradients' global norm within 1e-4, and the optimizer's moments in gradient units
+    (the first over 1 - b1, the root of the second over 1 - b2, SOAP's
+    factors over 1 - beta) within 1e-3 relative L2 (the floor of phase 11
+    under a norm of 1e-5; 1e-12 under 1e-10 for the factors); the card's
+    update within 1e-5 relative L2, plus one f32 spacing of each parameter,
+    of the CPU optimizer's step run from the card's state on the card's own
+    gradients (Adam's first update ``lr * g / (|g| + eps)`` follows the
+    sign of gradients that sit at rounding noise, so the two sides' own
+    updates are not compared); where it is not, within the larger of 1e-3
+    relative L2 (phase 11's update gate) and twice the CPU f32 step's
+    distance of the same step in float64 (SOAP's first step in its eigenbasis
+    is Adam's sign-like first step on rotated components, and a component
+    that the projection's rounding leaves near 0 takes either sign, on each
+    device its own: the CPU's f32 step and the card's each lie up to about
+    1e-4 from float64 on some tensors, the card's up to 9x the CPU's);
+    ``iou_mean`` and ``slide_mean`` within 1e-6 relative, and moved."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch import DetectionModel
+    from experiment_yolo_torch.engine.trainer import DetectionTrainer
+    from experiment_yolo_torch.utils import atss
+
+    args = {"amp": False, "batch": CMP_BATCH, "imgsz": CMP_IMGSZ, "nbs": CMP_BATCH, "warmup_epochs": 0.0, **overrides}
+    sides = {}
+    for dev in ("cuda", "cpu", "ref", "ref64"):
+        model = DetectionModel(CFG, device="cuda" if dev == "cuda" else "cpu")
+        model.load_state_dict(state_dict, strict=True)
+        sides[dev] = DetectionTrainer(model.double() if dev == "ref64" else model, args)
+        sides[dev].loss_cfg = dataclasses.replace(sides[dev].loss_cfg, **loss_fields)
+    card, cpu = sides["cuda"].state, sides["cpu"].state
+    if slide:
+        card.slide_mean = torch.ones((), device="cuda")
+    picks, assign, atss_rows = CardPicks(), atss.assign, []
+
+    def card_assign(*a, **kw):
+        res = assign(*a, **kw)
+        atss_rows.append({"card": type(res)(*(t.cpu() for t in res))})
+        return res
+
+    def cpu_assign(pd_bboxes, anc_points, stride_tensor, feat_shapes, gt_labels, gt_bboxes, mask_gt, **kw):
+        res = assign(pd_bboxes, anc_points, stride_tensor, feat_shapes, gt_labels, gt_bboxes, mask_gt, **kw)
+        row, want = atss_rows[-1], atss_rows[-1]["card"]
+        row.update(equal=bool(torch.equal(res.fg_mask, want.fg_mask) and torch.equal(res.target_gt_idx,
+                                                                                     want.target_gt_idx)),
+                   scores_max_abs_diff=(res.target_scores - want.target_scores).abs().max().item())
+        row["least_distance_gap"], row["least_threshold_gap"] = atss_margins(
+            anc_points, stride_tensor, feat_shapes, gt_bboxes, mask_gt.bool())
+        return want  # the card's pick, should a tie have split the two sides
+
+    def spy(opt, into):
+        fire = opt.step
+
+        def step():
+            into.update({n: p.grad.detach().cpu().clone() for g in opt.param_groups
+                         for n, p in zip(g["names"], g["params"])})
+            return fire()
+        opt.step = step
+
+    def named_state(opt):
+        return {n: opt.state[p] for g in opt.param_groups for n, p in zip(g["names"], g["params"])}
+
+    def moments(opt):
+        """Each state tensor but SOAP's bases, in gradient units."""
+        one = np.float32(1)
+        out = {}
+        for n, st in named_state(opt).items():
+            if "exp_avg" in st:
+                out[f"{n}:exp_avg"] = (st["exp_avg"].cpu() / float(one - np.float32(opt.b1)), 1e-5, 1e-6)
+                out[f"{n}:exp_avg_sq"] = ((st["exp_avg_sq"].cpu() / float(one - np.float32(opt.b2))).sqrt(), 1e-5,
+                                          1e-6)
+            if "momentum_buffer" in st:
+                out[f"{n}:momentum_buffer"] = (st["momentum_buffer"].cpu(), 1e-5, 1e-6)
+            for i, gg in enumerate(st.get("gg", [])):
+                if gg is not None:
+                    out[f"{n}:gg{i}"] = (gg.cpu() / (1 - opt.shampoo_beta), 1e-10, 1e-12)
+        return out
+
+    def gate(got, want, rtol, what, slack=None):
+        """Largest relative L2 over tensors; fails naming the tensors beyond
+        ``rtol`` (with each entry's (norm floor, absolute floor) where given)."""
+        worst, bad = (0.0, ""), []
+        for n, w in want.items():
+            w, under, floor = w if isinstance(w, tuple) else (w, 1e-5, 1e-6)
+            g = got[n][0] if isinstance(got[n], tuple) else got[n]
+            diff, norm = float((g - w).double().norm()), float(w.double().norm())
+            ok = diff <= (floor if norm < under else rtol * norm) + (slack[n] if slack else 0.0)
+            rel = diff / norm if norm >= under else 0.0
+            worst = max(worst, (rel, n))
+            if not ok:
+                bad.append(f"{n} (L2 diff {diff:.3g}, norm {norm:.3g})")
+        check(not bad, f"{what} differ from the CPU's beyond {rtol} relative L2: {bad[:5]}")
+        return worst
+
+    rows = []
+    for i in range(steps):
+        cpu.model.load_state_dict(card.model.state_dict())
+        pre_opt = _cpu_copy(card.optimizer.state_dict())
+        cpu.optimizer.load_state_dict(_cpu_copy(pre_opt))  # a copy: loading on the CPU keeps the tensors it is given
+        cpu.iou_mean, cpu.step = card.iou_mean.cpu(), card.step
+        cpu.slide_mean = card.slide_mean.cpu() if slide else None
+        pre = {n: p.detach().cpu().clone() for n, p in card.model.named_parameters()}
+        grads = {"cuda": {}, "cpu": {}}  # the summed gradients before the optimizer clips them
+        spy(card.optimizer, grads["cuda"])
+        spy(cpu.optimizer, grads["cpu"])
+        out = {}
+        for dev, tr in (("cuda", sides["cuda"]), ("cpu", sides["cpu"])):
+            atss.assign = card_assign if dev == "cuda" else cpu_assign
+            try:
+                with picks.on(dev):
+                    t = time.perf_counter()
+                    comps = tr.train_step(batches[i])
+                    out[dev] = {"comps": {k: v.item() for k, v in comps.items()}, "s": time.perf_counter() - t}
+            finally:
+                atss.assign = assign
+            del tr.state.optimizer.step
+        check(card.optimizer.updates == i + 1, f"step {i}: the card fired {card.optimizer.updates} updates")
+        check(picks.counts() == (10 * (i + 1), i + 1, 0, 3 * (i + 1)),
+              f"step {i}: picks taken {picks.counts(all_lists=True)}")
+        g, c = out["cuda"]["comps"], out["cpu"]["comps"]
+        check(g["fg"] == c["fg"], f"step {i}: foreground count {g['fg']} on the card, {c['fg']} on the CPU")
+        loss_rel = max(abs(g[k] - c[k]) / abs(c[k]) for k in ("box", "cls", "dfl"))
+        check(loss_rel <= 1e-4, f"step {i}: loss components differ from the CPU's by {loss_rel} relative > 1e-4")
+        # the gradients as the optimizer applies them: clipped to the global norm in place, as phase 11 holds them
+        grad_rel = gate({n: p.grad.cpu() for n, p in card.model.named_parameters()},
+                        {n: p.grad for n, p in cpu.model.named_parameters()}, 1e-3, f"step {i}: gradients")
+        norms = [float(torch.stack([g.double().norm() for g in grads[d].values()]).norm()) for d in ("cuda", "cpu")]
+        check(abs(norms[0] - norms[1]) <= 1e-4 * norms[1], f"step {i}: the gradients' global norm {norms[0]} on the "
+                                                           f"card, {norms[1]} on the CPU")
+        mom_rel = gate(moments(card.optimizer), moments(cpu.optimizer), 1e-3, f"step {i}: the optimizer's moments")
+        # the update gate: the CPU optimizer from the card's state on the card's gradients, in f32 and in float64
+        ref = {}
+        for key in ("ref", "ref64"):
+            st = sides[key].state
+            with torch.no_grad():
+                for n, p in st.model.named_parameters():
+                    p.copy_(pre[n])
+                    p.grad = grads["cuda"][n].to(p.dtype)
+            st.optimizer.load_state_dict(_cpu_copy(pre_opt))
+            check(st.optimizer.step(), f"step {i}: the update gate's optimizer did not fire")
+            ref[key] = {n: p.detach() - pre[n].to(p.dtype) for n, p in st.model.named_parameters()}
+        after = {n: p.detach().cpu() for n, p in card.model.named_parameters()}
+        upd, upd_rel, by64 = {n: after[n] - pre[n] for n in after}, (0.0, ""), {}
+        for n, u in upd.items():
+            slack = float(np.linalg.norm(np.spacing(after[n].numpy())))
+            w, w64 = ref["ref"][n], ref["ref64"][n]
+            diff, norm = float((u - w).double().norm()), float(w.double().norm())
+            upd_rel = max(upd_rel, (diff / norm if norm else 0.0, n))
+            if diff > 1e-5 * norm + slack:
+                d_card, d_cpu = float((u.double() - w64).norm()), float((w.double() - w64).norm())
+                check(d_card <= max(2 * d_cpu, 1e-3 * norm) + slack, f"step {i}: {n}'s update is {diff:.3g} (L2) "
+                      f"from the CPU optimizer's on the card's gradients (norm {norm:.3g}), and {d_card:.3g} from the "
+                      f"float64 step, against the CPU f32 step's {d_cpu:.3g}")
+                by64[n] = {"rel_to_cpu_f32": diff / norm, "card_vs_f64_rel": d_card / norm,
+                           "cpu_f32_vs_f64_rel": d_cpu / norm}
+        row = {"step": i, "fg": g["fg"], "loss_max_rel_err": loss_rel, "grad_global_norm": norms,
+               "grad_max_rel_l2": grad_rel,
+               "moments_max_rel_l2": mom_rel, "update_vs_cpu_step_on_card_grads_max_rel_l2": upd_rel,
+               "updates_held_to_float64": by64,
+               "loss_card": {k: g[k] for k in ("box", "cls", "dfl")}, "step_s_card": out["cuda"]["s"],
+               "step_s_cpu": out["cpu"]["s"]}
+        if args.get("use_wiseiou"):
+            rel = abs(card.iou_mean.item() - cpu.iou_mean.item()) / abs(cpu.iou_mean.item())
+            check(rel <= 1e-6 and card.iou_mean.item() != 1.0,
+                  f"step {i}: iou_mean {card.iou_mean.item()} on the card, {cpu.iou_mean.item()} on the CPU: not "
+                  "within 1e-6 relative, or it did not move")
+            row["iou_mean_card"], row["iou_mean_rel_err"] = card.iou_mean.item(), rel
+        if slide:
+            rel = abs(card.slide_mean.item() - cpu.slide_mean.item()) / abs(cpu.slide_mean.item())
+            check(rel <= 1e-6 and card.slide_mean.item() != 1.0,
+                  f"step {i}: slide_mean {card.slide_mean.item()} on the card, {cpu.slide_mean.item()} on the CPU")
+            row["slide_mean_card"], row["slide_mean_rel_err"] = card.slide_mean.item(), rel
+        if atss_rows:
+            r = atss_rows[-1]
+            row["atss"] = {k: r[k] for k in ("equal", "scores_max_abs_diff", "least_distance_gap",
+                                             "least_threshold_gap")}
+        rows.append(row)
+    opt = card.optimizer
+    return {"overrides": overrides, "loss_fields": loss_fields, "slide_mean_threaded": slide,
+            "optimizer": {"built": type(opt).__name__, "family": getattr(opt, "family", None),
+                          "lr": opt.schedules()[0]},
+            "imgsz": CMP_IMGSZ, "batch": CMP_BATCH, "steps": rows, **picks.report()}
+
+
+def recipes_phase(state_dict, batches, data: Path, root: Path, counters, card):
+    """Phase 27: the training recipe's switches. (a) RECIPES' R1 and R2 on
+    the card and the CPU (:func:`compare_recipe_cpu`), counters at 0 just
+    before and read just after (1 K1, 3 K1-backward, 10 K3 and 10
+    K3-backward launches a card step); (b) ``YOLO(CFG, nc=LOOP_NC).train()``
+    for one epoch with no ``optimizer`` argument (``auto``: AdamW), phase
+    15's launches a step and a val batch, then ``resume`` from its
+    ``last.pt`` for a second epoch. Returns the record and the launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    for fn in counters.values():
+        fn.launches = 0
+    record = {name: compare_recipe_cpu(state_dict, batches, *spec) for name, spec in RECIPES.items()}
+    launches = {name: fn.launches for name, fn in counters.items()}
+    steps = sum(spec[2] for spec in RECIPES.values())
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode=steps, dfl_decode_bwd=3 * steps, ldconv_gather=10 * steps, ldconv_gather_bwd=10 * steps)
+    check(launches == want, f"the recipes' card steps launched {launches}, expected {want}")
+    check(record["R1"]["optimizer"]["family"] == "AdamW" and record["R2"]["optimizer"]["built"] == "SOAP",
+          f"the recipes built {record['R1']['optimizer']} and {record['R2']['optimizer']}")
+    t_a = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    def per_epoch(steps, val):
+        return dict(ldconv_gather=10, ldconv_gather_bf16=10 + 10 * (steps + val), dfl_decode_bf16=steps + val,
+                    dfl_decode_bwd_bf16=3 * steps, ldconv_gather_bwd_bf16=10 * steps, soft_nms=val)
+
+    loop, run = facade_epoch(CFG, per_epoch, data, root, counters, card, optimizer=None)
+    check(loop["optimizer"]["arg"] == "auto" and loop["optimizer"]["family"] == "AdamW",
+          f"YOLO.train with no optimizer built {loop['optimizer']}, expected auto -> AdamW")
+    resumed, run2 = facade_epoch(CFG, per_epoch, data, root, counters, card, optimizer=None, epochs=2,
+                                 resume=str(Path(loop["weights"]) / "last.pt"))
+    check(resumed["epochs"] == 2 and resumed["optimizer"]["updates"] > loop["optimizer"]["updates"],
+          f"resume from last.pt: {resumed['epochs']} epochs, {resumed['optimizer']}")
+    for name in launches:
+        launches[name] += run[name] + run2[name]
+    return {"recipes": record, "auto_epoch": loop, "resumed_epoch": resumed, "seconds_a": t_a,
+            "seconds": time.perf_counter() - t0, "card": card}, launches
+
+
 def main() -> None:
     import torch
 
@@ -3303,9 +3658,19 @@ def main() -> None:
     for name in launches:
         launches[name] += run[name]
     kernels.insert(kernels.index(k4) + 1, k4_bwd)
+    torch.cuda.empty_cache()
+    # 27. the training recipe's switches: R1 and R2 on the card and the CPU, then YOLO(...).train() with auto
+    recipes, run = recipes_phase(cmp_state, cmp_batches, Path(work.name) / "data" / "data.yaml", Path(work.name),
+                                 counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    log(f"recipes: R1 {json.dumps(recipes['recipes']['R1']['steps'])}, "
+        f"R2 {json.dumps(recipes['recipes']['R2']['steps'])}, auto epoch "
+        f"{recipes['auto_epoch']['loop_img_per_s']:.2f} img/s ({recipes['auto_epoch']['optimizer']}), "
+        f"{recipes['seconds']:.1f} s, {card}")
     work.cleanup()
 
-    # 27. the result lines
+    # 28. the result lines
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["kernel_ms"] = k["ms"]
@@ -3327,6 +3692,7 @@ def main() -> None:
     log(json.dumps({"asf_p2": asf_p2}))
     log(json.dumps({"two_stage": two_stage}))
     log(json.dumps({"vss_trained": vss_record}))
+    log(json.dumps({"recipes": recipes}))
     # last of the long lines, so that a reader of the output's tail gets it whole
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"card: {card}")

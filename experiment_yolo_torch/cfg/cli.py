@@ -35,7 +35,7 @@ USAGE = f"""
 
     Where MODE in {MODES} and ARGS are key=value pairs, e.g.:
 
-        yolo-torch train model=yolov8-LD-P2.yaml data=data.yaml epochs=100 imgsz=640 optimizer=SGD
+        yolo-torch train model=yolov8-LD-P2.yaml data=data.yaml epochs=10 imgsz=640 optimizer=AdamW
         yolo-torch val model=runs/detect/train/weights/best.pt data=data.yaml
         yolo-torch predict model=runs/detect/train/weights/best.pt source=images/ conf=0.25
         yolo-torch serve model=runs/detect/train/weights/best.pt port=8000

@@ -10,9 +10,11 @@ what the JAX package keeps in its Orbax state and ``meta.yaml``:
 - ``model_yaml``, ``nc`` and ``task``, so that :func:`load_checkpoint`
   rebuilds the model;
 - ``names``, ``epoch``, ``best_fitness`` and ``train_args``;
-- for ``last``, ``train_state``: the optimizer's momentum buffers and
-  counters (updates fired, micro-batches accumulated), the EMA's update
-  count, Wise-IoU's ``iou_mean`` and the step, from which training resumes.
+- for ``last``, ``train_state``: the optimizer's ``state_dict`` (SGD's
+  momentum buffers, Adam's moments, SOAP's factors, bases and moments, and
+  the counters: updates fired, micro-batches accumulated), the EMA's update
+  count, Wise-IoU's ``iou_mean``, EMASlide's ``slide_mean`` and the step,
+  from which training resumes.
 
 Tensors are saved on the CPU, so a checkpoint written on the card loads on a
 CPU-only machine. The weights are f32 whatever the model's compute dtype

@@ -57,7 +57,7 @@ class YOLO:
     Example::
 
         model = YOLO("yolov8-LD-P2.yaml", nc=3)
-        model.train(data="data.yaml", epochs=3, imgsz=640, optimizer="SGD")
+        model.train(data="data.yaml", epochs=3, imgsz=640)  # optimizer auto: AdamW below 50 epochs
         results = model.predict([bgr_image])
     """
 

@@ -6,9 +6,10 @@ Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect branch:
   as the JAX step takes it (uint8 NHWC images and padded labels), the image
   cast to the compute dtype and scaled by 1/255, the forward
   in train mode (BatchNorm statistics update), the loss (kernel K1 for the
-  decode, TAL, BCE, CIoU or the paper's Wise-IoU v3 with the NWD blend, DFL),
-  the backward (the K1 and K3 backward kernels on the card), the optimizer on
-  its firing plan, and the EMA;
+  decode, TAL or ATSS, the class-loss zoo, the IoU zoo or the paper's Wise-IoU
+  v3 with the NWD blend, DFL), the backward (the K1 and K3 backward kernels on
+  the card), the optimizer (SGD, the Adam family, RMSProp or SOAP) on its
+  firing plan, and the EMA;
 - :meth:`DetectionTrainer.train` is ``train()``: the dataset and the threaded
   loader, the optimizer built for the loader's batches per epoch, epochs with
   ``close_mosaic`` and ``multi_scale``, the per-epoch mean of the loss
@@ -48,7 +49,7 @@ from experiment_yolo_torch.data.build import DataLoader, build_yolo_dataset
 from experiment_yolo_torch.data.dataset import check_det_dataset
 from experiment_yolo_torch.engine.checkpoint import read_checkpoint, save_checkpoint
 from experiment_yolo_torch.nn.tasks import DetectionModel
-from experiment_yolo_torch.optim.builders import YoloSGD, build_optimizer
+from experiment_yolo_torch.optim.builders import YoloOptimizer, build_optimizer
 from experiment_yolo_torch.utils import LOGGER, colorstr, get_latest_run, increment_path
 from experiment_yolo_torch.utils.callbacks import Callbacks
 from experiment_yolo_torch.utils.ema import ModelEMA
@@ -67,17 +68,22 @@ def _host(comps: Mapping) -> np.ndarray:
 @dataclass
 class TrainState:
     """What the JAX ``TrainState`` holds, in PyTorch's objects: ``params`` and
-    ``batch_stats`` live in ``model``, ``opt_state`` (momentum buffers,
-    updates fired, micro-batches accumulated) in ``optimizer``, and
-    ``ema_params``, ``ema_batch_stats`` and ``ema_updates`` in ``ema``;
-    ``iou_mean`` is Wise-IoU's running mean of 1 - IoU, a 0-d f32 tensor on
-    the model's device."""
+    ``batch_stats`` live in ``model``, ``opt_state`` (the optimizer's state:
+    SGD's momentum buffers, Adam's moments, SOAP's factors, bases and
+    moments; the updates fired and the micro-batches accumulated) in
+    ``optimizer``, and ``ema_params``, ``ema_batch_stats`` and
+    ``ema_updates`` in ``ema``; ``iou_mean`` is Wise-IoU's running mean of
+    1 - IoU, a 0-d f32 tensor on the model's device. ``slide_mean`` is
+    EMASlide's running IoU: None, as the JAX step keeps it (each step starts
+    EMASlide from 1 at step 1), unless a caller sets a 0-d tensor, which
+    :meth:`DetectionTrainer.train_step` then threads with the step count."""
 
     model: DetectionModel
-    optimizer: YoloSGD
+    optimizer: YoloOptimizer
     ema: Optional[ModelEMA]
     iou_mean: torch.Tensor
     step: int = 0  # micro-batches taken
+    slide_mean: Optional[torch.Tensor] = None
 
 
 class EarlyStopping:
@@ -168,8 +174,12 @@ class DetectionTrainer:
             feats = st.model(x)
         targets = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True) for k in ("bboxes", "cls", "mask")}
         with record_function("loss"):
-            total, comps, res, st.iou_mean = detection_loss(feats, targets, st.model.stride, self.loss_cfg,
-                                                            st.iou_mean)
+            if st.slide_mean is None:
+                total, comps, res, st.iou_mean = detection_loss(feats, targets, st.model.stride, self.loss_cfg,
+                                                                st.iou_mean)
+            else:
+                total, comps, res, st.iou_mean, st.slide_mean = detection_loss(
+                    feats, targets, st.model.stride, self.loss_cfg, st.iou_mean, st.slide_mean, st.step)
         with record_function("backward"):
             total.backward()
         with record_function("optimizer"):
@@ -375,15 +385,16 @@ class DetectionTrainer:
             w.writerow(row)
 
     def _train_state(self) -> Dict:
-        """What resuming needs beyond the weights: the optimizer's momentum
-        buffers, counters and, inside an accumulation window, the gradients
-        summed so far; the EMA's update count; ``iou_mean``; the step."""
+        """What resuming needs beyond the weights: the optimizer's
+        ``state_dict`` (its state, whatever the family, and its counters)
+        and, inside an accumulation window, the gradients summed so far; the
+        EMA's update count; ``iou_mean``, ``slide_mean``; the step."""
         st = self.state
         params = [p for g in st.optimizer.param_groups for p in g["params"]]
-        return {"momentum": [st.optimizer.state[p]["momentum_buffer"] for p in params],
+        return {"optimizer": st.optimizer.state_dict(),
                 "grads": [p.grad for p in params] if st.optimizer.mini_step else None,
-                "updates": st.optimizer.updates, "mini_step": st.optimizer.mini_step,
-                "ema_updates": st.ema.updates if st.ema is not None else 0, "iou_mean": st.iou_mean, "step": st.step}
+                "ema_updates": st.ema.updates if st.ema is not None else 0, "iou_mean": st.iou_mean,
+                "slide_mean": st.slide_mean, "step": st.step}
 
     def _save(self, name: str, epoch: int, best_fitness: float) -> None:
         """The weights and the EMA (an inference checkpoint) and, for 'last',
@@ -415,11 +426,10 @@ class DetectionTrainer:
         if st.ema is not None:
             st.ema.ema.load_state_dict(ckpt["ema"], strict=True)
             st.ema.updates = int(ts["ema_updates"])
+        st.optimizer.load_state_dict(ts["optimizer"])
         params = [p for g in st.optimizer.param_groups for p in g["params"]]
-        with torch.no_grad():
-            for i, p in enumerate(params):
-                st.optimizer.state[p]["momentum_buffer"].copy_(ts["momentum"][i])
-                p.grad = ts["grads"][i].to(dev) if ts["grads"] is not None else None
-        st.optimizer.updates, st.optimizer.mini_step = int(ts["updates"]), int(ts["mini_step"])
+        for i, p in enumerate(params):
+            p.grad = ts["grads"][i].to(dev) if ts["grads"] is not None else None
         st.iou_mean, st.step = ts["iou_mean"].to(dev), int(ts["step"])
+        st.slide_mean = ts["slide_mean"].to(dev) if ts["slide_mean"] is not None else None
         return int(ckpt["epoch"]) + 1, float(ckpt["best_fitness"])

@@ -1,17 +1,21 @@
-"""The optimizer with Ultralytics semantics: nesterov SGD over three parameter
-groups, warmup schedules and the reference's ramped firing plan.
+"""The optimizers with Ultralytics semantics: three parameter groups, warmup
+schedules and the reference's ramped firing plan, under nesterov SGD, the
+Adam family, RMSProp or SOAP.
 
 Port of ``experiment_yolo_tpu/optim/builders.py`` (``_torch_step_plan``,
 ``param_group_label``, ``lr_lambda``, ``warmup_schedules``, ``yolo_sgd`` and
-``build_optimizer`` for SGD). Gradients accumulate as sums in ``.grad``, as
-repeated ``backward()`` calls leave them; :meth:`YoloSGD.step` is called once
-per micro-batch and fires when the firing plan says so: it clips the summed
-gradient to a global norm, adds L2 weight decay to the weight group, and takes
-a nesterov step with the group's warmup learning rate and momentum.
+``build_optimizer``, whose optax chains for Adam, AdamW, NAdam, RAdam and
+RMSProp are written out here by hand). Gradients accumulate as sums in
+``.grad``, as repeated ``backward()`` calls leave them; ``step()`` is called
+once per micro-batch and fires when the firing plan says so: it clips the
+summed gradient to a global norm and takes the optimizer's update with the
+warmup learning rate of the batch it fires on.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import math
 from typing import Callable, Dict, List, Sequence, Tuple
 
@@ -113,14 +117,16 @@ def warmup_schedules(lr0: float, lf: Callable[[float], float], nb: int, warmup_e
     return (lambda step: lr_at(step, 0.0)), (lambda step: lr_at(step, warmup_bias_lr)), momentum_fn
 
 
-class YoloSGD(torch.optim.Optimizer):
-    """Torch-semantics nesterov SGD with the firing plan and global-norm clip.
+class YoloOptimizer(torch.optim.Optimizer):
+    """The part every optimizer of the port shares: the parameter groups, the
+    firing plan and the global-norm clip.
 
-    Per update: g = clip(sum of the accumulated gradients); g += wd*p on the
-    weight group only; buf = mu*buf + g; p -= lr*(g + mu*buf), with the bias
-    group's own warmup LR. ``k_table``/``ni_table`` (from
-    :func:`_torch_step_plan`) say how many micro-batches each update
-    accumulates and at which batch its schedules are read.
+    Per update: g = clip(sum of the accumulated gradients), then
+    :meth:`_update` with the learning rates and momentum of the batch the
+    update fires on. ``k_table``/``ni_table`` (from :func:`_torch_step_plan`)
+    say how many micro-batches each update accumulates and at which batch its
+    schedules are read. Subclasses keep their state in ``self.state[p]``,
+    made by :meth:`_init_state`, so that ``state_dict()`` carries all of it.
     """
 
     def __init__(self, groups: Dict[str, List[Tuple[str, nn.Parameter]]], lr_fn, bias_lr_fn, momentum_fn,
@@ -135,7 +141,14 @@ class YoloSGD(torch.optim.Optimizer):
         self.mini_step = 0  # micro-batches accumulated towards the next update
         for group in self.param_groups:
             for p in group["params"]:
-                self.state[p]["momentum_buffer"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                self.state[p].update(self._init_state(p))
+
+    def _init_state(self, p: torch.Tensor) -> Dict:
+        raise NotImplementedError
+
+    def _update(self, lr_w: float, lr_b: float, mu: float) -> None:
+        """Apply one update from the clipped gradients in ``.grad``."""
+        raise NotImplementedError
 
     def _table(self, table: List[int]) -> int:
         return table[min(self.updates, len(table) - 1)]
@@ -151,7 +164,7 @@ class YoloSGD(torch.optim.Optimizer):
         update when the plan says so. Returns whether it fired; the caller
         zeroes the gradients after an update fired."""
         if closure is not None:
-            raise ValueError("YoloSGD.step takes no closure")
+            raise ValueError(f"{type(self).__name__}.step takes no closure")
         self.mini_step += 1
         if self.mini_step < self._table(self.k_table):
             return False
@@ -163,6 +176,30 @@ class YoloSGD(torch.optim.Optimizer):
         grads = [p.grad for p in params]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         torch._foreach_mul_(grads, torch.where(norm < CLIP_NORM, 1.0, CLIP_NORM / norm))
+        self._update(lr_w, lr_b, mu)
+        self.updates += 1
+        self.mini_step = 0
+        return True
+
+    def state_dict(self) -> Dict:
+        """``torch.optim.Optimizer``'s, with the firing plan's counters."""
+        return {**super().state_dict(), "updates": self.updates, "mini_step": self.mini_step}
+
+    def load_state_dict(self, state_dict: Dict) -> None:
+        state_dict = dict(state_dict)
+        self.updates, self.mini_step = int(state_dict.pop("updates")), int(state_dict.pop("mini_step"))
+        super().load_state_dict(state_dict)
+
+
+class YoloSGD(YoloOptimizer):
+    """Torch-semantics nesterov SGD (the JAX package's ``yolo_sgd``): g +=
+    wd*p on the weight group only; buf = mu*buf + g; p -= lr*(g + mu*buf),
+    with the bias group's own warmup LR and the momentum warmup."""
+
+    def _init_state(self, p):
+        return {"momentum_buffer": torch.zeros_like(p, memory_format=torch.preserve_format)}
+
+    def _update(self, lr_w, lr_b, mu):
         for group in self.param_groups:
             ps = group["params"]
             g = [p.grad for p in ps]
@@ -173,16 +210,132 @@ class YoloSGD(torch.optim.Optimizer):
             torch._foreach_add_(bufs, g)
             d = torch._foreach_add(g, bufs, alpha=mu)  # nesterov
             torch._foreach_add_(ps, d, alpha=-(lr_b if group["label"] == "bias" else lr_w))
-        self.updates += 1
-        self.mini_step = 0
-        return True
+
+
+_LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+_LIBM.powf.restype, _LIBM.powf.argtypes = ctypes.c_float, (ctypes.c_float, ctypes.c_float)
+
+
+def f32_power(base: float, count: int) -> float:
+    """``base ** count`` as JAX computes it in f32: XLA's power is the C
+    library's ``powf`` of the f32 base. Adam's ``1 - b2 ** t`` near 1e-3, and
+    RAdam's rho_t near its threshold, turn one last-place difference of the
+    power into 6e-5 of the step and more."""
+    return float(_LIBM.powf(float(np.float32(base)), float(count)))
+
+
+def f32(x) -> float:
+    """``x`` rounded to f32, as a Python float."""
+    return float(np.float32(x))
+
+
+class YoloAdam(YoloOptimizer):
+    """optax's ``adam``, ``adamw``, ``nadam`` and ``radam`` with the
+    arguments the JAX package passes (``b1`` the momentum, ``b2`` 0.999,
+    ``eps`` 1e-8): every group moves at the weight group's LR (no bias warmup
+    LR, no momentum warmup), and only AdamW decays, the weight group alone,
+    decoupled (``u += wd * p`` after Adam's scaling).
+
+    At update t: m = b1*m + (1-b1)*g, v = b2*v + (1-b2)*g^2, m_hat = m / (1 -
+    b1^t) (NAdam: b1*m/(1 - b1^(t+1)) + (1-b1)*g/(1 - b1^t)), v_hat = v / (1 -
+    b2^t), u = m_hat / (sqrt(v_hat) + eps); RAdam scales u by the
+    rectification r where rho_t >= 5 and takes m_hat alone below it.
+    ``inject_hyperparams`` hands optax its hyperparameters as f32 arrays, so
+    ``1 - b2`` and the bias corrections are f32 arithmetic on f32(b2) (0.999
+    rounds 1.3e-5 of ``1 - b2`` away): the scalars here are computed so.
+    """
+
+    b2, eps, RADAM_THRESHOLD = 0.999, 1e-8, 5.0
+
+    def __init__(self, family: str, *args, b1: float, **kwargs):
+        self.family, self.b1 = family, b1
+        super().__init__(*args, **kwargs)
+
+    def _init_state(self, p):
+        return {"exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+
+    def _update(self, lr_w, lr_b, mu):
+        one, t = np.float32(1), self.updates + 1
+        b1, b2 = np.float32(self.b1), np.float32(self.b2)
+        bc1, bc2 = float(one - np.float32(f32_power(b1, t))), float(one - np.float32(f32_power(b2, t)))
+        scale, rectified = 1.0, True
+        if self.family == "RAdam":
+            ro_inf = np.float32(2) / (one - b2) - one
+            b2t = np.float32(f32_power(b2, t))
+            ro = ro_inf - np.float32(2 * t) * b2t / (one - b2t)
+            rectified = bool(ro >= self.RADAM_THRESHOLD)
+            if rectified:
+                scale = float(np.sqrt((ro - np.float32(4)) * (ro - np.float32(2)) * ro_inf
+                                      / ((ro_inf - np.float32(4)) * (ro_inf - np.float32(2)) * ro)))
+        for group in self.param_groups:
+            ps = group["params"]
+            g = [p.grad for p in ps]
+            m = [self.state[p]["exp_avg"] for p in ps]
+            v = [self.state[p]["exp_avg_sq"] for p in ps]
+            torch._foreach_mul_(m, float(b1))
+            torch._foreach_add_(m, torch._foreach_mul(g, float(one - b1)))
+            torch._foreach_mul_(v, float(b2))
+            torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g), float(one - b2)))
+            if self.family == "NAdam":
+                bc1_next = float(one - np.float32(f32_power(b1, t + 1)))
+                m_hat = torch._foreach_add(torch._foreach_mul(torch._foreach_div(m, bc1_next), float(b1)),
+                                           torch._foreach_mul(torch._foreach_div(g, bc1), float(one - b1)))
+            else:
+                m_hat = torch._foreach_div(m, bc1)
+            if rectified:
+                denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(v, bc2)), f32(self.eps))
+                u = torch._foreach_div(torch._foreach_mul(m_hat, scale) if self.family == "RAdam" else m_hat, denom)
+            else:
+                u = m_hat
+            if self.family == "AdamW" and group["label"] == "weight" and self.weight_decay:
+                u = torch._foreach_add(u, torch._foreach_mul(ps, self.weight_decay))
+            # -lr * u rounded before the add, as optax's scale and apply_updates round it (alpha would fuse them)
+            torch._foreach_add_(ps, torch._foreach_mul(u, -lr_w))
+
+
+class YoloRMSProp(YoloOptimizer):
+    """optax's ``rmsprop(lr, momentum=momentum)`` as the JAX package builds it:
+    v = 0.9*v + 0.1*g^2, u = -lr * g / sqrt(v + 1e-8), then a trace buf = u +
+    momentum*buf taken as the step; the weight group's LR for every group, no
+    weight decay. Its hyperparameters are f32, as ``inject_hyperparams``
+    makes them."""
+
+    DECAY, EPS = 0.9, 1e-8
+
+    def __init__(self, *args, momentum: float, **kwargs):
+        self.momentum = momentum
+        super().__init__(*args, **kwargs)
+
+    def _init_state(self, p):
+        return {"square_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "momentum_buffer": torch.zeros_like(p, memory_format=torch.preserve_format)}
+
+    def _update(self, lr_w, lr_b, mu):
+        decay = np.float32(self.DECAY)
+        for group in self.param_groups:
+            ps = group["params"]
+            g = [p.grad for p in ps]
+            v = [self.state[p]["square_avg"] for p in ps]
+            bufs = [self.state[p]["momentum_buffer"] for p in ps]
+            torch._foreach_mul_(v, float(decay))
+            torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g), float(np.float32(1) - decay)))
+            u = torch._foreach_mul(torch._foreach_mul(torch._foreach_rsqrt(torch._foreach_add(v, f32(self.EPS))), g),
+                                   -lr_w)
+            torch._foreach_mul_(bufs, f32(self.momentum))
+            torch._foreach_add_(bufs, u)
+            torch._foreach_add_(ps, bufs)
+
+
+OPTIMIZERS = ("SGD", "Adam", "AdamW", "NAdam", "RAdam", "RMSProp", "SOAP")
 
 
 def build_optimizer(model: nn.Module, name: str, lr0: float, momentum: float, weight_decay: float, nb: int,
                     epochs: int, lrf: float, cos_lr: bool, warmup_epochs: float, warmup_bias_lr: float,
-                    warmup_momentum: float, accumulate: int = 1) -> YoloSGD:
-    """The optimizer of the JAX package's ``build_optimizer`` for SGD, and for
-    ``auto`` where it resolves to SGD (``epochs >= 50``).
+                    warmup_momentum: float, accumulate: int = 1) -> YoloOptimizer:
+    """The optimizer of the JAX package's ``build_optimizer``: ``name`` one of
+    :data:`OPTIMIZERS` or ``auto``, which takes AdamW with ``lr0`` 0.002 and
+    ``momentum`` 0.9 for runs shorter than 50 epochs and SGD otherwise.
 
     Updates follow the reference's firing plan: during warmup the optimizer
     fires nearly every batch, accumulating ever more of them up to
@@ -191,16 +344,22 @@ def build_optimizer(model: nn.Module, name: str, lr0: float, momentum: float, we
     """
     if name == "auto":
         if epochs < 50:
-            raise NotImplementedError(f"optimizer=auto with epochs={epochs} < 50 resolves to AdamW, which is not "
-                                      "ported to experiment_yolo_torch (ROADMAP.md catalogue item 9); use SGD")
-        name = "SGD"
-    if name in ("Adam", "AdamW", "NAdam", "RAdam", "RMSProp", "SOAP"):
-        raise NotImplementedError(f"optimizer {name!r} is not ported to experiment_yolo_torch "
-                                  "(ROADMAP.md catalogue item 9); use SGD")
-    if name != "SGD":
-        raise ValueError(f"unknown optimizer {name!r}")
+            name, lr0, momentum = "AdamW", 0.002, 0.9
+        else:
+            name = "SGD"
+    if name not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {name!r}: one of {', '.join(OPTIMIZERS)} or auto")
     lf = lr_lambda(epochs, lrf, cos_lr)
     lr_fn, bias_lr_fn, momentum_fn = warmup_schedules(lr0, lf, nb, warmup_epochs, warmup_bias_lr,
                                                       warmup_momentum, momentum)
     k_table, ni_table = _torch_step_plan(nb, epochs, warmup_epochs if warmup_epochs > 0 else 0.0, accumulate)
-    return YoloSGD(param_groups(model), lr_fn, bias_lr_fn, momentum_fn, weight_decay, k_table, ni_table)
+    args = (param_groups(model), lr_fn, bias_lr_fn, momentum_fn, weight_decay, k_table, ni_table)
+    if name == "SGD":
+        return YoloSGD(*args)
+    if name == "RMSProp":
+        return YoloRMSProp(*args, momentum=momentum)
+    if name == "SOAP":
+        from experiment_yolo_torch.optim.soap import SOAP
+
+        return SOAP(*args)
+    return YoloAdam(name, *args, b1=momentum)

@@ -66,10 +66,11 @@ def assign(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.T
     # each anchor's score for each gt's class: one nonzero per row, so exact
     label_idx = gt_labels.clamp(0, nc - 1).long()[..., None].expand(b, m, a)
     cls_scores = pd_scores.transpose(1, 2).gather(1, label_idx)  # (B, M, A)
-    overlaps = bbox_iou(gt_bboxes[:, :, None], pd_bboxes[:, None])[..., 0]
+    overlaps = bbox_iou(gt_bboxes[:, :, None], pd_bboxes[:, None], xywh=False, CIoU=True)[..., 0]
     overlaps = torch.where(pre_mask, overlaps, 0.0).clamp(min=0.0)
     cls_scores = torch.where(pre_mask, cls_scores, 0.0)
-    align_metric = cls_scores ** alpha * overlaps ** beta
+    # s^alpha in f32: XLA fuses JAX's bf16 power into the f32 product without rounding it to bf16
+    align_metric = cls_scores.float() ** alpha * overlaps ** beta
 
     mask_pos = select_topk_mask(align_metric, topk, mask_gt) * pre_mask.to(align_metric.dtype)  # (B, M, A)
 

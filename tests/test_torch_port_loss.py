@@ -120,5 +120,11 @@ def test_detection_loss_value_and_gradient_match_jax(seed):
 @pytest.mark.parametrize("switch", [{"use_wiseiou": True, "wiou_ltype": "SIoU"}, {"inner_iou": True},
                                     {"iou_type": "GIoU"}, {"cls_loss": "focal"}, {"assigner": "atss"}])
 def test_unported_loss_switches_raise(switch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLossConfig(nc=NC, **switch)
+    """Each switch of the JAX ``LossConfig`` is taken now (its values are held
+    to JAX in ``tests/test_torch_port_loss_zoo.py`` and ``_iou_zoo.py``); a
+    name that neither package knows raises ``ValueError``."""
+    cfg = TLossConfig(nc=NC, **switch)
+    assert all(getattr(cfg, k) == v for k, v in switch.items())
+    key = next((k for k, v in switch.items() if isinstance(v, str)), "iou_type")
+    with pytest.raises(ValueError, match=f"unknown {key} 'nope'"):
+        TLossConfig(nc=NC, **{**switch, key: "nope"})

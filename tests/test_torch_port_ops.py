@@ -139,7 +139,7 @@ def test_ciou_values_and_gradients_match_jax(seed):
     float expressions, but arctan and the divisions round differently."""
     a, b = _ciou_boxes(seed)
     ta, tb = torch.from_numpy(a).requires_grad_(), torch.from_numpy(b).requires_grad_()
-    got = t_bbox_iou(ta, tb)
+    got = t_bbox_iou(ta, tb, xywh=False, CIoU=True)
     w = np.random.default_rng(seed + 1).standard_normal(got.shape).astype(np.float32)
     got.backward(torch.from_numpy(w))
     want, vjp = jax.vjp(lambda p, q: j_bbox_iou(p, q, xywh=False, CIoU=True), jnp.asarray(a), jnp.asarray(b))
@@ -147,8 +147,8 @@ def test_ciou_values_and_gradients_match_jax(seed):
     ga, gb = vjp(jnp.asarray(w))
     np.testing.assert_allclose(ta.grad.numpy(), np.asarray(ga), atol=1e-5, rtol=1e-4)
     np.testing.assert_allclose(tb.grad.numpy(), np.asarray(gb), atol=1e-5, rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_bbox_iou(ta, tb, GIoU=True)
+    with pytest.raises(TypeError, match="FooIoU"):  # the other variants: tests/test_torch_port_iou_zoo.py
+        t_bbox_iou(ta, tb, xywh=False, FooIoU=True)
 
 
 def test_bbox2dist_matches_jax():

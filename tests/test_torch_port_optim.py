@@ -118,13 +118,18 @@ def test_sgd_lockstep_with_jax_build_optimizer(accumulate, warmup):
 
 
 def test_unported_optimizers_raise():
+    """Every optimizer name of the JAX package builds (``auto`` resolving to
+    AdamW below 50 epochs, to SGD from 50 on); only an unknown name raises,
+    a ``ValueError`` as in JAX."""
     kw = dict(lr0=0.01, momentum=0.9, weight_decay=0.0, nb=10, lrf=0.01, cos_lr=False, warmup_epochs=0.0,
               warmup_bias_lr=0.1, warmup_momentum=0.8)
-    with pytest.raises(NotImplementedError, match="AdamW"):
-        tb.build_optimizer(_Tiny(), "auto", epochs=10, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.build_optimizer(_Tiny(), "SOAP", epochs=100, **kw)
+    auto = tb.build_optimizer(_Tiny(), "auto", epochs=10, **kw)
+    assert isinstance(auto, tb.YoloAdam) and auto.family == "AdamW" and auto.b1 == 0.9
     assert isinstance(tb.build_optimizer(_Tiny(), "auto", epochs=100, **kw), tb.YoloSGD)
+    for name in tb.OPTIMIZERS:
+        assert isinstance(tb.build_optimizer(_Tiny(), name, epochs=100, **kw), tb.YoloOptimizer)
+    with pytest.raises(ValueError, match="unknown optimizer 'Lion'"):
+        tb.build_optimizer(_Tiny(), "Lion", epochs=100, **kw)
 
 
 @pytest.mark.parametrize("updates", [1, 7, 2000, 50000])

@@ -227,10 +227,12 @@ def test_trainer_refuses_amp_and_unported_switches():
     assert trainer.args.amp and trainer.dtype == model.dtype == trainer.state.ema.ema.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert DetectionTrainer(model, OVERRIDES).dtype == model.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
-        DetectionTrainer(model, {**OVERRIDES, "iou_type": "GIoU"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
-        DetectionTrainer(model, {**OVERRIDES, "use_wiseiou": True, "wiou_ltype": "SIoU"})
+    # the IoU zoo is taken now; a name neither package knows raises
+    assert DetectionTrainer(model, {**OVERRIDES, "iou_type": "GIoU"}).loss_cfg.iou_type == "GIoU"
+    wiou = DetectionTrainer(model, {**OVERRIDES, "use_wiseiou": True, "wiou_ltype": "SIoU"})
+    assert wiou.loss_cfg.wiou_ltype == "SIoU"
+    with pytest.raises(ValueError, match="unknown iou_type 'FooIoU'"):
+        DetectionTrainer(model, {**OVERRIDES, "iou_type": "FooIoU"})
     with pytest.raises(ValueError, match="uint8"):
         DetectionTrainer(model, OVERRIDES).train_step({**seeded_batch(2, IMGSZ, 0),
                                                        "img": np.zeros((2, 3, IMGSZ, IMGSZ), np.float32)})

@@ -101,9 +101,14 @@ def test_wise_iou_loss_matches_jax(seed, iou_mean):
 @pytest.mark.parametrize("kw", [{"ltype": "SIoU"}, {"monotonous": True}, {"monotonous": None}, {"inner": True},
                                 {"focaler": True}])
 def test_wise_iou_refuses_unported_forms(kw):
+    """Each of these forms is taken now (held to JAX in
+    ``tests/test_torch_port_iou_zoo.py``): finite values for a pair of boxes
+    that overlap; an ltype neither package knows raises ``ValueError``."""
     pred, target = _box_pairs(0, 8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        t_wiou(torch.from_numpy(pred), torch.from_numpy(target), torch.tensor(1.0), **kw)
+    loss, mean = t_wiou(torch.from_numpy(pred[-2:]), torch.from_numpy(pred[-2:] + 0.5), torch.tensor(1.0), **kw)
+    assert torch.isfinite(loss).all() and torch.isfinite(mean)
+    with pytest.raises(ValueError, match="unsupported Wise-IoU ltype 'FooIoU'"):
+        t_wiou(torch.from_numpy(pred), torch.from_numpy(target), torch.tensor(1.0), **{**kw, "ltype": "FooIoU"})
 
 
 def _head_maps(seed, b=2):
