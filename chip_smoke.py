@@ -189,9 +189,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     batch, no K3;
 21. run 2 images of that batch through the same weights on the CPU (plain
     versions) and compare raw maps and hard-NMS detections as phase 7 does;
-22. build ``yolov8.yaml`` and ``yolov8-ASF-P2P2.yaml`` (n scale) on the card and
-    push one batch through each: finite raw maps of the expected shapes,
-    strides 8/16/32 and 4/8/16;
+22. build ``yolov8.yaml``, ``yolov8-ASF-P2P2.yaml`` and ``yolov8-efficientnet.yaml``
+    (n scale) on the card and push one batch through each: finite raw maps
+    of the expected shapes, strides 8/16/32, 4/8/16 and 8/16/32;
 23. build ``yolov8-ASF-P2.yaml`` (n scale, nc=6: ZoomCat, two ScalSeq + Add
     branches, a Detect on P2-P5, the reference fork's own training model) on
     the card from the same seeds; hold K1's forward, one launch for the four
@@ -263,18 +263,40 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     sides, reported with the least gaps); phase 11's gates for losses,
     gradients and the optimizers' moments, and the card's update within 1e-5
     of the CPU optimizer's step on the card's own gradients; counters at 0
-    just before and read just after: 1, 3, 10, 10 launches a card step. (b)
+    just before and read just after: 1, 3, 10, 10 launches a card step.
+    Where SOAP's first step in its eigenbasis is held to the float64 step,
+    the line reports, per tensor, the share of the gap (rotated into the
+    eigenbasis) carried by rotated gradient components within an f32
+    projection's rounding of 0, and, as a diagnosis only, the card's step
+    rerun with its projections in float64 (:func:`soap_gap_near_zero`,
+    :func:`soap_step_projected_in_float64`). (b)
     ``YOLO("yolov8-LD-P2.yaml", nc=3).train()`` for an epoch on phase 12's
     dataset with no ``optimizer`` argument (``auto``: AdamW) and phase 15's
     other arguments: the AMP check passed, phase 15's bf16 launches a step
     and a val batch, finite losses; then ``resume`` from its ``last.pt``
     for a second epoch; reports the loop's img/s and the phase's seconds;
-28. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
+28. the other configs (``other_configs_phase``): ``yolov8-aux.yaml`` (n
+    scale, nc 80: ``DetectAux``, whose loss decodes its aux maps in a second
+    K1 launch) and ``yolov8-lafiyolo.yaml`` (n scale, nc 6: ``MBConv``),
+    each from seeded weights (:func:`other_config`): served, 20 batches of 8
+    through ``DetectionPredictor``, soft then hard NMS (exactly 1 K1 a
+    forward, 1 K5 or 1 K2 a batch, and no module of the aux branches run),
+    2 images against the CPU as phase 7 holds them; K1's backward on an f32
+    and a bf16 step's levels (DetectAux's six) against its plain version
+    (phases 9 and 13's gates); 20 timed bf16 steps (exactly 2 K1 and 6
+    K1-backward launches a step for the aux model, 1 and 3 for lafiyolo, all
+    bf16) with img/s and peak memory; one f32 step at 320, batch 2, against
+    the CPU with phase 11's gates, the CPU taking the card's picks in SPPF's
+    windows; ``YOLO(cfg, nc=3).train()`` for an epoch on phase 12's dataset
+    with phase 15's arguments (2 K1 a step and 1 a val batch, 6 K1-backward
+    a step, for the aux model); each number beside the card's name and
+    power limit, and the phase's seconds;
+29. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
     ...}``, a ``{"served_vss": ...}``, a ``{"validated": ...}``, a
     ``{"trained_loop": ...}``, a ``{"trained_bf16": ...}``, a ``{"facade":
     ..., "cli": ..., "server": ...}``, an ``{"asf_p2": ...}``, a
-    ``{"two_stage": ...}``, a ``{"vss_trained": ...}`` and a ``{"recipes":
-    ...}`` line, then the
+    ``{"two_stage": ...}``, a ``{"vss_trained": ...}``, a ``{"recipes":
+    ...}`` and an ``{"other_configs": ...}`` line, then the
     ``{"kernels": [...]}`` line for the eight kernels and the four bf16
     forms (launches summed over every main path above), the card's name and
     power limit, and last ``{"ok": true, "device": {...}}``.
@@ -299,7 +321,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CFG = "yolov8-LD-P2.yaml"
 VSS_CFG = "yolov8-C2f-VSS.yaml"
-PLAIN_CONV_CFGS = {"yolov8.yaml": (8, 16, 32), "yolov8-ASF-P2P2.yaml": (4, 8, 16)}  # config -> expected strides
+PLAIN_CONV_CFGS = {"yolov8.yaml": (8, 16, 32), "yolov8-ASF-P2P2.yaml": (4, 8, 16),  # config -> expected strides
+                   "yolov8-efficientnet.yaml": (8, 16, 32)}
+OTHER_CFGS = {"yolov8-aux.yaml": 2, "yolov8-lafiyolo.yaml": 1}  # phase 28's configs -> K1 decodes a training step
 ASF_CFG, ASF_STRIDES, ASF_CMP_BATCH = "yolov8-ASF-P2.yaml", (4, 8, 16, 32), 2  # the reference fork's train.py model
 TWO_STAGE_IMAGES, TWO_STAGE_CPU_IMAGES, SLICED_FRAMES, SLICE = 8, 2, 2, 512  # phase 25: double_predict, sliced_predict
 IMGSZ, BATCH, SEED = 640, 8, 0
@@ -925,14 +949,15 @@ def val_pools_and_plain_stats(model, batches):
                    "detections_per_image": counts["kernel"]}
 
 
-def capture_train_inputs(trainer, batch, n_ldconv=10, n_levels=3):
+def capture_train_inputs(trainer, batch, n_ldconv=10, n_levels=3, n_decodes=1):
     """One training step with hooks on the two differentiable kernels: each
     LDConv's (source, offsets, stride, incoming gradient) and each level's
     (Detect map, every level's decoded distances and their incoming gradient,
     the level's first anchor in them), as the step hands them to K3, K1 and
     their backward kernels; the model must have ``n_ldconv`` LDConv layers
-    and ``n_levels`` Detect levels. Separate from
-    :func:`capture_inputs`, which runs under ``no_grad``."""
+    and ``n_levels`` Detect levels, decoded by ``n_decodes`` K1 calls (2 for
+    a DetectAux, main then aux; the levels of both are returned). Separate
+    from :func:`capture_inputs`, which runs under ``no_grad``."""
     import experiment_yolo_torch.nn.modules as modules
     import experiment_yolo_torch.utils.loss as loss
 
@@ -961,12 +986,14 @@ def capture_train_inputs(trainer, batch, n_ldconv=10, n_levels=3):
         modules.ldconv_gather, loss.dfl_decode_levels = gather, decode
     check(len(ld) == n_ldconv and all(len(e) == 4 for e in ld),
           f"captured {len(ld)} LDConv backward inputs, expected {n_ldconv}")
-    check(len(calls) == 1 and len(calls[0]) == 3 and len(calls[0][0]) == n_levels,
-          f"captured {len(calls)} decode calls, expected one of {n_levels} levels with its gradient")
-    (maps, y, g), levels, first = calls[0], [], 0
-    for f in maps:  # each level's backward reads y and g in place, from its first anchor
-        levels.append((f, y, g, first))
-        first += f.shape[2] * f.shape[3]
+    check(len(calls) == n_decodes and all(len(c) == 3 and len(c[0]) == n_levels for c in calls),
+          f"captured {len(calls)} decode calls, expected {n_decodes} of {n_levels} levels with their gradient")
+    levels = []
+    for maps, y, g in calls:
+        first = 0
+        for f in maps:  # each level's backward reads y and g in place, from its first anchor
+            levels.append((f, y, g, first))
+            first += f.shape[2] * f.shape[3]
     return [tuple(e) for e in ld], levels
 
 
@@ -3102,6 +3129,57 @@ def atss_margins(anc_points, stride_tensor, feat_shapes, gt_bboxes, mask_gt, top
     return gap, (overlaps - thr).abs()[cand].min().item()
 
 
+def soap_step_projected_in_float64(args, state_dict, pre, pre_opt, grads):
+    """A diagnosis of SOAP's first step in its eigenbasis, not a form of
+    SOAP (whose math stays f32, as in the JAX package): the card's step rerun
+    on the card from its state before the step (``pre``, ``pre_opt``) on its
+    own gradients, with every projection into and out of the eigenbasis taken
+    in float64 and rounded to f32. Returns each parameter's update."""
+    import torch
+
+    import experiment_yolo_torch.optim.soap as soap
+    from experiment_yolo_torch import DetectionModel
+    from experiment_yolo_torch.engine.trainer import DetectionTrainer
+
+    model = DetectionModel(CFG, device="cuda")
+    model.load_state_dict(state_dict, strict=True)
+    opt = DetectionTrainer(model, args).state.optimizer
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(pre[n])
+            p.grad = grads[n].to(p.device)
+    opt.load_state_dict(_cpu_copy(pre_opt))
+    project = soap._project
+    soap._project = lambda g, qs, transpose: project(g.double(), [None if q is None else q.double() for q in qs],
+                                                     transpose).to(g.dtype)
+    try:
+        check(opt.step(), "the float64-projection rerun of SOAP's step did not fire")
+    finally:
+        soap._project = project
+    return {n: p.detach().cpu() - pre[n] for n, p in model.named_parameters()}
+
+
+def soap_gap_near_zero(u, w64, g64, qs):
+    """How much of the gap between the card's SOAP update ``u`` and the
+    float64 step ``w64`` lies on rotated gradient components within rounding
+    of 0: the gap rotated into the eigenbasis ``qs`` (float64), and the share
+    of its square on the components whose float64 value |Q^T g| is at most
+    gamma * (|Q|^T |g|), gamma = (the preconditioned sides summed) * 2^-24,
+    the bound of an f32 projection's rounding (``g64`` the clipped gradient
+    in float64). There Adam's first step, about sign(g), may take either
+    sign on each device."""
+    from experiment_yolo_torch.optim.soap import _project
+
+    qs = [None if q is None else q.double() for q in qs]
+    gamma = sum(q.shape[0] for q in qs if q is not None) * 2.0 ** -24
+    near = _project(g64, qs, False).abs() <= gamma * _project(g64.abs(), [q if q is None else q.abs() for q in qs],
+                                                              False)
+    gap = _project(u.double() - w64, qs, False)
+    total = float((gap ** 2).sum())
+    return {"rotated_components": near.numel(), "near_zero_components": int(near.sum()),
+            "gap_share_near_zero": float((gap[near] ** 2).sum()) / total if total else 0.0}
+
+
 def compare_recipe_cpu(state_dict, batches, overrides, loss_fields, steps, slide=False):
     """``steps`` f32 steps of LD-P2 at CMP_IMGSZ, batch CMP_BATCH (step i on
     ``batches[i]``, as a training run takes a new batch each step), warmup off
@@ -3251,7 +3329,7 @@ def compare_recipe_cpu(state_dict, batches, overrides, loss_fields, steps, slide
                                                            f"card, {norms[1]} on the CPU")
         mom_rel = gate(moments(card.optimizer), moments(cpu.optimizer), 1e-3, f"step {i}: the optimizer's moments")
         # the update gate: the CPU optimizer from the card's state on the card's gradients, in f32 and in float64
-        ref = {}
+        ref, bases = {}, {}
         for key in ("ref", "ref64"):
             st = sides[key].state
             with torch.no_grad():
@@ -3259,10 +3337,13 @@ def compare_recipe_cpu(state_dict, batches, overrides, loss_fields, steps, slide
                     p.copy_(pre[n])
                     p.grad = grads["cuda"][n].to(p.dtype)
             st.optimizer.load_state_dict(_cpu_copy(pre_opt))
+            if key == "ref64":  # SOAP's eigenbases before the step, in float64
+                bases = {n: list(v["q"]) for n, v in named_state(st.optimizer).items() if "q" in v}
             check(st.optimizer.step(), f"step {i}: the update gate's optimizer did not fire")
             ref[key] = {n: p.detach() - pre[n].to(p.dtype) for n, p in st.model.named_parameters()}
+        clipped64 = {n: p.grad for n, p in sides["ref64"].state.model.named_parameters()}
         after = {n: p.detach().cpu() for n, p in card.model.named_parameters()}
-        upd, upd_rel, by64 = {n: after[n] - pre[n] for n in after}, (0.0, ""), {}
+        upd, upd_rel, by64, proj64 = {n: after[n] - pre[n] for n in after}, (0.0, ""), {}, None
         for n, u in upd.items():
             slack = float(np.linalg.norm(np.spacing(after[n].numpy())))
             w, w64 = ref["ref"][n], ref["ref64"][n]
@@ -3270,11 +3351,16 @@ def compare_recipe_cpu(state_dict, batches, overrides, loss_fields, steps, slide
             upd_rel = max(upd_rel, (diff / norm if norm else 0.0, n))
             if diff > 1e-5 * norm + slack:
                 d_card, d_cpu = float((u.double() - w64).norm()), float((w.double() - w64).norm())
-                check(d_card <= max(2 * d_cpu, 1e-3 * norm) + slack, f"step {i}: {n}'s update is {diff:.3g} (L2) "
-                      f"from the CPU optimizer's on the card's gradients (norm {norm:.3g}), and {d_card:.3g} from the "
-                      f"float64 step, against the CPU f32 step's {d_cpu:.3g}")
                 by64[n] = {"rel_to_cpu_f32": diff / norm, "card_vs_f64_rel": d_card / norm,
                            "cpu_f32_vs_f64_rel": d_cpu / norm}
+                if any(q is not None for q in bases.get(n, ())):  # a SOAP step in an eigenbasis: the diagnosis
+                    if proj64 is None:
+                        proj64 = soap_step_projected_in_float64(args, state_dict, pre, pre_opt, grads["cuda"])
+                    by64[n].update(soap_gap_near_zero(u, w64, clipped64[n], bases[n]),
+                                   card_projected_in_f64_vs_f64_rel=float((proj64[n].double() - w64).norm()) / norm)
+                check(d_card <= max(2 * d_cpu, 1e-3 * norm) + slack, f"step {i}: {n}'s update is {diff:.3g} (L2) "
+                      f"from the CPU optimizer's on the card's gradients (norm {norm:.3g}), and {d_card:.3g} from the "
+                      f"float64 step, against the CPU f32 step's {d_cpu:.3g}: {json.dumps(by64[n])}")
         row = {"step": i, "fg": g["fg"], "loss_max_rel_err": loss_rel, "grad_global_norm": norms,
                "grad_max_rel_l2": grad_rel,
                "moments_max_rel_l2": mom_rel, "update_vs_cpu_step_on_card_grads_max_rel_l2": upd_rel,
@@ -3343,6 +3429,106 @@ def recipes_phase(state_dict, batches, data: Path, root: Path, counters, card):
         launches[name] += run[name] + run2[name]
     return {"recipes": record, "auto_epoch": loop, "resumed_epoch": resumed, "seconds_a": t_a,
             "seconds": time.perf_counter() - t0, "card": card}, launches
+
+
+def other_config(cfg, decodes, images, x, batches, cmp_batch, data: Path, root: Path, counters, card):
+    """One config of phase 28 at n scale with seeded weights: served (exactly
+    1 K1 a forward, 1 K5 or 1 K2 a batch, and no module of a DetectAux's aux
+    branches run), the CPU on ASF_CMP_BATCH images (:func:`compare_serving_cpu`);
+    K1's backward on an f32 and a bf16 step's levels against its plain
+    version (phase 9's and phase 13's gates; a DetectAux's six levels:
+    ``decodes`` K1 calls a step); TRAIN_STEPS timed bf16 steps (``decodes``
+    K1 and 3 * ``decodes`` K1-backward launches a step, all bf16); one f32
+    step at CMP_IMGSZ against the CPU's with phase 11's gates, the CPU taking
+    the card's picks in SPPF's windows; :func:`facade_epoch`. Returns the
+    config's record and the launches."""
+    import torch
+
+    from experiment_yolo_torch import DetectionModel
+    from experiment_yolo_torch.engine.trainer import DetectionTrainer
+    from experiment_yolo_torch.utils.seeded import seeded_model
+
+    t0 = time.perf_counter()
+    model = seeded_model(cfg, SEED)
+    check(model.stride == (8, 16, 32), f"{cfg}: strides {model.stride}, expected (8, 16, 32)")
+    state = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    params, strides = sum(p.numel() for p in model.parameters()), list(model.stride)
+    log(f"model {cfg} scale n: {params} params, strides {model.stride}, nc {model.nc}, seeded weights")
+    aux = [m for name in ("cv4", "cv5") for m in getattr(model.detect, name, [])]  # a level's branch each
+    check(len(aux) == 2 * (decodes - 1) * len(model.stride), f"{cfg}: {len(aux)} aux branches")
+    aux_calls = []
+    hooks = [m.register_forward_hook(lambda *_: aux_calls.append(1)) for m in aux]
+    try:
+        served, launches = serve_timed(model, images, counters, {"dfl_decode": 1}, card, cfg)
+        compare = compare_serving_cpu(cfg, model, x[:ASF_CMP_BATCH])
+    finally:
+        for h in hooks:
+            h.remove()
+    check(not aux_calls, f"{cfg}: the aux branches ran {len(aux_calls)} times in eval mode")
+    log(f"{cfg} CPU comparison: {json.dumps(compare)}")
+    del model
+    torch.cuda.empty_cache()
+
+    def trainer(amp):
+        m = DetectionModel(cfg, device="cuda")
+        m.load_state_dict(state, strict=True)
+        return DetectionTrainer(m, {"amp": amp, "batch": BATCH, "imgsz": IMGSZ})
+
+    _, levels = capture_train_inputs(trainer(False), batches[0], n_ldconv=0, n_decodes=decodes)
+    k1_bwd = check_k1_bwd(levels)
+    del levels
+    trainer16 = trainer(True)
+    _, levels16 = capture_train_inputs(trainer16, batches[0], n_ldconv=0, n_decodes=decodes)
+    k1_bwd16 = k1_bwd_bf16_row(levels16)
+    del levels16
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, run, last, moved, ema_moved = train_timed(trainer16, batches, counters)
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode_bf16=decodes * TRAIN_STEPS, dfl_decode_bwd_bf16=3 * decodes * TRAIN_STEPS)
+    check(run == want, f"the {cfg} bf16 training steps launched {run}, expected {want}")
+    for name in launches:
+        launches[name] += run[name]
+    median = statistics.median(step_ms)
+    trained = {"steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP, "batch": BATCH, "imgsz": IMGSZ,
+               "dtype": "bfloat16", "step_ms_median": median, "step_ms_min": min(step_ms),
+               "step_ms_max": max(step_ms), "step_ms_p10_p90": statistics.quantiles(step_ms, n=10)[::8],
+               "img_per_s_at_median": BATCH / median * 1e3, "launches": run, "last_losses": last,
+               "params_moved": moved, "ema_moved": ema_moved,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del trainer16
+    torch.cuda.empty_cache()
+    log(f"trained {cfg} bf16: {TRAIN_STEPS} steps of {BATCH} at {IMGSZ}: median {median:.2f} ms per step, "
+        f"{trained['img_per_s_at_median']:.2f} img/s at the median, peak {trained['peak_memory_gib']:.2f} GiB, "
+        f"launches {run}, {card}")
+    cmp = compare_train_cpu(state, cmp_batch, cfg=cfg, n_ldconv=0, n_scalseq=0, n_sppf=1)
+    log(f"{cfg} training CPU comparison: {json.dumps(cmp)}")
+    loop, run = facade_epoch(cfg, lambda steps, val: dict(dfl_decode_bf16=decodes * steps + val,
+                                                          dfl_decode_bwd_bf16=3 * decodes * steps, soft_nms=val),
+                             data, root, counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    log(f"{cfg} facade: YOLO(...).train() 1 epoch: {loop['loop_img_per_s']:.2f} img/s over the loop "
+        f"({loop['train_dtype']}, AMP check {loop['amp_check']}), {card}")
+    return {"cfg": cfg, "params": params, "strides": strides, "served": served,
+            "served_cpu_comparison": compare, "aux_branch_calls_served": len(aux_calls),
+            "k1_backward": [k1_bwd, k1_bwd16], "trained_bf16": trained, "cpu_comparison": cmp,
+            "facade_train": loop, "seconds": time.perf_counter() - t0, "card": card}, launches
+
+
+def other_configs_phase(images, x, batches, cmp_batch, data: Path, root: Path, counters, card):
+    """Phase 28: the other configs, ``yolov8-aux.yaml`` (DetectAux, whose
+    loss decodes its aux maps in a second K1 launch) and
+    ``yolov8-lafiyolo.yaml`` (MBConv), each through :func:`other_config`.
+    Returns the record and the launches."""
+    t0 = time.perf_counter()
+    record, launches = {}, dict.fromkeys(counters, 0)
+    for cfg, decodes in OTHER_CFGS.items():
+        record[cfg], run = other_config(cfg, decodes, images, x, batches, cmp_batch, data, root, counters, card)
+        for name in launches:
+            launches[name] += run[name]
+    record["seconds"] = time.perf_counter() - t0
+    log(f"phase 28 took {record['seconds']:.1f} s, {card}")
+    return record, launches
 
 
 def main() -> None:
@@ -3668,9 +3854,15 @@ def main() -> None:
         f"R2 {json.dumps(recipes['recipes']['R2']['steps'])}, auto epoch "
         f"{recipes['auto_epoch']['loop_img_per_s']:.2f} img/s ({recipes['auto_epoch']['optimizer']}), "
         f"{recipes['seconds']:.1f} s, {card}")
+    torch.cuda.empty_cache()
+    # 28. the other configs: yolov8-aux.yaml (DetectAux) and yolov8-lafiyolo.yaml (MBConv), served and trained
+    other, run = other_configs_phase(images, x, batches, cmp_batches[0], Path(work.name) / "data" / "data.yaml",
+                                     Path(work.name), counters, card)
+    for name in launches:
+        launches[name] += run[name]
     work.cleanup()
 
-    # 28. the result lines
+    # 29. the result lines
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["kernel_ms"] = k["ms"]
@@ -3693,6 +3885,7 @@ def main() -> None:
     log(json.dumps({"two_stage": two_stage}))
     log(json.dumps({"vss_trained": vss_record}))
     log(json.dumps({"recipes": recipes}))
+    log(json.dumps({"other_configs": other}))
     # last of the long lines, so that a reader of the output's tail gets it whole
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"card: {card}")

@@ -2,14 +2,17 @@
 
 Port of the forward math of ``experiment_yolo_tpu/nn/modules.py``: ``Conv``
 (``ConvBN``), ``Bottleneck``, ``C2f``, ``SPPF``, ``Upsample``, ``Concat``,
-``Add``, ``ZoomCat``, ``ScalSeq``, ``LDConv`` and ``Detect``: every block of
-``yolov8.yaml``, ``yolov8-p2.yaml``, ``yolov8-ASF.yaml``,
-``yolov8-ASF-P2.yaml``, ``yolov8-ASF-P2P2.yaml`` and ``yolov8-LD-P2.yaml``. The
-Mamba/VSS blocks of ``yolov8-C2f-VSS.yaml`` are in ``nn/zoo_blocks.py``.
-Parameter and buffer names are those of the Ultralytics fork (``conv``/``bn``,
-``cv1``/``cv2``/``m.{k}``, LDConv ``p_conv``/``conv.0``/``conv.1``, ScalSeq
-``conv3d``/``bn``, Detect ``cv2.{i}.{j}``/``cv3.{i}.{j}``), so a state dict in
-that layout loads as is.
+``Add``, ``ZoomCat``, ``ScalSeq``, ``LDConv``, ``MBConv`` and ``Detect``, and
+``DetectAux`` of ``nn/heads_extra.py``: every block of ``yolov8.yaml``,
+``yolov8-p2.yaml``, ``yolov8-ASF.yaml``, ``yolov8-ASF-P2.yaml``,
+``yolov8-ASF-P2P2.yaml``, ``yolov8-LD-P2.yaml``, ``yolov8-aux.yaml``,
+``yolov8-lafiyolo.yaml`` and ``yolov8-efficientnet.yaml``. The Mamba/VSS blocks
+of ``yolov8-C2f-VSS.yaml`` are in ``nn/zoo_blocks.py``. Parameter and buffer
+names are those of the Ultralytics fork (``conv``/``bn``, ``cv1``/``cv2``/``m.{k}``,
+LDConv ``p_conv``/``conv.0``/``conv.1``, ScalSeq ``conv3d``/``bn``, MBConv
+``blocks.{k}.conv1|conv2|conv3.c|bn``, Detect ``cv2.{i}.{j}``/``cv3.{i}.{j}``,
+DetectAux also ``cv4.{i}.{j}``/``cv5.{i}.{j}``), so a state dict in that layout
+loads as is.
 
 Every BatchNorm uses eps 1e-3 and momentum 0.03, as in the JAX package (the
 fork's ``initialize_weights`` sets those on its BatchNorm2d layers), and in
@@ -276,6 +279,79 @@ class LDConv(nn.Module):
         return self.conv[2](self.conv[1](y))
 
 
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+# the names the JAX package's ``_act`` takes (``nn/modules.py:43``)
+ACTIVATIONS = {"silu": F.silu, True: F.silu, "identity": _identity, False: _identity, None: _identity,
+               "relu": F.relu, "leaky_relu_0.1": lambda x: F.leaky_relu(x, 0.1), "sigmoid": torch.sigmoid}
+
+
+def activation(name):
+    """The activation function of a name of :data:`ACTIVATIONS`."""
+    if name not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}")
+    return ACTIVATIONS[name]
+
+
+class ConvBNAct(nn.Module):
+    """Conv2d ``c`` (no bias, ``g`` groups, 'same' padding k // 2) + BatchNorm
+    ``bn`` + the activation ``act`` (JAX ``ConvBN`` with its ``g`` and ``act``);
+    the names are those of the fork's MBConv units."""
+
+    dtype = torch.float32  # the compute dtype
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act="silu"):
+        super().__init__()
+        self.c = nn.Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = activation(act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.bn(cast_conv(self.c, x, self.dtype)))
+
+
+class MBBlock(nn.Module):
+    """One mobile inverted bottleneck (JAX ``_MBBlock``): a 1x1 expansion
+    ``conv1`` to ``int(c1 * e)`` channels (absent when e == 1), the depthwise
+    3x3 ``conv2`` with the stride, the 1x1 projection ``conv3`` with no
+    activation, and the residual when ``c1 == c2`` and the stride is 1."""
+
+    def __init__(self, c1: int, c2: int, e: float, act, stride: int):
+        super().__init__()
+        hidden = int(c1 * e)
+        if e != 1:
+            self.conv1 = ConvBNAct(c1, hidden, 1, act=act)
+        self.conv2 = ConvBNAct(hidden, hidden, 3, stride, g=hidden, act=act)
+        self.conv3 = ConvBNAct(hidden, c2, 1, act=False)
+        self.add = c1 == c2 and stride == 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv3(self.conv2(self.conv1(x) if hasattr(self, "conv1") else x))
+        return x + y if self.add else y
+
+
+class MBConv(nn.Module):
+    """EfficientNet's MBConv with its repeats inside (JAX ``nn/modules.py:1049``):
+    ``n`` blocks, the stride on the first, and only the last projecting to
+    ``c2`` (a block before the last keeps its input's channel count, as the
+    JAX package's does). ``act`` is a name of :func:`activation`, in any
+    case. ``drop_path`` is kept but not applied: the JAX module declares it
+    and never reads it."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 6, act="silu", drop_path: float = 0.0,
+                 stride: int = 1):
+        super().__init__()
+        act = act.lower() if isinstance(act, str) else act
+        self.drop_path = drop_path
+        self.blocks = nn.Sequential(*(MBBlock(c1, c2 if i == n - 1 else c1, e, act, stride if i == 0 else 1)
+                                      for i in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.blocks(x)
+
+
 class Detect(nn.Module):
     """Decoupled anchor-free head: per level a box branch (cv2 -> 4*reg_max) and
     a class branch (cv3 -> nc); returns the raw maps (B, 4*reg_max + nc, H, W)."""
@@ -286,18 +362,44 @@ class Detect(nn.Module):
         super().__init__()
         self.nc, self.reg_max = nc, reg_max
         self.no = nc + 4 * reg_max
-        c2 = max(16, ch[0] // 4, reg_max * 4)
-        c3 = max(ch[0], min(nc, 100))
-        self.cv2 = nn.ModuleList(
-            nn.Sequential(Conv(c, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1)) for c in ch)
-        self.cv3 = nn.ModuleList(
-            nn.Sequential(Conv(c, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for c in ch)
+        self.cv2 = self._branches(ch, max(16, ch[0] // 4, reg_max * 4), 4 * reg_max)
+        self.cv3 = self._branches(ch, max(ch[0], min(nc, 100)), nc)
 
-    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    @staticmethod
+    def _branches(ch: Sequence[int], c_: int, c_out: int) -> nn.ModuleList:
+        """Per level: two 3x3 Convs to ``c_`` channels, then a bare 1x1 Conv2d with a bias to ``c_out``."""
+        return nn.ModuleList(nn.Sequential(Conv(c, c_, 3), Conv(c_, c_, 3), nn.Conv2d(c_, c_out, 1)) for c in ch)
+
+    def _maps(self, xs: List[torch.Tensor], boxes: nn.ModuleList, classes: nn.ModuleList) -> List[torch.Tensor]:
         def branch(seq, x):
             return cast_conv(seq[2], seq[1](seq[0](x)), self.dtype)
 
-        return [torch.cat([branch(box, x), branch(cls, x)], 1) for x, box, cls in zip(xs, self.cv2, self.cv3)]
+        return [torch.cat([branch(box, x), branch(cls, x)], 1) for x, box, cls in zip(xs, boxes, classes)]
+
+    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        return self._maps(xs, self.cv2, self.cv3)
+
+
+class DetectAux(Detect):
+    """Detect with the fork's auxiliary one-to-many head (JAX
+    ``nn/heads_extra.py:825``): it takes 2*nl maps; the main branches ``cv2`` /
+    ``cv3`` read the first nl, the aux branches ``cv4`` (box) / ``cv5`` (class)
+    the last nl. In train mode it returns all 2*nl raw maps, main first, for
+    the loss's aux branch; in eval mode the main nl only, and the aux
+    branches do not run (the JAX package's predict drops them the same way).
+    The aux class width is ``max(ch[0], nc)``, without the main head's cap of
+    100 classes, as in the JAX package."""
+
+    def __init__(self, nc: int, ch: Sequence[int], reg_max: int = 16):
+        nl = len(ch) // 2
+        super().__init__(nc, ch[:nl], reg_max)
+        self.cv4 = self._branches(ch[nl:], max(16, ch[0] // 4, reg_max * 4), 4 * reg_max)
+        self.cv5 = self._branches(ch[nl:], max(ch[0], nc), nc)
+
+    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        nl = len(self.cv2)
+        main = self._maps(xs[:nl], self.cv2, self.cv3)
+        return main + self._maps(xs[nl:], self.cv4, self.cv5) if self.training else main
 
 
 @torch.no_grad()

@@ -3,10 +3,12 @@
 Port of ``experiment_yolo_tpu/nn/tasks.py`` (``parse_model``,
 ``DetectionModel``) for the module types of ``yolov8.yaml``, ``yolov8-p2.yaml``,
 ``yolov8-ASF.yaml``, ``yolov8-ASF-P2.yaml``, ``yolov8-ASF-P2P2.yaml``,
-``yolov8-LD-P2.yaml`` and ``yolov8-C2f-VSS.yaml`` (``PORTED`` below): channel
-and depth scaling, savelist routing, strides from the graph's own
-downsampling (a ``Zoom_cat`` takes its middle source's), and the Detect bias
-priors, for a Detect on three or four levels. Layers live in ``self.model``
+``yolov8-LD-P2.yaml``, ``yolov8-C2f-VSS.yaml``, ``yolov8-aux.yaml``,
+``yolov8-lafiyolo.yaml`` and ``yolov8-efficientnet.yaml`` (``PORTED`` below):
+channel and depth scaling (``MBConv`` takes its repeats inside), savelist
+routing, strides from the graph's own downsampling (a ``Zoom_cat`` takes its
+middle source's), and the Detect bias priors, for a Detect on three or four
+levels or a ``DetectAux`` (its aux branches' priors too). Layers live in ``self.model``
 so that state-dict names read ``model.{i}.<module names>``, as in the
 Ultralytics fork.
 """
@@ -23,15 +25,15 @@ import torch
 from torch import nn
 
 from experiment_yolo_torch.cfg import CFG_DIR, yaml_load
-from experiment_yolo_torch.nn.modules import (C2f, SPPF, Add, Concat, Conv, Detect, LDConv, ScalSeq, ZoomCat,
-                                              init_weights)
+from experiment_yolo_torch.nn.modules import (C2f, SPPF, Add, Concat, Conv, ConvBNAct, Detect, DetectAux, LDConv,
+                                              MBConv, ScalSeq, ZoomCat, init_weights)
 from experiment_yolo_torch.nn.zoo_blocks import INNER_BLOCKS, SS2D, C2fX, C3X, VSSBlock
 from experiment_yolo_torch.ops.anchors import decode_detections
 from experiment_yolo_torch.utils import select_device
 
 
-PORTED = "Conv, LDConv, C2f, SPPF, nn.Upsample, Concat, Add, ScalSeq, Zoom_cat, Detect, and C2f_<X> / C3_<X> " \
-         "for X in " + ", ".join(INNER_BLOCKS)
+PORTED = "Conv, LDConv, C2f, SPPF, MBConv, nn.Upsample, Concat, Add, ScalSeq, Zoom_cat, Detect, DetectAux, and " \
+         "C2f_<X> / C3_<X> for X in " + ", ".join(INNER_BLOCKS)
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -74,6 +76,11 @@ def parse_model(d: dict, ch: int = 3) -> Tuple[List[nn.Module], List[int], List[
             c2 = _scale_ch(args[0], nc, width, max_channels)
             mod = (Conv if mname == "Conv" else LDConv)(c1, c2, *args[1:])
             s_out = s_in * (args[2] if len(args) > 2 else 1)
+        elif mname == "MBConv":  # args: [c2, e, act, drop_path, stride]; the repeats go inside the module
+            c2 = _scale_ch(args[0], nc, width, max_channels)
+            e, act, drop_path, stride = [*args[1:5], *[6, "SiLU", 0.0, 1][len(args) - 1:]]
+            mod = MBConv(c1, c2, n, e, str(act).lower(), drop_path, stride)
+            s_out, n = s_in * stride, 1
         elif mname == "C2f":
             c2 = _scale_ch(args[0], nc, width, max_channels)
             mod = C2f(c1, c2, n, args[1] if len(args) > 1 else False)
@@ -107,6 +114,13 @@ def parse_model(d: dict, ch: int = 3) -> Tuple[List[nn.Module], List[int], List[
         elif mname == "Detect":
             c2, mod, s_out = 0, Detect(nc, [chs[j] for j in src]), s_in
             det_strides = [int(down[j]) for j in src]
+        elif mname == "DetectAux":  # the main head reads the first half of the sources, the aux head the rest
+            nl = len(src) // 2
+            det_strides = [int(down[j]) for j in src]
+            if len(src) % 2 or det_strides[:nl] != det_strides[nl:]:
+                raise ValueError(f"layer {i}: DetectAux takes 2*nl sources whose second half has the first half's "
+                                 f"strides, got {det_strides}")
+            c2, mod, s_out, det_strides = 0, DetectAux(nc, [chs[j] for j in src]), s_in, det_strides[:nl]
         else:
             raise NotImplementedError(f"module {mname!r} (layer {i}) is not ported to experiment_yolo_torch; "
                                       f"the port covers {PORTED}")
@@ -179,15 +193,19 @@ class DetectionModel(nn.Module):
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"compute dtype {dtype}: the port computes in torch.float32 or torch.bfloat16")
         for m in self.modules():
-            if isinstance(m, (Conv, LDConv, ScalSeq, Detect, SS2D, VSSBlock)):
+            if isinstance(m, (Conv, ConvBNAct, LDConv, ScalSeq, Detect, SS2D, VSSBlock)):
                 m.dtype = dtype
 
     @torch.no_grad()
     def _bias_init(self) -> None:
-        """Detect bias priors: box 1.0, class log(5 / nc / (640 / stride)^2)."""
-        for box, cls, s in zip(self.detect.cv2, self.detect.cv3, self.stride):
-            box[-1].bias.fill_(1.0)
-            cls[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+        """Detect bias priors: box 1.0, class log(5 / nc / (640 / stride)^2),
+        on DetectAux's aux branches too."""
+        head = self.detect
+        pairs = [(head.cv2, head.cv3)] + ([(head.cv4, head.cv5)] if isinstance(head, DetectAux) else [])
+        for boxes, classes in pairs:
+            for box, cls, s in zip(boxes, classes, self.stride):
+                box[-1].bias.fill_(1.0)
+                cls[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
 
     @property
     def detect(self) -> Detect:
@@ -219,4 +237,6 @@ class DetectionModel(nn.Module):
         return x
 
     def predict(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return decode_detections(self(x), self.stride, self.nc, self.reg_max)
+        """Boxes and scores of the main head's maps (a DetectAux in train mode
+        also returns its aux maps, which are not decoded)."""
+        return decode_detections(self(x)[:len(self.stride)], self.stride, self.nc, self.reg_max)

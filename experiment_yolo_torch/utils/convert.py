@@ -2,9 +2,9 @@
 
 The port's own copy of the name and layout mapping of
 ``experiment_yolo_tpu/utils/torch_convert.py`` (read in the other direction),
-for the layer types the port builds: ``Conv``, ``LDConv``, ``C2f``, ``SPPF``,
-``ScalSeq``, ``Detect`` and the zoo containers ``C2f_VSS``, ``C2f_LVMB``,
-``C3_VSS``, ``C3_LVMB``. It takes the JAX package's
+for the layer types the port builds: ``Conv``, ``LDConv``, ``MBConv``, ``C2f``,
+``SPPF``, ``ScalSeq``, ``Detect``, ``DetectAux`` and the zoo containers
+``C2f_VSS``, ``C2f_LVMB``, ``C3_VSS``, ``C3_LVMB``. It takes the JAX package's
 ``{'params', 'batch_stats'}`` as nested dicts of numpy arrays and returns a
 state dict for ``model.load_state_dict(..., strict=True)``; a tree shaped like
 ``params`` alone (a gradient or a momentum buffer) converts to the port's
@@ -16,6 +16,11 @@ Layout rules:
 - LDConv Dense ``proj`` (N*C, O), n-major -> the (N, 1) conv ``conv.0.weight``
   (O, C, N, 1): W[o, i, n, 0] = dense[n*C + i, o]
 - ScalSeq Dense ``conv3d`` (I, O) -> Conv3d weight (O, I, 1, 1, 1)
+- MBConv ``blocks.{k}.conv1|conv2|conv3`` (``.c`` conv, ``.bn``) ->
+  ``block{k}/expand|dw|project`` (``conv``, ``bn``); the depthwise kernel
+  (3, 3, 1, C) -> (C, 1, 3, 3) by the conv rule
+- DetectAux: ``cv2``/``cv3`` from its nested ``detect`` module, ``cv4``/``cv5``
+  from the head's own level
 - VSSBlock / SS2D: Dense kernel (I, O) -> Linear weight (O, I); the depthwise
   conv kernel (3, 3, 1, d_inner) -> (d_inner, 1, 3, 3) by the conv rule, and
   its bias; LayerNorm scale/bias -> weight/bias; the five raw parameters
@@ -128,12 +133,16 @@ def _rule(mtype: str, rest: List[str], module) -> Rule:
         if rest[0] == "bn":
             return _bn(("bn",), rest[1])
         return _conv_bn((rest[0],), rest[1:])
-    if mtype == "Detect":  # cv2.{i}.{j}: j in (0, 1) a Conv, j == 2 a bare Conv2d
-        name = f"{rest[0]}_{rest[1]}_{rest[2]}"
+    if mtype == "MBConv":  # blocks.{k}.conv{1,2,3}.{c|bn}.* -> block{k}/{expand|dw|project}/{conv|bn}
+        unit = (f"block{rest[1]}", {"conv1": "expand", "conv2": "dw", "conv3": "project"}[rest[2]])
+        return _conv_bn(unit, ["conv" if rest[3] == "c" else rest[3], *rest[4:]])
+    if mtype in ("Detect", "DetectAux"):  # cv2.{i}.{j}: j in (0, 1) a Conv, j == 2 a bare Conv2d
+        name = (*(("detect",) if mtype == "DetectAux" and rest[0] not in ("cv4", "cv5") else ()),
+                f"{rest[0]}_{rest[1]}_{rest[2]}")
         if rest[2] == "2":
-            return "params", (name, "kernel" if rest[3] == "weight" else "bias"), \
+            return "params", (*name, "kernel" if rest[3] == "weight" else "bias"), \
                 _conv if rest[3] == "weight" else _same
-        return _conv_bn((name,), rest[3:])
+        return _conv_bn(name, rest[3:])
     raise KeyError(f"module type {mtype} has no weights to convert")
 
 

@@ -10,6 +10,11 @@ level in one launch, straight from the NCHW maps.
 
     DFL decode of every level (K1) -> TAL|ATSS assign (no gradient) -> cls zoo + IoU zoo|Wise-IoU [+ NWD] box + DFL
 
+A ``DetectAux`` model in train mode hands over 2*nl maps: the last nl are its
+auxiliary one-to-many head, whose boxes K1 decodes in a second launch and
+whose losses (TAL at top-k 13 on the main head's predictions, plain BCE, the
+same box and DFL terms) are added at ``aux_loss_ratio`` of the gains.
+
 Wise-IoU keeps a running mean of 1 - IoU over foreground anchors, and
 EMASlide a running IoU, which the caller threads from step to step.
 
@@ -49,7 +54,8 @@ class LossConfig:
     ``focaler_iou`` change their base term (``inner_ratio``, ``focaler_d``,
     ``focaler_u``); ``nwd`` blends in the NWD loss as ``iou_ratio * iou +
     (1 - iou_ratio) * nwd``. ``cls_loss`` picks the class loss and
-    ``assigner`` TAL or ATSS. The JAX package's TPU layout switches
+    ``assigner`` TAL or ATSS; ``aux_loss_ratio`` weighs a DetectAux
+    model's auxiliary head. The JAX package's TPU layout switches
     (``checkpoint_loss``, ``packed_decode``, ``fused_dfl``, ``exact_topk``)
     change no value and are not here: the port's TAL takes the exact top-k.
     """
@@ -79,6 +85,7 @@ class LossConfig:
     vfl_alpha: float = 0.75
     qfl_beta: float = 2.0
     assigner: str = "tal"
+    aux_loss_ratio: float = 0.25  # the weight of DetectAux's auxiliary head
 
     def __post_init__(self):
         for key, known in (("wiou_ltype", WIOU_LTYPES), ("iou_type", IOU_TYPES), ("cls_loss", CLS_LOSSES),
@@ -268,8 +275,20 @@ def detection_loss(feats: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor]
     Wise-IoU. ``slide_mean`` and ``step`` (the optimizer step) drive
     EMASlide's running IoU; the new slide mean is returned only when
     ``slide_mean`` is given, as in the JAX package.
+
+    With 2 * len(strides) maps (a DetectAux in train mode) the last half is
+    the auxiliary head's (JAX ``utils/loss.py:438-486``): its targets come
+    from TAL on the main head's detached predictions at top-k 13, alpha 0.5,
+    beta 6.0, whatever ``cfg`` assigns the main head with; its class term is
+    plain BCE over its own target-score sum, its box and DFL terms are the
+    main head's kind on the incoming ``iou_mean`` (its Wise-IoU mean is
+    dropped), and each is added to its main component at ``aux_loss_ratio``
+    times the gain. The assignment returned is the main head's.
     """
     nc, reg_max = cfg.nc, cfg.reg_max
+    aux_feats = None
+    if len(feats) == 2 * len(strides):
+        feats, aux_feats = feats[:len(strides)], feats[len(strides):]
     b = feats[0].shape[0]
     pred_scores = torch.cat([f[:, 4 * reg_max:].reshape(b, nc, -1) for f in feats], 2).transpose(1, 2)  # (B, A, nc)
     feat_shapes = [tuple(f.shape[2:4]) for f in feats]
@@ -305,6 +324,22 @@ def detection_loss(feats: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor]
     loss_iou, loss_dfl, new_iou_mean = _box_dfl_losses(list(feats), pred_bboxes, anchor_points, target_bboxes,
                                                        fg_mask, weight, target_scores_sum, iou_mean, mpdiou_hw, cfg)
     comps = {"box": loss_iou * cfg.box, "cls": loss_cls * cfg.cls, "dfl": loss_dfl * cfg.dfl}
+    if aux_feats is not None:
+        scores_aux = torch.cat([f[:, 4 * reg_max:].reshape(b, nc, -1) for f in aux_feats], 2).transpose(1, 2)
+        bboxes_aux = per_level_decode(aux_feats, anchor_points, reg_max)  # K1's second launch
+        res_aux = tal.assign(torch.sigmoid(pred_scores.detach()), pred_bboxes.detach() * stride_tensor[None],
+                             anchor_points * stride_tensor, batch["cls"], gt_bboxes, mask_gt, topk=13,
+                             num_classes=nc, alpha=0.5, beta=6.0)
+        ts_aux, fg_aux = res_aux.target_scores, res_aux.fg_mask
+        tss_aux = ts_aux.sum(dtype=torch.float32).clamp(min=1.0)
+        w_aux = torch.where(fg_aux, ts_aux.sum(-1), 0.0).float()
+        cls_aux = _BCESum.apply(scores_aux, ts_aux.to(scores_aux.dtype)) / tss_aux
+        iou_aux, dfl_aux, _ = _box_dfl_losses(list(aux_feats), bboxes_aux, anchor_points,
+                                              res_aux.target_bboxes / stride_tensor[None], fg_aux, w_aux, tss_aux,
+                                              iou_mean, mpdiou_hw, cfg)
+        ratio = cfg.aux_loss_ratio
+        comps = {"box": comps["box"] + iou_aux * ratio * cfg.box, "cls": comps["cls"] + cls_aux * ratio * cfg.cls,
+                 "dfl": comps["dfl"] + dfl_aux * ratio * cfg.dfl}
     total = (comps["box"] + comps["cls"] + comps["dfl"]) * b
     out = (total, comps, res, new_iou_mean)
     return out + (new_slide_mean,) if slide_mean is not None else out
