@@ -291,12 +291,27 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     with phase 15's arguments (2 K1 a step and 1 a val batch, 6 K1-backward
     a step, for the aux model); each number beside the card's name and
     power limit, and the phase's seconds;
-29. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
+29. the user's own images (``image_input_phase``, ``data/codec.py``): the
+    probe's answer (headers, libraries, ``ffmpeg``) and the route (JPEG
+    through nvJPEG on the card, PNG through the port's own decoder); every
+    committed fixture of ``tests/assets/images/`` decoded from its file and
+    from its bytes, PNG bit-equal to its ``cv2.imread`` array and JPEG within
+    the gap measured for nvJPEG (``NVJPEG_GAP``: chroma upsampling and IDCT
+    rounding); a 1920 x 1080 JPEG's decode timed;
+    ``YOLO(<phase 4's seeded LD-P2 checkpoint>).predict(<folder of 16 seeded
+    1280 x 720 JPEGs>)`` at 640, batch 8, soft NMS, with exactly phase 6's
+    launches a batch and the detections identical to ``predict`` on the same
+    decoded arrays and to ``stream=True``, img/s; 8 JPEG requests to
+    ``DetectionServer``, each answered as the BMP of the same pixels; and
+    ``YOLO("yolov8-LD-P2.yaml", nc=3).train()`` for an epoch on a JPEG copy
+    of phase 12's dataset written by the port's encoder (phase 15's launches),
+    img/s; the phase's seconds;
+30. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
     ...}``, a ``{"served_vss": ...}``, a ``{"validated": ...}``, a
     ``{"trained_loop": ...}``, a ``{"trained_bf16": ...}``, a ``{"facade":
     ..., "cli": ..., "server": ...}``, an ``{"asf_p2": ...}``, a
     ``{"two_stage": ...}``, a ``{"vss_trained": ...}``, a ``{"recipes":
-    ...}`` and an ``{"other_configs": ...}`` line, then the
+    ...}``, an ``{"other_configs": ...}`` and an ``{"image_input": ...}`` line, then the
     ``{"kernels": [...]}`` line for the eight kernels and the four bf16
     forms (launches summed over every main path above), the card's name and
     power limit, and last ``{"ok": true, "device": {...}}``.
@@ -311,6 +326,7 @@ import contextlib
 import functools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3531,6 +3547,197 @@ def other_configs_phase(images, x, batches, cmp_batch, data: Path, root: Path, c
     return record, launches
 
 
+# Phase 29: nvJPEG's measured gap to the committed cv2.imread arrays (max abs, mean abs levels a fixture): chroma
+# upsampling (nvJPEG repeats chroma samples where libjpeg interpolates) and IDCT rounding; measured on the
+# committed fixtures on an H100 80GB HBM3 at 700 W. The same nvJPEG output lies within 1 level of libjpeg run with
+# fancy upsampling off and the float IDCT, which names the cause.
+NVJPEG_GAP = {"chroma upsampled": (68, 4.79), "no chroma upsampling": (3, 0.52)}
+JPEG_FRAMES, FRAME_HW = 16, (720, 1280)  # phase 29's folder: seeded 1280 x 720 JPEGs written by the port's encoder
+IMAGE_ASSETS = ROOT / "tests" / "assets" / "images"
+
+
+def probe_image_libraries() -> dict:
+    """What this machine offers for decoding images: headers, libraries, ffmpeg."""
+    import os
+
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    ld = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True, timeout=60).stdout
+    return {"headers": {h: Path(h).exists() for h in ("/usr/include/jpeglib.h", "/usr/include/png.h",
+                                                       "/usr/include/zlib.h", f"{cuda}/include/nvjpeg.h")},
+            "libraries": sorted({line.split()[0] for line in ld.splitlines()
+                                 if any(k in line for k in ("libjpeg", "libpng", "libz.", "libnvjpeg"))}),
+            "ffmpeg": shutil.which("ffmpeg")}
+
+
+def seeded_frame(h: int, w: int, seed: int):
+    """An (h, w, 3) uint8 BGR frame: 32-px blocks of colour plus noise (``seeded_images``' recipe)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h // 32 + 1, w // 32 + 1, 3), dtype=np.uint8)
+    img = np.repeat(np.repeat(base, 32, 0), 32, 1)[:h, :w].astype(np.int16)
+    return np.clip(img + rng.integers(-20, 21, img.shape), 0, 255).astype(np.uint8)
+
+
+def image_input_phase(root: Path, data: Path, bmp_epoch_img_per_s: float, counters, card):
+    """Phase 29, the user's own images on the card (``data/codec.py``): (a)
+    the probe's answer and the route; (b) every committed fixture decoded from
+    its file and from its bytes, the two identical, PNG bit-equal to its
+    ``cv2.imread`` array and JPEG within :data:`NVJPEG_GAP`; (c) the decode of
+    a 1920 x 1080 JPEG timed; (d) ``YOLO(<phase 4's seeded LD-P2 checkpoint>)
+    .predict(<folder of 16 seeded 1280 x 720 JPEGs>)`` at IMGSZ, batch BATCH,
+    soft NMS: launches exactly phase 6's a batch (1 K1, 10 K3, 1 K5),
+    detections identical to ``predict`` on the same decoded arrays and to
+    ``stream=True``, img/s; (e) 8 JPEG requests to ``DetectionServer``, each
+    answered as the BMP of the same decoded pixels; (f)
+    ``YOLO(CFG, nc=LOOP_NC).train()`` for an epoch on a JPEG copy of phase
+    12's dataset written by the port's encoder, with per-epoch val: phase
+    15's launches, img/s. Returns the record and the launches."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch import YOLO
+    from experiment_yolo_torch.cfg import yaml_load
+    from experiment_yolo_torch.utils import yaml_save
+    from experiment_yolo_torch.data import codec, image_io
+    from experiment_yolo_torch.engine.checkpoint import save_checkpoint
+    from experiment_yolo_torch.serve import DetectionServer
+    from experiment_yolo_torch.utils.seeded import seeded_model
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(counters, 0)
+    nv = codec.nvjpeg("cuda")
+    record = {"probe": probe_image_libraries(),
+              "route": "B: JPEG through nvJPEG's default backend on the card (csrc/nvjpeg_codec.cu), PNG through the "
+                       "port's own decoder (zlib + csrc/png_unfilter.cpp); libjpeg (csrc/image_codec.cpp) only for "
+                       "CPU callers",
+              "hardware_backend_status": nv.engine_status, "card": card}
+    log(f"image libraries: {json.dumps(record['probe'])}; route {record['route']}; nvJPEG's hardware backend "
+        f"(probed, unused): {'created' if nv.engine_status == 0 else f'refused, status {nv.engine_status}'}")
+
+    # (b) the committed fixtures against their cv2.imread arrays
+    fixtures = {}
+    for f in sorted(p for p in IMAGE_ASSETS.iterdir() if p.suffix != ".npy"):
+        want = np.load(IMAGE_ASSETS / f"{f.name}.npy")
+        from_file = image_io.imread(f)
+        from_bytes = codec.decode(f.read_bytes(), f.name)
+        check(np.array_equal(from_file, from_bytes), f"{f.name}: the decode from the file and from its bytes differ")
+        check(from_file.shape == want.shape, f"{f.name}: decoded {from_file.shape}, cv2.imread {want.shape}")
+        d = np.abs(from_file.astype(np.int16) - want)
+        hdr = codec.header(f.read_bytes(), f.name)
+        kind = ("png" if hdr.format == "png" else
+                "chroma upsampled" if hdr.subsampled else "no chroma upsampling")
+        limit = (0, 0.0) if kind == "png" else NVJPEG_GAP[kind]
+        fixtures[f.name] = {"kind": kind, "max_abs": int(d.max()), "mean_abs": float(d.mean()),
+                            "share_differing": float((d > 0).mean())}
+        check(d.max() <= limit[0] and d.mean() <= limit[1],
+              f"{f.name} ({kind}): {fixtures[f.name]} against cv2.imread, beyond the measured gap {limit}")
+    record["fixtures"] = fixtures
+    log(f"fixtures against cv2.imread (gate: PNG bit-equal, JPEG within {NVJPEG_GAP}): {json.dumps(fixtures)}")
+
+    # (c) one 1920 x 1080 JPEG's decode
+    big = codec.encode(seeded_frame(1080, 1920, SEED + 29), "jpeg")
+    for _ in range(3):
+        codec.decode(big)
+    ms = []
+    for _ in range(RUNS):
+        t = time.perf_counter()
+        codec.decode(big)
+        ms.append((time.perf_counter() - t) * 1e3)
+    record["decode_1080p"] = {"bytes": len(big), "ms_median": statistics.median(ms), "ms_min": min(ms),
+                              "ms_max": max(ms), "runs": RUNS}
+    log(f"decode of a 1920 x 1080 JPEG ({len(big)} bytes): median {statistics.median(ms):.3f} ms, {card}")
+
+    # (d) YOLO(checkpoint).predict(folder)
+    folder = root / "jpeg_frames"
+    folder.mkdir()
+    for i in range(JPEG_FRAMES):
+        image_io.imwrite(folder / f"frame{i:02d}.jpg", seeded_frame(*FRAME_HW, SEED + 100 + i))
+    files = sorted(folder.iterdir())
+    ckpt = save_checkpoint(root / "seeded29.pt", seeded_model(CFG, SEED))
+    yolo = YOLO(str(ckpt))
+    args = {"imgsz": IMGSZ, "batch": BATCH, "nms_type": "soft"}
+    yolo.predict(str(files[0]), **args)  # warm-up: cuDNN picks its algorithms
+    for fn in counters.values():
+        fn.launches = 0
+    e0 = nv.images
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results = yolo.predict(str(folder), **args)
+    folder_s = time.perf_counter() - t
+    run = {name: fn.launches for name, fn in counters.items()}
+    batches = math.ceil(JPEG_FRAMES / BATCH)
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode=batches, ldconv_gather=10 * batches, soft_nms=batches)
+    check(run == want, f"predict on a folder launched {run}, expected {want}")
+    for name in launches:
+        launches[name] += run[name]
+    check(nv.images - e0 == JPEG_FRAMES, "the folder's JPEGs were not decoded by nvJPEG")
+    arrays = [image_io.imread(f) for f in files]
+    direct = yolo.predict(arrays, **args)
+    streamed = yolo.predict(str(folder), stream=True, **args)
+    check(not isinstance(streamed, list), "predict(stream=True) gave a list")
+    streamed = list(streamed)
+    check([r.path for r in results] == [str(f) for f in files] == [r.path for r in streamed],
+          "the folder's results are not the files in order")
+    for a, b, c, img in zip(results, direct, streamed, arrays):
+        check(np.array_equal(a.orig_img, img) and np.array_equal(a.boxes.data, b.boxes.data)
+              and np.array_equal(a.boxes.data, c.boxes.data),
+              f"{a.path}: detections from the file differ from those of its decoded array or of stream=True")
+    counts = [len(r) for r in results]
+    check(sum(counts) > 0, "the folder's images have no detections: the comparison would be empty")
+    record["predict_folder"] = {"frames": JPEG_FRAMES, "hw": FRAME_HW, "imgsz": IMGSZ, "batch": BATCH, "nms": "soft",
+                                "seconds": folder_s, "img_per_s": JPEG_FRAMES / folder_s,
+                                "detections_per_image": sum(counts) / len(counts), "launches": run}
+    log(f"predict on a folder of {JPEG_FRAMES} JPEGs of {FRAME_HW[1]} x {FRAME_HW[0]}: {folder_s:.3f} s, "
+        f"{JPEG_FRAMES / folder_s:.2f} img/s with the decode, launches {run}, {card}")
+
+    # (e) the server: JPEG bodies against BMP bodies of the same pixels, one request at a time
+    server = DetectionServer(str(ckpt), batch=BATCH, imgsz=IMGSZ)
+    port = server.start(host="127.0.0.1", port=0)
+
+    def post(body):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=body)
+        return json.loads(urllib.request.urlopen(req, timeout=120).read())["detections"]
+
+    try:
+        answers = []
+        for i in range(8):
+            image_io.imwrite(root / f"same{i}.bmp", arrays[i])
+            answers.append((post(files[i].read_bytes()), post((root / f"same{i}.bmp").read_bytes())))
+    finally:
+        server.stop()
+    for i, (jpeg, bmp) in enumerate(answers):
+        check(jpeg == bmp, f"request {i}: the JPEG body's answer differs from the BMP of the same pixels")
+    record["server"] = {"requests": 8, "detections": [len(a) for a, _ in answers]}
+
+    # (f) train() on a JPEG copy of phase 12's dataset
+    jroot = root / "jpeg_data"
+    for split in ("train", "val"):
+        (jroot / "images" / split).mkdir(parents=True)
+        for f in sorted((data.parent / "images" / split).glob("*.bmp")):
+            image_io.imwrite(jroot / "images" / split / f"{f.stem}.jpg", image_io.imread(f))
+        shutil.copytree(data.parent / "labels" / split, jroot / "labels" / split)
+    yaml_save(jroot / "data.yaml", {**yaml_load(data), "path": str(jroot)})
+
+    def per_epoch(steps, val):
+        return dict(ldconv_gather=10, ldconv_gather_bf16=10 + 10 * (steps + val), dfl_decode_bf16=steps + val,
+                    dfl_decode_bwd_bf16=3 * steps, ldconv_gather_bwd_bf16=10 * steps, soft_nms=val)
+
+    loop, run = facade_epoch(CFG, per_epoch, jroot / "data.yaml", root, counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    record["train_jpeg"] = loop
+    record["nvjpeg"] = {"calls": nv.launches, "images": nv.images}
+    record["seconds"] = time.perf_counter() - t0
+    log(f"train() on the JPEG copy of phase 12's dataset: {loop['loop_img_per_s']:.2f} img/s over the loop (phase "
+        f"15's BMP epoch {bmp_epoch_img_per_s:.2f}); nvJPEG {json.dumps(record['nvjpeg'])}; phase 29 took "
+        f"{record['seconds']:.1f} s, {card}")
+    return record, launches
+
+
 def main() -> None:
     import torch
 
@@ -3860,9 +4067,15 @@ def main() -> None:
                                      Path(work.name), counters, card)
     for name in launches:
         launches[name] += run[name]
+    torch.cuda.empty_cache()
+    # 29. the user's own images: the codec held to cv2's arrays, predict on a folder of JPEGs, the server, train()
+    images_in, run = image_input_phase(Path(work.name), Path(work.name) / "data" / "data.yaml",
+                                       facade["loop_img_per_s"], counters, card)
+    for name in launches:
+        launches[name] += run[name]
     work.cleanup()
 
-    # 29. the result lines
+    # 30. the result lines
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["kernel_ms"] = k["ms"]
@@ -3886,6 +4099,7 @@ def main() -> None:
     log(json.dumps({"vss_trained": vss_record}))
     log(json.dumps({"recipes": recipes}))
     log(json.dumps({"other_configs": other}))
+    log(json.dumps({"image_input": images_in}))
     # last of the long lines, so that a reader of the output's tail gets it whole
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"card: {card}")

@@ -9,9 +9,9 @@ take every ``default.yaml`` key, and ``cfg``, ``version``, ``checks`` and
 ``ROADMAP.md`` item. ``device=`` is a key of the port's own: the card
 (``cuda``) unless it says ``cpu``.
 
-``predict``'s ``source=`` is an image file or a folder of them that
-``data/image_io.py`` reads (24-bit BMP, or any image with a ``.npy``
-sidecar); videos and streams wait for ``data/loaders.py``.
+``predict``'s ``source=`` is what ``YOLO.predict`` takes from a command line:
+an image file (JPEG, PNG, BMP) or a folder of them, read by
+``data/loaders.py``; videos and streams wait for ROADMAP.md queue 1 item 3.5.
 """
 
 from __future__ import annotations
@@ -65,22 +65,6 @@ def parse_key_value(args: List[str]) -> Dict[str, Any]:
             except (ValueError, SyntaxError):
                 out[k] = v
     return out
-
-
-def _images(source) -> List:
-    """The images of ``source``: one file, or every readable file of a folder, in name order."""
-    from experiment_yolo_torch.data.dataset import IMG_FORMATS
-    from experiment_yolo_torch.data.image_io import imread
-
-    path = Path(str(source))
-    if path.is_dir():
-        files = sorted(p for p in path.iterdir() if p.suffix[1:].lower() in IMG_FORMATS)
-    elif path.is_file():
-        files = [path]
-    else:
-        raise FileNotFoundError(f"source {source!r} is neither an image file nor a folder (videos and streams "
-                                "are read by data/loaders.py, ROADMAP.md queue 1 item 3.3)")
-    return [imread(f) for f in files]
 
 
 def entrypoint(argv: List[str] | None = None) -> Any:
@@ -154,7 +138,7 @@ def entrypoint(argv: List[str] | None = None) -> Any:
         return stats
     if source is None:
         raise SyntaxError("'source=' is required for predict")
-    results = model.predict(_images(source), **overrides)
+    results = model.predict(source, **overrides)
     LOGGER.info(f"{colorstr('predict:')} {len(results)} images")
     for r in results:
         LOGGER.info(f"  {r.path}: {len(r.boxes)} detections")

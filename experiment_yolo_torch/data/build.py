@@ -135,13 +135,14 @@ class DataLoader:
                     t.join(0.01)
 
 
-def build_yolo_dataset(cfg, img_path, mode: str = "train") -> YOLODataset:
-    """The dataset of ``mode`` ('train' augments) from a config namespace."""
+def build_yolo_dataset(cfg, img_path, mode: str = "train", device="cuda") -> YOLODataset:
+    """The dataset of ``mode`` ('train' augments) from a config namespace,
+    decoding its JPEGs for ``device``."""
     return YOLODataset(img_path=img_path, imgsz=cfg.imgsz, augment=mode == "train", hyp=cfg,
                        max_labels=getattr(cfg, "max_labels", 128),
                        fraction=getattr(cfg, "fraction", 1.0) if mode == "train" else 1.0,
                        single_cls=getattr(cfg, "single_cls", False), task=getattr(cfg, "task", "detect") or "detect",
-                       cache=getattr(cfg, "cache", False))
+                       cache=getattr(cfg, "cache", False), device=device)
 
 
 def build_dataloader(dataset, batch_size, workers=8, shuffle=True, seed=0, drop_last=True,

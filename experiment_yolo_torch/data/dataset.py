@@ -10,8 +10,10 @@ writes too), and the samples: augmented for training (:meth:`get_sample`,
 whose draws from the generator are the JAX method's, call for call) and
 letterboxed for validation (:meth:`get_val_sample`).
 
-Images are read by ``data/image_io.py`` (24-bit BMP, or a ``.npy`` sidecar);
-a JPEG or PNG without a sidecar raises. The segment, pose and obb tasks wait
+Images are read by ``data/image_io.py`` (JPEG, PNG, 24-bit BMP, or a ``.npy``
+sidecar), JPEGs with nvJPEG when the dataset's ``device`` is the card and with
+libjpeg when it is the CPU; unreadable images and images under 10 px are
+dropped with the JAX package's messages. The segment, pose and obb tasks wait
 for ROADMAP.md catalogue item 13.
 """
 
@@ -60,10 +62,13 @@ def img2label_path(img_path: str) -> str:
 
 
 def _verify(f: str) -> Optional[str]:
-    """What is wrong with an image file, from its header; None if nothing. A
-    format the port cannot decode raises instead of being dropped."""
+    """What is wrong with an image file, from its header and, for JPEG and
+    PNG, its end; None if nothing (the JAX package's messages). A truncated
+    JPEG, which the JAX package keeps and OpenCV fills with grey, is dropped:
+    the port's decoders refuse it. A format the port cannot decode yet (webp,
+    tiff without a sidecar) raises instead of being dropped."""
     try:
-        h, w = image_io.image_shape(f)
+        h, w = image_io.image_shape(f, whole=True)
     except (OSError, ValueError) as e:
         return f"corrupt image: {e}"
     return f"image too small {w}x{h}" if w < 10 or h < 10 else None
@@ -73,7 +78,8 @@ class YOLODataset:
     """Detection dataset: file scan + label parse + v8 transforms."""
 
     def __init__(self, img_path: str | Path, imgsz: int = 640, augment: bool = True, hyp=None, max_labels: int = 128,
-                 fraction: float = 1.0, single_cls: bool = False, task: str = "detect", cache: str | bool = False):
+                 fraction: float = 1.0, single_cls: bool = False, task: str = "detect", cache: str | bool = False,
+                 device="cuda"):
         if task != "detect":
             raise NotImplementedError(f"task={task!r} datasets are not ported to experiment_yolo_torch yet "
                                       "(ROADMAP.md catalogue item 13)")
@@ -84,6 +90,7 @@ class YOLODataset:
         self.max_labels = max_labels
         self.single_cls = single_cls
         self.task = task
+        self.device = device  # where JPEGs are decoded: nvJPEG on the card, libjpeg on the CPU
         self.im_files = self._scan_images(fraction)
         self.labels = self._load_labels_cached()
         self.mosaic_enabled = bool(augment and hyp is not None and getattr(hyp, "mosaic", 0) > 0)
@@ -183,7 +190,7 @@ class YOLODataset:
                 except (OSError, ValueError):
                     img = None
         if img is None:
-            img = image_io.imread(self.im_files[i])
+            img = image_io.imread(self.im_files[i], self.device)
         if not cached:
             if self.cache == "ram":
                 self._ims[i] = img

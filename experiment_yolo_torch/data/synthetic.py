@@ -7,9 +7,10 @@ dataset (``images/``, ``labels/``, ``data.yaml``). It makes the same numpy
 draws in the same order, so for the same seed the label files and
 ``data.yaml`` are identical to the JAX generator's.
 
-One forced deviation: the images are 24-bit ``.bmp`` files, not ``.jpg``,
-since the card's machine has no JPEG encoder or decoder
-(``data/image_io.py``). The pixels come from this module's own rasteriser
+One deviation: the images are 24-bit ``.bmp`` files, not ``.jpg``: a
+lossless file keeps the pixels drawn here on every machine, where a JPEG's
+would depend on the encoder (nvJPEG on the card, libjpeg on the CPU;
+``data/codec.py``). The pixels come from this module's own rasteriser
 (a 7x7 Gaussian blur with OpenCV's sigma for that size, 1.4, and a
 saturating offset; filled shapes by pixel-centre tests) and are not held to
 OpenCV's drawing. ``make_synthetic_task_dataset`` (segment, pose, obb) waits

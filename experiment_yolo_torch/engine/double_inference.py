@@ -129,7 +129,7 @@ class DoubleInference:
         refined = refined[per_class_nms(refined[:, :4], refined[:, 4], refined[:, 5], cfg.final_nms_iou)]
         refined[:, [0, 2]] = refined[:, [0, 2]].clip(0, w)
         refined[:, [1, 3]] = refined[:, [1, 3]].clip(0, h)
-        return Results(result.orig_img, result.path, result.names, refined, speed=result.speed)
+        return Results(result.orig_img, result.path, result.names, refined, speed=result.speed, device=result.device)
 
     def __call__(self, results: List[Results]) -> List[Results]:
         return [self.refine(r) for r in results]

@@ -16,24 +16,11 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-import numpy as np
 import torch
 
 from experiment_yolo_torch.engine.checkpoint import load_checkpoint, load_matching_variables, save_checkpoint
 from experiment_yolo_torch.nn.tasks import DetectionModel, yaml_model_load
 from experiment_yolo_torch.utils import LOGGER
-
-_SOURCES = ("files, folders, videos and streams are read by data/loaders.py, which is not ported to "
-            "experiment_yolo_torch yet (ROADMAP.md queue 1 item 3.3); pass (H, W, 3) uint8 BGR arrays")
-
-
-def _check_arrays(source) -> None:
-    """Raise unless ``source`` is an (H, W, 3) uint8 BGR array or a list of them."""
-    if isinstance(source, (str, Path)) or (
-            isinstance(source, (list, tuple)) and any(isinstance(s, (str, Path)) for s in source)):
-        raise NotImplementedError(_SOURCES)
-    if not isinstance(source, (np.ndarray, list, tuple)):
-        raise TypeError(f"unsupported source of type {type(source).__name__}; {_SOURCES}")
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -150,17 +137,17 @@ class YOLO:
         return DetectionValidator({**self.overrides, **kwargs})(self.model)
 
     def predict(self, source, stream: bool = False, **kwargs) -> List:
-        """Detect in one (H, W, 3) uint8 BGR image or a list of them with
-        :class:`DetectionPredictor`, built again when the overrides change."""
-        if stream:
-            raise NotImplementedError(_SOURCES)
-        _check_arrays(source)
+        """Detect in ``source`` with :class:`DetectionPredictor`, built again
+        when the overrides change: an (H, W, 3) uint8 BGR array, an image file
+        (JPEG, PNG, BMP), a folder of them, or a list of any of these. A list
+        of :class:`Results`, or a generator of them with ``stream``. Videos
+        and streams raise naming ROADMAP.md queue 1 item 3.5."""
         from experiment_yolo_torch.engine.predictor import DetectionPredictor
 
         key = {**self.overrides, **kwargs}
         if self.predictor is None or key != self._predictor_key:
             self.predictor, self._predictor_key = DetectionPredictor(self.model, key), key
-        return self.predictor(source)
+        return self.predictor(source, stream=stream)
 
     def sliced_predict(self, source, stream: bool = False, slice: int = 512, overlap: float = 0.2,
                        include_full: bool = True, **kwargs):
@@ -168,22 +155,25 @@ class YOLO:
         SAHI example): an overlapping grid of ``slice``-px tiles of each
         image, one batched forward of them (and of the letterboxed full image
         when ``include_full``), one NMS over the image's merged candidates.
-        A list of :class:`Results`, or a generator of them with ``stream``."""
+        ``source`` as :meth:`predict` takes it. A list of :class:`Results`,
+        or a generator of them with ``stream``."""
         from experiment_yolo_torch.engine.sliced import SlicedPredictor
 
-        _check_arrays(source)
         pred = SlicedPredictor(self.model, {**self.overrides, **kwargs}, slice=slice, overlap=overlap,
                                include_full=include_full)
         return pred(source, stream=stream)
 
-    def double_predict(self, source, **kwargs) -> List:
+    def double_predict(self, source, stream: bool = False, **kwargs):
         """Two-stage crop-and-refine inference (the reference's
         ``double_inference.py``): :meth:`predict`, then each confident box
         inferred again on its padded crop and replaced where the crop's box
-        beats it (:class:`DoubleInference`)."""
+        beats it (:class:`DoubleInference`). ``source`` as :meth:`predict`
+        takes it; a generator of the refined :class:`Results` with ``stream``."""
         from experiment_yolo_torch.engine.double_inference import DoubleInference
 
-        return DoubleInference(self.model)(self.predict(source, **kwargs))
+        refine = DoubleInference(self.model)
+        gen = (refine.refine(r) for r in self.predict(source, stream=True, **kwargs))
+        return gen if stream else list(gen)
 
     def save(self, path: str | Path) -> Path:
         """Write the model (f32 weights, YAML, names) as a checkpoint ``YOLO`` and ``load`` read."""

@@ -5,19 +5,22 @@ reference fork's SAHI example (slice 512, overlap 0.2). Every slice of an
 image goes through the model in one batch; the boxes are shifted by their
 slices' origins into the image's pixels, the letterboxed full image's boxes
 (``include_full``) are mapped back to them, and one NMS runs over all of the
-image's candidates, with a class offset larger than the image.
+image's candidates, with a class offset larger than the image. Sources are
+read by ``load_source``, as JAX ``sliced.py:145`` reads them: arrays, image
+files and folders.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from experiment_yolo_torch.cfg import check_imgsz, get_cfg
 from experiment_yolo_torch.data.augment import letterbox
+from experiment_yolo_torch.engine.predictor import Source, load_source
 from experiment_yolo_torch.engine.results import Results
 from experiment_yolo_torch.ops.nms import non_max_suppression
 
@@ -52,8 +55,9 @@ def nms_max_wh(h: int, w: int) -> float:
 
 
 class SlicedPredictor:
-    """``SlicedPredictor(model, overrides, slice, overlap, include_full)(images)``
-    -> one :class:`Results` per (H, W, 3) uint8 BGR image, in its own pixels.
+    """``SlicedPredictor(model, overrides, slice, overlap, include_full)(source)``
+    -> one :class:`Results` per image of ``source`` (arrays, image files,
+    folders), in its own pixels.
 
     It runs where ``model`` lives and in its compute dtype. ``slice`` and the
     full image's ``imgsz`` are rounded up to a multiple of the model's largest
@@ -127,13 +131,12 @@ class SlicedPredictor:
             full, gain, pad = fimg[None, ..., ::-1].copy(), np.float32(g), np.asarray([pw, ph], np.float32)
         return slices, offsets, full, gain, pad
 
-    def __call__(self, source: Union[np.ndarray, Sequence[np.ndarray]], stream: bool = False):
+    def __call__(self, source: Source, stream: bool = False):
         gen = self.stream_inference(source)
         return gen if stream else list(gen)
 
-    def stream_inference(self, source: Union[np.ndarray, Sequence[np.ndarray]]) -> Iterator[Results]:
-        images = [source] if isinstance(source, np.ndarray) else list(source)
-        for k, img in enumerate(images):
+    def stream_inference(self, source: Source) -> Iterator[Results]:
+        for path, img in load_source(source, vid_stride=int(self.args.vid_stride or 1), device=self.device):
             t0 = time.perf_counter()
             slices, offsets, full, gain, pad = self._prepare(img)
             t1 = time.perf_counter()
@@ -146,5 +149,5 @@ class SlicedPredictor:
             d[:, [1, 3]] = d[:, [1, 3]].clip(0, oh)
             if self.args.classes is not None:
                 d = d[np.isin(d[:, 5].astype(int), np.atleast_1d(self.args.classes))]
-            yield Results(img, f"image{k}", self.model.names, d,
-                          speed={"preprocess": (t1 - t0) * 1000, "inference": (t2 - t1) * 1000})
+            yield Results(img, path, self.model.names, d,
+                          speed={"preprocess": (t1 - t0) * 1000, "inference": (t2 - t1) * 1000}, device=self.device)

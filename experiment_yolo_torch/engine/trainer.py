@@ -237,7 +237,7 @@ class DetectionTrainer:
         self.data = data
         self.model.names = data["names"]
 
-        train_set = build_yolo_dataset(args, data["train"], mode="train")
+        train_set = build_yolo_dataset(args, data["train"], mode="train", device=self.model.device)
         self.train_loader = DataLoader(train_set, args.batch, shuffle=True, workers=args.workers, seed=args.seed)
         nb = len(self.train_loader)
         if nb == 0:

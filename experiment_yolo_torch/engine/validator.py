@@ -65,7 +65,7 @@ class DetectionValidator:
         if self._cache_key != key:
             data = check_det_dataset(args.data)
             split = data.get(args.split or "val") or data["val"]
-            dataset = build_yolo_dataset(args, split, mode="val")
+            dataset = build_yolo_dataset(args, split, mode="val", device=model.device)
             loader = DataLoader(dataset, args.batch, shuffle=False, workers=args.workers, drop_last=False,
                                 rect=bool(args.rect), stride=max(model.stride))
             self._cache_key, self._data, self._dataset, self._loader = key, data, dataset, loader

@@ -1,10 +1,12 @@
-"""Build the CUDA kernels of ``csrc/`` with ``nvcc`` and load them with ctypes.
+"""Build the libraries of ``csrc/`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` is compiled on its own for ``sm_90a`` into a shared
-library with a plain C interface, ``build/kernels/lib<name>-<hash>.so`` at the
-root of the checkout, where ``<hash>`` covers the source, the shared header and
-the flags. All sources are compiled at once, one ``nvcc`` each, the first time
-any kernel is asked for; later calls (and later processes) reuse the libraries.
+Each ``csrc/<name>.cu`` kernel is compiled on its own for ``sm_90a`` into a
+shared library with a plain C interface, ``build/kernels/lib<name>-<hash>.so``
+at the root of the checkout, where ``<hash>`` covers the source, the shared
+header and the flags. All kernels are compiled at once, one ``nvcc`` each, the
+first time any kernel is asked for; later calls (and later processes) reuse
+the libraries. :func:`build` is the one builder of ``csrc/``: the image codec
+(``data/codec.py``) builds its libraries with it too, into ``build/codec/``.
 
 Each library exports ``<name>_launch`` and may export more entry points
 (``dfl_decode_bwd_launch`` beside ``dfl_decode_launch``). Every C entry point
@@ -23,60 +25,86 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Mapping, NamedTuple, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+BUILD_DIR = BUILD_ROOT / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("dfl_decode", "nms_suppress", "ldconv_gather", "selective_scan", "soft_nms")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
-build_log: Dict[str, str] = {}  # kernel name -> nvcc's output (registers, spills)
+build_log: Dict[str, str] = {}  # library name -> the compiler's output (registers, spills)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(found).exists():
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit (PATH or /usr/local/cuda)")
+class Job(NamedTuple):
+    """One library of ``csrc/``: ``compiler`` (``nvcc`` or a host compiler)
+    with ``flags`` on ``source``, linked with ``libs``, into ``build_dir``;
+    ``deps`` are further files its hash covers (a shared header)."""
+    source: Path
+    compiler: str
+    flags: Tuple[str, ...]
+    libs: Tuple[str, ...] = ()
+    deps: Tuple[Path, ...] = ()
+    build_dir: Path = BUILD_DIR
+
+    def target(self, name: str) -> Path:
+        h = hashlib.sha256()
+        for part in (self.source, *self.deps):
+            h.update(part.read_bytes())
+        h.update(" ".join([self.compiler, *self.flags, *self.libs]).encode())
+        return self.build_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def compiler(name: str) -> str:
+    """The path of ``nvcc`` (on PATH, else under /usr/local/cuda) or of a host compiler on PATH."""
+    found = shutil.which(name) or ("/usr/local/cuda/bin/nvcc" if name == "nvcc" else "")
+    if not found or not Path(found).exists():
+        raise RuntimeError(f"{name} not found" + (": the CUDA toolkit (PATH or /usr/local/cuda)" if name == "nvcc"
+                                                  else " on PATH"))
     return found
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
-        h.update(part.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+def build(jobs: Mapping[str, Job]) -> Dict[str, Path]:
+    """Compile every job whose library is missing, all at once, one process
+    each; return each job's library. Raises with the compiler's output on
+    failure."""
+    targets = {name: job.target(name) for name, job in jobs.items()}
+    procs = {}
+    try:
+        for name, job in jobs.items():
+            if targets[name].exists():
+                continue
+            cmd = [compiler(job.compiler), *job.flags, "-I", str(CSRC)]
+            job.build_dir.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=job.build_dir)
+            os.close(fd)
+            procs[name] = (subprocess.Popen([*cmd, "-o", tmp, str(job.source), *job.libs], stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True), tmp)
+    finally:
+        failed = {}
+        for name, (proc, tmp) in procs.items():
+            out, _ = proc.communicate()
+            build_log[name] = out
+            if proc.returncode:
+                Path(tmp).unlink(missing_ok=True)
+                failed[name] = out
+            else:
+                os.replace(tmp, targets[name])  # atomic: a concurrent build never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(f"{jobs[n].compiler} failed for {n}:\n{out}" for n, out in failed.items()))
+    return targets
 
 
 def build_all() -> float:
     """Compile every kernel that has no library yet, all in parallel, and load
     them. Returns the seconds spent; raises with nvcc's output on failure."""
     t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {n: _target(n) for n in KERNELS if n not in _libs}
-    procs = {}
-    for name, target in todo.items():
-        if target.exists():
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
-    failed = []
-    for name, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        build_log[name] = out
-        if proc.returncode:
-            Path(tmp).unlink(missing_ok=True)
-            failed.append(f"{name}:\n{out}")
-        else:
-            os.replace(tmp, todo[name])  # atomic: a concurrent build never sees half a file
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    for name, target in todo.items():
+    jobs = {n: Job(CSRC / f"{n}.cu", "nvcc", NVCC_FLAGS, deps=(CSRC / "common.cuh",)) for n in KERNELS
+            if n not in _libs}
+    for name, target in build(jobs).items():
         _libs[name] = ctypes.CDLL(str(target))
     return time.perf_counter() - t0
 

@@ -15,12 +15,15 @@ API::
     GET  /health   -> {"status": "ok", "model" (the model YAML's path as given),
                        "batch", "imgsz", "queue",
                        "batching": {"batches", "items", "max_batch"}}
-    POST /predict  body = the bytes of a 24-bit BMP, or JSON {"image": <base64>};
+    POST /predict  body = the bytes of a JPEG, PNG or 24-bit BMP file, or JSON
+                   {"image": <base64 of them>};
                    -> {"detections": [{"box": [x1, y1, x2, y2], "conf", "cls",
                        "name"}], "speed_ms"}
 
-Bodies are decoded by ``data/image_io.py``; a JPEG or PNG body answers 415,
-naming ROADMAP.md queue 1 item 3.2, until JPEG/PNG decoding is ported.
+Bodies are decoded by ``data/image_io.py`` as ``cv2.imdecode`` decodes them
+in the JAX server, JPEGs for the model's device (nvJPEG on the card, libjpeg
+on the CPU). A WebP or TIFF body answers 415, naming ROADMAP.md queue 1 item
+3.5; a body that is no image, or a broken one, answers 400.
 
 Usage::
 
@@ -43,10 +46,8 @@ from typing import List, Optional
 
 import numpy as np
 
-from experiment_yolo_torch.data.image_io import bmp_decode
+from experiment_yolo_torch.data.codec import decode
 from experiment_yolo_torch.utils import LOGGER
-
-_UNDECODED = {b"\xff\xd8\xff": "JPEG", b"\x89PNG": "PNG"}  # magic bytes -> format the port cannot decode yet
 
 
 class _Batcher:
@@ -203,14 +204,12 @@ class DetectionServer:
         self.predictor([np.zeros((self.imgsz, self.imgsz, 3), np.uint8)])
 
     # -- inference ----------------------------------------------------------
-    @staticmethod
-    def _decode(raw: bytes) -> np.ndarray:
-        """A request body -> (H, W, 3) uint8 BGR: a 24-bit BMP."""
-        for magic, fmt in _UNDECODED.items():
-            if raw.startswith(magic):
-                raise NotImplementedError(f"{fmt} bodies need a {fmt} decoder, which the port does not have yet "
-                                          "(ROADMAP.md queue 1 item 3.2); send a 24-bit BMP")
-        return bmp_decode(raw, "request body")
+    def _decode(self, raw: bytes) -> np.ndarray:
+        """A request body -> (H, W, 3) uint8 BGR: a JPEG, PNG or 24-bit BMP."""
+        if (raw[:4] == b"RIFF" and raw[8:12] == b"WEBP") or raw[:4] in (b"II*\x00", b"MM\x00*"):
+            raise NotImplementedError("WebP and TIFF bodies are not decoded by experiment_yolo_torch yet "
+                                      "(ROADMAP.md queue 1 item 3.5); send a JPEG, PNG or BMP")
+        return decode(raw, "request body", self.yolo.model.device)
 
     def predict_one(self, img: np.ndarray) -> dict:
         res, batch_ms = self.batcher.submit(img).result(timeout=60)

@@ -102,6 +102,31 @@ def test_special_modes(tmp_path, monkeypatch, logged):
     assert "yolo-torch MODE ARGS" in out and "\namp=True\n" in out and "\ntorch " in out
 
 
+def test_predict_reads_a_folder_of_jpeg_and_png(run, tmp_path):
+    """``predict source=<folder>`` of JPEG and PNG files: the facade's
+    detections on the same decoded pixels, logged as the JAX CLI logs them."""
+    import cv2
+
+    from experiment_yolo_torch.data.image_io import imread
+
+    for i, p in enumerate(sorted((run["data"].parent / "images" / "val").iterdir())):
+        cv2.imwrite(str(tmp_path / f"{i}.{'jpg' if i % 2 else 'png'}"), cv2.imread(str(p)))
+    logged = []
+    LOGGER.addFilter(lambda record: logged.append(record.getMessage()) or True)
+    try:
+        results = entrypoint(["predict", f"model={run['best']}", f"source={tmp_path}", "imgsz=64", "conf=0.0001",
+                              "device=cpu"])
+    finally:
+        LOGGER.filters.clear()
+    files = [tmp_path / "0.png", tmp_path / "1.jpg"]
+    want = YOLO(run["best"], device="cpu").predict([imread(f, device="cpu") for f in files], imgsz=64, conf=0.0001)
+    assert [r.path for r in results] == [str(f) for f in files]
+    for a, b in zip(results, want):
+        np.testing.assert_array_equal(a.boxes.data, b.boxes.data)
+    assert any(m.endswith("predict:\x1b[0m 2 images") or m.endswith("predict: 2 images") for m in logged), logged
+    assert [m for m in logged if m.startswith("  ")] == [f"  {r.path}: {len(r.boxes)} detections" for r in results]
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """``train`` from a model YAML with nc=3, then ``val`` and ``predict`` of its best.pt."""
@@ -142,10 +167,17 @@ def test_train_val_predict_on_the_cpu(run):
 
 
 def test_predict_sources_it_cannot_read(run, tmp_path):
-    with pytest.raises(FileNotFoundError, match="queue 1 item 3.3"):
+    """A missing source raises as in the JAX package, a broken JPEG names its
+    file, and a video or a stream names ROADMAP.md queue 1 item 3.5."""
+    with pytest.raises(FileNotFoundError, match="video.mp4 not found"):
         entrypoint(["predict", f"model={run['best']}", f"source={tmp_path / 'video.mp4'}", "device=cpu"])
+    (tmp_path / "video.mp4").write_bytes(bytes(16))
+    for source in (tmp_path / "video.mp4", "rtsp://camera/1", "0"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 3.5"):
+            entrypoint(["predict", f"model={run['best']}", f"source={source}", "device=cpu"])
+    (tmp_path / "video.mp4").unlink()
     (tmp_path / "a.jpg").write_bytes(b"\xff\xd8\xff\xe0")
-    with pytest.raises(NotImplementedError, match="needs a decoder library"):
+    with pytest.raises(ValueError, match="a.jpg: truncated JPEG"):
         entrypoint(["predict", f"model={run['best']}", f"source={tmp_path}", "device=cpu"])
     with pytest.raises(SyntaxError, match="'source=' is required"):
         entrypoint(["predict", f"model={run['best']}", "device=cpu"])

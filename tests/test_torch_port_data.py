@@ -85,27 +85,36 @@ def test_bmp_round_trip_reads_as_opencv_does(tmp_path, shape):
 
 def test_jax_written_sidecar_is_read_as_is(tmp_path):
     """A JPEG dataset that the JAX package decoded into ``cache='disk'``
-    sidecars: the port reads each image from its sidecar, equal to
-    ``cv2.imread`` of the JPEG, and its shape from the sidecar's header."""
+    sidecars: the port with ``cache='disk'`` reads each image from its
+    sidecar, equal to ``cv2.imread`` of the JPEG, and its shape from the
+    JPEG's header."""
     j_make(tmp_path, n_train=3, n_val=1, imgsz=IMGSZ, seed=1)
     jds = JDataset(tmp_path / "images" / "train", imgsz=IMGSZ, augment=False, cache="disk")
     for i in range(len(jds)):
         jds._load_item(i)
-    tds = TDataset(tmp_path / "images" / "train", imgsz=IMGSZ, augment=False)
+    tds = TDataset(tmp_path / "images" / "train", imgsz=IMGSZ, augment=False, cache="disk", device="cpu")
     assert tds.im_files == jds.im_files and all(f.endswith(".jpg") for f in tds.im_files)
     for i, f in enumerate(tds.im_files):
-        np.testing.assert_array_equal(tds._load_item(i)["img"], cv2.imread(f))
+        np.save(image_io.sidecar(f), np.load(image_io.sidecar(f))[::-1])  # the sidecar, not the JPEG, is read
+        np.testing.assert_array_equal(tds._load_item(i)["img"], cv2.imread(f)[::-1])
     np.testing.assert_array_equal(tds.image_shapes(), jds.image_shapes())
 
 
 def test_jpeg_without_a_sidecar_raises(tmp_path):
-    """No silent skip: the dataset scan raises naming the file and the libjpeg route."""
+    """A JPEG without a sidecar is decoded now (libjpeg on the CPU, OpenCV's
+    bytes), in ``image_io`` and in the dataset; a WebP without a sidecar
+    still raises, naming the file and ROADMAP.md queue 1 item 3.5."""
     j_make(tmp_path, n_train=2, n_val=1, imgsz=IMGSZ, seed=2)
     jpg = sorted((tmp_path / "images" / "train").glob("*.jpg"))[0]
-    with pytest.raises(NotImplementedError, match=rf"{jpg.name}.*libjpeg"):
-        image_io.imread(jpg)
-    with pytest.raises(NotImplementedError, match="libjpeg"):
-        TDataset(tmp_path / "images" / "train", imgsz=IMGSZ, augment=False)
+    np.testing.assert_array_equal(image_io.imread(jpg, device="cpu"), cv2.imread(str(jpg)))
+    tds = TDataset(tmp_path / "images" / "train", imgsz=IMGSZ, augment=False, device="cpu")
+    np.testing.assert_array_equal(tds._load_item(0)["img"], cv2.imread(str(jpg)))
+    webp = jpg.with_suffix(".webp")
+    cv2.imwrite(str(webp), cv2.imread(str(jpg)))
+    with pytest.raises(NotImplementedError, match=rf"{webp.name}.*queue 1 item 3.5"):
+        image_io.imread(webp, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 3.5"):
+        TDataset(tmp_path / "images" / "train", imgsz=IMGSZ, augment=False, device="cpu")
 
 
 # -- the synthetic dataset and YOLODataset ------------------------------------------

@@ -171,15 +171,24 @@ def test_unported_methods_raise_naming_their_item(method, item):
 
 
 def test_refusals(tmp_path):
+    """Files and folders are read now (missing ones raise as in the JAX
+    package) and ``stream=True`` yields the results; videos, streams and WebP
+    raise naming ROADMAP.md queue 1 item 3.5."""
     yolo = YOLO(CFG, device="cpu")
     img = np.zeros((32, 32, 3), np.uint8)
     for source in ("images/", tmp_path / "a.bmp", ["a.bmp"]):
-        with pytest.raises(NotImplementedError, match="data/loaders.py.*queue 1 item 3.3"):
+        with pytest.raises(FileNotFoundError, match="not found"):
             yolo.predict(source)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3.3"):
-        yolo.predict([img], stream=True)
+    streamed = yolo.predict([img], stream=True, imgsz=64)
+    assert not isinstance(streamed, list)
+    np.testing.assert_array_equal(next(streamed).boxes.data, yolo.predict([img], imgsz=64)[0].boxes.data)
+    (tmp_path / "clip.mp4").write_bytes(bytes(16))
+    (tmp_path / "a.webp").write_bytes(b"RIFF\x10\x00\x00\x00WEBPVP8 " + bytes(16))
+    for source in (tmp_path / "clip.mp4", "rtsp://camera/1", 0, tmp_path / "a.webp"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 3.5"):
+            yolo.predict(source)
     with pytest.raises(TypeError, match="unsupported source"):
-        yolo.predict(3)
+        yolo.predict(3.5)
     with pytest.raises(NotImplementedError, match="catalogue item 13"):
         YOLO(CFG, device="cpu", task="segment")
     with pytest.raises(NotImplementedError, match="catalogue item 15"):

@@ -4,8 +4,11 @@ One JAX init (PRNGKey(0)) of ``yolov8-LD-P2.yaml`` at its n scale is converted
 with the port's converter and loaded with ``strict=True``; both packages then
 see the same pixels. The Detect class-bias priors are set to 0 before the
 conversion so that scores sit near 0.5 and NMS has real work at conf 0.25.
+The predictors also read a folder of JPEG and PNG files, which the port
+decodes on the CPU to OpenCV's bytes.
 """
 
+import cv2
 import jax
 import numpy as np
 import pytest
@@ -108,6 +111,34 @@ def test_predictor_matches_jax(pair, images, nms_type):
     for t, j in zip(t_res, j_res):
         assert t.orig_shape == j.orig_shape
         _match(t.boxes.data, j.boxes.data)
+
+
+@pytest.mark.parametrize("nms_type", ["soft", "hard"])
+def test_predictor_on_a_folder_matches_jax(pair, images, nms_type, tmp_path):
+    """Both predictors on the same folder (two JPEGs, one of them resized by
+    the letterbox, and a PNG, in two batches of 2): the same paths and shapes,
+    detections within ``_match``; ``stream=True`` yields the list's results."""
+    jm, variables, tm = pair
+    cv2.imwrite(str(tmp_path / "a.jpg"), images[0])
+    cv2.imwrite(str(tmp_path / "b.png"), images[1])
+    cv2.imwrite(str(tmp_path / "c.jpg"), cv2.resize(images[0], (160, 96)))
+    overrides = {"imgsz": IMGSZ, "batch": 2, "nms_type": nms_type}
+    j_res = JaxPredictor(jm, variables, overrides=overrides)(str(tmp_path))
+    t_pred = TorchPredictor(tm, overrides=overrides)
+    t_res = t_pred(str(tmp_path))
+    paths = [str(tmp_path / f) for f in ("a.jpg", "b.png", "c.jpg")]
+    assert [r.path for r in t_res] == [r.path for r in j_res] == paths
+    assert sum(len(r) for r in j_res) > 0, "no detections: the comparison would be empty"
+    for t, j in zip(t_res, j_res):
+        assert t.orig_shape == j.orig_shape
+        np.testing.assert_array_equal(t.orig_img, j.orig_img)
+        _match(t.boxes.data, j.boxes.data)
+    streamed = t_pred(str(tmp_path), stream=True)
+    assert not isinstance(streamed, list)
+    streamed = list(streamed)
+    assert [r.path for r in streamed] == [r.path for r in t_res]
+    for a, b in zip(streamed, t_res):
+        np.testing.assert_array_equal(a.boxes.data, b.boxes.data)
 
 
 def check_config_matches_jax(cfg, strides, n_params, jm, variables):

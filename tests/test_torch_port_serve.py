@@ -1,7 +1,8 @@
 """The port's HTTP server (``experiment_yolo_torch/serve.py``) on the CPU:
 ``/health``, BMP and base64 JSON request bodies, detections equal to
 ``DetectionPredictor``'s on the same images, the coalescing of concurrent
-requests, and the refusal of bodies it cannot decode yet (JPEG, PNG). The
+requests, JPEG and PNG bodies answered as the BMP of the same pixels, and the
+refusal of bodies it cannot decode yet (WebP, TIFF). The
 wire format against the JAX package's server: ``serialize_results`` on the
 same detections, and the answers and ``/health`` of both servers, each
 serving the same weights, to the same requests. LD-P2 n with seeded
@@ -96,19 +97,37 @@ def test_concurrent_requests_are_coalesced_and_counted(served):
     assert stats["max_batch"] <= BATCH
 
 
-@pytest.mark.parametrize("body,fmt", [(b"\xff\xd8\xff\xe0\x00\x10JFIF", "JPEG"), (b"\x89PNG\r\n\x1a\n", "PNG")])
-def test_jpeg_and_png_bodies_answer_415_naming_the_queue_item(served, body, fmt):
-    with pytest.raises(urllib.error.HTTPError) as err:
-        _post(served["url"], body)
-    assert err.value.code == 415
-    msg = json.loads(err.value.read())["error"]
-    assert f"{fmt} bodies need a {fmt} decoder" in msg and "ROADMAP.md queue 1 item 3.2" in msg
+@pytest.mark.parametrize("fmt", ["JPEG", "PNG"])
+def test_jpeg_and_png_bodies_answer_415_naming_the_queue_item(served, fmt, tmp_path):
+    """A JPEG or PNG body, raw or base64, answers what the BMP of the same
+    pixels answers (OpenCV decodes the JPEG for the BMP; the port's libjpeg
+    gives the same bytes); a WebP or TIFF body still answers 415, naming
+    ROADMAP.md queue 1 item 3.5."""
+    import cv2
+
+    for img in served["images"][:2]:
+        body = bytes(cv2.imencode(".jpg" if fmt == "JPEG" else ".png", img)[1])
+        imwrite(tmp_path / "same.bmp", cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR))
+        want = _post(served["url"], (tmp_path / "same.bmp").read_bytes())["detections"]
+        b64 = json.dumps({"image": base64.b64encode(body).decode()}).encode()
+        assert _post(served["url"], body)["detections"] == want
+        assert _post(served["url"], b64, json_body=True)["detections"] == want
+        assert len(want) > 0
+    for body in (b"RIFF\x10\x00\x00\x00WEBPVP8 " + bytes(16), b"II*\x00" + bytes(16)):
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(served["url"], body)
+        assert err.value.code == 415
+        msg = json.loads(err.value.read())["error"]
+        assert "WebP and TIFF bodies" in msg and "ROADMAP.md queue 1 item 3.5" in msg
 
 
 def test_malformed_requests_and_unknown_paths(served):
     with pytest.raises(urllib.error.HTTPError) as err:
         _post(served["url"], b"not an image, but longer than a BMP header would be: " * 2)
     assert err.value.code == 400 and "not a BMP" in json.loads(err.value.read())["error"]
+    with pytest.raises(urllib.error.HTTPError) as err:  # a truncated JPEG: the client's error
+        _post(served["url"], b"\xff\xd8\xff\xe0\x00\x10JFIF")
+    assert err.value.code == 400 and "truncated JPEG" in json.loads(err.value.read())["error"]
     for req in (urllib.request.Request(f"{served['url']}/nope"),
                 urllib.request.Request(f"{served['url']}/health", data=b"x")):
         with pytest.raises(urllib.error.HTTPError) as err:

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from experiment_yolo_torch import YOLO
+from experiment_yolo_torch.data import image_io
 from experiment_yolo_torch.engine import double_inference as tdi
 from experiment_yolo_torch.engine import sliced as tsl
 from experiment_yolo_torch.engine.predictor import DetectionPredictor
@@ -206,16 +207,25 @@ def test_facade_double_predict(tiny_yolo, image):
     assert not np.array_equal(got[0].boxes.data, first[0].boxes.data)
 
 
-def test_facade_sliced_predict(tiny_yolo, image):
+def test_facade_sliced_predict(tiny_yolo, image, tmp_path):
     """``YOLO.sliced_predict`` is ``SlicedPredictor`` with the facade's
-    overrides; ``stream=True`` yields the same results; paths raise."""
+    overrides; ``stream=True`` yields the same results; a file reads as its
+    pixels (for ``double_predict`` too); videos and streams raise."""
     got = tiny_yolo.sliced_predict(image, slice=64, overlap=0.25, imgsz=64)
     want = tsl.SlicedPredictor(tiny_yolo.model, {"imgsz": 64}, slice=64, overlap=0.25)([image])
     assert len(got) == 1 and len(got[0]) > 0
     np.testing.assert_array_equal(got[0].boxes.data, want[0].boxes.data)
     streamed = list(tiny_yolo.sliced_predict([image], stream=True, slice=64, overlap=0.25, imgsz=64))
     np.testing.assert_array_equal(streamed[0].boxes.data, want[0].boxes.data)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3.3"):
-        tiny_yolo.sliced_predict("images/")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3.3"):
-        tiny_yolo.double_predict(["a.jpg"])
+    png = tmp_path / "a.png"
+    image_io.imwrite(png, image)
+    from_file = tiny_yolo.sliced_predict(str(png), slice=64, overlap=0.25, imgsz=64)
+    assert from_file[0].path == str(png)
+    np.testing.assert_array_equal(from_file[0].boxes.data, want[0].boxes.data)
+    np.testing.assert_array_equal(tiny_yolo.double_predict([png], imgsz=64)[0].boxes.data,
+                                  tiny_yolo.double_predict([image], imgsz=64)[0].boxes.data)
+    (tmp_path / "clip.mp4").write_bytes(bytes(16))
+    with pytest.raises(NotImplementedError, match="queue 1 item 3.5"):
+        tiny_yolo.sliced_predict(tmp_path / "clip.mp4")
+    with pytest.raises(NotImplementedError, match="queue 1 item 3.5"):
+        tiny_yolo.double_predict("rtsp://camera/1")
