@@ -306,12 +306,34 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     ``YOLO("yolov8-LD-P2.yaml", nc=3).train()`` for an epoch on a JPEG copy
     of phase 12's dataset written by the port's encoder (phase 15's launches),
     img/s; the phase's seconds;
-30. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
+30. ``C2f_LDConv`` and the segmentation family (``seg_phase``): LD-P2 with
+    its ``C2f`` rows as ``C2f_LDConv`` at 320, batch 2 (28 LDConv layers, 22
+    of them at stride 1, 18 in ``BottleneckLD``): a forward, an f32 and a bf16
+    step with exact launches, K3 and its backward at stride 1 against their
+    plain versions in f32 and bf16 (forward bit-equal, backward within
+    BWD_RTOL, bf16 ``dx`` within one spacing; on the step's, random,
+    contention and seam offsets) with device ms beside each bound, and one
+    f32 step against the CPU's (phase 11's gates and picks); then
+    ``yolov8-seg.yaml`` n (nc 80, seeded weights) served for 20 batches of 8
+    at 640, soft then hard (1 K1 and 1 K5 or 1 K2 a batch, a bool mask a
+    detection in its image), its maps within 1e-3 of the CPU's on two images
+    and their masks equal to the CPU's except pixels within 1e-5 of 0.5
+    (counted); ``SegmentationValidator`` on a synthetic seg dataset (64 +
+    16 images at 640, nc 2; hard multi-label NMS, 1 K1 and 1 K2 a batch), K2's
+    keep masks equal to plain and the stats equal to those through the plain
+    NMS; one f32 step at 320 against the CPU (losses 1e-4, gradients 1e-3,
+    the mask term's top 64 held, ``MaskPicks``) and three bf16 steps within
+    1.5 times the CPU's bf16 distance; one ``YOLO("yolov8-seg.yaml",
+    nc=2).train()`` epoch with per-epoch mask validation; a seg
+    ``DetectionServer`` on its ``last.pt`` answering 4 requests with
+    ``mask_rle`` equal to the facade's masks; the phase's seconds;
+31. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
     ...}``, a ``{"served_vss": ...}``, a ``{"validated": ...}``, a
     ``{"trained_loop": ...}``, a ``{"trained_bf16": ...}``, a ``{"facade":
     ..., "cli": ..., "server": ...}``, an ``{"asf_p2": ...}``, a
     ``{"two_stage": ...}``, a ``{"vss_trained": ...}``, a ``{"recipes":
-    ...}``, an ``{"other_configs": ...}`` and an ``{"image_input": ...}`` line, then the
+    ...}``, an ``{"other_configs": ...}``, an ``{"image_input": ...}`` and a
+    ``{"segmentation_and_c2f_ldconv": ...}`` line, then the
     ``{"kernels": [...]}`` line for the eight kernels and the four bf16
     forms (launches summed over every main path above), the card's name and
     power limit, and last ``{"ok": true, "device": {...}}``.
@@ -435,14 +457,15 @@ def device_ms(fn, kernel: str, per_call: int, runs: int = 5, span: str | None = 
     span = kernel if span is None else span
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             torch.cuda._sleep(100_000)
             fn()
             torch.cuda.synchronize()
             prof.step()
-            torch.cuda._sleep(100_000)
+            # late in the process a kept cycle has lost its first few kernels: each retry leads with a longer spin
+            torch.cuda._sleep(100_000 * 10 ** min(attempt, 2))
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
@@ -1345,6 +1368,54 @@ class CardPicks:
                 "cpu_sppf_least_gap_of_top_two_in_a_window": min(self.pool_gaps, default=None)}
 
 
+class MaskPicks:
+    """The mask loss's top-64 foreground anchors of a segment step
+    (``utils/task_losses.py:top_foreground``), taken on the card and held on
+    the CPU: tied target scores are ordered alike on both sides (a stable
+    sort), but near-equal ones may swap across the cut. Under :meth:`on`
+    with ``"cuda"`` the step's picks are recorded; under ``"cpu"`` the CPU's
+    own picks are compared with them, and where they differ the CPU step
+    takes the card's. The least gap between the 64th and 65th weights of an
+    image on the CPU is kept."""
+
+    def __init__(self):
+        self.card = self.equal = self.least_gap = None
+
+    @contextlib.contextmanager
+    def on(self, dev: str):
+        import torch
+
+        import experiment_yolo_torch.engine.trainer as trainer_module
+
+        loss = trainer_module.segmentation_loss
+
+        def card_loss(*args, **kwargs):
+            out = loss(*args, **kwargs)
+            self.card = out[4].detach().cpu()
+            return out
+
+        def cpu_loss(*args, **kwargs):
+            out = loss(*args, **kwargs)
+            res = out[2]
+            w = torch.where(res.fg_mask, res.target_scores.sum(-1), -1.0).float()
+            top = torch.sort(w, dim=1, descending=True, stable=True)[0]
+            self.least_gap = (top[:, 63] - top[:, 64]).min().item() if top.shape[1] > 64 else None
+            self.equal = torch.equal(out[4].cpu(), self.card)
+            return out if self.equal else loss(*args, picks=self.card, **kwargs)
+
+        trainer_module.segmentation_loss = card_loss if dev == "cuda" else cpu_loss
+        try:
+            yield self
+        finally:
+            trainer_module.segmentation_loss = loss
+
+    def report(self):
+        if self.card is None:
+            return {}
+        return {"mask_top64_equal": self.equal, "mask_top64_cpu_took_card_picks": not self.equal,
+                "cpu_mask_least_gap_at_the_cut": self.least_gap}
+
+
 def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_scalseq=1, n_zoomcat=0, n_sppf=1,
                       imgsz=CMP_IMGSZ):
     """One step of ``cfg`` (with ``n_ldconv`` LDConv, ``n_scalseq`` ScalSeq,
@@ -1377,23 +1448,27 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
     between the CPU's two largest scales and two largest values of a window,
     the least magnitude of the CPU's ScalSeq values at the kink, and the
     tensor of the largest difference of gradients, momentum buffers and
-    updates."""
+    updates. A segment ``cfg`` (``batch`` with ``masks``) adds the mask term:
+    its loss component is held too, and the CPU's top-64 foreground anchors
+    are held equal to the card's (:class:`MaskPicks`; where they differ the
+    CPU takes the card's, and the least gap at the cut is reported)."""
     import numpy as np
 
-    from experiment_yolo_torch import DetectionModel
     from experiment_yolo_torch.engine.trainer import DetectionTrainer
+    from experiment_yolo_torch.nn.tasks import guess_model_task, task_model
 
-    picks = CardPicks()
+    picks, mask_picks = CardPicks(), MaskPicks()
+    task = guess_model_task(cfg)
     out = {}
     for dev in ("cuda", "cpu"):
-        model = DetectionModel(cfg, device=dev)
+        model = task_model(task)(cfg, device=dev)
         model.load_state_dict(state_dict, strict=True)
         before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
         trainer = DetectionTrainer(model, {"amp": False, "batch": CMP_BATCH, "imgsz": imgsz, "nbs": CMP_BATCH,
                                            "warmup_epochs": 0.0, **(recipe or {})})
         opt = trainer.state.optimizer
         lrs = opt.schedules()
-        with picks.on(dev, n_sppf):
+        with picks.on(dev, n_sppf), mask_picks.on(dev):
             t = time.perf_counter()
             comps = trainer.train_step(batch)
             step_s = time.perf_counter() - t
@@ -1412,8 +1487,10 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
     gpu, cpu = out["cuda"], out["cpu"]
     check(gpu["comps"]["fg"] == cpu["comps"]["fg"], f"foreground count {gpu['comps']['fg']} on the card, "
                                                       f"{cpu['comps']['fg']} on the CPU")
-    loss_rel = max(abs(gpu["comps"][k] - cpu["comps"][k]) / abs(cpu["comps"][k]) for k in ("box", "cls", "dfl"))
+    keys = ("box", "cls", "dfl", "seg") if task == "segment" else ("box", "cls", "dfl")
+    loss_rel = max(abs(gpu["comps"][k] - cpu["comps"][k]) / abs(cpu["comps"][k]) for k in keys)
     check(loss_rel <= 1e-4, f"loss components differ from the CPU's by {loss_rel} relative > 1e-4")
+    check((mask_picks.card is not None) == (task == "segment"), f"the mask term's picks: {mask_picks.report()}")
 
     def worst(a, b, slack=None):
         """Largest relative L2 difference over tensors, and the tensors that miss
@@ -1448,10 +1525,10 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
             "iou_mean_card": gpu["iou_mean"], "iou_mean_cpu": cpu["iou_mean"], "iou_mean_rel_err": iou_rel,
             "loss_max_rel_err": loss_rel, "grad_max_rel_l2": grad_rel, "momentum_max_rel_l2": mom_rel,
             "update_max_rel_l2": upd_rel, "worst_tensor_grad_momentum_update": worst_of,
-            **picks.report(),
+            **picks.report(), **mask_picks.report(),
             "step_s_card": gpu["step_s"], "step_s_cpu": cpu["step_s"],
-            "loss_card": {k: gpu["comps"][k] for k in ("box", "cls", "dfl")},
-            "loss_cpu": {k: cpu["comps"][k] for k in ("box", "cls", "dfl")}}
+            "loss_card": {k: gpu["comps"][k] for k in keys},
+            "loss_cpu": {k: cpu["comps"][k] for k in keys}}
 
 
 def loader_ms(dataset, mosaic):
@@ -1928,10 +2005,10 @@ def compare_serving_cpu(cfg, model, x):
             "cpu_path_max_count_gap": int(np.abs(gn - cn).max()), "counts": gn.tolist()}
 
 
-def capture_bf16_inputs(model, x):
+def capture_bf16_inputs(model, x, n_ldconv=10):
     """One bf16 forward (no gradient): the Detect maps (K1's bf16 inputs) and
-    each LDConv's (bf16 source, f32 offsets, stride) as the model hands them
-    to K3."""
+    each of the ``n_ldconv`` LDConv layers' (bf16 source, f32 offsets,
+    stride) as the model hands them to K3."""
     import torch
 
     import experiment_yolo_torch.nn.modules as modules
@@ -1948,10 +2025,10 @@ def capture_bf16_inputs(model, x):
             feats = model(x)
     finally:
         modules.ldconv_gather = gather
-    check(all(f.dtype == torch.bfloat16 for f in feats) and len(ld) == 10
+    check(all(f.dtype == torch.bfloat16 for f in feats) and len(ld) == n_ldconv
           and all(s.dtype == torch.bfloat16 and o.dtype == torch.float32 for s, o, _ in ld),
           f"the bf16 forward handed K1 {[f.dtype for f in feats]} maps and K3 {len(ld)} sources "
-          f"{sorted({str(s.dtype) for s, _, _ in ld})}: expected bf16 maps, 10 bf16 sources, f32 offsets")
+          f"{sorted({str(s.dtype) for s, _, _ in ld})}: expected bf16 maps, {n_ldconv} bf16 sources, f32 offsets")
     return feats, ld
 
 
@@ -2196,15 +2273,16 @@ def compare_train_cpu_bf16(state_dict, batches, cfg=CFG, imgsz=CMP_IMGSZ):
     held within BF16_LOSS_RTOL of the f32 steps, the ratio reported."""
     import torch
 
-    from experiment_yolo_torch import DetectionModel
     from experiment_yolo_torch.engine.trainer import DetectionTrainer
+    from experiment_yolo_torch.nn.tasks import guess_model_task, task_model
 
     out = {}
     t = time.perf_counter()
+    model_class = task_model(guess_model_task(cfg))
     for label, dev, amp in (("cpu f32", "cpu", False), ("cpu bf16", "cpu", True), ("card bf16", "cuda", True)):
         steps = []
         for batch in batches:
-            model = DetectionModel(cfg, device=dev)
+            model = model_class(cfg, device=dev)
             model.load_state_dict(state_dict, strict=True)
             before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
             trainer = DetectionTrainer(model, {"amp": amp, "batch": CMP_BATCH, "imgsz": imgsz, "nbs": CMP_BATCH,
@@ -2212,7 +2290,7 @@ def compare_train_cpu_bf16(state_dict, batches, cfg=CFG, imgsz=CMP_IMGSZ):
             opt = trainer.state.optimizer
             comps = trainer.train_step(batch)
             check(opt.updates == 1, f"{label}: the compared step fired {opt.updates} updates, expected 1")
-            steps.append(dict(comps=torch.tensor([comps[k].item() for k in ("box", "cls", "dfl")]),
+            steps.append(dict(comps=torch.tensor([comps[k].item() for k in trainer.loss_keys]),
                               fg=comps["fg"].item(), dtype=str(model.dtype),
                               momentum=torch.cat([opt.state[p]["momentum_buffer"].cpu().flatten()
                                                   for p in model.parameters()]),
@@ -2225,7 +2303,7 @@ def compare_train_cpu_bf16(state_dict, batches, cfg=CFG, imgsz=CMP_IMGSZ):
         return float((a - b).norm() / b.norm())
 
     ref, cpu, card = out["cpu f32"], out["cpu bf16"], out["card bf16"]
-    result = {"cfg": cfg, "imgsz": imgsz, "batch": CMP_BATCH, "steps": len(batches), "seconds": time.perf_counter() - t,
+    result = {"cfg": cfg if isinstance(cfg, str) else cfg.get("yaml_file"), "imgsz": imgsz, "batch": CMP_BATCH, "steps": len(batches), "seconds": time.perf_counter() - t,
               "fg": {k: v["fg"] for k, v in out.items()}, "loss_cpu_f32": ref["comps"].tolist(),
               "loss_cpu_bf16": cpu["comps"].tolist(), "loss_card_bf16": card["comps"].tolist()}
     for what in ("comps", "momentum", "updates"):
@@ -2531,8 +2609,9 @@ def asf_served(asf, images, x, counters, card):
     return {"k1_forward": k1, "anchors_at_imgsz": anchors, "served": served, "cpu_comparison": compare}, launches
 
 
-def facade_epoch(cfg, want_launches, data: Path, root: Path, counters, card, optimizer="SGD", **train_args):
-    """``YOLO(cfg, nc=LOOP_NC).train()`` as the reference fork's own
+def facade_epoch(cfg, want_launches, data: Path, root: Path, counters, card, optimizer="SGD", nc=LOOP_NC,
+                 **train_args):
+    """``YOLO(cfg, nc=nc).train()`` as the reference fork's own
     ``train.py`` calls it (``optimizer='SGD'``, no ``amp`` key: bf16) for one
     epoch on phase 12's dataset, counters at 0 just before and read just
     after: the AMP check passed, the launches ``want_launches(steps,
@@ -2544,7 +2623,7 @@ def facade_epoch(cfg, want_launches, data: Path, root: Path, counters, card, opt
 
     from experiment_yolo_torch import YOLO
 
-    yolo = YOLO(cfg, nc=LOOP_NC, seed=SEED)
+    yolo = YOLO(cfg, nc=nc, seed=SEED)
     losses = []
     yolo.add_callback("on_fit_epoch_end", lambda trainer: losses.append(dict(trainer.loss_items)))
     for fn in counters.values():
@@ -2566,7 +2645,7 @@ def facade_epoch(cfg, want_launches, data: Path, root: Path, counters, card, opt
           f"{trainer.amp_check}")
     check(all(math.isfinite(v) for row in losses for v in row.values()), f"a {cfg} epoch's loss: {losses}")
     opt = trainer.state.optimizer
-    return {"cfg": cfg, "nc": LOOP_NC, "imgsz": IMGSZ, "batch": BATCH, "epochs": metrics["epochs_run"],
+    return {"cfg": cfg, "nc": nc, "imgsz": IMGSZ, "batch": BATCH, "epochs": metrics["epochs_run"],
             "steps": steps, "train_dtype": str(trainer.dtype), "amp_check": trainer.amp_check, "train_s": train_s,
             "loop_img_per_s": steps * BATCH / train_s, "losses": losses,
             "optimizer": {"arg": trainer.args.optimizer, "built": type(opt).__name__,
@@ -3738,6 +3817,546 @@ def image_input_phase(root: Path, data: Path, bmp_epoch_img_per_s: float, counte
     return record, launches
 
 
+# Phase 30: C2f_LDConv (LD-P2 with its C2f rows as C2f_LDConv, K3 and its backward at stride 1) and the
+# segmentation family (yolov8-seg.yaml: Segment, Proto, the mask loss, the mask validator, masks in predict and the
+# server)
+SEG_CFG, SEG_NC, SEG_DATA_NC = "yolov8-seg.yaml", 80, 2  # the seg model served (COCO's classes) and trained (poly3/5)
+SEG_CMP_IMAGES, SEG_CMP_MASKS = 2, 64  # the served CPU comparison: images of the first batch, masks an image
+MASK_HALF_BAND = 1e-5  # mask pixels whose probability lies this close to 0.5 may threshold either way on each side
+
+
+def seg_cfg():
+    """``yolov8-seg.yaml`` at n scale, as a dict."""
+    from experiment_yolo_torch.nn.tasks import yaml_model_load
+
+    return yaml_model_load(SEG_CFG)
+
+
+def c2f_ldconv_cfg():
+    """``yolov8-LD-P2.yaml`` with its ``C2f`` rows renamed ``C2f_LDConv`` (no YAML of the repo uses the block)."""
+    from experiment_yolo_torch.nn.tasks import yaml_model_load
+
+    d = yaml_model_load(CFG)
+    return {**d, **{sec: [[f, n, "C2f_LDConv" if m == "C2f" else m, a] for f, n, m, a in d[sec]]
+                    for sec in ("backbone", "head")}}
+
+
+def k3_stride1_rows(ld, ld_train, ld16, ld_train16):
+    """K3 and K3's backward at stride 1 (the C2f_LDConv model's inner layers),
+    f32 and bf16, against their plain versions: the forward bit-equal on the
+    main path's and on random offsets, the f32 backward within BWD_RTOL of
+    each output's largest plain value on the step's, random, contention and
+    seam offsets, the bf16 ``dx`` within one bf16 spacing and ``doff``
+    within BWD_RTOL; device ms of every stride-1 launch of one forward or
+    step beside its bytes bound, the plain versions' and ``F.grid_sample``'s
+    times (forward and backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from experiment_yolo_torch.ops.kernels.ldconv_gather import (ldconv_gather_bwd, ldconv_gather_bwd_plain,
+                                                                 ldconv_gather_fwd, ldconv_gather_plain)
+    from experiment_yolo_torch.utils.seeded import contention_offsets, seam_offsets
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    rand = [(x, _random_offsets_like(o, gen), s) for x, o, s in ld]
+    fwd = {}
+    for kind, layers in (("main", ld), ("random", rand), ("bf16 main", ld16),
+                         ("bf16 random", [(x, _random_offsets_like(o, gen), s) for x, o, s in ld16])):
+        outs = [(ldconv_gather_fwd(x, o, s), ldconv_gather_plain(x, o, s)) for x, o, s in layers]
+        fwd[kind] = max((a.float() - b.float()).abs().max().item() for a, b in outs)
+        check(all(torch.equal(a, b) for a, b in outs),
+              f"K3 at stride 1 is not bit-equal to its plain version on {kind} offsets: {fwd[kind]}")
+    main = [(x, o, dy, s) for x, o, s, dy in ld_train]
+    rnd = [(x, _random_offsets_like(o, gen), torch.randn(dy.shape, generator=gen).to(dy.device), s)
+           for x, o, dy, s in main]
+    bwd = {}
+    for kind, layers in (("main", main), ("random", rnd),
+                         ("contention", [(x, contention_offsets(x, o, s, gen), dy, s) for x, o, dy, s in rnd]),
+                         ("seam", [(x, seam_offsets(x, o, s), dy, s) for x, o, dy, s in rnd])):
+        got = [t for x, o, dy, s in layers for t in ldconv_gather_bwd(x, o, dy, s)]
+        want = [t for x, o, dy, s in layers for t in ldconv_gather_bwd_plain(x, o, dy, s)]
+        bwd[kind] = _rel_err(got, want)
+        check(bwd[kind][1] <= BWD_RTOL, f"K3's backward at stride 1 disagrees with its plain version on {kind} "
+                                        f"offsets: {bwd[kind][0]} ({bwd[kind][1]} relative)")
+    main16 = [(x, o, dy, s) for x, o, s, dy in ld_train16]
+    got = [ldconv_gather_bwd(x, o, dy, s) for x, o, dy, s in main16]
+    want = [ldconv_gather_bwd_plain(x, o, dy, s) for x, o, dy, s in main16]
+    check(all(g[0].dtype == torch.bfloat16 for g in got), "K3's bf16 backward at stride 1: dx not bf16")
+    dx_err, dx_sp, ok = spacing_err([g[0] for g in got], [w[0] for w in want])
+    check(ok, f"K3's bf16 backward at stride 1: dx beyond one bf16 spacing of plain ({dx_err}, {dx_sp} spacings)")
+    doff_err, doff_rel = _rel_err([g[1] for g in got], [w[1] for w in want])
+    check(doff_rel <= BWD_RTOL, f"K3's bf16 backward at stride 1: doff {doff_err} ({doff_rel} relative)")
+
+    def fwd_cost(layers, el):
+        nb = ops = 0
+        for x, o, s in layers:
+            b, n2, h, w = o.shape
+            out_n = b * h * w * n2 // 2 * x.shape[1]
+            nb += x.numel() * el + o.numel() * 4 + out_n * el
+            ops += out_n * 9 + b * h * w * (n2 // 2) * 24  # as phase 5 counts K3's
+        return bound(nb, ops)
+
+    def bwd_cost(layers, el):
+        nb = ops = 0
+        for x, o, dy, s in layers:
+            b, n2, h, w = o.shape
+            nb += 2 * x.numel() * el + 2 * o.numel() * 4 + dy.numel() * el
+            ops += dy.numel() * 23 + b * h * w * (n2 // 2) * 30  # as phase 9 counts K3's backward
+        return bound(nb, ops)
+
+    grids = grid_sample_grids(ld)
+
+    def library_fwd():
+        return [F.grid_sample(x, g, mode="bilinear", padding_mode="border", align_corners=True)
+                for (x, _, _), g in zip(ld, grids)]
+
+    xs = [x.clone().requires_grad_() for x, _, _, _ in main]
+    gs = [g.clone().requires_grad_() for g in grid_sample_grids([(x, o, s) for x, o, _, s in main])]
+    outs = [F.grid_sample(x, g, mode="bilinear", padding_mode="border", align_corners=True) for x, g in zip(xs, gs)]
+    dys = [dy.reshape(dy.shape[0], dy.shape[1], o.shape[1] // 2, -1).permute(0, 3, 1, 2).contiguous()
+           for _, o, dy, _ in main]
+    rows = {}
+    for label, layers, el, kernel in (("f32", ld, 4, "ldconv_gather_kernel"),
+                                      ("bf16", ld16, 2, "ldconv_gather_bf16_kernel")):
+        b_ms, b_by = fwd_cost(layers, el)
+        rows[f"forward {label}"] = {
+            "layers": len(layers), "shapes": sorted({f"{tuple(x.shape)}" for x, _, _ in layers}),
+            "max_abs_err": max(v for k, v in fwd.items() if k.startswith("bf16") == (label == "bf16")),
+            "ms": cuda_ms(lambda: [ldconv_gather_fwd(x, o, s) for x, o, s in layers]),
+            "device_ms": device_ms(lambda: [ldconv_gather_fwd(x, o, s) for x, o, s in layers], kernel, len(layers)),
+            "plain_ms": cuda_ms(lambda: [ldconv_gather_plain(x, o, s) for x, o, s in layers], runs=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by}
+    rows["forward f32"]["library_ms"] = cuda_ms(library_fwd)
+    rows["forward f32"]["library_device_ms"] = device_ms(library_fwd, "grid_sampler", len(ld))
+    rows["forward bf16"]["library_ms"] = None
+    for label, layers, el, kernel in (("f32", main, 4, "ldconv_gather_bwd_kernel"),
+                                      ("bf16", main16, 2, "ldconv_gather_bwd_kernel<__nv_bfloat16")):
+        b_ms, b_by = bwd_cost(layers, el)
+        rows[f"backward {label}"] = {
+            "layers": len(layers),
+            "max_abs_err": max(e for e, _ in bwd.values()) if label == "f32" else dx_err,
+            "rel_err_or_bf16_spacings": max(r for _, r in bwd.values()) if label == "f32" else dx_sp,
+            "ms": cuda_ms(lambda: [ldconv_gather_bwd(x, o, dy, s) for x, o, dy, s in layers]),
+            "device_ms": device_ms(lambda: [ldconv_gather_bwd(x, o, dy, s) for x, o, dy, s in layers], kernel,
+                                   len(layers), span=""),
+            "plain_ms": cuda_ms(lambda: [ldconv_gather_bwd_plain(x, o, dy, s) for x, o, dy, s in layers], runs=3,
+                                warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    rows["backward f32"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(outs, xs + gs, dys, retain_graph=True))
+    return {"forward_max_abs_err": fwd, "backward_errors": {k: {"max_abs_err": e, "rel_err": r}
+                                                            for k, (e, r) in bwd.items()},
+            "bf16_backward": {"dx_max_abs_err": dx_err, "dx_max_bf16_spacings": dx_sp, "doff_max_abs_err": doff_err,
+                              "doff_rel_err": doff_rel}, "rows": rows}
+
+
+def c2f_ldconv_part(images, counters, card):
+    """The C2f_LDConv model (:func:`c2f_ldconv_cfg`, nc 6, seeded weights) at
+    CMP_IMGSZ, batch CMP_BATCH: a forward and an f32 and a bf16 training step
+    with exact launch counts (28 K3 forwards, 22 of them at stride 1, 18 in
+    the bottlenecks; 28 K3 backwards a step), K3 and its backward at stride 1 against their plain
+    versions (:func:`k3_stride1_rows`), and one f32 step against the CPU's
+    with phase 11's gates (the CPU takes the card's LDConv offsets, ScalSeq's
+    and SPPF's picks). Returns the record and the launches."""
+    import torch
+
+    from experiment_yolo_torch.engine.trainer import DetectionTrainer
+    from experiment_yolo_torch.nn.modules import BottleneckLD, LDConv
+    from experiment_yolo_torch.utils.seeded import letterboxed, model_input, seeded_batch, seeded_model
+
+    t0 = time.perf_counter()
+    cfg = c2f_ldconv_cfg()
+    model = seeded_model(cfg, SEED)
+    n_ld = sum(isinstance(m, LDConv) for m in model.modules())
+    n_inner = 2 * sum(isinstance(m, BottleneckLD) for m in model.modules())
+    n_one = sum(isinstance(m, LDConv) and m.stride == 1 for m in model.modules())
+    check((n_ld, n_inner) == (28, 18), f"the C2f_LDConv model has {n_ld} LDConv layers, {n_inner} in bottlenecks")
+    state = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    x = model_input(letterboxed(images[:CMP_BATCH], CMP_IMGSZ), "cuda")
+    batch = seeded_batch(CMP_BATCH, CMP_IMGSZ, SEED + 40, nc=model.nc)
+    launches = dict.fromkeys(counters, 0)
+
+    def counted(fn, want, what):
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        run = {name: f.launches for name, f in counters.items()}
+        full = dict.fromkeys(counters, 0)
+        full.update(want)
+        check(run == full, f"the C2f_LDConv {what} launched {run}, expected {full}")
+        for name in launches:
+            launches[name] += run[name]
+        return out
+
+    _, ld, _ = counted(lambda: capture_inputs(model, x), {"dfl_decode": 1, "ldconv_gather": n_ld}, "forward")
+    trainer = DetectionTrainer(model, {"amp": False, "batch": CMP_BATCH, "imgsz": CMP_IMGSZ})
+    ld_train, _ = counted(lambda: capture_train_inputs(trainer, batch, n_ldconv=n_ld),
+                          {"dfl_decode": 1, "dfl_decode_bwd": 3, "ldconv_gather": n_ld, "ldconv_gather_bwd": n_ld},
+                          "f32 step")
+    del trainer, model
+    model16 = seeded_model(cfg, SEED)
+    trainer16 = DetectionTrainer(model16, {"batch": CMP_BATCH, "imgsz": CMP_IMGSZ})  # amp: bf16
+    model16.eval()
+    _, ld16 = capture_bf16_inputs(model16, x, n_ld)
+    model16.train()
+    ld_train16, _ = counted(lambda: capture_train_inputs(trainer16, batch, n_ldconv=n_ld),
+                            {"dfl_decode_bf16": 1, "dfl_decode_bwd_bf16": 3, "ldconv_gather_bf16": n_ld,
+                             "ldconv_gather_bwd_bf16": n_ld}, "bf16 step")
+    del trainer16, model16
+    one = [(x.contiguous(), o, s) for x, o, s in ld if s == 1]  # a bottleneck's source is a view of cv1's output
+    check(len(one) == n_one >= n_inner, f"{len(one)} stride-1 LDConv calls, expected {n_one} (>= {n_inner})")
+    t1 = time.perf_counter()
+    k3 = k3_stride1_rows(one, [e for e in ld_train if e[2] == 1], [e for e in ld16 if e[2] == 1],
+                         [e for e in ld_train16 if e[2] == 1])
+    del ld, ld_train, ld16, ld_train16
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    cmp = compare_train_cpu(state, batch, cfg=cfg, n_ldconv=n_ld, n_scalseq=1, n_sppf=1)
+    record = {"cfg": "yolov8-LD-P2.yaml with C2f_LDConv", "imgsz": CMP_IMGSZ, "batch": CMP_BATCH,
+              "ldconv_layers": n_ld, "stride1_layers": len(one), "k3_stride1": k3, "cpu_comparison": cmp,
+              "launches": launches, "seconds": time.perf_counter() - t0,
+              "part_seconds": {"model and captures": t1 - t0, "k3 rows": t2 - t1,
+                               "cpu comparison": time.perf_counter() - t2}, "card": card}
+    log(f"C2f_LDConv: {len(one)} stride-1 K3 layers: forward f32 device {k3['rows']['forward f32']['device_ms']} ms "
+        f"(bound {k3['rows']['forward f32']['bound_ms']:.4f}), backward f32 device "
+        f"{k3['rows']['backward f32']['device_ms']} ms (bound {k3['rows']['backward f32']['bound_ms']:.4f}); CPU "
+        f"step {json.dumps({k: cmp[k] for k in ('loss_max_rel_err', 'grad_max_rel_l2', 'update_max_rel_l2')})}, "
+        f"{card}")
+    return record, launches
+
+
+def seeded_seg_batch(batch: int, imgsz: int, seed: int, nc: int):
+    """:func:`~experiment_yolo_torch.utils.seeded.seeded_batch` with the
+    segment task's ``masks``: each box's rectangle drawn into the
+    overlap-index image at 1/4 resolution, largest first, and the labels in
+    that order, as ``format_sample`` orders them."""
+    import numpy as np
+
+    from experiment_yolo_torch.data.polygons import polygons2mask_overlap
+    from experiment_yolo_torch.utils.seeded import seeded_batch
+
+    out = seeded_batch(batch, imgsz, seed, nc=nc)
+    masks = []
+    for i in range(batch):
+        n = int(out["mask"][i].sum())
+        cx, cy, w, h = (out["bboxes"][i, :n] * imgsz).T
+        rects = [np.asarray([[x0, y0], [x1, y0], [x1, y1], [x0, y1]], np.float32)
+                 for x0, y0, x1, y1 in zip(cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2)]
+        m, order = polygons2mask_overlap(rects, (imgsz, imgsz), 4)
+        for k in ("bboxes", "cls"):
+            out[k][i, :n] = out[k][i, :n][order]
+        masks.append(m)
+    return {**out, "masks": np.stack(masks)}
+
+
+def seg_compare_cpu(model, pred, images):
+    """The first SEG_CMP_IMAGES images of a served batch through the card
+    and through the same weights on the CPU (plain versions): raw detect,
+    coefficient and proto maps within 1e-3; then on the card's detections
+    (hard NMS, its kept anchors) the first SEG_CMP_MASKS masks of each image
+    in the original image, from the card's and from the CPU's coefficients and
+    protos: the booleans equal except pixels whose probability lies within
+    MASK_HALF_BAND of 0.5 on either side (counted), and the card's equal to
+    its predictor's ``Results.masks``."""
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch.data.augment import letterbox
+    from experiment_yolo_torch.engine.predictor import masks_to_orig_probs
+    from experiment_yolo_torch.nn.heads_extra import assemble_masks
+    from experiment_yolo_torch.nn.tasks import SegmentationModel
+    from experiment_yolo_torch.utils.seeded import letterboxed, model_input
+
+    imgs = images[:SEG_CMP_IMAGES]
+    batch = letterboxed(imgs, IMGSZ)
+    x = model_input(batch, "cuda")
+    cpu = SegmentationModel(model.yaml, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    with torch.no_grad():
+        det_c, coef_c, proto_c = cpu(x.cpu())
+        det_g, coef_g, proto_g = model(x)
+    map_err = max((a.cpu() - b).abs().max().item() for a, b in zip([*det_g, *coef_g, proto_g],
+                                                                     [*det_c, *coef_c, proto_c]))
+    check(map_err <= 1e-3, f"seg raw maps (detect, coefficients, protos) differ from the CPU's by {map_err} > 1e-3")
+    coeffs_c, protos_c = torch.cat([c.flatten(2) for c in coef_c], 2).transpose(1, 2), proto_c
+    padded = np.zeros((pred.batch, IMGSZ, IMGSZ, 3), np.uint8)  # the predictor's batch: the images, then black
+    padded[:len(imgs)] = batch
+    with torch.no_grad():
+        boxes, scores, coeffs_g, protos_g = model.predict(model_input(padded, "cuda"))
+        _, counts, idx = pred._nms(boxes, scores, return_idx=True)
+    results = pred(imgs)
+    near = differ = compared = 0
+    for i, (img, r) in enumerate(zip(imgs, results)):
+        n = min(int(counts[i]), SEG_CMP_MASKS)
+        _, gain, (padw, padh) = letterbox(img, IMGSZ)
+        d = r.boxes.data[:n]
+        sel = idx[i, :n].long()
+        pg = assemble_masks(coeffs_g[i:i + 1, sel], protos_g[i:i + 1])[0]
+        pc = assemble_masks(coeffs_c[i:i + 1, sel.cpu()], protos_c[i:i + 1])[0]
+        fg, inside = masks_to_orig_probs(pg, d, IMGSZ, gain, padw, padh, *img.shape[:2])
+        fc, inside_c = masks_to_orig_probs(pc, d, IMGSZ, gain, padw, padh, *img.shape[:2])
+        mg, mc = (fg > 0.5) & inside, ((fc > 0.5) & inside_c).cuda()
+        band = (((fg - 0.5).abs() <= MASK_HALF_BAND) | ((fc.cuda() - 0.5).abs() <= MASK_HALF_BAND)) & inside
+        near += int(band.sum())
+        differ += int(((mg != mc) & ~band).sum())
+        compared += int(inside.sum())
+        check(np.array_equal(mg.cpu().numpy(), r.masks.data[:n]), f"image {i}: the predictor's masks differ from "
+                                                                    "the card's own resizes of its probabilities")
+    check(differ == 0, f"{differ} mask pixels outside the 0.5 band differ between the card and the CPU")
+    return {"images": len(imgs), "map_max_abs_err": map_err, "masks_per_image": SEG_CMP_MASKS,
+            "mask_pixels_compared": compared, "mask_pixels_within_band_of_half": near, "band": MASK_HALF_BAND,
+            "mask_pixels_differing_outside_band": differ}
+
+
+def seg_served(model, images, counters, card):
+    """SERVE_BATCHES batches of BATCH seeded images at IMGSZ through
+    ``DetectionPredictor`` on the seg model, soft then hard NMS, counters at
+    0 just before each run and read just after: exactly 1 K1 and 1 K5 (soft)
+    or 1 K2 (hard) a batch; only the current batch's ``Results`` are kept
+    (each holds a bool mask a detection in its image); each image's masks
+    one per box, in its shape. Then :func:`seg_compare_cpu` on the first
+    batch. Returns the record and the launches."""
+    import torch
+
+    from experiment_yolo_torch import DetectionPredictor
+
+    stream = [images[i % N_IMAGES] for i in range(SERVE_BATCHES * BATCH)]
+    launches, served = dict.fromkeys(counters, 0), {}
+    for nms_type in ("soft", "hard"):
+        pred = DetectionPredictor(model, {"imgsz": IMGSZ, "batch": BATCH, "nms_type": nms_type})
+        pred(images[:BATCH])
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        batch_ms, dets, mask_px, empty, counted = [], [], 0, 0, 0
+        for start in range(0, len(stream), BATCH):
+            t = time.perf_counter()
+            results = pred(stream[start:start + BATCH])
+            batch_ms.append((time.perf_counter() - t) * 1e3)
+            for r, img in zip(results, stream[start:start + BATCH]):
+                m = r.masks.data
+                check(m.shape == (len(r.boxes), *img.shape[:2]) and m.dtype == bool,
+                      f"seg {nms_type}: masks {m.shape} for {len(r.boxes)} boxes on an image of {img.shape[:2]}")
+                dets.append(len(r.boxes))
+            m = results[0].masks.data  # the pixels of each batch's first image (a pass over all costs seconds)
+            area = m.reshape(len(m), -1).sum(1)
+            mask_px, empty, counted = mask_px + int(area.sum()), empty + int((area == 0).sum()), counted + len(m)
+            del results, m
+        run = {name: fn.launches for name, fn in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        want.update(dfl_decode=SERVE_BATCHES, **{"soft_nms" if nms_type == "soft" else "nms_suppress": SERVE_BATCHES})
+        check(run == want, f"seg {nms_type} NMS main path launched {run}, expected {want}")
+        check(min(dets) > 0 and empty < counted, f"seg {nms_type}: detections {min(dets)}, empty masks {empty}")
+        for name in launches:
+            launches[name] += run[name]
+        median_ms = statistics.median(batch_ms)
+        served[nms_type] = {"batches": SERVE_BATCHES, "batch_ms_median": median_ms, "batch_ms_min": min(batch_ms),
+                            "batch_ms_max": max(batch_ms), "batch_ms_p10_p90": statistics.quantiles(batch_ms, n=10)[::8],
+                            "img_per_s_at_median": BATCH / median_ms * 1e3,
+                            "detections_per_image": sum(dets) / len(dets),
+                            "first_images_masks": counted, "first_images_empty_masks": empty,
+                            "first_images_mask_pixels_per_detection": mask_px / counted, "launches": run}
+        log(f"served {SEG_CFG} {nms_type} NMS: {len(stream)} images in {SERVE_BATCHES} batches of {BATCH} at {IMGSZ}: "
+            f"median {median_ms:.2f} ms per batch (min {min(batch_ms):.2f}, max {max(batch_ms):.2f}), "
+            f"{served[nms_type]['img_per_s_at_median']:.2f} img/s at the median, "
+            f"{served[nms_type]['detections_per_image']:.1f} masks an image, launches {run}, {card}")
+    t = time.perf_counter()
+    served["cpu_comparison"] = seg_compare_cpu(model, pred, images)
+    served["cpu_comparison"]["seconds"] = time.perf_counter() - t
+    log(f"seg served CPU comparison: {json.dumps(served['cpu_comparison'])}")
+    return served, launches
+
+
+def seg_validated(model, data: Path, counters, card):
+    """``SegmentationValidator`` (multi-label hard NMS, as the JAX
+    validator's) on the synthetic seg dataset's val split at IMGSZ, batch
+    BATCH, counters at 0 just before and read just after (1 K1 and 1 K2 a
+    batch): box and mask mAP, img/s. Then every batch again: K2's keep masks
+    on the card's candidates equal to its plain version's on the CPU, and the
+    stats of the card's maps and masks with the detections of the plain NMS
+    on the CPU equal to the card run's. Returns the record and the
+    launches."""
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch.engine.validators_extra import SegmentationValidator
+    from experiment_yolo_torch.nn.heads_extra import assemble_masks
+    from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress, nms_suppress_plain
+    from experiment_yolo_torch.ops.nms import nms_candidates
+    from experiment_yolo_torch.utils.metrics import DetMetrics
+
+    ov = {"data": str(data), "imgsz": IMGSZ, "batch": BATCH, "workers": 8, "verbose": False}
+    validator = SegmentationValidator(ov)
+    validator(model)  # warm-up; builds the dataset and the loader once
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    stats = validator(model)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_val = len(validator._dataset)
+    nb = math.ceil(n_val / BATCH)
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode=nb, nms_suppress=nb)
+    check(launches == want, f"the seg validator launched {launches}, expected {want}")
+    data_cfg, dataset, loader = validator._setup(model)
+    box_m, mask_m = DetMetrics(data_cfg["names"]), DetMetrics(data_cfg["names"])
+    seen, keep_equal, kept = 0, True, 0
+    a = validator.args
+    for batch in loader:
+        imgs = torch.as_tensor(np.asarray(batch["img"])).cuda()
+        with torch.no_grad():
+            boxes, scores, coeffs, protos = model.predict((imgs.permute(0, 3, 1, 2).float() / 255.0).contiguous())
+        c = nms_candidates(boxes, scores, float(a.conf), multi_label=True)
+        k_card = nms_suppress(c.shifted.contiguous(), c.valid, float(a.iou))
+        k_plain = nms_suppress_plain(c.shifted.cpu(), c.valid.cpu(), float(a.iou))
+        keep_equal = keep_equal and torch.equal(k_card.cpu(), k_plain)
+        kept += int(k_plain.sum())
+        det, counts, idx = validator.nms(boxes.cpu(), scores.cpu())  # plain NMS; the card's maps and masks
+        sel = torch.gather(coeffs, 1, idx.long().cuda()[..., None].expand(-1, -1, coeffs.shape[-1]))
+        pmasks = assemble_masks(sel, protos).float().cpu()
+        n = min(len(det), n_val - seen)
+        validator.score_batch(box_m, mask_m, det.numpy(), counts.numpy(), pmasks.numpy(), batch, n)
+        seen += n
+    check(keep_equal, "K2's keep masks on the seg validator's candidates differ from its plain version's")
+    bs, ms = box_m.result(), mask_m.result()
+    cpu_stats = {**{f"box_{k}": v for k, v in bs.items() if isinstance(v, float)},
+                 **{f"mask_{k}": v for k, v in ms.items() if isinstance(v, float)}}
+    diff = max(abs(stats[k] - v) for k, v in cpu_stats.items())
+    check(diff == 0.0, f"the seg validator's stats differ from those scored through the CPU by {diff}")
+    return {"images": n_val, "batch": BATCH, "imgsz": IMGSZ, "nms": "hard, multi-label", "stats": stats,
+            "img_per_s": n_val / secs, "seconds": secs, "k2_keep_equal_plain": keep_equal, "kept_candidates": kept,
+            "stats_max_abs_diff_vs_cpu_scoring": diff, "launches": launches, "card": card}, launches
+
+
+def seg_server(weights: Path, root: Path, images, counters, card):
+    """A seg ``DetectionServer`` on the checkpoint ``weights`` (batch BATCH at IMGSZ) answers
+    4 BMP requests, one at a time: each answer's boxes and ``mask_rle`` equal
+    to the facade's ``predict`` of the same image alone (one image a batch,
+    as the server ran it), its RLE decoding to the facade's masks; 1 K1 and 1
+    K5 a request."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch import YOLO
+    from experiment_yolo_torch.data.image_io import imwrite
+    from experiment_yolo_torch.serve import DetectionServer, _rle
+
+    yolo = YOLO(str(weights))
+    check(type(yolo.model).__name__ == "SegmentationModel", f"{weights} reloaded as {type(yolo.model).__name__}")
+    server = DetectionServer(yolo, batch=BATCH, imgsz=IMGSZ)
+    port = server.start(host="127.0.0.1", port=0)
+    answers = []
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        for i, img in enumerate(images[:4]):
+            imwrite(root / f"seg_req{i}.bmp", img)
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=(root / f"seg_req{i}.bmp").read_bytes())
+            answers.append(json.loads(urllib.request.urlopen(req, timeout=120).read()))
+    finally:
+        server.stop()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode=4, soft_nms=4)
+    check(launches == want, f"the seg server launched {launches} for 4 requests, expected {want}")
+    masks = 0
+    for img, a in zip(images[:4], answers):
+        r = yolo.predict([img], imgsz=IMGSZ, batch=BATCH)[0]
+        d = a["detections"]
+        check(len(d) == len(r.boxes) and len(d) > 0, f"the server found {len(d)} detections, the facade {len(r.boxes)}")
+        for k, det in enumerate(d):
+            check(det["mask_rle"] == _rle(r.masks.data[k]), f"request mask {k}: the RLE differs from the facade's")
+            counts, (h, w) = det["mask_rle"]["counts"], det["mask_rle"]["size"]
+            flat = np.repeat(np.arange(len(counts)) % 2 == 1, counts)
+            check(np.array_equal(flat.reshape(w, h).T, r.masks.data[k]), "an RLE does not decode to its mask")
+            masks += 1
+    return {"requests": 4, "masks": masks, "launches": launches, "card": card}, launches
+
+
+def seg_phase(images, root: Path, counters, card):
+    """Phase 30: :func:`c2f_ldconv_part`, then ``yolov8-seg.yaml`` (n scale,
+    nc 80, seeded weights) served (:func:`seg_served`), the synthetic seg
+    dataset (LOOP_TRAIN + LOOP_VAL images at IMGSZ) validated with a seeded
+    nc-2 model (:func:`seg_validated`), one f32 step at CMP_IMGSZ against the
+    CPU (mask picks held, :class:`MaskPicks`) and BF16_CMP_STEPS bf16 steps
+    against the CPU's bf16 distance, one ``YOLO(SEG_CFG, nc=2).train()``
+    epoch with per-epoch mask validation whose ``last.pt`` reloads as a
+    ``SegmentationModel``, and a seg server (:func:`seg_server`) on a
+    checkpoint of the served model (one epoch leaves every score under the
+    predictor's conf). Returns the record and the launches."""
+    import torch
+
+    from experiment_yolo_torch import YOLO
+    from experiment_yolo_torch.data import make_synthetic_task_dataset
+    from experiment_yolo_torch.engine.checkpoint import save_checkpoint
+    from experiment_yolo_torch.utils.seeded import seeded_model
+
+    t0 = time.perf_counter()
+    record, launches, seconds = {}, dict.fromkeys(counters, 0), {}
+
+    def add(run, part):
+        for name in launches:
+            launches[name] += run[name]
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+
+    record["c2f_ldconv"], run = c2f_ldconv_part(images, counters, card)
+    add(run, "c2f_ldconv")
+    model = seeded_model({**seg_cfg(), "nc": SEG_NC}, SEED)
+    record["params"] = sum(p.numel() for p in model.parameters())
+    check(model.stride == (8, 16, 32) and type(model).__name__ == "SegmentationModel", f"{SEG_CFG}: {model.stride}")
+    log(f"model {SEG_CFG} scale n: {record['params']} params, strides {model.stride}, nc {model.nc}, seeded weights")
+    record["served"], run = seg_served(model, images, counters, card)
+    add(run, "served")
+    served_ckpt = save_checkpoint(root / "seg_seeded.pt", model)
+    del model
+    torch.cuda.empty_cache()
+    data = make_synthetic_task_dataset(root / "seg", "segment", n_train=LOOP_TRAIN, n_val=LOOP_VAL, imgsz=IMGSZ,
+                                       seed=SEED)
+    add(dict.fromkeys(counters, 0), "dataset")
+    model = seeded_model({**seg_cfg(), "nc": SEG_DATA_NC}, SEED)
+    record["validated"], run = seg_validated(model, data, counters, card)
+    add(run, "validated")
+    log(f"seg validated: {record['validated']['images']} images, box mAP50 {record['validated']['stats']['box_mAP50']:.4f}"
+        f", mask mAP50 {record['validated']['stats']['mask_mAP50']:.4f}, {record['validated']['img_per_s']:.2f} img/s, "
+        f"{card}")
+    state = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    cfg = dict(model.yaml)
+    del model
+    batches = [seeded_seg_batch(CMP_BATCH, CMP_IMGSZ, SEED + 50 + i, SEG_DATA_NC) for i in range(BF16_CMP_STEPS)]
+    record["cpu_comparison"] = compare_train_cpu(state, batches[0], cfg=cfg, n_ldconv=0, n_scalseq=0, n_sppf=1)
+    log(f"seg training CPU comparison: {json.dumps(record['cpu_comparison'])}")
+    record["cpu_comparison_bf16"] = compare_train_cpu_bf16(state, batches, cfg=cfg)
+    log(f"seg bf16 training CPU comparison: {json.dumps(record['cpu_comparison_bf16'])}")
+    add(dict.fromkeys(counters, 0), "steps against the CPU")
+    # the segment branch of the loss takes the detect maps in f32 (JAX engine/trainer.py:457-465): K1 and its
+    # backward run their f32 forms in a bf16 step; validation decodes the bf16 model's maps
+    loop, run = facade_epoch(SEG_CFG, lambda steps, val: dict(dfl_decode=steps, dfl_decode_bwd=3 * steps,
+                                                               dfl_decode_bf16=val, nms_suppress=val),
+                             data, root, counters, card, nc=SEG_DATA_NC)
+    add(run, "facade epoch")
+    record["facade_train"] = loop
+    check(all(k in loop["last_epoch_metrics"] for k in ("box_mAP50", "mask_mAP50", "fitness")),
+          f"the seg epoch's validation: {loop['last_epoch_metrics']}")
+    log(f"{SEG_CFG} facade: YOLO(...).train() 1 epoch: {loop['loop_img_per_s']:.2f} img/s over the loop "
+        f"({loop['train_dtype']}), val {json.dumps(loop['last_epoch_metrics'])}, {card}")
+    reloaded = YOLO(str(Path(loop["weights"]) / "last.pt")).model
+    check(type(reloaded).__name__ == "SegmentationModel", f"last.pt reloaded as {type(reloaded).__name__}")
+    record["facade_train"]["last_pt_reloads_as"] = type(reloaded).__name__
+    del reloaded
+    record["server"], run = seg_server(served_ckpt, root, images, counters, card)
+    add(run, "server")
+    record["seconds"], record["part_seconds"] = time.perf_counter() - t0, seconds
+    record["card"] = card
+    log(f"phase 30 took {record['seconds']:.1f} s ({json.dumps({k: round(v, 1) for k, v in seconds.items()})}), "
+        f"{card}")
+    return record, launches
+
+
 def main() -> None:
     import torch
 
@@ -4073,9 +4692,14 @@ def main() -> None:
                                        facade["loop_img_per_s"], counters, card)
     for name in launches:
         launches[name] += run[name]
+    torch.cuda.empty_cache()
+    # 30. C2f_LDConv (K3 and its backward at stride 1), then the segmentation family served, validated and trained
+    seg, run = seg_phase(images, Path(work.name), counters, card)
+    for name in launches:
+        launches[name] += run[name]
     work.cleanup()
 
-    # 30. the result lines
+    # 31. the result lines
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["kernel_ms"] = k["ms"]
@@ -4100,6 +4724,7 @@ def main() -> None:
     log(json.dumps({"recipes": recipes}))
     log(json.dumps({"other_configs": other}))
     log(json.dumps({"image_input": images_in}))
+    log(json.dumps({"segmentation_and_c2f_ldconv": seg}))
     # last of the long lines, so that a reader of the output's tail gets it whole
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"card: {card}")

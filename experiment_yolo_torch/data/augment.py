@@ -1,10 +1,15 @@
 """Host-side image augmentations in numpy, without OpenCV.
 
-Port of ``experiment_yolo_tpu/data/augment.py`` for the detect task: the v8
+Port of ``experiment_yolo_tpu/data/augment.py`` for the detect and segment
+tasks: the v8
 pipeline Mosaic (4 or 9) -> CopyPaste -> RandomPerspective -> MixUp ->
 RandomHSV -> RandomFlip x2 -> format (padded to a static label count), and
 the letterbox of validation and serving. Labels are dicts: {'img': HWC uint8
-BGR, 'bboxes': (N, 4) xyxy pixels, 'cls': (N,)}.
+BGR, 'bboxes': (N, 4) xyxy pixels, 'cls': (N,)}, and for the segment task
+'segments', a list of (Si, 2) float pixel polygons, one per instance, carried
+through every transform as in the JAX module (boxes rebuilt from the warped
+polygons, CopyPaste's flipped instances, the overlap-index mask of
+:func:`format_sample`).
 
 The card's machine has no OpenCV, so each ``cv2`` call of the JAX module has
 a counterpart here that does the arithmetic of the OpenCV the JAX package runs
@@ -25,14 +30,19 @@ images (``tests/test_torch_port_data.py``):
   it, so that the warp matrix, and with it every warped box, is bit-equal;
 - :func:`bgr2hsv` and :func:`hsv2bgr` are ``cv2.cvtColor`` BGR<->HSV (hue in
   [0, 180)): the forward through OpenCV's integer division tables
-  (``hsv_shift`` 12), the inverse in float32, truncated.
+  (``hsv_shift`` 12), the inverse in float32, truncated;
+- the polygon fills (``cv2.fillPoly``, ``cv2.drawContours(..., FILLED)``)
+  and ``cv2.contourArea`` are ``data/polygons.py``'s.
+
+:func:`resize_linear_f32` is ``cv2.resize(..., INTER_LINEAR)`` of float32
+maps in torch ops on any device (the predictor's mask upsampling), within a
+float32 rounding of OpenCV's.
 
 Every random draw is the JAX module's, call for call and size for size, so the
 labels of a sample are identical to the JAX package's for the same generator.
-The task geometry (segments, keypoints, oriented boxes) and the segment branch
-of CopyPaste wait for the task families (ROADMAP.md catalogue item 13); the
-optional Albumentations hook stays out, as the JAX package skips it without
-the package.
+Keypoints and oriented boxes wait for the pose and OBB families (ROADMAP.md
+catalogue item 13); the optional Albumentations hook stays out, as the JAX
+package skips it without the package.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from experiment_yolo_torch.data.polygons import fill_polys, polygons2mask_overlap
 
 PAD_VALUE = 114
 RESIZE_BITS = 11  # fixed-point bits of INTER_LINEAR resize weights
@@ -90,6 +102,41 @@ def resize_linear(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
     out = (by[:, 0, None, None] * hor.index_select(0, sy.clamp(0, h - 1))) >> 16
     out += (by[:, 1, None, None] * hor.index_select(0, (sy + 1).clamp_(0, h - 1))) >> 16
     return ((out + 2) >> 2).to(torch.uint8).numpy()
+
+
+def resize_linear_f32(x: torch.Tensor, dsize: Tuple[int, int]) -> torch.Tensor:
+    """``cv2.resize(m, dsize, interpolation=cv2.INTER_LINEAR)`` of each float32
+    map of ``x`` (..., H, W), on ``x``'s device; ``dsize`` is (width, height).
+    OpenCV's float path: each output's source position in double, its
+    fraction f in double and the weights 1 - f and f rounded to float32,
+    columns pinned at both ends, rows clamped to the image with their weights
+    as computed; the horizontal pass, then the vertical one; an exact halving
+    averages each 2x2 block (INTER_AREA), as OpenCV switches to it."""
+    h, w = x.shape[-2:]
+    dw, dh = int(dsize[0]), int(dsize[1])
+    if (dw, dh) == (w, h):
+        return x.clone()
+    if w == 2 * dw and h == 2 * dh:
+        q = (x[..., 0::2, 0::2] + x[..., 0::2, 1::2]) + (x[..., 1::2, 0::2] + x[..., 1::2, 1::2])
+        return q * 0.25
+    dev = x.device
+
+    def taps(src, dst, pin):
+        f = (np.arange(dst, dtype=np.float64) + 0.5) * (1.0 / (dst / src)) - 0.5
+        s = np.floor(f).astype(np.int64)
+        f -= s
+        if pin:
+            low, high = s < 0, s >= src - 1
+            f[low | high] = 0.0
+            s = np.where(low, 0, np.where(high, src - 1, s))
+        i0 = torch.from_numpy(np.clip(s, 0, src - 1)).to(dev)
+        i1 = torch.from_numpy(np.clip(s + 1, 0, src - 1)).to(dev)
+        return i0, i1, torch.from_numpy((1.0 - f).astype(np.float32)).to(dev), torch.from_numpy(f.astype(np.float32)).to(dev)
+
+    c0, c1, a0, a1 = taps(w, dw, True)
+    r0, r1, b0, b1 = taps(h, dh, False)
+    hor = x.index_select(-1, c0) * a0 + x.index_select(-1, c1) * a1
+    return hor.index_select(-2, r0) * b0[:, None] + hor.index_select(-2, r1) * b1[:, None]
 
 
 def rotation_matrix_2d(angle: float, scale: float) -> np.ndarray:
@@ -277,24 +324,39 @@ def hsv2bgr(img: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Label helpers (detect: boxes and classes)
+# Label helpers (boxes, classes and the segment task's polygons)
 # ---------------------------------------------------------------------------
+
+def _scale_shift_points(labels: Dict, r: float, padw: float, padh: float) -> Dict:
+    """The labels with every polygon point mapped to x * r + pad."""
+    out = dict(labels)
+    if labels.get("segments") is not None:
+        out["segments"] = [s * r + np.asarray([padw, padh], np.float32) for s in labels["segments"]]
+    return out
+
 
 def _take_instances(labels: Dict, keep) -> Dict:
     """Index every per-instance field by a boolean or integer index array."""
-    return {**labels, "bboxes": labels["bboxes"][keep], "cls": labels["cls"][keep]}
+    out = {**labels, "bboxes": labels["bboxes"][keep], "cls": labels["cls"][keep]}
+    if labels.get("segments") is not None:
+        idx = np.flatnonzero(keep) if np.asarray(keep).dtype == bool else np.asarray(keep)
+        out["segments"] = [labels["segments"][i] for i in idx]
+    return out
 
 
 def _cat_instances(l1: Dict, l2: Dict) -> Dict:
-    return {"bboxes": np.concatenate([l1["bboxes"], l2["bboxes"]]).astype(np.float32),
-            "cls": np.concatenate([l1["cls"], l2["cls"]])}
+    out = {"bboxes": np.concatenate([l1["bboxes"], l2["bboxes"]]).astype(np.float32),
+           "cls": np.concatenate([l1["cls"], l2["cls"]])}
+    if l1.get("segments") is not None or l2.get("segments") is not None:
+        out["segments"] = list(l1.get("segments") or []) + list(l2.get("segments") or [])
+    return out
 
 
-def _check_detect(labels: Dict) -> None:
-    for k in ("segments", "keypoints", "obb"):
+def _check_ported(labels: Dict) -> None:
+    for k in ("keypoints", "obb"):
         if labels.get(k) is not None:
-            raise NotImplementedError(f"labels with {k!r} belong to the segment/pose/obb tasks, which are not "
-                                      "ported to experiment_yolo_torch yet (ROADMAP.md catalogue item 13)")
+            raise NotImplementedError(f"labels with {k!r} belong to the pose/obb tasks, which are not ported to "
+                                      "experiment_yolo_torch yet (ROADMAP.md catalogue item 13)")
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +388,7 @@ def letterbox(img: np.ndarray, new_shape: Union[int, Tuple[int, int]] = (640, 64
 
 def letterbox_labels(labels: Dict, imgsz, scaleup: bool = True) -> Dict:
     """``imgsz``: an int (square) or an (h, w) tuple (rect batches)."""
-    _check_detect(labels)
+    _check_ported(labels)
     shape = (imgsz, imgsz) if isinstance(imgsz, int) else tuple(imgsz)
     img, r, (padw, padh) = letterbox(labels["img"], shape, scaleup=scaleup)
     bboxes = labels["bboxes"].copy()
@@ -334,6 +396,7 @@ def letterbox_labels(labels: Dict, imgsz, scaleup: bool = True) -> Dict:
         bboxes = bboxes * r
         bboxes[:, [0, 2]] += padw
         bboxes[:, [1, 3]] += padh
+    labels = _scale_shift_points(labels, r, padw, padh)
     return {**labels, "img": img, "bboxes": bboxes, "ratio_pad": (r, (padw, padh))}
 
 
@@ -351,14 +414,20 @@ def _tile(it: Dict, s: int) -> Tuple[np.ndarray, float]:
     return img, r
 
 
-def _merge(shifted: List[Dict], s: int) -> Dict:
+def _merge(shifted: List[Dict], s: int, segments: bool) -> Dict:
+    """The tiles' labels on the (2s, 2s) canvas, clipped to it; ``segments``:
+    the items carry polygons (an empty list when no tile has a label)."""
     if shifted:
         merged = shifted[0]
         for nxt in shifted[1:]:
             merged = _cat_instances(merged, nxt)
     else:
         merged = {"bboxes": np.zeros((0, 4), np.float32), "cls": np.zeros((0,), np.float32)}
+        if segments:
+            merged["segments"] = []
     merged["bboxes"] = np.clip(merged["bboxes"], 0, 2 * s).astype(np.float32)
+    if merged.get("segments") is not None:
+        merged["segments"] = [np.clip(p, 0, 2 * s) for p in merged["segments"]]
     return merged
 
 
@@ -366,7 +435,7 @@ def mosaic4(items: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
     """Four images on a (2s, 2s) canvas around a random centre; the following
     :func:`random_perspective` crops back to s x s (border -s/2)."""
     for it in items:
-        _check_detect(it)
+        _check_ported(it)
     s = imgsz
     yc = int(rng.uniform(s // 2, 2 * s - s // 2))
     xc = int(rng.uniform(s // 2, 2 * s - s // 2))
@@ -393,15 +462,16 @@ def mosaic4(items: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
             b = it["bboxes"] * r
             b[:, [0, 2]] += padw
             b[:, [1, 3]] += padh
-            shifted.append({**it, "bboxes": b})
-    return {"img": canvas, **_merge(shifted, s), "mosaic_border": (-s // 2, -s // 2)}
+            shifted.append({**_scale_shift_points(it, r, padw, padh), "bboxes": b})
+    merged = _merge(shifted, s, items[0].get("segments") is not None)
+    return {"img": canvas, **merged, "mosaic_border": (-s // 2, -s // 2)}
 
 
 def mosaic9(items: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
     """Nine images in a 3x3 grid, cropped to the (2s, 2s) canvas: the same
     output as :func:`mosaic4`. Draws nothing from ``rng``, as in JAX."""
     for it in items:
-        _check_detect(it)
+        _check_ported(it)
     s = imgsz
     canvas = np.full((3 * s, 3 * s, 3), PAD_VALUE, dtype=np.uint8)
     hp = wp = -1  # the previous tile's h, w
@@ -438,19 +508,56 @@ def mosaic9(items: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
             b = it["bboxes"] * r
             b[:, [0, 2]] += off_x
             b[:, [1, 3]] += off_y
-            shifted.append({**it, "bboxes": b})
+            shifted.append({**_scale_shift_points(it, r, off_x, off_y), "bboxes": b})
     crop = canvas[s // 2:s // 2 + 2 * s, s // 2:s // 2 + 2 * s]
-    return {"img": np.ascontiguousarray(crop), **_merge(shifted, s), "mosaic_border": (-s // 2, -s // 2)}
+    merged = _merge(shifted, s, items[0].get("segments") is not None)
+    return {"img": np.ascontiguousarray(crop), **merged, "mosaic_border": (-s // 2, -s // 2)}
+
+
+def _bbox_ioa(box1: np.ndarray, box2: np.ndarray) -> np.ndarray:
+    """Intersection over box2's area (the reference's ``bbox_ioa``)."""
+    ix = (np.minimum(box1[:, None, 2], box2[None, :, 2]) - np.maximum(box1[:, None, 0], box2[None, :, 0])).clip(0)
+    iy = (np.minimum(box1[:, None, 3], box2[None, :, 3]) - np.maximum(box1[:, None, 1], box2[None, :, 1])).clip(0)
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1]) + 1e-7
+    return ix * iy / area2[None]
 
 
 def copy_paste(labels: Dict, p: float, rng: np.random.Generator) -> Dict:
-    """CopyPaste pastes flipped segment instances; without segments (the
-    detect task) it passes the labels through and draws nothing, as in JAX.
-    The segment branch waits for the task families (ROADMAP.md catalogue
-    item 13)."""
-    if p and labels.get("segments"):
-        _check_detect(labels)
-    return labels
+    """CopyPaste (the reference's, arXiv:2012.07177): segment instances whose
+    horizontally flipped box overlaps every box by IoA < 0.3 are pasted back
+    flipped, ``round(p * candidates)`` of them drawn by ``rng.choice``. The
+    image is changed in place, as in the JAX module. Without segments (the
+    detect task) the labels pass through and nothing is drawn."""
+    segments = labels.get("segments")
+    if not p or not segments or len(segments) == 0:
+        return labels
+    im = labels["img"]
+    h, w = im.shape[:2]
+    boxes = labels["bboxes"]  # pixel xyxy
+    flip_boxes = boxes.copy()
+    flip_boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
+    candidates = np.nonzero((_bbox_ioa(flip_boxes, boxes) < 0.30).all(1))[0]
+    k = round(p * len(candidates))
+    if k == 0:
+        return labels
+    chosen = rng.choice(candidates, size=k, replace=False)
+    pasted = np.zeros((h, w), np.int32)
+    new_cls, new_boxes, new_segs = [], [], []
+    for j in chosen:
+        seg = segments[j].copy()
+        seg[:, 0] = w - seg[:, 0]
+        new_cls.append(labels["cls"][j])
+        new_boxes.append(flip_boxes[j])
+        new_segs.append(seg)
+        fill_polys(pasted, [seg.astype(np.int32)], [1])
+    keep = pasted[:, ::-1].astype(bool)
+    im[keep] = im[:, ::-1][keep]
+    out = dict(labels)
+    out["img"] = im
+    out["cls"] = np.concatenate([labels["cls"], np.asarray(new_cls, np.float32)])
+    out["bboxes"] = np.concatenate([boxes, np.stack(new_boxes)]).astype(np.float32)
+    out["segments"] = list(segments) + new_segs
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +569,7 @@ def random_perspective(labels: Dict, degrees: float = 0.0, translate: float = 0.
                        rng: Optional[np.random.Generator] = None) -> Dict:
     """Affine or perspective warp with the box transform and the degenerate-box
     filter. Draws P, P, angle, scale, shear, shear, T, T, as in JAX."""
-    _check_detect(labels)
+    _check_ported(labels)
     rng = rng or np.random.default_rng()
     img = labels["img"]
     border = labels.get("mosaic_border", border)
@@ -494,18 +601,27 @@ def random_perspective(labels: Dict, degrees: float = 0.0, translate: float = 0.
         else:
             img = warp_affine(img, M[:2], (width, height))
 
+    def warp_pts(pts):  # (..., 2) -> transformed (..., 2) float32
+        shape = pts.shape
+        xy = np.ones((int(np.prod(shape[:-1])), 3))
+        xy[:, :2] = pts.reshape(-1, 2)
+        xy = xy @ M.T
+        return (xy[:, :2] / xy[:, 2:3] if perspective else xy[:, :2]).reshape(shape).astype(np.float32)
+
     labels = dict(labels)
     bboxes, cls = labels["bboxes"], labels["cls"]
     if len(bboxes):
         n = len(bboxes)
-        xy = np.ones((n * 4, 3))
-        xy[:, :2] = bboxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n, 4, 2).reshape(-1, 2)
-        xy = xy @ M.T
-        xy = (xy[:, :2] / xy[:, 2:3] if perspective else xy[:, :2]).reshape(n, 4, 2).astype(np.float32).reshape(n, 8)
-        x, y = xy[:, [0, 2, 4, 6]], xy[:, [1, 3, 5, 7]]
-        new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
-        new[:, [0, 2]] = new[:, [0, 2]].clip(0, width)
-        new[:, [1, 3]] = new[:, [1, 3]].clip(0, height)
+        if labels.get("segments"):  # boxes rebuilt from the warped polygons, as the reference does
+            segs = [np.clip(warp_pts(p), [0, 0], [width, height]) for p in labels["segments"]]
+            new = np.stack([np.concatenate([p.min(0), p.max(0)]) for p in segs], 0).astype(np.float32)
+            labels["segments"] = segs
+        else:
+            xy = warp_pts(bboxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n, 4, 2)).reshape(n, 8)
+            x, y = xy[:, [0, 2, 4, 6]], xy[:, [1, 3, 5, 7]]
+            new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
+            new[:, [0, 2]] = new[:, [0, 2]].clip(0, width)
+            new[:, [1, 3]] = new[:, [1, 3]].clip(0, height)
         keep = _box_candidates(bboxes.T * s, new.T)
         labels["bboxes"] = new
         labels = _take_instances(labels, keep)
@@ -541,9 +657,10 @@ def random_hsv(img: np.ndarray, hgain=0.015, sgain=0.7, vgain=0.4, rng=None) -> 
 
 
 def random_flip(labels: Dict, direction: str, p: float, rng=None, flip_idx=None) -> Dict:
-    """Image and box flip with probability ``p`` (one draw). ``flip_idx``
-    (keypoints) belongs to the pose task (ROADMAP.md catalogue item 13)."""
-    _check_detect(labels)
+    """Image, box and polygon flip with probability ``p`` (one draw).
+    ``flip_idx`` (keypoints) belongs to the pose task (ROADMAP.md catalogue
+    item 13)."""
+    _check_ported(labels)
     rng = rng or np.random.default_rng()
     if rng.random() >= p:
         return labels
@@ -557,6 +674,14 @@ def random_flip(labels: Dict, direction: str, p: float, rng=None, flip_idx=None)
         img = np.flipud(img)
         if len(bboxes):
             bboxes[:, [1, 3]] = h - bboxes[:, [3, 1]]
+    if labels.get("segments"):
+        axis, extent = (0, w) if direction == "horizontal" else (1, h)
+        flipped = []
+        for p in labels["segments"]:
+            p = p.copy()
+            p[..., axis] = extent - p[..., axis]
+            flipped.append(p)
+        labels = {**labels, "segments": flipped}
     return {**labels, "img": np.ascontiguousarray(img), "bboxes": bboxes}
 
 
@@ -572,16 +697,25 @@ def mixup(l1: Dict, l2: Dict, rng=None) -> Dict:
 # Format: pad to a static label count
 # ---------------------------------------------------------------------------
 
-def format_sample(labels: Dict, imgsz: int, max_labels: int, task: str = "detect") -> Dict[str, np.ndarray]:
+def format_sample(labels: Dict, imgsz: int, max_labels: int, task: str = "detect",
+                  mask_ratio: int = 4) -> Dict[str, np.ndarray]:
     """One sample in the device batch's form: ``img`` RGB HWC uint8,
     ``bboxes`` (max_labels, 4) normalised xywh, ``cls`` (max_labels,) int32
-    and ``mask`` (max_labels,) bool."""
-    if task != "detect":
+    and ``mask`` (max_labels,) bool; for ``task='segment'`` also ``masks``
+    (H / mask_ratio, W / mask_ratio) int32, the overlap-index image, with the
+    instances reordered by area, largest first, to match its values."""
+    if task not in ("detect", "segment"):
         raise NotImplementedError(f"task={task!r} is not ported to experiment_yolo_torch yet "
                                   "(ROADMAP.md catalogue item 13)")
     img = labels["img"]
     h, w = img.shape[:2]
     bboxes, cls = labels["bboxes"], labels["cls"]
+    out: Dict[str, np.ndarray] = {}
+    if task == "segment":
+        masks, order = polygons2mask_overlap(labels.get("segments") or [], (h, w), mask_ratio)
+        out["masks"] = masks
+        if len(order):
+            bboxes, cls = bboxes[order], cls[order]
     n = min(len(bboxes), max_labels)
     out_boxes = np.zeros((max_labels, 4), np.float32)
     out_cls = np.zeros((max_labels,), np.int32)
@@ -592,4 +726,5 @@ def format_sample(labels: Dict, imgsz: int, max_labels: int, task: str = "detect
                                   (b[:, 2] - b[:, 0]) / w, (b[:, 3] - b[:, 1]) / h], axis=1)
         out_cls[:n] = cls[:n].astype(np.int32)
         mask[:n] = True
-    return {"img": np.ascontiguousarray(img[..., ::-1]), "bboxes": out_boxes, "cls": out_cls, "mask": mask}
+    out.update({"img": np.ascontiguousarray(img[..., ::-1]), "bboxes": out_boxes, "cls": out_cls, "mask": mask})
+    return out

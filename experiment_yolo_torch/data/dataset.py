@@ -2,8 +2,9 @@
 
 Port of ``experiment_yolo_tpu/data/dataset.py`` (``IMG_FORMATS``,
 ``check_det_dataset``, ``img2label_path`` and ``YOLODataset``) for the detect
-task: the image scan, ``fraction``, ``single_cls``, the YOLO txt labels (cls
-cx cy w h, normalised), the ``.cache.npy`` label cache with the JAX package's
+and segment tasks: the image scan, ``fraction``, ``single_cls``, the YOLO txt
+labels (detect: cls cx cy w h; segment: cls x1 y1 x2 y2 ..., a polygon whose
+extent is the box; normalised), the ``.cache.npy`` label cache with the JAX package's
 hash key and format (so either package reads the other's), the image caches
 (``cache='ram'`` and ``'disk'``, whose ``.npy`` sidecars the JAX package
 writes too), and the samples: augmented for training (:meth:`get_sample`,
@@ -13,8 +14,8 @@ letterboxed for validation (:meth:`get_val_sample`).
 Images are read by ``data/image_io.py`` (JPEG, PNG, 24-bit BMP, or a ``.npy``
 sidecar), JPEGs with nvJPEG when the dataset's ``device`` is the card and with
 libjpeg when it is the CPU; unreadable images and images under 10 px are
-dropped with the JAX package's messages. The segment, pose and obb tasks wait
-for ROADMAP.md catalogue item 13.
+dropped with the JAX package's messages. The pose and obb tasks wait for
+ROADMAP.md catalogue item 13.
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ class YOLODataset:
     def __init__(self, img_path: str | Path, imgsz: int = 640, augment: bool = True, hyp=None, max_labels: int = 128,
                  fraction: float = 1.0, single_cls: bool = False, task: str = "detect", cache: str | bool = False,
                  device="cuda"):
-        if task != "detect":
+        if task not in ("detect", "segment"):
             raise NotImplementedError(f"task={task!r} datasets are not ported to experiment_yolo_torch yet "
                                       "(ROADMAP.md catalogue item 13)")
         self.img_path = Path(img_path)
@@ -159,18 +160,29 @@ class YOLODataset:
         return files
 
     def _load_label(self, img_file: str) -> Dict:
-        """Parse one YOLO txt label file: ``cls cx cy w h`` normalised per line."""
+        """Parse one YOLO txt label file, normalised: ``cls cx cy w h`` per
+        line, or for the segment task ``cls x1 y1 x2 y2 ...``, whose box is
+        the polygon's extent."""
         lp = img2label_path(img_file)
-        cls, boxes = [], []
+        cls, boxes, segments = [], [], []
         if os.path.isfile(lp):
             for ln in Path(lp).read_text().splitlines():
                 parts = ln.split()
                 if len(parts) < 5:
                     continue
                 vals = np.asarray([float(x) for x in parts[1:]], np.float32)
-                boxes.append(vals[:4].tolist())
+                if self.task == "segment":
+                    pts = vals.reshape(-1, 2)
+                    segments.append(pts)
+                    lo, hi = pts.min(0), pts.max(0)
+                    boxes.append([(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2, hi[0] - lo[0], hi[1] - lo[1]])
+                else:
+                    boxes.append(vals[:4].tolist())
                 cls.append(0.0 if self.single_cls else float(parts[0]))
-        return {"cls": np.asarray(cls, np.float32), "bboxes_n": np.asarray(boxes, np.float32).reshape(-1, 4)}
+        out = {"cls": np.asarray(cls, np.float32), "bboxes_n": np.asarray(boxes, np.float32).reshape(-1, 4)}
+        if self.task == "segment":
+            out["segments_n"] = segments
+        return out
 
     def __len__(self) -> int:
         return len(self.im_files)
@@ -207,7 +219,10 @@ class YOLODataset:
                              (b[:, 0] + b[:, 2] / 2) * w, (b[:, 1] + b[:, 3] / 2) * h], axis=1).astype(np.float32)
         else:
             xyxy = np.zeros((0, 4), np.float32)
-        return {"img": img, "bboxes": xyxy, "cls": lab["cls"].copy(), "im_file": self.im_files[i], "ori_shape": (h, w)}
+        out = {"img": img, "bboxes": xyxy, "cls": lab["cls"].copy(), "im_file": self.im_files[i], "ori_shape": (h, w)}
+        if self.task == "segment":
+            out["segments"] = [p * np.asarray([w, h], np.float32) for p in lab["segments_n"]]
+        return out
 
     def _perspective(self, lab: Dict, rng: np.random.Generator) -> Dict:
         hyp = self.hyp

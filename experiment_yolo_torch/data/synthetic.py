@@ -1,6 +1,7 @@
 """Synthetic YOLO-format detection dataset.
 
-Port of ``experiment_yolo_tpu/data/synthetic.py:make_synthetic_dataset``: the
+Port of ``experiment_yolo_tpu/data/synthetic.py`` (``make_synthetic_dataset``
+and ``make_synthetic_task_dataset`` for the segment task): the
 no-network stand-in for COCO128/WAID, coloured ellipses, rectangles and
 triangles (one class each) on blurred noise, written as a standard YOLO
 dataset (``images/``, ``labels/``, ``data.yaml``). It makes the same numpy
@@ -13,17 +14,21 @@ would depend on the encoder (nvJPEG on the card, libjpeg on the CPU;
 ``data/codec.py``). The pixels come from this module's own rasteriser
 (a 7x7 Gaussian blur with OpenCV's sigma for that size, 1.4, and a
 saturating offset; filled shapes by pixel-centre tests) and are not held to
-OpenCV's drawing. ``make_synthetic_task_dataset`` (segment, pose, obb) waits
-for the task families (ROADMAP.md catalogue item 13).
+OpenCV's drawing, except the segment task's polygons, which
+``data/polygons.py:fill_polys`` draws as ``cv2.fillPoly`` does. The pose and
+obb datasets wait for those families (ROADMAP.md catalogue item 13).
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 from experiment_yolo_torch.data.image_io import imwrite
+from experiment_yolo_torch.data.polygons import fill_polys
 from experiment_yolo_torch.utils import yaml_save
 
 SHAPE_NAMES = ["circle", "square", "triangle"]
@@ -88,4 +93,57 @@ def make_synthetic_dataset(root: str | Path, n_train: int = 64, n_val: int = 16,
     yaml_path = root / "data.yaml"
     yaml_save(yaml_path, {"path": str(root), "train": "images/train", "val": "images/val",
                           "nc": len(SHAPE_NAMES), "names": SHAPE_NAMES})
+    return yaml_path
+
+
+def make_synthetic_task_dataset(root: str | Path, task: str, n_train: int = 32, n_val: int = 8, imgsz: int = 256,
+                                max_objects: int = 4, seed: int = 0) -> Path:
+    """Write a synthetic dataset of the segment task (filled triangles and
+    pentagons, class ``poly3`` and ``poly5``, labelled by their normalised
+    vertices); returns the path of its data.yaml. The draws are the JAX
+    generator's, in its order, so the label files are identical to its; the
+    images are then blurred, drawn and written on a thread pool."""
+    if task != "segment":
+        raise NotImplementedError(f"task={task!r}: the port writes segment datasets; pose and obb wait for "
+                                  "ROADMAP.md catalogue item 13")
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    names = ["poly3", "poly5"]
+    jobs = []  # (image path, noise, offset, [(polygon, colour)])
+    for split, n in (("train", n_train), ("val", n_val)):
+        img_dir = root / "images" / split
+        lab_dir = root / "labels" / split
+        img_dir.mkdir(parents=True, exist_ok=True)
+        lab_dir.mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            noise = rng.integers(0, 60, (imgsz, imgsz, 3), np.uint8)
+            offset = int(rng.integers(40, 90))
+            lines, shapes = [], []
+            for _ in range(int(rng.integers(1, max_objects + 1))):
+                r = int(rng.integers(imgsz // 12, imgsz // 6))
+                cx = int(rng.integers(r + 2, imgsz - r - 2))
+                cy = int(rng.integers(r + 2, imgsz - r - 2))
+                color = tuple(int(c) for c in rng.integers(120, 255, 3))
+                cls = int(rng.integers(0, 2))
+                k = 3 if cls == 0 else 5
+                ang = rng.uniform(0, 2 * np.pi)
+                pts = np.stack([cx + r * np.cos(ang + 2 * np.pi * np.arange(k) / k),
+                                cy + r * np.sin(ang + 2 * np.pi * np.arange(k) / k)], -1)
+                shapes.append((pts.astype(np.int32), color))
+                lines.append(f"{cls} " + " ".join(f"{v:.6f}" for v in (pts / imgsz).reshape(-1)))
+            (lab_dir / f"{i:05d}.txt").write_text("\n".join(lines) + "\n")
+            jobs.append((img_dir / f"{i:05d}.bmp", noise, offset, shapes))
+
+    def render(job):
+        path, noise, offset, shapes = job
+        img = np.clip(_blur7(noise).astype(np.int32) + offset, 0, 255).astype(np.uint8)
+        for pts, color in shapes:
+            img[fill_polys(np.zeros((imgsz, imgsz), np.int32), [pts], [1]).astype(bool)] = color
+        imwrite(path, img)
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(render, jobs))
+    yaml_path = root / "data.yaml"
+    yaml_save(yaml_path, {"path": str(root), "train": "images/train", "val": "images/val", "nc": len(names),
+                          "names": names})
     return yaml_path

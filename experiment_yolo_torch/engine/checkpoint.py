@@ -30,7 +30,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from experiment_yolo_torch.nn.tasks import DetectionModel
+from experiment_yolo_torch.nn.tasks import DetectionModel, task_model
 
 
 def _cpu(obj):
@@ -49,7 +49,7 @@ def save_checkpoint(path: str | Path, model: DetectionModel, *, ema: Optional[to
     and ``meta`` (names, epoch, best_fitness, train_args) to ``path``."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    ckpt = {"model_yaml": dict(model.yaml), "nc": model.nc, "task": "detect", "names": dict(model.names),
+    ckpt = {"model_yaml": dict(model.yaml), "nc": model.nc, "task": model.task, "names": dict(model.names),
             **(meta or {}), "model": _cpu(model.state_dict())}
     if ema is not None:
         ckpt["ema"] = _cpu(ema.state_dict())
@@ -88,11 +88,12 @@ def load_matching_variables(path: str | Path, model: torch.nn.Module, prefer_ema
 
 def load_checkpoint(path: str | Path, device="cuda", prefer_ema: bool = True,
                     dtype: torch.dtype = torch.float32) -> DetectionModel:
-    """The model of a checkpoint, rebuilt from its YAML on ``device`` with its
+    """The model of a checkpoint, rebuilt from its YAML on ``device`` as the
+    model class of its ``task`` (JAX ``engine/checkpoint.py:96-100``) with its
     names and, by default, the EMA weights (the reference validates and
     exports the EMA model), computing in ``dtype``."""
     ckpt = read_checkpoint(path)
-    model = DetectionModel(ckpt["model_yaml"], device=device, dtype=dtype)
+    model = task_model(ckpt.get("task", "detect"))(ckpt["model_yaml"], device=device, dtype=dtype)
     model.load_state_dict(_weights(ckpt, prefer_ema), strict=True)
     model.names = {int(k): v for k, v in ckpt["names"].items()}
     return model

@@ -1,10 +1,13 @@
 """The ``YOLO`` facade: one object that routes train, val and predict.
 
-Port of ``experiment_yolo_tpu/engine/model.py:YOLO`` for detection. The model
-is a :class:`~experiment_yolo_torch.nn.tasks.DetectionModel` built from a YAML
-or a checkpoint of the port; ``train``, ``val`` and ``predict`` go to
-:class:`DetectionTrainer`, :class:`DetectionValidator` and
-:class:`DetectionPredictor` with the facade's overrides under the call's, and
+Port of ``experiment_yolo_tpu/engine/model.py:YOLO`` for detection and
+segmentation. The model is a :class:`~experiment_yolo_torch.nn.tasks.DetectionModel`
+or, for a segment YAML (the task guessed from its name or head, as JAX
+``engine/model.py:30-42``) or checkpoint, a ``SegmentationModel``, built from
+a YAML or a checkpoint of the port; ``train``, ``val`` and ``predict`` go to
+:class:`DetectionTrainer`, the task's validator (``DetectionValidator`` or
+``SegmentationValidator``) and :class:`DetectionPredictor` with the facade's
+overrides under the call's, and
 the paper's two-stage inference, ``double_predict`` and ``sliced_predict``, to
 ``engine/double_inference.py`` and ``engine/sliced.py``. The JAX facade's
 further methods raise ``NotImplementedError`` naming their ``ROADMAP.md``
@@ -19,7 +22,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from experiment_yolo_torch.engine.checkpoint import load_checkpoint, load_matching_variables, save_checkpoint
-from experiment_yolo_torch.nn.tasks import DetectionModel, yaml_model_load
+from experiment_yolo_torch.nn.tasks import guess_model_task, task_model, yaml_model_load
 from experiment_yolo_torch.utils import LOGGER
 
 
@@ -28,7 +31,7 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 
 class YOLO:
-    """Unified detection model API, on the card unless ``device='cpu'``.
+    """Unified detection and segmentation model API, on the card unless ``device='cpu'``.
 
     ``model`` is a model YAML (by path, or by name from the port's
     ``cfg/models``; ``nc`` overrides its class count) or a ``.pt`` checkpoint
@@ -51,16 +54,15 @@ class YOLO:
     def __init__(self, model: str | Path = "yolov8n.yaml", nc: Optional[int] = None, dtype=torch.float32,
                  seed: int = 0, task: Optional[str] = None, device="cuda"):
         model = str(model)
-        if task not in (None, "detect"):
-            raise NotImplementedError(f"task={task!r} is not ported to experiment_yolo_torch yet "
-                                      "(ROADMAP.md catalogue item 13); the port builds detection models")
+        if task is not None:
+            task_model(task)  # pose, obb and classify raise naming ROADMAP.md catalogue item 13
         self.ckpt_path: Optional[str] = None
         if model.endswith((".yaml", ".yml")):
             cfg = yaml_model_load(model)
             if nc:
                 cfg = {**cfg, "nc": nc}
-            self.model = DetectionModel(cfg, device=device, generator=torch.Generator().manual_seed(seed),
-                                        dtype=dtype)
+            self.model = task_model(task or guess_model_task(model))(
+                cfg, device=device, generator=torch.Generator().manual_seed(seed), dtype=dtype)
         elif model.endswith(".pt"):
             self.model = load_checkpoint(model, device, dtype=dtype)
             self.ckpt_path = model
@@ -89,8 +91,12 @@ class YOLO:
     def num_params(self) -> int:
         return sum(p.numel() for p in self.model.parameters())
 
+    @property
+    def task(self) -> str:
+        return self.model.task
+
     def info(self) -> str:
-        s = f"DetectionModel(nc={self.nc}, strides={self.model.stride}, params={self.num_params():,})"
+        s = f"{type(self.model).__name__}(nc={self.nc}, strides={self.model.stride}, params={self.num_params():,})"
         LOGGER.info(s)
         return s
 
@@ -131,13 +137,16 @@ class YOLO:
         return results
 
     def val(self, **kwargs) -> Dict[str, float]:
-        """Validate on ``data``'s split with :class:`DetectionValidator`."""
+        """Validate on ``data``'s split with the task's validator
+        (:class:`DetectionValidator`, or ``SegmentationValidator``: box and
+        mask mAP)."""
         from experiment_yolo_torch.engine.validator import DetectionValidator
+        from experiment_yolo_torch.engine.validators_extra import TASK_VALIDATORS
 
-        return DetectionValidator({**self.overrides, **kwargs})(self.model)
+        return TASK_VALIDATORS.get(self.task, DetectionValidator)({**self.overrides, **kwargs})(self.model)
 
     def predict(self, source, stream: bool = False, **kwargs) -> List:
-        """Detect in ``source`` with :class:`DetectionPredictor`, built again
+        """Detect (and segment) in ``source`` with :class:`DetectionPredictor`, built again
         when the overrides change: an (H, W, 3) uint8 BGR array, an image file
         (JPEG, PNG, BMP), a folder of them, or a list of any of these. A list
         of :class:`Results`, or a generator of them with ``stream``. Videos
@@ -159,6 +168,7 @@ class YOLO:
         or a generator of them with ``stream``."""
         from experiment_yolo_torch.engine.sliced import SlicedPredictor
 
+        self._detect_only("sliced_predict")
         pred = SlicedPredictor(self.model, {**self.overrides, **kwargs}, slice=slice, overlap=overlap,
                                include_full=include_full)
         return pred(source, stream=stream)
@@ -171,9 +181,14 @@ class YOLO:
         takes it; a generator of the refined :class:`Results` with ``stream``."""
         from experiment_yolo_torch.engine.double_inference import DoubleInference
 
+        self._detect_only("double_predict")
         refine = DoubleInference(self.model)
         gen = (refine.refine(r) for r in self.predict(source, stream=True, **kwargs))
         return gen if stream else list(gen)
+
+    def _detect_only(self, what: str) -> None:
+        if self.task != "detect":
+            raise NotImplementedError(f"YOLO.{what} refines boxes of a detection model; this is a {self.task} model")
 
     def save(self, path: str | Path) -> Path:
         """Write the model (f32 weights, YAML, names) as a checkpoint ``YOLO`` and ``load`` read."""

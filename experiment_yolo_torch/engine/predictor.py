@@ -1,13 +1,20 @@
 """Detection predictor: source -> letterbox -> model -> NMS -> Results.
 
 Port of ``experiment_yolo_tpu/engine/predictor.py`` (``load_source``,
-``DetectionPredictor``) for detection. A source is an array, an image file,
+``DetectionPredictor``) for detection and segmentation. A source is an array, an image file,
 a folder or a list of them (``data/loaders.py``); its JPEGs are decoded for
 the model's device, a batch of files at a time. Letterbox runs on the host;
 the batch goes to the device as uint8 and is normalised there; forward,
 decode and NMS run on the device; boxes are mapped back to each original
 image with its (gain, pad). The batch shape is fixed: a short last batch is
 padded with black images.
+
+A segmentation model's NMS also returns the kept anchors, whose mask
+coefficients make the masks at proto resolution (``assemble_masks``); each
+image's masks are then taken to its original size on the device, all at
+once, as JAX ``_masks_to_orig`` takes them one by one with OpenCV (float32
+linear resizes to the letterbox square, the padding cut, to the original
+size, ``> 0.5``, cut to each box), and only then copied to the host.
 
 One batch is in flight, as in the JAX package's software pipeline: batch i
 is launched on the card's stream with its copy back to pinned host memory,
@@ -25,8 +32,9 @@ import numpy as np
 import torch
 
 from experiment_yolo_torch.cfg import check_imgsz, get_cfg
-from experiment_yolo_torch.data.augment import letterbox
+from experiment_yolo_torch.data.augment import letterbox, resize_linear_f32
 from experiment_yolo_torch.engine.results import Results
+from experiment_yolo_torch.nn.heads_extra import assemble_masks
 from experiment_yolo_torch.ops.nms import non_max_suppression
 
 Source = Union[str, Path, np.ndarray, List]
@@ -59,7 +67,7 @@ class DetectionPredictor:
         self.imgsz = check_imgsz(int(self.args.imgsz), max(model.stride))
         self.batch = max(int(self.args.batch), 1)
 
-    def _nms(self, boxes: torch.Tensor, scores: torch.Tensor):
+    def _nms(self, boxes: torch.Tensor, scores: torch.Tensor, return_idx: bool = False):
         return non_max_suppression(
             boxes, scores,
             conf_thres=float(self.args.conf),
@@ -68,14 +76,22 @@ class DetectionPredictor:
             agnostic=bool(self.args.agnostic_nms),
             nms_type=str(self.args.nms_type or "soft"),
             soft_first_quirk=bool(self.args.soft_nms_quirk),
+            return_idx=return_idx,
         )
 
     @torch.no_grad()
     def infer(self, imgs: torch.Tensor):
-        """(B, H, W, 3) uint8 RGB on the device -> (detections (B, max_det, 6), counts (B,)).
-        The images are normalised in the model's compute dtype."""
+        """(B, H, W, 3) uint8 RGB on the device -> (detections (B, max_det, 6),
+        counts (B,)), and for a segmentation model the mask probabilities (B,
+        max_det, Hp, Wp) of the kept rows. The images are normalised in the
+        model's compute dtype."""
         x = (imgs.permute(0, 3, 1, 2).to(self.model.dtype) / 255.0).contiguous()
-        return self._nms(*self.model.predict(x))
+        if self.model.task != "segment":
+            return self._nms(*self.model.predict(x))
+        boxes, scores, coeffs, protos = self.model.predict(x)
+        det, counts, idx = self._nms(boxes, scores, return_idx=True)
+        kept = torch.gather(coeffs, 1, idx.long()[..., None].expand(-1, -1, coeffs.shape[-1]))
+        return det, counts, assemble_masks(kept, protos)
 
     def _preprocess(self, chunk):
         pre = [letterbox(img, (self.imgsz, self.imgsz)) for _, img in chunk]
@@ -86,18 +102,22 @@ class DetectionPredictor:
 
     def _launch(self, batch: np.ndarray):
         """Launch a batch and its copy back to the host; returns (det, counts,
-        event): host tensors valid once ``event`` (None on the CPU) has passed."""
+        masks, event): det and counts host tensors valid once ``event`` (None
+        on the CPU) has passed, masks (None without a segmentation model) on
+        the device."""
         x = torch.from_numpy(batch)
         if self.device.type != "cuda":
-            return (*self.infer(x), None)
-        det, counts = self.infer(x.pin_memory().to(self.device, non_blocking=True))
+            out = self.infer(x)
+            return (*out[:2], out[2] if len(out) > 2 else None, None)
+        out = self.infer(x.pin_memory().to(self.device, non_blocking=True))
+        (det, counts), masks = out[:2], (out[2] if len(out) > 2 else None)
         det_h = torch.empty(det.shape, dtype=det.dtype, pin_memory=True)
         counts_h = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
         det_h.copy_(det, non_blocking=True)
         counts_h.copy_(counts, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return det_h, counts_h, event
+        return det_h, counts_h, masks, event
 
     def __call__(self, source: Source, stream: bool = False):
         """Detect in ``source``: a list of :class:`Results`, or a generator of
@@ -118,7 +138,7 @@ class DetectionPredictor:
             if chunk:
                 yield chunk
 
-        pending = None  # (chunk, pre, det, counts, event, t0, t1): the batch in flight
+        pending = None  # (chunk, pre, det, counts, masks, event, t0, t1): the batch in flight
         for chunk in chunks():
             t0 = time.perf_counter()
             pre, batch = self._preprocess(chunk)
@@ -130,7 +150,7 @@ class DetectionPredictor:
         if pending is not None:
             yield from self._postprocess(*pending)
 
-    def _postprocess(self, chunk, pre, det, counts, event, t0, t1) -> List[Results]:
+    def _postprocess(self, chunk, pre, det, counts, masks, event, t0, t1) -> List[Results]:
         if event is not None:
             event.synchronize()
         det, counts = det.numpy(), counts.numpy()
@@ -142,7 +162,49 @@ class DetectionPredictor:
             oh, ow = orig.shape[:2]
             d[:, [0, 2]] = ((d[:, [0, 2]] - padw) / gain).clip(0, ow)
             d[:, [1, 3]] = ((d[:, [1, 3]] - padh) / gain).clip(0, oh)
+            keep = None
             if self.args.classes is not None:
-                d = d[np.isin(d[:, 5].astype(int), np.atleast_1d(self.args.classes))]
-            results.append(Results(orig, path, self.model.names, d, speed=speed, device=self.device))
+                keep = np.isin(d[:, 5].astype(int), np.atleast_1d(self.args.classes))
+                d = d[keep]
+            m = None
+            if masks is not None:
+                probs = masks[i, :int(counts[i])]
+                if keep is not None:
+                    probs = probs[torch.from_numpy(keep).to(probs.device)]
+                m = self._masks_to_orig(probs, d, gain, padw, padh, oh, ow)
+            results.append(Results(orig, path, self.model.names, d, speed=speed, device=self.device, masks=m))
         return results
+
+    def _masks_to_orig(self, probs: torch.Tensor, d: np.ndarray, gain: float, padw: float, padh: float, oh: int,
+                       ow: int) -> np.ndarray:
+        """Mask probabilities (n, Hp, Wp) at proto resolution -> (n, oh, ow)
+        bool in the original image, each cut to its box (JAX
+        ``engine/predictor.py:_masks_to_orig``), computed where ``probs`` lie."""
+        full, inside = masks_to_orig_probs(probs, d, self.imgsz, gain, padw, padh, oh, ow)
+        masks = (full > 0.5) & inside
+        if not masks.is_cuda:
+            return masks.numpy()
+        # into page-locked memory, which the array then holds: an image's hundreds of MB of masks copy at the
+        # link's rate, where a pageable copy stages them through the host's own memory bandwidth
+        host = torch.empty(masks.shape, dtype=torch.bool, pin_memory=True)
+        host.copy_(masks)
+        return host.numpy()
+
+
+def masks_to_orig_probs(probs: torch.Tensor, d: np.ndarray, imgsz: int, gain: float, padw: float, padh: float,
+                        oh: int, ow: int):
+    """The mask probabilities (n, Hp, Wp) of an image letterboxed to the
+    ``imgsz`` square, taken to its original (oh, ow): resized to the square,
+    the padding cut, resized to (oh, ow) (OpenCV's float32 linear resizes);
+    and each detection's box window (n, oh, ow) from its xyxy ``d`` in the
+    original image, truncated to whole pixels."""
+    top, left = int(round(padh)), int(round(padw))
+    nh, nw = int(round(oh * gain)), int(round(ow * gain))
+    up = resize_linear_f32(probs.float(), (imgsz, imgsz))[:, top:top + nh, left:left + nw]
+    full = resize_linear_f32(up.contiguous(), (ow, oh))
+    b = torch.from_numpy(d[:, :4].astype(int)).to(probs.device)
+    cols = torch.arange(ow, device=probs.device)
+    rows = torch.arange(oh, device=probs.device)
+    inside = ((cols >= b[:, 0, None].clamp(min=0)) & (cols < b[:, 2, None]))[:, None, :] & \
+             ((rows >= b[:, 1, None].clamp(min=0)) & (rows < b[:, 3, None]))[:, :, None]
+    return full, inside

@@ -1,9 +1,9 @@
-"""Detection results in original-image space (port of the detect fields of
-``experiment_yolo_tpu/engine/results.py``: ``Boxes`` and ``Results`` with
-``save_txt``, ``to_dict``, ``tojson``, ``verbose`` and ``save_crop``).
-``plot`` and ``save`` draw with OpenCV in the JAX package and wait for
-ROADMAP.md catalogue item 15; the mask, keypoint, OBB and probability
-holders wait for catalogue item 13."""
+"""Detection and segmentation results in original-image space (port of the
+detect and segment fields of ``experiment_yolo_tpu/engine/results.py``:
+``Boxes``, ``Masks`` and ``Results`` with ``save_txt``, ``to_dict``,
+``tojson``, ``verbose`` and ``save_crop``). ``plot`` and ``save`` draw with
+OpenCV in the JAX package and wait for ROADMAP.md catalogue item 15; the
+keypoint, OBB and probability holders wait for catalogue item 13."""
 
 from __future__ import annotations
 
@@ -52,17 +52,30 @@ class Boxes:
         return self.xywh / np.asarray([w, h, w, h])
 
 
+class Masks:
+    """Instance masks of one image, in original-image space. data: (N, H, W) bool."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = np.asarray(data, bool)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+
 class Results:
-    """One image's detections and metadata. ``device`` is where its crops are
-    encoded as JPEG (nvJPEG on the card, libjpeg on the CPU)."""
+    """One image's detections (and, from a segmentation model, their
+    ``masks``) and metadata. ``device`` is where its crops are encoded as JPEG
+    (nvJPEG on the card, libjpeg on the CPU)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str], boxes: np.ndarray,
-                 speed: Optional[dict] = None, device="cuda"):
+                 speed: Optional[dict] = None, device="cuda", masks: Optional[np.ndarray] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape)
+        self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.speed = speed or {}
         self.device = device
 

@@ -1,6 +1,7 @@
 """The detection trainer: the training step and the dataset-driven loop.
 
-Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect branch:
+Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect and segment
+branches:
 
 - :meth:`DetectionTrainer.train_step` is ``_make_train_step``'s step: a batch
   as the JAX step takes it (uint8 NHWC images and padded labels), the image
@@ -9,13 +10,17 @@ Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect branch:
   decode, TAL or ATSS, the class-loss zoo, the IoU zoo or the paper's Wise-IoU
   v3 with the NWD blend, DFL), the backward (the K1 and K3 backward kernels on
   the card), the optimizer (SGD, the Adam family, RMSProp or SOAP) on its
-  firing plan, and the EMA;
+  firing plan, and the EMA; a ``SegmentationModel`` adds the mask loss
+  (``utils/task_losses.py``, its detect maps in f32 and its coefficients and
+  protos in the compute dtype, as JAX ``engine/trainer.py:457-465``);
 - :meth:`DetectionTrainer.train` is ``train()``: the dataset and the threaded
   loader, the optimizer built for the loader's batches per epoch, epochs with
   ``close_mosaic`` and ``multi_scale``, the per-epoch mean of the loss
   components (read one step late, so that the host never waits for the step it
   just launched), validation of the EMA model after every epoch through one
-  dataset-driven ``DetectionValidator``, ``results.csv``, the ``last``,
+  dataset-driven ``DetectionValidator`` (``SegmentationValidator`` for a
+  segmentation model: fitness is the mean of the box and mask fitness),
+  ``results.csv``, the ``last``,
   ``best`` and ``epochN`` checkpoints, ``resume`` and ``EarlyStopping``.
 
 ``amp=True`` (the default) trains as the JAX package does: the model computes
@@ -27,8 +32,9 @@ bf16 diverges; the per-epoch validation of the EMA model runs in the compute
 dtype, as JAX's ``_validate`` runs its bf16 rebuild.
 
 Not ported: the mesh, FSDP, ``autobatch`` and ``plots`` (ROADMAP.md catalogue
-item 15), each of which raises; the kernel-warehouse temperature and the task
-losses, whose models the port does not build (catalogue items 14 and 13).
+item 15), each of which raises; the kernel-warehouse temperature and the pose
+and OBB losses, whose models the port does not build (catalogue items 14 and
+13).
 """
 
 from __future__ import annotations
@@ -54,15 +60,16 @@ from experiment_yolo_torch.utils import LOGGER, colorstr, get_latest_run, increm
 from experiment_yolo_torch.utils.callbacks import Callbacks
 from experiment_yolo_torch.utils.ema import ModelEMA
 from experiment_yolo_torch.utils.loss import LossConfig, detection_loss
+from experiment_yolo_torch.utils.task_losses import segmentation_loss
 
 NB = 100  # batches per epoch of the schedules for train_step callers, who have no loader (the JAX bench.py's)
-LOSS_KEYS = ("box", "cls", "dfl")  # the JAX step's loss components, in its sorted order
+LOSS_KEYS = {"detect": ("box", "cls", "dfl"), "segment": ("box", "cls", "dfl", "seg")}  # sorted, as the JAX loop
 MULTI_SCALE = (0.75, 0.9, 1.0, 1.15, 1.3)  # multi_scale's fixed bucket set, times imgsz
 
 
-def _host(comps: Mapping) -> np.ndarray:
-    """The loss components of a step as host floats (one device sync)."""
-    return np.asarray(torch.stack([comps[k] for k in LOSS_KEYS]).tolist())
+def _host(comps: Mapping, keys) -> np.ndarray:
+    """The loss components ``keys`` of a step as host floats (one device sync)."""
+    return np.asarray(torch.stack([comps[k] for k in keys]).tolist())
 
 
 @dataclass
@@ -120,6 +127,8 @@ class DetectionTrainer:
             raise NotImplementedError("batch=-1 (autobatch, utils/autobatch.py) is not ported to "
                                       "experiment_yolo_torch yet (ROADMAP.md catalogue item 15)")
         self.model = model
+        args.task = model.task
+        self.loss_keys = LOSS_KEYS[model.task]
         self.caller_dtype = model.dtype  # restored when train() returns
         self.dtype = torch.bfloat16 if args.amp else torch.float32
         model.dtype = self.dtype
@@ -155,9 +164,11 @@ class DetectionTrainer:
     def train_step(self, batch: Mapping) -> Dict[str, torch.Tensor]:
         """One micro-batch: ``img`` (B, H, W, 3) uint8 (no channel flip),
         ``bboxes`` (B, M, 4) normalised xywh, ``cls`` (B, M), ``mask`` (B, M),
-        as numpy arrays or tensors. Returns the loss components (``box``,
-        ``cls``, ``dfl``, each with its gain), ``loss`` and the foreground
-        count ``fg``, as tensors on the model's device.
+        and for a segmentation model ``masks`` (B, H/4, W/4) int (the
+        overlap-index images), as numpy arrays or tensors. Returns the loss
+        components (``box``, ``cls``, ``dfl``, and ``seg``, each with its
+        gain), ``loss`` and the foreground count ``fg``, as tensors on the
+        model's device.
 
         The EMA and Wise-IoU's ``iou_mean`` follow every micro-batch, whether
         the optimizer fired or not, as in the JAX package.
@@ -172,9 +183,15 @@ class DetectionTrainer:
         with record_function("forward"):
             x = img.to(dev, non_blocking=True).permute(0, 3, 1, 2).to(self.dtype).div(255.0).contiguous()
             feats = st.model(x)
-        targets = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True) for k in ("bboxes", "cls", "mask")}
+        keys = ("bboxes", "cls", "mask", "masks") if st.model.task == "segment" else ("bboxes", "cls", "mask")
+        targets = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True) for k in keys}
         with record_function("loss"):
-            if st.slide_mean is None:
+            if st.model.task == "segment":  # the detect maps in f32, coefficients and protos as they come
+                det, coeffs, protos = feats
+                total, comps, res, st.iou_mean, _ = segmentation_loss([f.float() for f in det], coeffs, protos,
+                                                                      targets, st.model.stride, self.loss_cfg,
+                                                                      st.iou_mean)
+            elif st.slide_mean is None:
                 total, comps, res, st.iou_mean = detection_loss(feats, targets, st.model.stride, self.loss_cfg,
                                                                 st.iou_mean)
             else:
@@ -200,9 +217,6 @@ class DetectionTrainer:
         if args.plots:
             raise NotImplementedError("plots=True draws figures, which are not ported to experiment_yolo_torch yet "
                                       "(utils/plotting.py, ROADMAP.md catalogue item 15)")
-        if (args.task or "detect") != "detect":
-            raise NotImplementedError(f"task={args.task!r} (its losses and validators) is not ported to "
-                                      "experiment_yolo_torch yet (ROADMAP.md catalogue item 13)")
         if not args.data:
             raise ValueError("train() needs a dataset: pass data=<data.yaml>")
 
@@ -211,7 +225,9 @@ class DetectionTrainer:
         so that ``train_step``'s uploads run asynchronously."""
         pin = self.model.device.type == "cuda"
         out = {}
-        for k in ("img", "bboxes", "cls", "mask"):
+        for k in ("img", "bboxes", "cls", "mask", "masks"):
+            if k not in batch:
+                continue
             t = torch.from_numpy(np.ascontiguousarray(batch[k]))
             out[k] = t.pin_memory() if pin else t
         return out
@@ -264,23 +280,23 @@ class DetectionTrainer:
                 self.train_loader.mosaic = False
             self.train_loader.set_epoch(epoch)
             t0 = time.time()
-            mean_loss, n_acc, pending = np.zeros(len(LOSS_KEYS)), 0, None
+            mean_loss, n_acc, pending = np.zeros(len(self.loss_keys)), 0, None
             ms_rng = np.random.default_rng(args.seed + 10_000 + epoch)
             for batch in self.train_loader:
                 if args.multi_scale:
                     batch = self._rescale_batch(batch, ms_rng)
                 comps = self.train_step(self._host_batch(batch))
                 if pending is not None:  # the previous step's losses: reading them waits only for that step
-                    mean_loss = (mean_loss * n_acc + _host(pending)) / (n_acc + 1)
+                    mean_loss = (mean_loss * n_acc + _host(pending, self.loss_keys)) / (n_acc + 1)
                     n_acc += 1
                 pending = comps
             if pending is not None:
-                mean_loss = (mean_loss * n_acc + _host(pending)) / (n_acc + 1)
+                mean_loss = (mean_loss * n_acc + _host(pending, self.loss_keys)) / (n_acc + 1)
                 n_acc += 1
             dt = time.time() - t0
-            loss_str = "  ".join(f"{k} {v:.4f}" for k, v in zip(LOSS_KEYS, mean_loss))
+            loss_str = "  ".join(f"{k} {v:.4f}" for k, v in zip(self.loss_keys, mean_loss))
             LOGGER.info(f"epoch {epoch + 1}/{args.epochs}  {loss_str}  {nb * args.batch / dt:.1f} img/s")
-            self.loss_items = dict(zip(LOSS_KEYS, mean_loss.tolist()))
+            self.loss_items = dict(zip(self.loss_keys, mean_loss.tolist()))
 
             fitness = self._validate() if args.val else None
             self._save_metrics_csv(epoch)
@@ -332,6 +348,8 @@ class DetectionTrainer:
         finally:
             model.train(training)
         rel, finite = 0.0, True
+        if model.task == "segment":  # (detect maps, coefficient maps, protos) -> one list
+            got, want = ([*det, *coeffs, protos] for det, coeffs, protos in (got, want))
         for a, b in zip(got, want):
             a = a.float()
             finite = finite and bool(torch.isfinite(a).all())
@@ -357,14 +375,15 @@ class DetectionTrainer:
 
     def _validate(self) -> Optional[float]:
         """Validate the EMA model (the model itself when ``ema`` is off), in the
-        compute dtype, with one validator for the whole run: its dataset and
-        loader are built once."""
+        compute dtype, with one validator for the whole run (the task's): its
+        dataset and loader are built once."""
         from experiment_yolo_torch.engine.validator import DetectionValidator
+        from experiment_yolo_torch.engine.validators_extra import TASK_VALIDATORS
 
         st = self.state
         if getattr(self, "_validator", None) is None:
             a = self.args
-            self._validator = DetectionValidator({"data": a.data, "imgsz": a.imgsz, "batch": a.batch, "conf": 0.001,
+            self._validator = TASK_VALIDATORS.get(self.model.task, DetectionValidator)({"data": a.data, "imgsz": a.imgsz, "batch": a.batch, "conf": 0.001,
                                                   "iou": 0.7, "max_det": a.max_det, "workers": a.workers,
                                                   "max_labels": a.max_labels, "split": a.split, "verbose": False})
         stats = self._validator(st.ema.ema if st.ema is not None else st.model)

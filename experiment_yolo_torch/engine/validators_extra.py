@@ -1,0 +1,158 @@
+"""The segmentation validator: box mAP and mask mAP.
+
+Port of ``experiment_yolo_tpu/engine/validators_extra.py`` (``mask_iou_np:28``,
+``_TaskValidator:46``, ``SegmentationValidator:98-172``, ``TASK_VALIDATORS:298``)
+for the segment task. The card part (:meth:`SegmentationValidator.infer`):
+normalise, forward, decode (kernel K1), NMS as the JAX validator calls it
+(multi-label, hard, its default pool of 1,024: kernel K2) with the kept
+anchors' indices, and the masks of the kept detections at proto resolution.
+The host part (:meth:`SegmentationValidator.score_batch`) is numpy: boxes as
+``DetectionValidator`` scores them, and each mask cut to its box at proto
+resolution and held to the ground-truth instances rebuilt from the batch's
+overlap-index image (resized as OpenCV's ``INTER_NEAREST`` does when its size
+differs). The pose and OBB validators wait for ROADMAP.md catalogue item 13.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Iterable, Mapping, Optional
+
+import numpy as np
+import torch
+
+from experiment_yolo_torch.engine.validator import DetectionValidator
+from experiment_yolo_torch.nn.heads_extra import assemble_masks
+from experiment_yolo_torch.ops.nms import non_max_suppression
+from experiment_yolo_torch.utils import LOGGER
+from experiment_yolo_torch.utils.metrics import IOUV, DetMetrics, box_iou_np, match_predictions
+
+
+def mask_iou_np(pred: np.ndarray, gt: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """(N, HW) x (M, HW) binary masks -> (N, M) IoU (the reference's ``mask_iou``)."""
+    inter = pred.astype(np.float32) @ gt.astype(np.float32).T
+    union = pred.sum(-1)[:, None] + gt.sum(-1)[None] - inter
+    return inter / (union + eps)
+
+
+def resize_nearest_cv(img: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST)`` of a 2-D
+    array: source index floor(i * (1 / (dst / src))), capped at the last."""
+    w, h = size
+    sy = np.minimum(np.floor(np.arange(h) * (1.0 / (h / img.shape[0]))).astype(np.int64), img.shape[0] - 1)
+    sx = np.minimum(np.floor(np.arange(w) * (1.0 / (w / img.shape[1]))).astype(np.int64), img.shape[1] - 1)
+    return img[sy][:, sx]
+
+
+class SegmentationValidator(DetectionValidator):
+    """``SegmentationValidator(overrides)(model)`` on ``overrides['data']``
+    (a segment dataset), or ``(model, batches, names, n_images=None)`` on
+    batches in memory that also hold ``masks`` (B, Hm, Wm) -> the stats:
+    ``box_*`` and ``mask_*`` (precision, recall, mAP50, mAP50-95, fitness),
+    the box family's under their plain names, and ``fitness``, the mean of the
+    two fitnesses."""
+
+    task = "segment"
+
+    def __init__(self, overrides: Optional[Dict] = None):
+        super().__init__(overrides)
+        self.args.task = self.task
+
+    def nms(self, boxes: torch.Tensor, scores: torch.Tensor):
+        """The JAX validator's NMS: multi-label, ``nms_type`` at the function's
+        default (hard), the default pool, with the kept anchors."""
+        a = self.args
+        return non_max_suppression(boxes, scores, conf_thres=float(a.conf), iou_thres=float(a.iou),
+                                   max_det=int(a.max_det), multi_label=True, return_idx=True)
+
+    @torch.no_grad()
+    def infer(self, model, imgs: torch.Tensor):
+        """The card part: (B, H, W, 3) uint8 -> (detections (B, max_det, 6) in
+        letterbox pixels, counts (B,), mask probabilities (B, max_det, Hp, Wp)).
+        The model runs in eval mode, on images normalised in f32 and cast to
+        its compute dtype."""
+        x = (imgs.permute(0, 3, 1, 2).float() / 255.0).to(model.dtype).contiguous()
+        training = model.training
+        model.eval()
+        try:
+            boxes, scores, coeffs, protos = model.predict(x)
+            det, counts, idx = self.nms(boxes, scores)
+            kept = torch.gather(coeffs, 1, idx.long()[..., None].expand(-1, -1, coeffs.shape[-1]))
+            return det, counts, assemble_masks(kept, protos)
+        finally:
+            model.train(training)
+
+    def score_batch(self, box_m: DetMetrics, mask_m: DetMetrics, det: np.ndarray, counts: np.ndarray,
+                    pmasks: np.ndarray, batch: Mapping, n: Optional[int] = None) -> None:
+        """The host part for the first ``n`` images of one batch: box and mask
+        matching, ``box_m.update`` and ``mask_m.update``."""
+        ih, iw = np.asarray(batch["img"]).shape[1:3]
+        hp, wp = pmasks.shape[-2:]
+        for i in range(len(det) if n is None else n):
+            k = int(counts[i])
+            d = det[i, :k]
+            gain, padw, padh = np.asarray(batch["ratio_pad"][i])
+            oh, ow = np.asarray(batch["ori_shape"][i])
+            pb = d[:, :4].copy()
+            pb[:, [0, 2]] = ((pb[:, [0, 2]] - padw) / gain).clip(0, ow)
+            pb[:, [1, 3]] = ((pb[:, [1, 3]] - padh) / gain).clip(0, oh)
+            m = np.asarray(batch["mask"][i]).astype(bool)
+            gx = np.asarray(batch["bboxes"][i])[m][:, :4] * np.asarray([iw, ih, iw, ih])
+            cls = np.asarray(batch["cls"][i])[m].astype(np.float32)
+            gt = np.stack([gx[:, 0] - gx[:, 2] / 2, gx[:, 1] - gx[:, 3] / 2,
+                           gx[:, 0] + gx[:, 2] / 2, gx[:, 1] + gx[:, 3] / 2], 1)
+            gt[:, [0, 2]] = (gt[:, [0, 2]] - padw) / gain
+            gt[:, [1, 3]] = (gt[:, [1, 3]] - padh) / gain
+            iou = box_iou_np(pb, gt) if k else np.zeros((0, len(gt)))
+            tp_b = match_predictions(d[:, 5], cls, iou) if k else np.zeros((0, IOUV.size), bool)
+            box_m.update(tp_b, d[:, 4], d[:, 5], cls)
+
+            # masks at proto resolution, each cut to its box
+            pm = pmasks[i, :k] > 0.5
+            sx, sy = wp / iw, hp / ih
+            for j in range(k):
+                x1, y1, x2, y2 = d[j, :4]
+                keep = np.zeros((hp, wp), bool)
+                xa, xb = int(max(x1 * sx, 0)), int(min(np.ceil(x2 * sx), wp))
+                ya, yb = int(max(y1 * sy, 0)), int(min(np.ceil(y2 * sy), hp))
+                keep[ya:yb, xa:xb] = True
+                pm[j] &= keep
+            gidx = np.flatnonzero(m)
+            gimg = np.asarray(batch["masks"][i])
+            if gimg.shape != (hp, wp):
+                gimg = resize_nearest_cv(gimg.astype(np.int32), (wp, hp))
+            gm = np.stack([gimg == j + 1 for j in gidx]) if len(gidx) else np.zeros((0, hp, wp), bool)
+            iou_m = (mask_iou_np(pm.reshape(k, -1), gm.reshape(len(gm), -1)) if k and len(gm)
+                     else np.zeros((k, len(gm))))
+            tp_m = match_predictions(d[:, 5], cls, iou_m) if k else np.zeros((0, IOUV.size), bool)
+            mask_m.update(tp_m, d[:, 4], d[:, 5], cls)
+
+    def __call__(self, model, batches: Optional[Iterable[Mapping]] = None, names: Optional[Dict[int, str]] = None,
+                 n_images: Optional[int] = None) -> Dict[str, float]:
+        if batches is None:
+            data, dataset, batches = self._setup(model)
+            names, n_images = data["names"], len(dataset)
+        box_m, mask_m = DetMetrics(names), DetMetrics(names)
+        seen, t0 = 0, time.time()
+        for batch in batches:
+            imgs = torch.as_tensor(np.asarray(batch["img"])).to(model.device)
+            det, counts, pmasks = (t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+                                   for t in self.infer(model, imgs))
+            n = len(det) if n_images is None else min(len(det), n_images - seen)
+            if n <= 0:
+                break
+            self.score_batch(box_m, mask_m, det, counts, pmasks, batch, n)
+            seen += n
+        bs, ms = box_m.result(), mask_m.result()
+        if self.args.verbose:
+            dt = time.time() - t0
+            LOGGER.info(f"val[segment]: {seen} images  box mAP50 {bs['mAP50']:.3f} mAP50-95 {bs['mAP50-95']:.3f} | "
+                        f"mask mAP50 {ms['mAP50']:.3f} mAP50-95 {ms['mAP50-95']:.3f} ({seen / max(dt, 1e-9):.1f} img/s)")
+        out = {f"box_{k}": v for k, v in bs.items() if isinstance(v, float)}
+        out.update({f"mask_{k}": v for k, v in ms.items() if isinstance(v, float)})
+        out["fitness"] = (bs["fitness"] + ms["fitness"]) / 2
+        out.update({k: v for k, v in bs.items() if k in ("mAP50", "mAP50-95", "precision", "recall")})
+        return out
+
+
+TASK_VALIDATORS = {"segment": SegmentationValidator}

@@ -1,0 +1,68 @@
+"""The segmentation head: ``Proto``, ``Segment`` and the mask assembly.
+
+Port of ``experiment_yolo_tpu/nn/heads_extra.py`` (``Proto:23``,
+``Segment:40``, ``assemble_masks:875``), NCHW, with the Ultralytics fork's
+state-dict names: ``Segment`` is a :class:`~experiment_yolo_torch.nn.modules.Detect`
+(``cv2.{i}.{j}``, ``cv3.{i}.{j}``) with per-level mask-coefficient branches
+``cv4.{i}.{j}`` and a ``proto`` (``cv1``, ``upsample``, ``cv2``, ``cv3``).
+
+The prototype upsampling is a 2x2 stride-2 transposed convolution with a
+bias (flax ``nn.ConvTranspose``, which does not flip its kernel; PyTorch's
+``ConvTranspose2d`` is a convolution's gradient and does, so the converter
+flips the kernel's two spatial axes, ``utils/convert.py``). In bf16 its
+input, weight and bias are cast to the compute dtype, as every convolution's.
+The pose and OBB heads wait for ROADMAP.md catalogue item 13.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from experiment_yolo_torch.nn.modules import Conv, Detect, cast_conv
+
+
+class Proto(nn.Module):
+    """Mask prototypes: Conv 3x3 -> 2x transposed upsample -> Conv 3x3 -> Conv 1x1 to ``nm``."""
+
+    dtype = torch.float32  # the compute dtype of the transposed convolution
+
+    def __init__(self, c1: int, c_: int = 256, nm: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, nm, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, up = self.dtype, self.upsample
+        y = F.conv_transpose2d(self.cv1(x).to(dt), up.weight.to(dt), up.bias.to(dt), stride=2)
+        return self.cv3(self.cv2(y))
+
+
+class Segment(Detect):
+    """Detect + per-level mask coefficients (``c4 = max(ch[0] // 4, nm)``
+    channels, then ``nm``) + prototypes from the first level's map. Returns
+    (detect maps [(B, 4*reg_max + nc, H, W)], coefficient maps [(B, nm, H,
+    W)], protos (B, nm, 2*H0, 2*W0))."""
+
+    def __init__(self, nc: int, nm: int = 32, npr: int = 256, ch: Sequence[int] = (), reg_max: int = 16):
+        super().__init__(nc, ch, reg_max)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        self.cv4 = self._branches(ch, max(ch[0] // 4, nm), nm)
+
+    def forward(self, xs: List[torch.Tensor]) -> Tuple[List[torch.Tensor], List[torch.Tensor], torch.Tensor]:
+        det = self._maps(xs, self.cv2, self.cv3)
+        coeffs = [cast_conv(seq[2], seq[1](seq[0](x)), self.dtype) for seq, x in zip(self.cv4, xs)]
+        return det, coeffs, self.proto(xs[0])
+
+
+def assemble_masks(coeffs: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
+    """``sigmoid(coeffs . protos)`` per detection: coefficients (B, K, nm) of
+    K kept detections and protos (B, nm, Hp, Wp) -> (B, K, Hp, Wp)
+    probabilities (JAX ``assemble_masks``, there with NHWC protos)."""
+    return torch.sigmoid(torch.einsum("bkn,bnhw->bkhw", coeffs, protos.to(coeffs.dtype)))

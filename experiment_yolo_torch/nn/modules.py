@@ -2,7 +2,8 @@
 
 Port of the forward math of ``experiment_yolo_tpu/nn/modules.py``: ``Conv``
 (``ConvBN``), ``Bottleneck``, ``C2f``, ``SPPF``, ``Upsample``, ``Concat``,
-``Add``, ``ZoomCat``, ``ScalSeq``, ``LDConv``, ``MBConv`` and ``Detect``, and
+``Add``, ``ZoomCat``, ``ScalSeq``, ``LDConv``, ``BottleneckLD``, ``C2fLD``,
+``MBConv`` and ``Detect``, and
 ``DetectAux`` of ``nn/heads_extra.py``: every block of ``yolov8.yaml``,
 ``yolov8-p2.yaml``, ``yolov8-ASF.yaml``, ``yolov8-ASF-P2.yaml``,
 ``yolov8-ASF-P2P2.yaml``, ``yolov8-LD-P2.yaml``, ``yolov8-aux.yaml``,
@@ -138,6 +139,35 @@ class C2f(nn.Module):
         for m in self.m:
             ys.append(m(ys[-1]))
         return self.cv2(torch.cat(ys, 1))
+
+
+class BottleneckLD(nn.Module):
+    """Two LDConv units (stride 1) with an optional residual add (JAX
+    ``nn/modules.py:868``, the fork's ``block.py:611``)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, num_param: int = 4, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = LDConv(c1, c_, num_param, 1)
+        self.cv2 = LDConv(c_, c2, num_param, 1)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2fLD(C2f):
+    """``C2f`` whose bottlenecks are :class:`BottleneckLD` (the YAML's
+    ``C2f_LDConv``; JAX ``nn/modules.py:887``): K3 runs at stride 1, on the
+    full grid of its level."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, num_param: int = 4, e: float = 0.5):
+        nn.Module.__init__(self)
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1)
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(BottleneckLD(self.c, self.c, shortcut, num_param, e=1.0) for _ in range(n))
 
 
 class SPPF(nn.Module):
@@ -404,12 +434,12 @@ class DetectAux(Detect):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation: every conv and linear weight and bias from
+    """Seeded initialisation: every conv (transposed too) and linear weight and bias from
     uniform(+-1/sqrt(fan_in)) (PyTorch's own default), BatchNorm and LayerNorm
     at identity; then each module's own ``seeded_init(generator)`` where it
     has one (LDConv's zero offset weight, SS2D's scan parameters)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.Linear)):
             bound = 1.0 / (m.weight[0].numel() ** 0.5)
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:

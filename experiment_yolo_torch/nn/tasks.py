@@ -4,11 +4,13 @@ Port of ``experiment_yolo_tpu/nn/tasks.py`` (``parse_model``,
 ``DetectionModel``) for the module types of ``yolov8.yaml``, ``yolov8-p2.yaml``,
 ``yolov8-ASF.yaml``, ``yolov8-ASF-P2.yaml``, ``yolov8-ASF-P2P2.yaml``,
 ``yolov8-LD-P2.yaml``, ``yolov8-C2f-VSS.yaml``, ``yolov8-aux.yaml``,
-``yolov8-lafiyolo.yaml`` and ``yolov8-efficientnet.yaml`` (``PORTED`` below):
+``yolov8-lafiyolo.yaml``, ``yolov8-efficientnet.yaml`` and ``yolov8-seg.yaml``
+(``PORTED`` below), and the ``C2f_LDConv`` block, which no YAML uses:
 channel and depth scaling (``MBConv`` takes its repeats inside), savelist
 routing, strides from the graph's own downsampling (a ``Zoom_cat`` takes its
 middle source's), and the Detect bias priors, for a Detect on three or four
-levels or a ``DetectAux`` (its aux branches' priors too). Layers live in ``self.model``
+levels, a ``DetectAux`` (its aux branches' priors too) or a ``Segment``
+(``SegmentationModel``). Layers live in ``self.model``
 so that state-dict names read ``model.{i}.<module names>``, as in the
 Ultralytics fork.
 """
@@ -25,14 +27,16 @@ import torch
 from torch import nn
 
 from experiment_yolo_torch.cfg import CFG_DIR, yaml_load
-from experiment_yolo_torch.nn.modules import (C2f, SPPF, Add, Concat, Conv, ConvBNAct, Detect, DetectAux, LDConv,
-                                              MBConv, ScalSeq, ZoomCat, init_weights)
+from experiment_yolo_torch.nn.heads_extra import Proto, Segment
+from experiment_yolo_torch.nn.modules import (C2f, SPPF, Add, C2fLD, Concat, Conv, ConvBNAct, Detect, DetectAux,
+                                              LDConv, MBConv, ScalSeq, ZoomCat, init_weights)
 from experiment_yolo_torch.nn.zoo_blocks import INNER_BLOCKS, SS2D, C2fX, C3X, VSSBlock
 from experiment_yolo_torch.ops.anchors import decode_detections
 from experiment_yolo_torch.utils import select_device
 
 
-PORTED = "Conv, LDConv, C2f, SPPF, MBConv, nn.Upsample, Concat, Add, ScalSeq, Zoom_cat, Detect, DetectAux, and " \
+PORTED = "Conv, LDConv, C2f, C2f_LDConv, SPPF, MBConv, nn.Upsample, Concat, Add, ScalSeq, Zoom_cat, Detect, " \
+         "DetectAux, Segment, and " \
          "C2f_<X> / C3_<X> for X in " + ", ".join(INNER_BLOCKS)
 
 
@@ -81,9 +85,9 @@ def parse_model(d: dict, ch: int = 3) -> Tuple[List[nn.Module], List[int], List[
             e, act, drop_path, stride = [*args[1:5], *[6, "SiLU", 0.0, 1][len(args) - 1:]]
             mod = MBConv(c1, c2, n, e, str(act).lower(), drop_path, stride)
             s_out, n = s_in * stride, 1
-        elif mname == "C2f":
+        elif mname in ("C2f", "C2f_LDConv"):  # args: [c2, shortcut]; C2f_LDConv's bottlenecks are LDConv pairs
             c2 = _scale_ch(args[0], nc, width, max_channels)
-            mod = C2f(c1, c2, n, args[1] if len(args) > 1 else False)
+            mod = (C2f if mname == "C2f" else C2fLD)(c1, c2, n, args[1] if len(args) > 1 else False)
             s_out = s_in
         elif zoo in ("C2f", "C3") and inner in INNER_BLOCKS:  # args: [c2, shortcut]
             c2 = _scale_ch(args[0], nc, width, max_channels)
@@ -121,10 +125,19 @@ def parse_model(d: dict, ch: int = 3) -> Tuple[List[nn.Module], List[int], List[
                 raise ValueError(f"layer {i}: DetectAux takes 2*nl sources whose second half has the first half's "
                                  f"strides, got {det_strides}")
             c2, mod, s_out, det_strides = 0, DetectAux(nc, [chs[j] for j in src]), s_in, det_strides[:nl]
+        elif mname == "Segment":  # args: [nc, nm, npr]; npr scales with the width
+            nm = args[1] if len(args) > 1 else 32
+            npr = _scale_ch(args[2] if len(args) > 2 else 256, nc, width, max_channels)
+            c2, mod, s_out = 0, Segment(nc, nm, npr, [chs[j] for j in src]), s_in
+            det_strides = [int(down[j]) for j in src]
+        elif mname in ("Pose", "OBB", "Classify") or mname.startswith(("Segment_", "Pose_", "OBB_")):
+            raise NotImplementedError(f"module {mname!r} (layer {i}): the pose, OBB and classify heads and the "
+                                      "other segment heads are not ported to experiment_yolo_torch yet (ROADMAP.md "
+                                      "catalogue item 13)")
         else:
             raise NotImplementedError(f"module {mname!r} (layer {i}) is not ported to experiment_yolo_torch; "
                                       f"the port covers {PORTED}")
-        if n > 1 and not isinstance(mod, (C2f, C2fX, C3X)):
+        if n > 1 and not isinstance(mod, (C2f, C2fX, C3X)):  # C2fLD is a C2f
             raise NotImplementedError(f"layer {i}: repeats of {mname} are not ported")
         mod.f, mod.i, mod.type = abs_f if len(abs_f) > 1 else abs_f[0], i, mname
         save.update(j for j in abs_f if j != -1)
@@ -166,6 +179,8 @@ class DetectionModel(nn.Module):
     with ``dtype=bfloat16`` does; the raw maps come out in it.
     """
 
+    task = "detect"
+
     def __init__(self, cfg: Union[str, Path, dict] = "yolov8-LD-P2.yaml", device="cuda",
                  generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -174,6 +189,9 @@ class DetectionModel(nn.Module):
         layers, self.save, strides = parse_model(self.yaml)
         if not isinstance(layers[-1], Detect):
             raise NotImplementedError("the last layer must be Detect")
+        if isinstance(layers[-1], Segment) != (self.task == "segment"):
+            raise ValueError(f"{type(self).__name__} cannot take a {type(layers[-1]).__name__} head: build a "
+                             f"{'SegmentationModel' if isinstance(layers[-1], Segment) else 'DetectionModel'}")
         self.model = nn.ModuleList(layers)
         self.nc, self.reg_max = self.detect.nc, self.detect.reg_max
         self.stride = tuple(strides)
@@ -193,7 +211,7 @@ class DetectionModel(nn.Module):
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"compute dtype {dtype}: the port computes in torch.float32 or torch.bfloat16")
         for m in self.modules():
-            if isinstance(m, (Conv, ConvBNAct, LDConv, ScalSeq, Detect, SS2D, VSSBlock)):
+            if isinstance(m, (Conv, ConvBNAct, LDConv, ScalSeq, Detect, Proto, SS2D, VSSBlock)):
                 m.dtype = dtype
 
     @torch.no_grad()
@@ -240,3 +258,53 @@ class DetectionModel(nn.Module):
         """Boxes and scores of the main head's maps (a DetectAux in train mode
         also returns its aux maps, which are not decoded)."""
         return decode_detections(self(x)[:len(self.stride)], self.stride, self.nc, self.reg_max)
+
+
+class SegmentationModel(DetectionModel):
+    """Instance segmentation model (JAX ``nn/tasks.py:1121``): a
+    :class:`DetectionModel` whose last layer is a ``Segment``. ``forward``
+    returns (detect maps, coefficient maps, protos); :meth:`predict` returns
+    (boxes (B, A, 4) xywh in input pixels, scores (B, A, nc), coefficients
+    (B, A, nm), protos (B, nm, Hp, Wp)); the masks of the detections NMS
+    keeps come from ``nn/heads_extra.py:assemble_masks``."""
+
+    task = "segment"
+
+    def __init__(self, cfg: Union[str, Path, dict] = "yolov8-seg.yaml", *args, **kwargs):
+        super().__init__(cfg, *args, **kwargs)
+
+    def predict(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        det, coeffs, protos = self(x)
+        boxes, scores = decode_detections(det, self.stride, self.nc, self.reg_max)
+        flat = torch.cat([c.flatten(2) for c in coeffs], 2).transpose(1, 2)  # (B, A, nm)
+        return boxes, scores, flat, protos
+
+
+def guess_model_task(cfg) -> str:
+    """The task of a model YAML path or dict (JAX ``nn/tasks.py:1194``): from
+    the name (``-seg``, ``-pose``, ``-obb``, ``-cls``), else from the last
+    layer's module."""
+    name = str(cfg.get("yaml_file", "")) if isinstance(cfg, dict) else str(cfg)
+    head = ""
+    if isinstance(cfg, dict):
+        rows = list(cfg.get("head", [])) or list(cfg.get("backbone", []))
+        head = rows[-1][2] if rows else ""
+    for key, task in (("-seg", "segment"), ("-pose", "pose"), ("-obb", "obb"), ("-cls", "classify")):
+        if key in name:
+            return task
+    for prefix, task in (("Segment", "segment"), ("Pose", "pose"), ("OBB", "obb"), ("Classify", "classify")):
+        if str(head).startswith(prefix):
+            return task
+    return "detect"
+
+
+TASK_MODELS = {"detect": DetectionModel, "segment": SegmentationModel}
+
+
+def task_model(task: str):
+    """The model class of ``task``; pose, obb and classify raise naming
+    ROADMAP.md catalogue item 13."""
+    if task not in TASK_MODELS:
+        raise NotImplementedError(f"task={task!r} is not ported to experiment_yolo_torch yet (ROADMAP.md "
+                                  "catalogue item 13); the port builds detect and segment models")
+    return TASK_MODELS[task]

@@ -6,7 +6,8 @@ anchor, the predictor's setting) or over every (anchor, class) score
 (``multi_label``, the validator's), the class-offset trick, then greedy hard
 NMS (kernel K2 on the card) or the reference fork's Gaussian soft-NMS (kernel
 K5), packed into a fixed (B, max_det, 6) [x1, y1, x2, y2, conf, cls] plus
-per-image counts.
+per-image counts, and with ``return_idx`` the anchor of each kept row (the
+segment path gathers its mask coefficients by it).
 
 Ties in every top-k break toward the lower index, as ``jax.lax.top_k`` does,
 so the port keeps the JAX package's candidate order exactly.
@@ -29,8 +30,9 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _pack(cand_boxes, cand_cls, keep_scores, conf_thres: float, max_det: int):
-    """Top ``max_det`` kept candidates -> ((B, max_det, 6), counts (B,))."""
+def _pack(cand_boxes, cand_cls, cand_anchor, keep_scores, conf_thres: float, max_det: int):
+    """Top ``max_det`` kept candidates -> ((B, max_det, 6), counts (B,),
+    anchor indices (B, max_det) int32, 0 beyond the counts as in JAX)."""
     b, k = keep_scores.shape
     out_scores, out_idx = _top_k(keep_scores, min(max_det, k))
     if k < max_det:
@@ -40,13 +42,15 @@ def _pack(cand_boxes, cand_cls, keep_scores, conf_thres: float, max_det: int):
     boxes = torch.gather(cand_boxes, 1, out_idx[..., None].expand(b, max_det, 4))
     cls = torch.gather(cand_cls, 1, out_idx)
     out = torch.cat([boxes, out_scores[..., None], cls[..., None]], -1)
-    return torch.where(det_valid[..., None], out, torch.zeros_like(out)), det_valid.sum(-1, dtype=torch.int32)
+    anchor = torch.where(det_valid, torch.gather(cand_anchor, 1, out_idx), 0).to(torch.int32)
+    return torch.where(det_valid[..., None], out, torch.zeros_like(out)), det_valid.sum(-1, dtype=torch.int32), anchor
 
 
 class Candidates(NamedTuple):
     """The top-k pool of each image, score-sorted: xyxy boxes (B, K, 4),
     classes (B, K) f32, scores (B, K), class-offset boxes (B, K, 4), the
-    conf gate (B, K), and the soft-NMS quirk's first index and count (or None)."""
+    conf gate (B, K), the soft-NMS quirk's first index and count (or None),
+    and each candidate's anchor (B, K)."""
 
     boxes: torch.Tensor
     cls: torch.Tensor
@@ -55,6 +59,7 @@ class Candidates(NamedTuple):
     valid: torch.Tensor
     first_idx: Optional[torch.Tensor]
     n_valid: Optional[torch.Tensor]
+    anchor: torch.Tensor
 
 
 def nms_candidates(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25, agnostic: bool = False,
@@ -92,13 +97,14 @@ def nms_candidates(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float 
         cand_anchor, cand_cls = cand_idx, torch.gather(best_cls.float(), 1, cand_idx)
     cand_boxes = torch.gather(boxes, 1, cand_anchor[..., None].expand(b, k, 4))
     shifted = cand_boxes if agnostic else cand_boxes + (cand_cls * max_wh)[..., None]
-    return Candidates(cand_boxes, cand_cls, cand_scores, shifted, cand_scores > conf_thres, first_idx, n_valid)
+    return Candidates(cand_boxes, cand_cls, cand_scores, shifted, cand_scores > conf_thres, first_idx, n_valid,
+                      cand_anchor)
 
 
 def non_max_suppression(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25,
                         iou_thres: float = 0.7, max_det: int = 300, agnostic: bool = False,
                         nms_type: str = "hard", soft_first_quirk: bool = False, multi_label: bool = False,
-                        pre_nms_topk: int = 1024, max_wh: float = 7680.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                        pre_nms_topk: int = 1024, max_wh: float = 7680.0, return_idx: bool = False) -> Tuple:
     """Batched NMS: xywh boxes (B, A, 4) in input pixels and sigmoid scores
     (B, A, nc) -> detections (B, max_det, 6) [x1, y1, x2, y2, conf, cls],
     zero-padded, and counts (B,) int32. Each image keeps its
@@ -111,6 +117,11 @@ def non_max_suppression(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: f
     ``'soft'`` is the fork's Gaussian soft-NMS (kernel K5 on the card), and
     ``soft_first_quirk`` its exact protocol (see
     :func:`~experiment_yolo_torch.ops.kernels.soft_nms.soft_nms_plain`).
+
+    ``return_idx`` adds the anchor index (B, max_det) int32 of each kept row,
+    0 beyond the counts (JAX ``ops/nms.py:_pack``); it comes from the pool's
+    own bookkeeping, the multi-label pool's and the quirk's forced last slot
+    included, so the kernels are the same either way.
     """
     if nms_type not in ("hard", "soft"):
         raise ValueError(f"nms_type={nms_type!r}: expected 'hard' or 'soft'")
@@ -123,4 +134,5 @@ def non_max_suppression(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: f
     else:
         keep = nms_suppress(shifted, c.valid, iou_thres)
         keep_scores = torch.where(keep, c.scores, torch.full_like(c.scores, -1.0))
-    return _pack(c.boxes, c.cls, keep_scores, conf_thres, max_det)
+    out, counts, anchor = _pack(c.boxes, c.cls, c.anchor, keep_scores, conf_thres, max_det)
+    return (out, counts, anchor) if return_idx else (out, counts)

@@ -18,7 +18,11 @@ API::
     POST /predict  body = the bytes of a JPEG, PNG or 24-bit BMP file, or JSON
                    {"image": <base64 of them>};
                    -> {"detections": [{"box": [x1, y1, x2, y2], "conf", "cls",
-                       "name"}], "speed_ms"}
+                       "name"[, "mask_rle"]}], "speed_ms"}
+
+A segmentation model's detections carry ``mask_rle``: the mask in the
+original image as COCO's uncompressed RLE, ``{"size": [h, w], "counts"}``,
+column-major, starting with a run of zeros (JAX ``serve.py:_rle``).
 
 Bodies are decoded by ``data/image_io.py`` as ``cv2.imdecode`` decodes them
 in the JAX server, JPEGs for the model's device (nvJPEG on the card, libjpeg
@@ -216,9 +220,26 @@ class DetectionServer:
         return {**serialize_results(res), "speed_ms": round(batch_ms, 2)}
 
 
+def _rle(mask: np.ndarray) -> dict:
+    """COCO uncompressed RLE of a 2-D mask: run lengths in column-major
+    order, the first run of zeros (0 when the first pixel is set)."""
+    flat = np.asarray(mask, bool).flatten(order="F")
+    change = np.flatnonzero(flat[1:] != flat[:-1]) + 1
+    counts = np.diff(np.concatenate([[0], change, [flat.size]])).tolist()
+    if flat.size and flat[0]:
+        counts = [0] + counts
+    return {"size": [int(mask.shape[0]), int(mask.shape[1])], "counts": counts}
+
+
 def serialize_results(res) -> dict:
-    """One image's :class:`Results` -> a JSON-safe dict of its detections."""
+    """One image's :class:`Results` -> a JSON-safe dict of its detections
+    (with ``mask_rle`` when it has masks)."""
     names = res.names or {}
-    return {"detections": [{"box": [round(float(v), 2) for v in b.tolist()], "conf": round(float(c), 4),
-                            "cls": int(k), "name": str(names.get(int(k), int(k)))}
-                           for b, c, k in zip(res.boxes.xyxy, res.boxes.conf, res.boxes.cls)]}
+    out = []
+    for i, (b, c, k) in enumerate(zip(res.boxes.xyxy, res.boxes.conf, res.boxes.cls)):
+        d = {"box": [round(float(v), 2) for v in b.tolist()], "conf": round(float(c), 4), "cls": int(k),
+             "name": str(names.get(int(k), int(k)))}
+        if res.masks is not None:
+            d["mask_rle"] = _rle(res.masks.data[i])
+        out.append(d)
+    return {"detections": out}

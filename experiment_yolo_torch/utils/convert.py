@@ -3,7 +3,7 @@
 The port's own copy of the name and layout mapping of
 ``experiment_yolo_tpu/utils/torch_convert.py`` (read in the other direction),
 for the layer types the port builds: ``Conv``, ``LDConv``, ``MBConv``, ``C2f``,
-``SPPF``, ``ScalSeq``, ``Detect``, ``DetectAux`` and the zoo containers
+``C2f_LDConv``, ``SPPF``, ``ScalSeq``, ``Detect``, ``DetectAux``, ``Segment`` and the zoo containers
 ``C2f_VSS``, ``C2f_LVMB``, ``C3_VSS``, ``C3_LVMB``. It takes the JAX package's
 ``{'params', 'batch_stats'}`` as nested dicts of numpy arrays and returns a
 state dict for ``model.load_state_dict(..., strict=True)``; a tree shaped like
@@ -21,6 +21,13 @@ Layout rules:
   (3, 3, 1, C) -> (C, 1, 3, 3) by the conv rule
 - DetectAux: ``cv2``/``cv3`` from its nested ``detect`` module, ``cv4``/``cv5``
   from the head's own level
+- C2f_LDConv: ``m.{k}.cv1|cv2`` are LDConv leaves under ``m{k}/cv1|cv2``
+- Segment (the port's own mapping; JAX ``utils/torch_convert.py`` has none):
+  ``cv2``/``cv3`` from its nested ``detect`` module, ``cv4.{i}.{j}`` from
+  ``cv4_{i}_{j}``, ``proto.cv1|cv2|cv3`` Convs, and ``proto.upsample`` from
+  flax's ``ConvTranspose`` kernel (kh, kw, I, O), which does not flip:
+  PyTorch's ``ConvTranspose2d`` weight (I, O, kh, kw) is that kernel with
+  both spatial axes reversed
 - VSSBlock / SS2D: Dense kernel (I, O) -> Linear weight (O, I); the depthwise
   conv kernel (3, 3, 1, d_inner) -> (d_inner, 1, 3, 3) by the conv rule, and
   its bias; LayerNorm scale/bias -> weight/bias; the five raw parameters
@@ -105,6 +112,22 @@ def _zoo(inner: str, rest: List[str]) -> Rule:
     return _vss((slot, rest[0]), rest[1:])
 
 
+def _ldconv(prefix: Tuple[str, ...], rest: List[str], num_param: int) -> Rule:
+    """An ``LDConv`` at ``prefix``: ``p_conv``, ``conv.0`` (the (N, 1) projection), ``conv.1`` (BatchNorm)."""
+    if rest[0] == "p_conv":
+        return "params", (*prefix, "p_conv", "kernel" if rest[1] == "weight" else "bias"), \
+            _conv if rest[1] == "weight" else _same
+    if rest[:2] == ["conv", "0"]:
+        return "params", (*prefix, "proj", "kernel"), lambda w: _proj(w, num_param)
+    if rest[:2] == ["conv", "1"]:
+        return _bn((*prefix, "bn"), rest[2])
+    raise KeyError(".".join(rest))
+
+
+def _conv_transpose(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w[::-1, ::-1], (2, 3, 0, 1)))
+
+
 def _rule(mtype: str, rest: List[str], module) -> Rule:
     """Where the JAX variables hold the torch leaf ``rest`` of a layer of ``mtype``."""
     if mtype == "Conv":
@@ -115,16 +138,14 @@ def _rule(mtype: str, rest: List[str], module) -> Rule:
         if rest[0] == "m":  # m.{k}.cv1.conv.weight -> m{k}/cv1/conv/kernel
             return _conv_bn((f"m{rest[1]}", rest[2]), rest[3:])
         return _conv_bn((rest[0],), rest[1:])
+    if mtype == "C2f_LDConv":
+        if rest[0] == "m":  # m.{k}.cv1.p_conv.weight -> m{k}/cv1/p_conv/kernel
+            return _ldconv((f"m{rest[1]}", rest[2]), rest[3:], module.m[int(rest[1])].cv1.num_param)
+        return _conv_bn((rest[0],), rest[1:])
     if mtype == "SPPF":
         return _conv_bn((rest[0],), rest[1:])
     if mtype == "LDConv":
-        if rest[0] == "p_conv":
-            return "params", ("p_conv", "kernel" if rest[1] == "weight" else "bias"), \
-                _conv if rest[1] == "weight" else _same
-        if rest[:2] == ["conv", "0"]:
-            return "params", ("proj", "kernel"), lambda w: _proj(w, module.num_param)
-        if rest[:2] == ["conv", "1"]:
-            return _bn(("bn",), rest[2])
+        return _ldconv((), rest, module.num_param)
     if mtype == "ScalSeq":
         if rest[0] == "conv3d":
             if rest[1] == "weight":
@@ -136,8 +157,14 @@ def _rule(mtype: str, rest: List[str], module) -> Rule:
     if mtype == "MBConv":  # blocks.{k}.conv{1,2,3}.{c|bn}.* -> block{k}/{expand|dw|project}/{conv|bn}
         unit = (f"block{rest[1]}", {"conv1": "expand", "conv2": "dw", "conv3": "project"}[rest[2]])
         return _conv_bn(unit, ["conv" if rest[3] == "c" else rest[3], *rest[4:]])
-    if mtype in ("Detect", "DetectAux"):  # cv2.{i}.{j}: j in (0, 1) a Conv, j == 2 a bare Conv2d
-        name = (*(("detect",) if mtype == "DetectAux" and rest[0] not in ("cv4", "cv5") else ()),
+    if mtype == "Segment" and rest[0] == "proto":  # proto.cv1|cv2|cv3 Convs, proto.upsample a ConvTranspose2d
+        if rest[1] == "upsample":
+            return "params", ("proto", "upsample", "kernel" if rest[2] == "weight" else "bias"), \
+                _conv_transpose if rest[2] == "weight" else _same
+        return _conv_bn(("proto", rest[1]), rest[2:])
+    if mtype in ("Detect", "DetectAux", "Segment"):  # cv2.{i}.{j}: j in (0, 1) a Conv, j == 2 a bare Conv2d
+        nested = mtype == "Segment" and rest[0] != "cv4" or mtype == "DetectAux" and rest[0] not in ("cv4", "cv5")
+        name = (*(("detect",) if nested else ()),
                 f"{rest[0]}_{rest[1]}_{rest[2]}")
         if rest[2] == "2":
             return "params", (*name, "kernel" if rest[3] == "weight" else "bias"), \

@@ -263,9 +263,9 @@ def _box_dfl_losses(pred_maps: List[torch.Tensor], pred_bboxes: torch.Tensor, an
 
 def detection_loss(feats: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor], strides: Sequence[int],
                    cfg: LossConfig, iou_mean: Optional[torch.Tensor] = None,
-                   slide_mean: Optional[torch.Tensor] = None, step=None) -> tuple:
-    """(total, components, assignment, new iou_mean[, new slide_mean]) of raw
-    Detect maps [(B, 4*reg_max + nc, H, W)].
+                   slide_mean: Optional[torch.Tensor] = None, step=None, return_aux: bool = False) -> tuple:
+    """(total, components, assignment, new iou_mean[, new slide_mean][, aux])
+    of raw Detect maps [(B, 4*reg_max + nc, H, W)].
 
     ``batch`` holds ``bboxes`` (B, M, 4) normalised xywh, ``cls`` (B, M) and
     ``mask`` (B, M). Components are ``box``, ``cls`` and ``dfl``, each times
@@ -284,6 +284,11 @@ def detection_loss(feats: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor]
     main head's kind on the incoming ``iou_mean`` (its Wise-IoU mean is
     dropped), and each is added to its main component at ``aux_loss_ratio``
     times the gain. The assignment returned is the main head's.
+
+    ``return_aux`` appends what the task losses read (JAX
+    ``utils/loss.py:493``): ``fg_mask``, ``weight`` (each anchor's target
+    score, f32), ``target_gt_idx``, ``target_bboxes`` (grid units),
+    ``stride_tensor`` (A, 1) and ``imgsz`` (h, w).
     """
     nc, reg_max = cfg.nc, cfg.reg_max
     aux_feats = None
@@ -341,5 +346,8 @@ def detection_loss(feats: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor]
         comps = {"box": comps["box"] + iou_aux * ratio * cfg.box, "cls": comps["cls"] + cls_aux * ratio * cfg.cls,
                  "dfl": comps["dfl"] + dfl_aux * ratio * cfg.dfl}
     total = (comps["box"] + comps["cls"] + comps["dfl"]) * b
-    out = (total, comps, res, new_iou_mean)
-    return out + (new_slide_mean,) if slide_mean is not None else out
+    out = (total, comps, res, new_iou_mean) + ((new_slide_mean,) if slide_mean is not None else ())
+    if return_aux:
+        out += ({"fg_mask": fg_mask, "weight": weight, "target_gt_idx": res.target_gt_idx,
+                 "target_bboxes": target_bboxes, "stride_tensor": stride_tensor, "imgsz": (imgsz_h, imgsz_w)},)
+    return out

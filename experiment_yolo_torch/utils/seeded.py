@@ -82,7 +82,7 @@ def he_normal_(model: torch.nn.Module, seed: int) -> None:
     gen = torch.Generator().manual_seed(seed)
     offset_convs = {id(m.p_conv) for m in model.modules() if isinstance(m, LDConv)}
     for m in model.modules():
-        if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)) and id(m) not in offset_convs:
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose2d)) and id(m) not in offset_convs:
             std = math.sqrt(2.0 / m.weight[0].numel())
             m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * std)
     for cls in model.model[-1].cv3:
@@ -95,11 +95,13 @@ SERVE_CONF, VAL_CONF, NMS_IOU, NMS_MAX_DET = 0.25, 0.001, 0.7, 300  # the predic
 
 
 def seeded_model(cfg, seed: int, device="cuda"):
-    """``cfg``'s DetectionModel with PyTorch's init drawn from ``seed`` and
-    the conv weights redrawn by :func:`he_normal_` from ``seed + 1``."""
-    from experiment_yolo_torch.nn.tasks import DetectionModel
+    """``cfg``'s model (a ``DetectionModel``, or a ``SegmentationModel`` for a
+    segment config) with PyTorch's init drawn from ``seed`` and the conv
+    weights redrawn by :func:`he_normal_` from ``seed + 1``."""
+    from experiment_yolo_torch.nn.tasks import guess_model_task, task_model, yaml_model_load
 
-    model = DetectionModel(cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    d = cfg if isinstance(cfg, dict) else yaml_model_load(cfg)
+    model = task_model(guess_model_task(d))(d, device=device, generator=torch.Generator().manual_seed(seed))
     he_normal_(model, seed + 1)
     return model
 

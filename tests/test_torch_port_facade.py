@@ -190,6 +190,8 @@ def test_refusals(tmp_path):
     with pytest.raises(TypeError, match="unsupported source"):
         yolo.predict(3.5)
     with pytest.raises(NotImplementedError, match="catalogue item 13"):
+        YOLO(CFG, device="cpu", task="pose")
+    with pytest.raises(ValueError, match="build a DetectionModel"):  # segment is ported, but this head is Detect
         YOLO(CFG, device="cpu", task="segment")
     with pytest.raises(NotImplementedError, match="catalogue item 15"):
         YOLO("model.onnx", device="cpu")

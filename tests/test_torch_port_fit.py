@@ -20,6 +20,11 @@ biases, which move at the warmup bias LR of 0.1). So the second epoch's
 losses are held to 1e-3 and the weights to 1e-2: schedules built for 100
 batches an epoch instead of the loader's 4 miss those bars by 2.6e-2 (first
 epoch), 0.15 and 2.05, an EMA that never updates by 1.0.
+
+The JAX LD-P2 takes its LDConv layers on the gather path (``sampling='gather'``,
+what K3 computes), as ``tests/test_torch_port_amp.py``'s: the default ``auto``
+compiles a dense hat window as well, a TPU workaround the port does not carry
+(ROADMAP catalogue item 5), for a minute of compile a train step.
 """
 
 import dataclasses
@@ -41,6 +46,7 @@ from experiment_yolo_torch.utils.convert import jax_variables_to_state_dict
 from experiment_yolo_tpu.engine.trainer import DetectionTrainer as JaxTrainer
 from experiment_yolo_tpu.engine.trainer import EarlyStopping as JaxEarlyStopping
 from experiment_yolo_tpu.nn.tasks import DetectionModel as JaxModel
+from test_torch_port_amp import _gather_ldconv
 
 CFG, NC, IMGSZ, BATCH, EPOCHS = "yolov8-LD-P2.yaml", 3, 64, 2, 2
 STILL = {"mosaic": 0.0, "scale": 0.0, "translate": 0.0, "hsv_h": 0.0, "hsv_s": 0.0, "hsv_v": 0.0}
@@ -103,7 +109,8 @@ def one_torch_thread():
 def fit(tmp_path_factory):
     root = tmp_path_factory.mktemp("fit")
     data = make_synthetic_dataset(root / "data", n_train=8, n_val=4, imgsz=IMGSZ, seed=0)
-    jm = JaxModel(CFG, nc=NC)
+    with _gather_ldconv():
+        jm = JaxModel(CFG, nc=NC)
     variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
     init = jax_variables_to_state_dict(variables, _port_model())
 

@@ -184,7 +184,8 @@ def test_cli_process_imports_no_jax_or_opencv(tmp_path):
 @pytest.mark.parametrize("name", ["default.yaml", "models/yolov8-LD-P2.yaml", "models/yolov8.yaml",
                                   "models/yolov8-ASF-P2P2.yaml", "models/yolov8-ASF-P2.yaml",
                                   "models/yolov8-ASF.yaml", "models/yolov8-p2.yaml", "models/yolov8-aux.yaml",
-                                  "models/yolov8-lafiyolo.yaml", "models/yolov8-efficientnet.yaml"])
+                                  "models/yolov8-lafiyolo.yaml", "models/yolov8-efficientnet.yaml",
+                                  "models/yolov8-seg.yaml"])
 def test_yaml_copies_equal_originals(name):
     assert (PORT / "cfg" / name).read_bytes() == (ROOT / "experiment_yolo_tpu" / "cfg" / name).read_bytes()
 

@@ -6,6 +6,11 @@ see the same pixels. The Detect class-bias priors are set to 0 before the
 conversion so that scores sit near 0.5 and NMS has real work at conf 0.25.
 The predictors also read a folder of JPEG and PNG files, which the port
 decodes on the CPU to OpenCV's bytes.
+
+The JAX LD-P2 takes its LDConv layers on the gather path (``sampling='gather'``,
+what K3 computes), as ``tests/test_torch_port_amp.py``'s: the default ``auto``
+compiles a dense hat window as well, a TPU workaround the port does not carry
+(ROADMAP catalogue item 5), for a minute of compile a train step.
 """
 
 import cv2
@@ -21,6 +26,7 @@ from experiment_yolo_tpu.engine.predictor import DetectionPredictor as JaxPredic
 from experiment_yolo_tpu.nn.tasks import DetectionModel as JaxModel
 from experiment_yolo_tpu.ops.anchors import decode_detections
 from experiment_yolo_tpu.utils.torch_convert import invert_to_torch_state
+from test_torch_port_amp import _gather_ldconv
 
 CFG = "yolov8-LD-P2.yaml"
 IMGSZ = 128
@@ -28,7 +34,8 @@ IMGSZ = 128
 
 @pytest.fixture(scope="module")
 def pair():
-    jm = JaxModel(CFG)
+    with _gather_ldconv():
+        jm = JaxModel(CFG)
     variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
     head = variables["params"][f"layers_{jm.detect_idx}"]
     for i in range(len(jm.strides)):

@@ -17,6 +17,11 @@ Adam's first update is ``lr * g / (|g| + eps)``: it follows the sign of
 every gradient, also of those that sit at rounding noise, so the two steps'
 updates are not compared with each other. The port's update is held instead
 to the JAX optimizer's update computed on the port's own gradients.
+
+The JAX LD-P2 takes its LDConv layers on the gather path (``sampling='gather'``,
+what K3 computes), as ``tests/test_torch_port_amp.py``'s: the default ``auto``
+compiles a dense hat window as well, a TPU workaround the port does not carry
+(ROADMAP catalogue item 5), for a minute of compile a train step.
 """
 
 import dataclasses
@@ -43,6 +48,7 @@ from experiment_yolo_tpu.engine.trainer import TrainState
 from experiment_yolo_tpu.nn.tasks import DetectionModel as JaxModel
 from experiment_yolo_tpu.optim.builders import build_optimizer
 from experiment_yolo_tpu.utils.torch_convert import convert_state_dict
+from test_torch_port_amp import _gather_ldconv
 
 CFG, IMGSZ, BATCH = "yolov8-LD-P2.yaml", 64, 2
 OVERRIDES = {"amp": False, "batch": BATCH, "imgsz": IMGSZ, "epochs": 10, "warmup_epochs": 0.0, "nbs": BATCH,
@@ -68,7 +74,8 @@ def _adam_state(opt_state):
 def step():
     tm = TorchModel(CFG, device="cpu")
     he_normal_(tm, 3)
-    jm = JaxModel(CFG)
+    with _gather_ldconv():
+        jm = JaxModel(CFG)
     variables = convert_state_dict({k: v.numpy() for k, v in tm.state_dict().items()
                                     if not k.endswith("num_batches_tracked")}, jm)
     tr = DetectionTrainer(tm, OVERRIDES)

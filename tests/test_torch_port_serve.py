@@ -6,7 +6,12 @@ refusal of bodies it cannot decode yet (WebP, TIFF). The
 wire format against the JAX package's server: ``serialize_results`` on the
 same detections, and the answers and ``/health`` of both servers, each
 serving the same weights, to the same requests. LD-P2 n with seeded
-weights, batch 2 at 64 px, on ephemeral ports of 127.0.0.1."""
+weights, batch 2 at 64 px, on ephemeral ports of 127.0.0.1.
+
+The JAX LD-P2 takes its LDConv layers on the gather path (``sampling='gather'``,
+what K3 computes), as ``tests/test_torch_port_amp.py``'s: the default ``auto``
+compiles a dense hat window as well, a TPU workaround the port does not carry
+(ROADMAP catalogue item 5), for a minute of compile a train step."""
 
 import base64
 import json
@@ -30,6 +35,7 @@ from experiment_yolo_tpu.engine.results import Results as JaxResults
 from experiment_yolo_tpu.serve import DetectionServer as JaxServer
 from experiment_yolo_tpu.serve import serialize_results as jax_serialize_results
 from experiment_yolo_tpu.utils.torch_convert import convert_state_dict
+from test_torch_port_amp import _gather_ldconv
 
 CFG, IMGSZ, BATCH = "yolov8-LD-P2.yaml", 64, 2
 
@@ -168,7 +174,8 @@ def against_jax(served):
     state = served["server"].yolo.model.state_dict()
     port_yolo = YOLO(CFG, device="cpu")
     port_yolo.model.load_state_dict(state)
-    jax_yolo = JaxYOLO(CFG)
+    with _gather_ldconv():
+        jax_yolo = JaxYOLO(CFG)
     jax_yolo.variables = convert_state_dict({k: v.numpy() for k, v in state.items()
                                              if not k.endswith("num_batches_tracked")}, jax_yolo.model)
     out = {}

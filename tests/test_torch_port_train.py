@@ -8,6 +8,11 @@ the optimizer that the JAX ``train()`` builds: SGD, accumulate
 ``round(nbs / batch)`` = 32 on the ramped firing plan (both steps fire, the
 first with a weight LR of 0), weight decay scaled by ``batch * accumulate /
 nbs``, and the EMA. The JAX step is compiled once for the file.
+
+The JAX LD-P2 takes its LDConv layers on the gather path (``sampling='gather'``,
+what K3 computes), as ``tests/test_torch_port_amp.py``'s: the default ``auto``
+compiles a dense hat window as well, a TPU workaround the port does not carry
+(ROADMAP catalogue item 5), for a minute of compile a train step.
 """
 
 import copy
@@ -31,6 +36,7 @@ from experiment_yolo_tpu.engine.trainer import TrainState
 from experiment_yolo_tpu.nn.tasks import DetectionModel as JaxModel
 from experiment_yolo_tpu.optim.builders import YoloSGDState, build_optimizer
 from experiment_yolo_tpu.utils.loss import detection_loss as j_loss
+from test_torch_port_amp import _gather_ldconv
 
 CFG, IMGSZ, BATCH, STEPS = "yolov8-LD-P2.yaml", 64, 2, 2
 OVERRIDES = {"amp": False, "batch": BATCH, "imgsz": IMGSZ}
@@ -102,7 +108,8 @@ def _spy_gather(record):
 
 @pytest.fixture(scope="module")
 def run():
-    jm = JaxModel(CFG)
+    with _gather_ldconv():
+        jm = JaxModel(CFG)
     variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
     tm = TorchModel(CFG, device="cpu")
     tm.load_state_dict(jax_variables_to_state_dict(variables, tm), strict=True)

@@ -8,6 +8,11 @@ convs, every box about 24 px a side: ``utils/seeded.py:sized_boxes_``, so that
 boxes are confident and crops find them again), moved into JAX with the JAX
 package's ``utils/torch_convert.py:convert_state_dict``. Sizes are small:
 crops of 64 px, 4 a batch; slices of 64 px, the full image at 64.
+
+The JAX LD-P2 takes its LDConv layers on the gather path (``sampling='gather'``,
+what K3 computes), as ``tests/test_torch_port_amp.py``'s: the default ``auto``
+compiles a dense hat window as well, a TPU workaround the port does not carry
+(ROADMAP catalogue item 5), for a minute of compile a train step.
 """
 
 from pathlib import Path
@@ -34,6 +39,7 @@ from experiment_yolo_tpu.nn.tasks import DetectionModel as JaxModel
 from experiment_yolo_tpu.ops.nms import non_max_suppression as j_nms
 from experiment_yolo_tpu.utils.torch_convert import convert_state_dict
 from test_torch_port_model import _match
+from test_torch_port_amp import _gather_ldconv
 
 CFG, NC, SIDE = "yolov8-LD-P2.yaml", 3, 24.0
 TINY = str(Path(__file__).parent / "assets" / "tiny.yaml")
@@ -54,7 +60,8 @@ def pair():
     cfg = {**yaml_model_load(CFG), "nc": NC}
     tm = seeded_model(cfg, 0, device="cpu")
     sized_boxes_(tm, SIDE)
-    jm = JaxModel(CFG, nc=NC)
+    with _gather_ldconv():
+        jm = JaxModel(CFG, nc=NC)
     jm.names = tm.names
     variables = convert_state_dict({k: v.numpy() for k, v in tm.state_dict().items()
                                     if not k.endswith("num_batches_tracked")}, jm)

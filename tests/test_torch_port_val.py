@@ -7,6 +7,11 @@ and with hard NMS.
 Inputs are made from numpy seeds; the split is the JAX package's
 ``make_synthetic_dataset``, read by its val ``DataLoader``, whose batches go to
 both validators as they are.
+
+The JAX LD-P2 takes its LDConv layers on the gather path (``sampling='gather'``,
+what K3 computes), as ``tests/test_torch_port_amp.py``'s: the default ``auto``
+compiles a dense hat window as well, a TPU workaround the port does not carry
+(ROADMAP catalogue item 5), for a minute of compile a train step.
 """
 
 import tempfile
@@ -31,6 +36,7 @@ from experiment_yolo_tpu.nn.tasks import DetectionModel as JaxModel
 from experiment_yolo_tpu.ops.nms import non_max_suppression as j_nms
 from experiment_yolo_tpu.utils import metrics as jmetrics
 from experiment_yolo_tpu.utils.torch_convert import convert_state_dict
+from test_torch_port_amp import _gather_ldconv
 
 NC, IMGSZ, BATCH, N_VAL = 3, 128, 2, 6
 PROTOCOLS = {"soft-quirk": {"nms_type": "soft", "soft_nms_quirk": True},
@@ -205,7 +211,8 @@ def weights():
         for box in tm.detect.cv2:
             box[-1].weight.mul_(0.05)
             box[-1].bias.copy_((-(bins - 2.0) ** 2 / 2).repeat(4))
-    jm = JaxModel("yolov8-LD-P2.yaml", nc=NC)
+    with _gather_ldconv():
+        jm = JaxModel("yolov8-LD-P2.yaml", nc=NC)
     variables = convert_state_dict({k: v.numpy() for k, v in tm.state_dict().items()
                                     if not k.endswith("num_batches_tracked")}, jm)
     return tm, jm, variables

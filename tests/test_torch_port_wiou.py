@@ -11,6 +11,11 @@ that the weights are the port's seeded init (He-normal convs, so that scores
 spread and TAL has no near-ties) moved into JAX with the JAX package's own
 ``utils/torch_convert.py:convert_state_dict``. The JAX step is compiled once
 for the file.
+
+The JAX LD-P2 takes its LDConv layers on the gather path (``sampling='gather'``,
+what K3 computes), as ``tests/test_torch_port_amp.py``'s: the default ``auto``
+compiles a dense hat window as well, a TPU workaround the port does not carry
+(ROADMAP catalogue item 5), for a minute of compile a train step.
 """
 
 import dataclasses
@@ -38,6 +43,7 @@ from experiment_yolo_tpu.optim.builders import YoloSGDState, build_optimizer
 from experiment_yolo_tpu.utils.loss import LossConfig as JLossConfig
 from experiment_yolo_tpu.utils.loss import detection_loss as j_loss
 from experiment_yolo_tpu.utils.torch_convert import convert_state_dict
+from test_torch_port_amp import _gather_ldconv
 
 CFG, IMGSZ, BATCH, STEPS = "yolov8-LD-P2.yaml", 64, 2, 2
 RECIPE = {"use_wiseiou": True, "wiou_ltype": "WIoU", "nwd": True, "iou_ratio": 0.5}
@@ -171,7 +177,8 @@ def _momentum(opt_state):
 def run():
     tm = TorchModel(CFG, device="cpu")
     he_normal_(tm, 3)
-    jm = JaxModel(CFG)
+    with _gather_ldconv():
+        jm = JaxModel(CFG)
     variables = convert_state_dict({k: v.numpy() for k, v in tm.state_dict().items()
                                     if not k.endswith("num_batches_tracked")}, jm)
     tr = DetectionTrainer(tm, OVERRIDES)
