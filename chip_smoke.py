@@ -327,13 +327,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     nc=2).train()`` epoch with per-epoch mask validation; a seg
     ``DetectionServer`` on its ``last.pt`` answering 4 requests with
     ``mask_rle`` equal to the facade's masks; the phase's seconds;
-31. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
+31. the pose family (``pose_phase``): ``yolov8-pose.yaml`` n (nc 1, kpt
+    17 x 3, seeded weights) served for 20 batches of 8 at 640, soft then hard
+    (1 K1 and 1 K5 or 1 K2 a batch, (n, 17, 3) keypoints for n boxes), its
+    raw maps and decoded keypoints within 1e-3 (px) of the CPU's on two
+    images and its ``Results.keypoints`` the kept anchors' taken back;
+    ``PoseValidator`` on a synthetic pose set (nk 5, 64 + 16 images at 640;
+    hard multi-label NMS, 1 K1 and 1 K2 a batch), K2's keep masks equal to
+    plain and the stats equal to those through the plain NMS; one f32 step
+    at 320 against the CPU (losses 1e-4, gradients 1e-3) and three bf16 steps
+    within 1.5 times the CPU's bf16 distance; one ``YOLO("yolov8-pose.yaml",
+    nc=1).train()`` epoch, its head rebuilt from 17 x 3 to the set's 5 x 3,
+    whose ``last.pt`` reloads as a 5 x 3 ``PoseModel``; a pose
+    ``DetectionServer`` answering 4 requests with the facade's keypoints;
+32. the fork's significance experiment (``experiment_phase``):
+    ``run_experiment.main`` with ``seeds=0 epochs=1 imgsz=320 batch=8
+    n_train=16 n_val=16 base=yolov8n.yaml deal=yolov8-LD-P2.yaml``, its
+    report and ``results.json`` under the run's root, a second call that
+    reuses both runs, each model's ``per_image_stats`` through K5 equal to
+    the plain soft-NMS's, and the bootstrap comparison equal on both;
+33. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
     ...}``, a ``{"served_vss": ...}``, a ``{"validated": ...}``, a
     ``{"trained_loop": ...}``, a ``{"trained_bf16": ...}``, a ``{"facade":
     ..., "cli": ..., "server": ...}``, an ``{"asf_p2": ...}``, a
     ``{"two_stage": ...}``, a ``{"vss_trained": ...}``, a ``{"recipes":
     ...}``, an ``{"other_configs": ...}``, an ``{"image_input": ...}`` and a
-    ``{"segmentation_and_c2f_ldconv": ...}`` line, then the
+    ``{"segmentation_and_c2f_ldconv": ...}``, a ``{"pose": ...}`` and an
+    ``{"experiment": ...}`` line, then the
     ``{"kernels": [...]}`` line for the eight kernels and the four bf16
     forms (launches summed over every main path above), the card's name and
     power limit, and last ``{"ok": true, "device": {...}}``.
@@ -1454,7 +1474,7 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
     CPU takes the card's, and the least gap at the cut is reported)."""
     import numpy as np
 
-    from experiment_yolo_torch.engine.trainer import DetectionTrainer
+    from experiment_yolo_torch.engine.trainer import LOSS_KEYS, DetectionTrainer
     from experiment_yolo_torch.nn.tasks import guess_model_task, task_model
 
     picks, mask_picks = CardPicks(), MaskPicks()
@@ -1487,7 +1507,7 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
     gpu, cpu = out["cuda"], out["cpu"]
     check(gpu["comps"]["fg"] == cpu["comps"]["fg"], f"foreground count {gpu['comps']['fg']} on the card, "
                                                       f"{cpu['comps']['fg']} on the CPU")
-    keys = ("box", "cls", "dfl", "seg") if task == "segment" else ("box", "cls", "dfl")
+    keys = LOSS_KEYS[task]
     loss_rel = max(abs(gpu["comps"][k] - cpu["comps"][k]) / abs(cpu["comps"][k]) for k in keys)
     check(loss_rel <= 1e-4, f"loss components differ from the CPU's by {loss_rel} relative > 1e-4")
     check((mask_picks.card is not None) == (task == "segment"), f"the mask term's picks: {mask_picks.report()}")
@@ -4166,26 +4186,25 @@ def seg_served(model, images, counters, card):
     return served, launches
 
 
-def seg_validated(model, data: Path, counters, card):
-    """``SegmentationValidator`` (multi-label hard NMS, as the JAX
-    validator's) on the synthetic seg dataset's val split at IMGSZ, batch
-    BATCH, counters at 0 just before and read just after (1 K1 and 1 K2 a
-    batch): box and mask mAP, img/s. Then every batch again: K2's keep masks
-    on the card's candidates equal to its plain version's on the CPU, and the
-    stats of the card's maps and masks with the detections of the plain NMS
-    on the CPU equal to the card run's. Returns the record and the
-    launches."""
+def task_validated(model, data: Path, counters, card):
+    """The task's validator (``SegmentationValidator`` or ``PoseValidator``:
+    multi-label hard NMS, as the JAX validators') on a synthetic task set's
+    val split at IMGSZ, batch BATCH, counters at 0 just before and read just
+    after (1 K1 and 1 K2 a batch): box and mask or pose mAP, img/s. Then
+    every batch again: K2's keep masks on the card's candidates equal to its
+    plain version's on the CPU, and the stats of the card's maps and kept
+    outputs with the detections of the plain NMS on the CPU equal to the card
+    run's. Returns the record and the launches."""
     import numpy as np
     import torch
 
-    from experiment_yolo_torch.engine.validators_extra import SegmentationValidator
-    from experiment_yolo_torch.nn.heads_extra import assemble_masks
+    from experiment_yolo_torch.engine.validators_extra import TASK_VALIDATORS
     from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress, nms_suppress_plain
     from experiment_yolo_torch.ops.nms import nms_candidates
     from experiment_yolo_torch.utils.metrics import DetMetrics
 
     ov = {"data": str(data), "imgsz": IMGSZ, "batch": BATCH, "workers": 8, "verbose": False}
-    validator = SegmentationValidator(ov)
+    validator = TASK_VALIDATORS[model.task](ov)
     validator(model)  # warm-up; builds the dataset and the loader once
     for fn in counters.values():
         fn.launches = 0
@@ -4199,32 +4218,31 @@ def seg_validated(model, data: Path, counters, card):
     nb = math.ceil(n_val / BATCH)
     want = dict.fromkeys(counters, 0)
     want.update(dfl_decode=nb, nms_suppress=nb)
-    check(launches == want, f"the seg validator launched {launches}, expected {want}")
+    check(launches == want, f"the {model.task} validator launched {launches}, expected {want}")
     data_cfg, dataset, loader = validator._setup(model)
-    box_m, mask_m = DetMetrics(data_cfg["names"]), DetMetrics(data_cfg["names"])
+    box_m, task_m = DetMetrics(data_cfg["names"]), DetMetrics(data_cfg["names"])
     seen, keep_equal, kept = 0, True, 0
     a = validator.args
     for batch in loader:
         imgs = torch.as_tensor(np.asarray(batch["img"])).cuda()
         with torch.no_grad():
-            boxes, scores, coeffs, protos = model.predict((imgs.permute(0, 3, 1, 2).float() / 255.0).contiguous())
+            boxes, scores, *rest = model.predict((imgs.permute(0, 3, 1, 2).float() / 255.0).contiguous())
         c = nms_candidates(boxes, scores, float(a.conf), multi_label=True)
         k_card = nms_suppress(c.shifted.contiguous(), c.valid, float(a.iou))
         k_plain = nms_suppress_plain(c.shifted.cpu(), c.valid.cpu(), float(a.iou))
         keep_equal = keep_equal and torch.equal(k_card.cpu(), k_plain)
         kept += int(k_plain.sum())
-        det, counts, idx = validator.nms(boxes.cpu(), scores.cpu())  # plain NMS; the card's maps and masks
-        sel = torch.gather(coeffs, 1, idx.long().cuda()[..., None].expand(-1, -1, coeffs.shape[-1]))
-        pmasks = assemble_masks(sel, protos).float().cpu()
+        det, counts, idx = validator.nms(boxes.cpu(), scores.cpu())  # plain NMS; the card's kept outputs
+        extra = model.kept_outputs(*rest, idx.cuda()).float().cpu()
         n = min(len(det), n_val - seen)
-        validator.score_batch(box_m, mask_m, det.numpy(), counts.numpy(), pmasks.numpy(), batch, n)
+        validator.score_batch(box_m, task_m, det.numpy(), counts.numpy(), extra.numpy(), batch, n)
         seen += n
-    check(keep_equal, "K2's keep masks on the seg validator's candidates differ from its plain version's")
-    bs, ms = box_m.result(), mask_m.result()
+    check(keep_equal, f"K2's keep masks on the {model.task} validator's candidates differ from its plain version's")
+    bs, ts = box_m.result(), task_m.result()
     cpu_stats = {**{f"box_{k}": v for k, v in bs.items() if isinstance(v, float)},
-                 **{f"mask_{k}": v for k, v in ms.items() if isinstance(v, float)}}
+                 **{f"{validator.family}_{k}": v for k, v in ts.items() if isinstance(v, float)}}
     diff = max(abs(stats[k] - v) for k, v in cpu_stats.items())
-    check(diff == 0.0, f"the seg validator's stats differ from those scored through the CPU by {diff}")
+    check(diff == 0.0, f"the {model.task} validator's stats differ from those scored through the CPU by {diff}")
     return {"images": n_val, "batch": BATCH, "imgsz": IMGSZ, "nms": "hard, multi-label", "stats": stats,
             "img_per_s": n_val / secs, "seconds": secs, "k2_keep_equal_plain": keep_equal, "kept_candidates": kept,
             "stats_max_abs_diff_vs_cpu_scoring": diff, "launches": launches, "card": card}, launches
@@ -4282,7 +4300,7 @@ def seg_phase(images, root: Path, counters, card):
     """Phase 30: :func:`c2f_ldconv_part`, then ``yolov8-seg.yaml`` (n scale,
     nc 80, seeded weights) served (:func:`seg_served`), the synthetic seg
     dataset (LOOP_TRAIN + LOOP_VAL images at IMGSZ) validated with a seeded
-    nc-2 model (:func:`seg_validated`), one f32 step at CMP_IMGSZ against the
+    nc-2 model (:func:`task_validated`), one f32 step at CMP_IMGSZ against the
     CPU (mask picks held, :class:`MaskPicks`) and BF16_CMP_STEPS bf16 steps
     against the CPU's bf16 distance, one ``YOLO(SEG_CFG, nc=2).train()``
     epoch with per-epoch mask validation whose ``last.pt`` reloads as a
@@ -4319,7 +4337,7 @@ def seg_phase(images, root: Path, counters, card):
                                        seed=SEED)
     add(dict.fromkeys(counters, 0), "dataset")
     model = seeded_model({**seg_cfg(), "nc": SEG_DATA_NC}, SEED)
-    record["validated"], run = seg_validated(model, data, counters, card)
+    record["validated"], run = task_validated(model, data, counters, card)
     add(run, "validated")
     log(f"seg validated: {record['validated']['images']} images, box mAP50 {record['validated']['stats']['box_mAP50']:.4f}"
         f", mask mAP50 {record['validated']['stats']['mask_mAP50']:.4f}, {record['validated']['img_per_s']:.2f} img/s, "
@@ -4356,6 +4374,352 @@ def seg_phase(images, root: Path, counters, card):
         f"{card}")
     return record, launches
 
+
+
+POSE_CFG, POSE_NC, POSE_DATA_NK = "yolov8-pose.yaml", 1, 5  # the published config (person, 17 x 3); the synthetic set's
+POSE_CMP_IMAGES = 2  # the served CPU comparison: images of the first batch
+POSE_KPT_ATOL = 1e-3  # px: the card's decoded keypoints against the CPU's on the same weights, and its raw maps
+EXPERIMENT_ARGS = ["seeds=0", "epochs=1", "imgsz=320", "batch=8", "n_train=16", "n_val=16", "base=yolov8n.yaml",
+                   "deal=yolov8-LD-P2.yaml"]
+
+
+def pose_cfg(kpt_shape=(17, 3)):
+    """``yolov8-pose.yaml`` at n scale, as a dict, with ``kpt_shape``."""
+    from experiment_yolo_torch.nn.tasks import yaml_model_load
+
+    return {**yaml_model_load(POSE_CFG), "kpt_shape": list(kpt_shape)}
+
+
+def seeded_pose_batch(batch: int, imgsz: int, seed: int, nk: int):
+    """:func:`~experiment_yolo_torch.utils.seeded.seeded_batch` at nc 1 with
+    the pose task's ``keypoints`` (B, M, nk, 3): each box's keypoints drawn
+    inside it, normalised, a fifth of them at visibility 0."""
+    import numpy as np
+
+    from experiment_yolo_torch.utils.seeded import seeded_batch
+
+    out = seeded_batch(batch, imgsz, seed, nc=POSE_NC)
+    rng = np.random.default_rng(seed + 1000)
+    cxy, wh = out["bboxes"][..., None, :2], out["bboxes"][..., None, 2:]
+    xy = cxy + rng.uniform(-0.5, 0.5, (*out["bboxes"].shape[:2], nk, 2)) * wh
+    vis = np.where(rng.uniform(size=(*out["bboxes"].shape[:2], nk, 1)) < 0.2, 0.0, 2.0)
+    kpts = np.concatenate([xy, vis], -1).astype(np.float32)
+    return {**out, "keypoints": np.where(out["mask"][..., None, None], kpts, 0.0).astype(np.float32)}
+
+
+def pose_compare_cpu(model, pred, images):
+    """The first POSE_CMP_IMAGES images of a served batch through the card
+    and through the same weights on the CPU (plain versions): raw detect and
+    keypoint maps, and the decoded keypoints (pixels, every anchor), within
+    POSE_KPT_ATOL; then the predictor's ``Results.keypoints`` equal to the
+    card's kept anchors' keypoints taken back through each image's gain and
+    pad. Returns the record."""
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch.data.augment import letterbox
+    from experiment_yolo_torch.nn.tasks import PoseModel
+    from experiment_yolo_torch.utils.seeded import letterboxed, model_input
+
+    imgs = images[:POSE_CMP_IMAGES]
+    x = model_input(letterboxed(imgs, IMGSZ), "cuda")
+    cpu = PoseModel(model.yaml, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    with torch.no_grad():
+        det_c, kpt_c = cpu(x.cpu())
+        det_g, kpt_g = model(x)
+        k_c = cpu.predict(x.cpu())[2]
+        k_g = model.predict(x)[2]
+    map_err = max((a.cpu() - b).abs().max().item() for a, b in zip([*det_g, *kpt_g], [*det_c, *kpt_c]))
+    kpt_err = (k_g.cpu() - k_c).abs().max().item()
+    check(map_err <= POSE_KPT_ATOL, f"pose raw maps differ from the CPU's by {map_err} > {POSE_KPT_ATOL}")
+    check(kpt_err <= POSE_KPT_ATOL, f"decoded keypoints differ from the CPU's by {kpt_err} px > {POSE_KPT_ATOL}")
+    results = pred(imgs)
+    padded = np.zeros((pred.batch, IMGSZ, IMGSZ, 3), np.uint8)
+    padded[:len(imgs)] = letterboxed(imgs, IMGSZ)
+    det, counts, kept = pred.infer(torch.from_numpy(padded).cuda())
+    for i, (img, r) in enumerate(zip(imgs, results)):
+        n = int(counts[i])
+        _, gain, (padw, padh) = letterbox(img, IMGSZ)
+        want = kept[i, :n].float().cpu().numpy().copy()
+        want[..., 0] = ((want[..., 0] - padw) / gain).clip(0, img.shape[1])
+        want[..., 1] = ((want[..., 1] - padh) / gain).clip(0, img.shape[0])
+        check(n > 0 and np.array_equal(r.keypoints.data, want), f"image {i}: the predictor's keypoints differ from "
+                                                                 "the card's kept keypoints taken back")
+    return {"images": len(imgs), "map_max_abs_err": map_err, "decoded_kpt_max_abs_err_px": kpt_err,
+            "atol": POSE_KPT_ATOL}
+
+
+def pose_served(model, images, counters, card):
+    """SERVE_BATCHES batches of BATCH seeded images at IMGSZ through
+    ``DetectionPredictor`` on the pose model, soft then hard NMS, counters at
+    0 just before each run and read just after: exactly 1 K1 and 1 K5 (soft)
+    or 1 K2 (hard) a batch; each image's keypoints (n, 17, 3) for its n boxes,
+    finite. Then :func:`pose_compare_cpu` on the first batch. Returns the
+    record and the launches."""
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch import DetectionPredictor
+
+    stream = [images[i % N_IMAGES] for i in range(SERVE_BATCHES * BATCH)]
+    launches, served = dict.fromkeys(counters, 0), {}
+    for nms_type in ("soft", "hard"):
+        pred = DetectionPredictor(model, {"imgsz": IMGSZ, "batch": BATCH, "nms_type": nms_type})
+        pred(images[:BATCH])
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        batch_ms, dets = [], []
+        for start in range(0, len(stream), BATCH):
+            t = time.perf_counter()
+            results = pred(stream[start:start + BATCH])
+            batch_ms.append((time.perf_counter() - t) * 1e3)
+            for r in results:
+                k = r.keypoints.data
+                check(k.shape == (len(r.boxes), *model.kpt_shape) and bool(np.isfinite(k).all()),
+                      f"pose {nms_type}: keypoints {k.shape} for {len(r.boxes)} boxes")
+                dets.append(len(r.boxes))
+        run = {name: fn.launches for name, fn in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        want.update(dfl_decode=SERVE_BATCHES, **{"soft_nms" if nms_type == "soft" else "nms_suppress": SERVE_BATCHES})
+        check(run == want, f"pose {nms_type} NMS main path launched {run}, expected {want}")
+        check(min(dets) > 0, f"pose {nms_type}: an image with {min(dets)} detections")
+        for name in launches:
+            launches[name] += run[name]
+        median_ms = statistics.median(batch_ms)
+        served[nms_type] = {"batches": SERVE_BATCHES, "batch_ms_median": median_ms, "batch_ms_min": min(batch_ms),
+                            "batch_ms_max": max(batch_ms), "batch_ms_p10_p90": statistics.quantiles(batch_ms, n=10)[::8],
+                            "img_per_s_at_median": BATCH / median_ms * 1e3,
+                            "detections_per_image": sum(dets) / len(dets), "launches": run}
+        log(f"served {POSE_CFG} {nms_type} NMS: {len(stream)} images in {SERVE_BATCHES} batches of {BATCH} at "
+            f"{IMGSZ}: median {median_ms:.2f} ms per batch (min {min(batch_ms):.2f}, max {max(batch_ms):.2f}), "
+            f"{served[nms_type]['img_per_s_at_median']:.2f} img/s at the median, "
+            f"{served[nms_type]['detections_per_image']:.1f} detections an image, launches {run}, {card}")
+    t = time.perf_counter()
+    served["cpu_comparison"] = pose_compare_cpu(model, pred, images)
+    served["cpu_comparison"]["seconds"] = time.perf_counter() - t
+    log(f"pose served CPU comparison: {json.dumps(served['cpu_comparison'])}")
+    return served, launches
+
+
+def pose_server(weights: Path, root: Path, images, counters, card):
+    """A pose ``DetectionServer`` on the checkpoint ``weights`` (batch BATCH
+    at IMGSZ) answers 4 BMP requests, one at a time: each answer's boxes and
+    ``keypoints`` equal to ``serialize_results`` of the facade's ``predict``
+    of the same image alone; 1 K1 and 1 K5 a request."""
+    import urllib.request
+
+    import torch
+
+    from experiment_yolo_torch import YOLO
+    from experiment_yolo_torch.data.image_io import imwrite
+    from experiment_yolo_torch.serve import DetectionServer, serialize_results
+
+    yolo = YOLO(str(weights))
+    check(type(yolo.model).__name__ == "PoseModel", f"{weights} reloaded as {type(yolo.model).__name__}")
+    server = DetectionServer(yolo, batch=BATCH, imgsz=IMGSZ)
+    port = server.start(host="127.0.0.1", port=0)
+    answers = []
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        for i, img in enumerate(images[:4]):
+            imwrite(root / f"pose_req{i}.bmp", img)
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                         data=(root / f"pose_req{i}.bmp").read_bytes())
+            answers.append(json.loads(urllib.request.urlopen(req, timeout=120).read()))
+    finally:
+        server.stop()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode=4, soft_nms=4)
+    check(launches == want, f"the pose server launched {launches} for 4 requests, expected {want}")
+    kpts = 0
+    for img, a in zip(images[:4], answers):
+        want_dets = serialize_results(yolo.predict([img], imgsz=IMGSZ, batch=BATCH)[0])["detections"]
+        check(a["detections"] == want_dets and len(want_dets) > 0,
+              f"the server's {len(a['detections'])} detections differ from the facade's {len(want_dets)}")
+        kpts += sum(len(d["keypoints"]) for d in want_dets)
+    return {"requests": 4, "keypoints": kpts, "launches": launches, "card": card}, launches
+
+
+def pose_phase(images, root: Path, counters, card):
+    """Phase 31: ``yolov8-pose.yaml`` (n scale, nc 1, kpt 17 x 3, seeded
+    weights) served (:func:`pose_served`); the synthetic pose set (nk 5,
+    LOOP_TRAIN + LOOP_VAL images at IMGSZ) validated with a seeded 5 x 3
+    model (:func:`task_validated`); one f32 step at CMP_IMGSZ against the CPU
+    and BF16_CMP_STEPS bf16 steps against the CPU's bf16 distance; one
+    ``YOLO(POSE_CFG).train()`` epoch on the pose set, which rebuilds the head
+    from 17 x 3 to 5 x 3 and validates with ``PoseValidator``, whose
+    ``last.pt`` reloads as a 5 x 3 ``PoseModel``; and a pose server
+    (:func:`pose_server`) on a checkpoint of the served model. Returns the
+    record and the launches."""
+    import torch
+
+    from experiment_yolo_torch import YOLO
+    from experiment_yolo_torch.data import make_synthetic_task_dataset
+    from experiment_yolo_torch.engine.checkpoint import save_checkpoint
+    from experiment_yolo_torch.utils.seeded import seeded_model
+
+    t0 = time.perf_counter()
+    record, launches, seconds = {}, dict.fromkeys(counters, 0), {}
+
+    def add(run, part):
+        for name in launches:
+            launches[name] += run[name]
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+
+    model = seeded_model({**pose_cfg(), "nc": POSE_NC}, SEED)
+    record["params"] = sum(p.numel() for p in model.parameters())
+    check(model.stride == (8, 16, 32) and type(model).__name__ == "PoseModel" and model.kpt_shape == (17, 3),
+          f"{POSE_CFG}: {type(model).__name__}, strides {model.stride}, kpt_shape {model.kpt_shape}")
+    log(f"model {POSE_CFG} scale n: {record['params']} params, strides {model.stride}, nc {model.nc}, kpt_shape "
+        f"{model.kpt_shape}, seeded weights")
+    record["served"], run = pose_served(model, images, counters, card)
+    add(run, "served")
+    served_ckpt = save_checkpoint(root / "pose_seeded.pt", model)
+    del model
+    torch.cuda.empty_cache()
+    data = make_synthetic_task_dataset(root / "pose", "pose", n_train=LOOP_TRAIN, n_val=LOOP_VAL, imgsz=IMGSZ,
+                                       seed=SEED, nk=POSE_DATA_NK)
+    add(dict.fromkeys(counters, 0), "dataset")
+    model = seeded_model({**pose_cfg((POSE_DATA_NK, 3)), "nc": POSE_NC}, SEED)
+    record["validated"], run = task_validated(model, data, counters, card)
+    add(run, "validated")
+    log(f"pose validated: {record['validated']['images']} images, box mAP50 "
+        f"{record['validated']['stats']['box_mAP50']:.4f}, pose mAP50 {record['validated']['stats']['pose_mAP50']:.4f}"
+        f", {record['validated']['img_per_s']:.2f} img/s, {card}")
+    state = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    cfg = dict(model.yaml)
+    del model
+    batches = [seeded_pose_batch(CMP_BATCH, CMP_IMGSZ, SEED + 60 + i, POSE_DATA_NK) for i in range(BF16_CMP_STEPS)]
+    record["cpu_comparison"] = compare_train_cpu(state, batches[0], cfg=cfg, n_ldconv=0, n_scalseq=0, n_sppf=1)
+    log(f"pose training CPU comparison: {json.dumps(record['cpu_comparison'])}")
+    record["cpu_comparison_bf16"] = compare_train_cpu_bf16(state, batches, cfg=cfg)
+    log(f"pose bf16 training CPU comparison: {json.dumps(record['cpu_comparison_bf16'])}")
+    add(dict.fromkeys(counters, 0), "steps against the CPU")
+    # the pose branch of the loss takes the detect maps in f32 (JAX engine/trainer.py:466-475): K1 and its
+    # backward run their f32 forms in a bf16 step; validation decodes the bf16 model's maps
+    loop, run = facade_epoch(POSE_CFG, lambda steps, val: dict(dfl_decode=steps, dfl_decode_bwd=3 * steps,
+                                                                dfl_decode_bf16=val, nms_suppress=val),
+                             data, root, counters, card, nc=POSE_NC)
+    add(run, "facade epoch")
+    record["facade_train"] = loop
+    check(all(k in loop["last_epoch_metrics"] for k in ("box_mAP50", "pose_mAP50", "fitness")),
+          f"the pose epoch's validation: {loop['last_epoch_metrics']}")
+    check(set(loop["losses"][0]) == {"box", "cls", "dfl", "kobj", "pose"}, f"the pose epoch's losses {loop['losses']}")
+    log(f"{POSE_CFG} facade: YOLO(...).train() 1 epoch, head 17 x 3 -> {POSE_DATA_NK} x 3: "
+        f"{loop['loop_img_per_s']:.2f} img/s over the loop ({loop['train_dtype']}), val "
+        f"{json.dumps(loop['last_epoch_metrics'])}, {card}")
+    reloaded = YOLO(str(Path(loop["weights"]) / "last.pt")).model
+    check(type(reloaded).__name__ == "PoseModel" and reloaded.kpt_shape == (POSE_DATA_NK, 3),
+          f"last.pt reloaded as {type(reloaded).__name__} {getattr(reloaded, 'kpt_shape', None)}")
+    record["facade_train"]["last_pt_reloads_as"] = f"{type(reloaded).__name__} {reloaded.kpt_shape}"
+    del reloaded
+    record["server"], run = pose_server(served_ckpt, root, images, counters, card)
+    add(run, "server")
+    record["seconds"], record["part_seconds"] = time.perf_counter() - t0, seconds
+    record["card"] = card
+    log(f"phase 31 took {record['seconds']:.1f} s ({json.dumps({k: round(v, 1) for k, v in seconds.items()})}), "
+        f"{card}")
+    return record, launches
+
+
+@contextlib.contextmanager
+def plain_predictor_nms():
+    """The predictor's NMS on CPU copies of the card's boxes and scores (the
+    plain versions of K5 and K2), its outputs handed back to the card."""
+    from experiment_yolo_torch.engine.predictor import DetectionPredictor
+
+    nms = DetectionPredictor._nms
+
+    def plain(self, boxes, scores, return_idx=False):
+        return tuple(t.to(boxes.device) for t in nms(self, boxes.cpu(), scores.cpu(), return_idx))
+
+    DetectionPredictor._nms = plain
+    try:
+        yield
+    finally:
+        DetectionPredictor._nms = nms
+
+
+def experiment_phase(root: Path, counters, card):
+    """Phase 32: ``python -m experiment_yolo_torch.run_experiment`` with
+    EXPERIMENT_ARGS under ``root`` (the grid trained and validated on the
+    card, the bootstrap protocol), counters at 0 just before and read just
+    after: the report and ``results.json`` written under the root; a second
+    call reuses both checkpoints (``YOLO.train`` raises if called) and gives
+    the same results; each model's ``per_image_stats`` through K5 (1 K1 and 1
+    K5 an image) equal to the same stats through the plain soft-NMS on the
+    CPU, and ``compare_scores`` of the card's bootstrap scores equal to that
+    of the plain ones. Returns the record and the launches."""
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch import YOLO, run_experiment
+    from experiment_yolo_torch.compare_models import map50_of_subset, per_image_stats
+    from experiment_yolo_torch.data.dataset import YOLODataset
+    from experiment_yolo_torch.utils.stats import bootstrap_indices, compare_scores
+
+    t0 = time.perf_counter()
+    argv = [*EXPERIMENT_ARGS, f"root={root}"]
+    for fn in counters.values():
+        fn.launches = 0
+    first = run_experiment.main(argv)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check((root / "EXPERIMENTS.md").is_file() and json.loads((root / "results.json").read_text()) == first,
+          f"the experiment wrote no report or results under {root}")
+    train = YOLO.train
+
+    def no_training(*args, **kwargs):
+        raise AssertionError("the second invocation trained a finished run again")
+
+    t = time.perf_counter()
+    YOLO.train = no_training
+    try:
+        again = run_experiment.main(argv)
+    finally:
+        YOLO.train = train
+    second_s = time.perf_counter() - t
+    check(again == first, f"the second invocation's results {again} differ from the first's {first}")
+
+    kv = dict(a.split("=", 1) for a in EXPERIMENT_ARGS)
+    imgsz, n_val = int(kv["imgsz"]), int(kv["n_val"])
+    ds = YOLODataset(root / "dataset" / "images" / "val", imgsz=imgsz, augment=False, device="cuda")
+    idxs = bootstrap_indices(len(ds), n_bootstrap=30, fraction=0.5, seed=42)
+    scores, equal = {}, True
+    for cfg in (kv["base"], kv["deal"]):
+        yolo = YOLO(str(root / "train" / f"{Path(cfg).stem}_s0" / "weights" / "best.pt"))
+        for fn in counters.values():
+            fn.launches = 0
+        card_stats = per_image_stats(yolo, ds, imgsz)
+        run = {name: fn.launches for name, fn in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        want.update(dfl_decode=n_val, soft_nms=n_val, **({"ldconv_gather": 10 * n_val} if "LD" in cfg else {}))
+        check(run == want, f"per_image_stats of {cfg} launched {run}, expected {want}")
+        for name in launches:
+            launches[name] += run[name]
+        with plain_predictor_nms():
+            plain_stats = per_image_stats(yolo, ds, imgsz)
+        same = all(np.array_equal(a, b) for sa, sb in zip(card_stats, plain_stats) for a, b in zip(sa, sb))
+        equal = equal and same
+        scores[cfg] = [np.asarray([map50_of_subset(st, i) for i in idxs]) for st in (card_stats, plain_stats)]
+    check(equal, "per_image_stats through K5 differ from those through the plain soft-NMS")
+    card_cmp = compare_scores(scores[kv["deal"]][0], scores[kv["base"]][0])
+    plain_cmp = compare_scores(scores[kv["deal"]][1], scores[kv["base"]][1])
+    check(card_cmp.summary() == plain_cmp.summary() and all(
+        np.array_equal(np.asarray(getattr(card_cmp, f)), np.asarray(getattr(plain_cmp, f)), equal_nan=True)
+        for f in card_cmp.__dataclass_fields__), "compare_scores of the card's bootstrap scores differs from the CPU's")
+    record = {"args": EXPERIMENT_ARGS, "results": first, "first_call_s": first_s, "second_call_s": second_s,
+              "per_image_stats_k5_equal_plain": equal, "comparison": card_cmp.summary(),
+              "seconds": time.perf_counter() - t0, "launches": launches, "card": card}
+    log(f"phase 32: run_experiment {' '.join(EXPERIMENT_ARGS)}: {first_s:.1f} s, again (reused) {second_s:.1f} s, "
+        f"results {json.dumps(first)}, {card_cmp.summary()}, {card}")
+    return record, launches
 
 def main() -> None:
     import torch
@@ -4697,9 +5061,19 @@ def main() -> None:
     seg, run = seg_phase(images, Path(work.name), counters, card)
     for name in launches:
         launches[name] += run[name]
+    torch.cuda.empty_cache()
+    # 31. the pose family served, validated, trained (the head rebuilt to the dataset's 5 x 3) and served over HTTP
+    pose, run = pose_phase(images, Path(work.name), counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    torch.cuda.empty_cache()
+    # 32. the fork's significance experiment on the card, twice (the second reuses both runs)
+    experiment, run = experiment_phase(Path(work.name) / "experiment", counters, card)
+    for name in launches:
+        launches[name] += run[name]
     work.cleanup()
 
-    # 31. the result lines
+    # 33. the result lines
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["kernel_ms"] = k["ms"]
@@ -4725,6 +5099,8 @@ def main() -> None:
     log(json.dumps({"other_configs": other}))
     log(json.dumps({"image_input": images_in}))
     log(json.dumps({"segmentation_and_c2f_ldconv": seg}))
+    log(json.dumps({"pose": pose}))
+    log(json.dumps({"experiment": experiment}))
     # last of the long lines, so that a reader of the output's tail gets it whole
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"card: {card}")

@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of the DEAL-YOLO detector (and its segmentation family) for NVIDIA Hopper.
+"""PyTorch + CUDA port of the DEAL-YOLO detector (and its segmentation and pose families) for NVIDIA Hopper.
 
 Sibling of ``experiment_yolo_tpu`` (the JAX reference): NCHW tensors,
 Ultralytics state-dict names, and hand-written ``sm_90a`` kernels for the
@@ -13,8 +13,8 @@ from experiment_yolo_torch.engine.model import YOLO
 from experiment_yolo_torch.engine.predictor import DetectionPredictor
 from experiment_yolo_torch.engine.trainer import DetectionTrainer
 from experiment_yolo_torch.engine.validator import DetectionValidator
-from experiment_yolo_torch.engine.validators_extra import SegmentationValidator
-from experiment_yolo_torch.nn.tasks import DetectionModel, SegmentationModel
+from experiment_yolo_torch.engine.validators_extra import PoseValidator, SegmentationValidator
+from experiment_yolo_torch.nn.tasks import DetectionModel, PoseModel, SegmentationModel
 
-__all__ = ["YOLO", "DetectionModel", "DetectionPredictor", "DetectionTrainer", "DetectionValidator",
-           "SegmentationModel", "SegmentationValidator", "__version__"]
+__all__ = ["YOLO", "DetectionModel", "DetectionPredictor", "DetectionTrainer", "DetectionValidator", "PoseModel",
+           "PoseValidator", "SegmentationModel", "SegmentationValidator", "__version__"]

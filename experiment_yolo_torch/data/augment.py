@@ -1,7 +1,7 @@
 """Host-side image augmentations in numpy, without OpenCV.
 
-Port of ``experiment_yolo_tpu/data/augment.py`` for the detect and segment
-tasks: the v8
+Port of ``experiment_yolo_tpu/data/augment.py`` for the detect, segment and
+pose tasks: the v8
 pipeline Mosaic (4 or 9) -> CopyPaste -> RandomPerspective -> MixUp ->
 RandomHSV -> RandomFlip x2 -> format (padded to a static label count), and
 the letterbox of validation and serving. Labels are dicts: {'img': HWC uint8
@@ -9,7 +9,9 @@ BGR, 'bboxes': (N, 4) xyxy pixels, 'cls': (N,)}, and for the segment task
 'segments', a list of (Si, 2) float pixel polygons, one per instance, carried
 through every transform as in the JAX module (boxes rebuilt from the warped
 polygons, CopyPaste's flipped instances, the overlap-index mask of
-:func:`format_sample`).
+:func:`format_sample`); for the pose task 'keypoints', (N, nk, 3) float pixel
+(x, y, visibility), made invisible where a mosaic or the warp puts them off
+the canvas and swapped by ``flip_idx`` on a horizontal flip.
 
 The card's machine has no OpenCV, so each ``cv2`` call of the JAX module has
 a counterpart here that does the arithmetic of the OpenCV the JAX package runs
@@ -40,8 +42,8 @@ float32 rounding of OpenCV's.
 
 Every random draw is the JAX module's, call for call and size for size, so the
 labels of a sample are identical to the JAX package's for the same generator.
-Keypoints and oriented boxes wait for the pose and OBB families (ROADMAP.md
-catalogue item 13); the optional Albumentations hook stays out, as the JAX
+Oriented boxes wait for the OBB family (ROADMAP.md catalogue item 13); the
+optional Albumentations hook stays out, as the JAX
 package skips it without the package.
 """
 
@@ -324,14 +326,19 @@ def hsv2bgr(img: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Label helpers (boxes, classes and the segment task's polygons)
+# Label helpers (boxes, classes, the segment task's polygons, the pose task's keypoints)
 # ---------------------------------------------------------------------------
 
 def _scale_shift_points(labels: Dict, r: float, padw: float, padh: float) -> Dict:
-    """The labels with every polygon point mapped to x * r + pad."""
+    """The labels with every polygon point and keypoint mapped to x * r + pad."""
     out = dict(labels)
     if labels.get("segments") is not None:
         out["segments"] = [s * r + np.asarray([padw, padh], np.float32) for s in labels["segments"]]
+    if labels.get("keypoints") is not None:
+        kp = labels["keypoints"].copy()
+        kp[..., 0] = kp[..., 0] * r + padw
+        kp[..., 1] = kp[..., 1] * r + padh
+        out["keypoints"] = kp
     return out
 
 
@@ -341,6 +348,8 @@ def _take_instances(labels: Dict, keep) -> Dict:
     if labels.get("segments") is not None:
         idx = np.flatnonzero(keep) if np.asarray(keep).dtype == bool else np.asarray(keep)
         out["segments"] = [labels["segments"][i] for i in idx]
+    if labels.get("keypoints") is not None:
+        out["keypoints"] = labels["keypoints"][keep]
     return out
 
 
@@ -349,14 +358,22 @@ def _cat_instances(l1: Dict, l2: Dict) -> Dict:
            "cls": np.concatenate([l1["cls"], l2["cls"]])}
     if l1.get("segments") is not None or l2.get("segments") is not None:
         out["segments"] = list(l1.get("segments") or []) + list(l2.get("segments") or [])
+    if l1.get("keypoints") is not None:
+        out["keypoints"] = np.concatenate([l1["keypoints"], l2["keypoints"]])
     return out
 
 
+def _invisible_off(kp: np.ndarray, width: float, height: float) -> np.ndarray:
+    """Keypoints (N, nk, 3) with the visibility of those outside [0, width) x [0, height) set to 0."""
+    oob = (kp[..., 0] < 0) | (kp[..., 0] >= width) | (kp[..., 1] < 0) | (kp[..., 1] >= height)
+    kp[..., 2] = np.where(oob, 0.0, kp[..., 2])
+    return kp
+
+
 def _check_ported(labels: Dict) -> None:
-    for k in ("keypoints", "obb"):
-        if labels.get(k) is not None:
-            raise NotImplementedError(f"labels with {k!r} belong to the pose/obb tasks, which are not ported to "
-                                      "experiment_yolo_torch yet (ROADMAP.md catalogue item 13)")
+    if labels.get("obb") is not None:
+        raise NotImplementedError("labels with 'obb' belong to the obb task, which is not ported to "
+                                  "experiment_yolo_torch yet (ROADMAP.md catalogue item 13)")
 
 
 # ---------------------------------------------------------------------------
@@ -414,20 +431,25 @@ def _tile(it: Dict, s: int) -> Tuple[np.ndarray, float]:
     return img, r
 
 
-def _merge(shifted: List[Dict], s: int, segments: bool) -> Dict:
-    """The tiles' labels on the (2s, 2s) canvas, clipped to it; ``segments``:
-    the items carry polygons (an empty list when no tile has a label)."""
+def _merge(shifted: List[Dict], s: int, first: Dict) -> Dict:
+    """The tiles' labels on the (2s, 2s) canvas, clipped to it, keypoints off
+    it made invisible; the geometry fields are ``first``'s (the first item's),
+    empty when no tile has a label."""
     if shifted:
         merged = shifted[0]
         for nxt in shifted[1:]:
             merged = _cat_instances(merged, nxt)
     else:
         merged = {"bboxes": np.zeros((0, 4), np.float32), "cls": np.zeros((0,), np.float32)}
-        if segments:
+        if first.get("segments") is not None:
             merged["segments"] = []
+        if first.get("keypoints") is not None:
+            merged["keypoints"] = np.zeros((0,) + first["keypoints"].shape[1:], np.float32)
     merged["bboxes"] = np.clip(merged["bboxes"], 0, 2 * s).astype(np.float32)
     if merged.get("segments") is not None:
         merged["segments"] = [np.clip(p, 0, 2 * s) for p in merged["segments"]]
+    if merged.get("keypoints") is not None:
+        merged["keypoints"] = _invisible_off(merged["keypoints"], 2 * s, 2 * s)
     return merged
 
 
@@ -463,7 +485,7 @@ def mosaic4(items: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
             b[:, [0, 2]] += padw
             b[:, [1, 3]] += padh
             shifted.append({**_scale_shift_points(it, r, padw, padh), "bboxes": b})
-    merged = _merge(shifted, s, items[0].get("segments") is not None)
+    merged = _merge(shifted, s, items[0])
     return {"img": canvas, **merged, "mosaic_border": (-s // 2, -s // 2)}
 
 
@@ -510,7 +532,7 @@ def mosaic9(items: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
             b[:, [1, 3]] += off_y
             shifted.append({**_scale_shift_points(it, r, off_x, off_y), "bboxes": b})
     crop = canvas[s // 2:s // 2 + 2 * s, s // 2:s // 2 + 2 * s]
-    merged = _merge(shifted, s, items[0].get("segments") is not None)
+    merged = _merge(shifted, s, items[0])
     return {"img": np.ascontiguousarray(crop), **merged, "mosaic_border": (-s // 2, -s // 2)}
 
 
@@ -622,6 +644,10 @@ def random_perspective(labels: Dict, degrees: float = 0.0, translate: float = 0.
             new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
             new[:, [0, 2]] = new[:, [0, 2]].clip(0, width)
             new[:, [1, 3]] = new[:, [1, 3]].clip(0, height)
+        if labels.get("keypoints") is not None:  # warped; those off the output made invisible
+            kp = labels["keypoints"].copy()
+            kp[..., :2] = warp_pts(kp[..., :2])
+            labels["keypoints"] = _invisible_off(kp, width, height)
         keep = _box_candidates(bboxes.T * s, new.T)
         labels["bboxes"] = new
         labels = _take_instances(labels, keep)
@@ -657,9 +683,9 @@ def random_hsv(img: np.ndarray, hgain=0.015, sgain=0.7, vgain=0.4, rng=None) -> 
 
 
 def random_flip(labels: Dict, direction: str, p: float, rng=None, flip_idx=None) -> Dict:
-    """Image, box and polygon flip with probability ``p`` (one draw).
-    ``flip_idx`` (keypoints) belongs to the pose task (ROADMAP.md catalogue
-    item 13)."""
+    """Image, box, polygon and keypoint flip with probability ``p`` (one
+    draw); ``flip_idx`` reorders the keypoints on a horizontal flip (left and
+    right swapped; None keeps their order)."""
     _check_ported(labels)
     rng = rng or np.random.default_rng()
     if rng.random() >= p:
@@ -682,6 +708,13 @@ def random_flip(labels: Dict, direction: str, p: float, rng=None, flip_idx=None)
             p[..., axis] = extent - p[..., axis]
             flipped.append(p)
         labels = {**labels, "segments": flipped}
+    if labels.get("keypoints") is not None:
+        axis, extent = (0, w) if direction == "horizontal" else (1, h)
+        kp = labels["keypoints"].copy()
+        kp[..., axis] = extent - kp[..., axis]
+        if direction == "horizontal" and flip_idx is not None:
+            kp = kp[:, np.asarray(flip_idx, np.int64)]
+        labels = {**labels, "keypoints": kp}
     return {**labels, "img": np.ascontiguousarray(img), "bboxes": bboxes}
 
 
@@ -697,14 +730,16 @@ def mixup(l1: Dict, l2: Dict, rng=None) -> Dict:
 # Format: pad to a static label count
 # ---------------------------------------------------------------------------
 
-def format_sample(labels: Dict, imgsz: int, max_labels: int, task: str = "detect",
+def format_sample(labels: Dict, imgsz: int, max_labels: int, task: str = "detect", kpt_shape=(17, 3),
                   mask_ratio: int = 4) -> Dict[str, np.ndarray]:
     """One sample in the device batch's form: ``img`` RGB HWC uint8,
     ``bboxes`` (max_labels, 4) normalised xywh, ``cls`` (max_labels,) int32
     and ``mask`` (max_labels,) bool; for ``task='segment'`` also ``masks``
     (H / mask_ratio, W / mask_ratio) int32, the overlap-index image, with the
-    instances reordered by area, largest first, to match its values."""
-    if task not in ("detect", "segment"):
+    instances reordered by area, largest first, to match its values; for
+    ``task='pose'`` also ``keypoints`` (max_labels, nk, nd), xy normalised
+    and the visibility."""
+    if task not in ("detect", "segment", "pose"):
         raise NotImplementedError(f"task={task!r} is not ported to experiment_yolo_torch yet "
                                   "(ROADMAP.md catalogue item 13)")
     img = labels["img"]
@@ -726,5 +761,15 @@ def format_sample(labels: Dict, imgsz: int, max_labels: int, task: str = "detect
                                   (b[:, 2] - b[:, 0]) / w, (b[:, 3] - b[:, 1]) / h], axis=1)
         out_cls[:n] = cls[:n].astype(np.int32)
         mask[:n] = True
+    if task == "pose":
+        nk, ndim = kpt_shape
+        kp_out = np.zeros((max_labels, nk, ndim), np.float32)
+        kp = labels.get("keypoints")
+        if kp is not None and n:
+            kp = kp[:n].astype(np.float32).copy()
+            kp[..., 0] /= w
+            kp[..., 1] /= h
+            kp_out[:n] = kp[..., :ndim]
+        out["keypoints"] = kp_out
     out.update({"img": np.ascontiguousarray(img[..., ::-1]), "bboxes": out_boxes, "cls": out_cls, "mask": mask})
     return out

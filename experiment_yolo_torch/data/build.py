@@ -135,13 +135,16 @@ class DataLoader:
                     t.join(0.01)
 
 
-def build_yolo_dataset(cfg, img_path, mode: str = "train", device="cuda") -> YOLODataset:
+def build_yolo_dataset(cfg, img_path, mode: str = "train", device="cuda", data: Optional[dict] = None
+                       ) -> YOLODataset:
     """The dataset of ``mode`` ('train' augments) from a config namespace,
-    decoding its JPEGs for ``device``."""
+    decoding its JPEGs for ``device``; ``data``, the resolved dataset YAML,
+    gives a pose dataset its ``kpt_shape`` and ``flip_idx``."""
     return YOLODataset(img_path=img_path, imgsz=cfg.imgsz, augment=mode == "train", hyp=cfg,
                        max_labels=getattr(cfg, "max_labels", 128),
                        fraction=getattr(cfg, "fraction", 1.0) if mode == "train" else 1.0,
                        single_cls=getattr(cfg, "single_cls", False), task=getattr(cfg, "task", "detect") or "detect",
+                       kpt_shape=(data or {}).get("kpt_shape", (17, 3)), flip_idx=(data or {}).get("flip_idx"),
                        cache=getattr(cfg, "cache", False), device=device)
 
 

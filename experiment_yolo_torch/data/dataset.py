@@ -1,10 +1,12 @@
 """YOLO-format detection dataset with the v8 augmentation pipeline.
 
 Port of ``experiment_yolo_tpu/data/dataset.py`` (``IMG_FORMATS``,
-``check_det_dataset``, ``img2label_path`` and ``YOLODataset``) for the detect
-and segment tasks: the image scan, ``fraction``, ``single_cls``, the YOLO txt
-labels (detect: cls cx cy w h; segment: cls x1 y1 x2 y2 ..., a polygon whose
-extent is the box; normalised), the ``.cache.npy`` label cache with the JAX package's
+``check_det_dataset``, ``img2label_path`` and ``YOLODataset``) for the detect,
+segment and pose tasks: the image scan, ``fraction``, ``single_cls``, the
+YOLO txt labels (detect: cls cx cy w h; segment: cls x1 y1 x2 y2 ..., a
+polygon whose extent is the box; pose: cls cx cy w h then (kx ky [kv]) for
+each of ``kpt_shape``'s keypoints, visibility 1 where the dims are 2;
+normalised), the ``.cache.npy`` label cache with the JAX package's
 hash key and format (so either package reads the other's), the image caches
 (``cache='ram'`` and ``'disk'``, whose ``.npy`` sidecars the JAX package
 writes too), and the samples: augmented for training (:meth:`get_sample`,
@@ -14,8 +16,8 @@ letterboxed for validation (:meth:`get_val_sample`).
 Images are read by ``data/image_io.py`` (JPEG, PNG, 24-bit BMP, or a ``.npy``
 sidecar), JPEGs with nvJPEG when the dataset's ``device`` is the card and with
 libjpeg when it is the CPU; unreadable images and images under 10 px are
-dropped with the JAX package's messages. The pose and obb tasks wait for
-ROADMAP.md catalogue item 13.
+dropped with the JAX package's messages. The obb task waits for ROADMAP.md
+catalogue item 13.
 """
 
 from __future__ import annotations
@@ -35,11 +37,11 @@ from experiment_yolo_torch.utils import LOGGER
 
 IMG_FORMATS = {"bmp", "jpeg", "jpg", "png", "tif", "tiff", "webp"}
 CACHE_VERSION = 1
-KEY_KPT_SHAPE = (17, 3)  # part of the JAX package's cache key for every task, so both packages share one cache
 
 
 def check_det_dataset(data) -> dict:
-    """Resolve a dataset yaml (or dict) into {path, train, val, test, names, nc}."""
+    """Resolve a dataset yaml (or dict) into {path, train, val, test, names,
+    nc}, and a pose dataset's ``kpt_shape`` and ``flip_idx`` where given."""
     d = dict(data) if isinstance(data, dict) else {**yaml_load(data), "yaml_file": str(data)}
     root = Path(d.get("path") or Path(str(d.get("yaml_file", "."))).parent)
     out = {"path": root}
@@ -53,6 +55,9 @@ def check_det_dataset(data) -> dict:
         names = dict(enumerate(names))
     out["names"] = names or {}
     out["nc"] = d.get("nc", len(out["names"]))
+    for k in ("kpt_shape", "flip_idx"):
+        if k in d:
+            out[k] = d[k]
     return out
 
 
@@ -76,12 +81,14 @@ def _verify(f: str) -> Optional[str]:
 
 
 class YOLODataset:
-    """Detection dataset: file scan + label parse + v8 transforms."""
+    """Detection dataset: file scan + label parse + v8 transforms. A pose
+    dataset's keypoints are (nk, 3) an instance (``kpt_shape``); ``flip_idx``
+    swaps them on a horizontal flip (none: no swap)."""
 
     def __init__(self, img_path: str | Path, imgsz: int = 640, augment: bool = True, hyp=None, max_labels: int = 128,
                  fraction: float = 1.0, single_cls: bool = False, task: str = "detect", cache: str | bool = False,
-                 device="cuda"):
-        if task not in ("detect", "segment"):
+                 device="cuda", kpt_shape=(17, 3), flip_idx=None):
+        if task not in ("detect", "segment", "pose"):
             raise NotImplementedError(f"task={task!r} datasets are not ported to experiment_yolo_torch yet "
                                       "(ROADMAP.md catalogue item 13)")
         self.img_path = Path(img_path)
@@ -91,6 +98,8 @@ class YOLODataset:
         self.max_labels = max_labels
         self.single_cls = single_cls
         self.task = task
+        self.kpt_shape = tuple(kpt_shape)  # part of the cache key for every task, as in JAX
+        self.flip_idx = flip_idx
         self.device = device  # where JPEGs are decoded: nvJPEG on the card, libjpeg on the CPU
         self.im_files = self._scan_images(fraction)
         self.labels = self._load_labels_cached()
@@ -110,7 +119,7 @@ class YOLODataset:
                 h.update(f"{st.st_size}:{st.st_mtime_ns}".encode())
             except OSError:
                 h.update(b"-")
-        h.update(f"{self.task}:{KEY_KPT_SHAPE}:{self.single_cls}".encode())
+        h.update(f"{self.task}:{self.kpt_shape}:{self.single_cls}".encode())
         return h.hexdigest()
 
     def _load_labels_cached(self) -> List[Dict]:
@@ -161,10 +170,12 @@ class YOLODataset:
 
     def _load_label(self, img_file: str) -> Dict:
         """Parse one YOLO txt label file, normalised: ``cls cx cy w h`` per
-        line, or for the segment task ``cls x1 y1 x2 y2 ...``, whose box is
-        the polygon's extent."""
+        line, for the segment task ``cls x1 y1 x2 y2 ...``, whose box is the
+        polygon's extent, for the pose task ``cls cx cy w h`` and the
+        keypoints."""
         lp = img2label_path(img_file)
-        cls, boxes, segments = [], [], []
+        cls, boxes, segments, keypoints = [], [], [], []
+        nk, ndim = self.kpt_shape
         if os.path.isfile(lp):
             for ln in Path(lp).read_text().splitlines():
                 parts = ln.split()
@@ -176,12 +187,20 @@ class YOLODataset:
                     segments.append(pts)
                     lo, hi = pts.min(0), pts.max(0)
                     boxes.append([(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2, hi[0] - lo[0], hi[1] - lo[1]])
+                elif self.task == "pose":
+                    boxes.append(vals[:4].tolist())
+                    kp = vals[4:4 + nk * ndim].reshape(nk, ndim)
+                    if ndim == 2:  # full visibility
+                        kp = np.concatenate([kp, np.ones((nk, 1), np.float32)], -1)
+                    keypoints.append(kp)
                 else:
                     boxes.append(vals[:4].tolist())
                 cls.append(0.0 if self.single_cls else float(parts[0]))
         out = {"cls": np.asarray(cls, np.float32), "bboxes_n": np.asarray(boxes, np.float32).reshape(-1, 4)}
         if self.task == "segment":
             out["segments_n"] = segments
+        elif self.task == "pose":
+            out["keypoints_n"] = np.stack(keypoints) if keypoints else np.zeros((0, nk, 3), np.float32)
         return out
 
     def __len__(self) -> int:
@@ -222,6 +241,10 @@ class YOLODataset:
         out = {"img": img, "bboxes": xyxy, "cls": lab["cls"].copy(), "im_file": self.im_files[i], "ori_shape": (h, w)}
         if self.task == "segment":
             out["segments"] = [p * np.asarray([w, h], np.float32) for p in lab["segments_n"]]
+        elif self.task == "pose":
+            kp = lab["keypoints_n"].copy()
+            kp[..., :2] *= np.asarray([w, h], np.float32)
+            out["keypoints"] = kp
         return out
 
     def _perspective(self, lab: Dict, rng: np.random.Generator) -> Dict:
@@ -261,8 +284,8 @@ class YOLODataset:
             lab["img"] = A.random_hsv(lab["img"], getattr(hyp, "hsv_h", 0.015), getattr(hyp, "hsv_s", 0.7),
                                       getattr(hyp, "hsv_v", 0.4), rng)
             lab = A.random_flip(lab, "vertical", getattr(hyp, "flipud", 0.0), rng)
-            lab = A.random_flip(lab, "horizontal", getattr(hyp, "fliplr", 0.5), rng)
-        return A.format_sample(lab, self.imgsz, self.max_labels, task=self.task)
+            lab = A.random_flip(lab, "horizontal", getattr(hyp, "fliplr", 0.5), rng, flip_idx=self.flip_idx)
+        return A.format_sample(lab, self.imgsz, self.max_labels, task=self.task, kpt_shape=self.kpt_shape)
 
     def get_val_sample(self, i: int, shape=None) -> Dict[str, np.ndarray]:
         """Letterboxed sample with ``ori_shape`` (h, w) and ``ratio_pad``
@@ -270,7 +293,7 @@ class YOLODataset:
         batches)."""
         item = self._load_item(i)
         lab = A.letterbox_labels(item, shape or self.imgsz, scaleup=True)
-        out = A.format_sample(lab, self.imgsz, self.max_labels, task=self.task)
+        out = A.format_sample(lab, self.imgsz, self.max_labels, task=self.task, kpt_shape=self.kpt_shape)
         out["ori_shape"] = np.asarray(item["ori_shape"], np.int32)
         out["ratio_pad"] = np.asarray([lab["ratio_pad"][0], *lab["ratio_pad"][1]], np.float32)
         return out

@@ -1,7 +1,7 @@
 """Synthetic YOLO-format detection dataset.
 
 Port of ``experiment_yolo_tpu/data/synthetic.py`` (``make_synthetic_dataset``
-and ``make_synthetic_task_dataset`` for the segment task): the
+and ``make_synthetic_task_dataset`` for the segment and pose tasks): the
 no-network stand-in for COCO128/WAID, coloured ellipses, rectangles and
 triangles (one class each) on blurred noise, written as a standard YOLO
 dataset (``images/``, ``labels/``, ``data.yaml``). It makes the same numpy
@@ -15,8 +15,9 @@ would depend on the encoder (nvJPEG on the card, libjpeg on the CPU;
 (a 7x7 Gaussian blur with OpenCV's sigma for that size, 1.4, and a
 saturating offset; filled shapes by pixel-centre tests) and are not held to
 OpenCV's drawing, except the segment task's polygons, which
-``data/polygons.py:fill_polys`` draws as ``cv2.fillPoly`` does. The pose and
-obb datasets wait for those families (ROADMAP.md catalogue item 13).
+``data/polygons.py:fill_polys`` draws as ``cv2.fillPoly`` does; the pose
+task's rings and dots are pixel-centre tests too. The obb dataset waits for
+that family (ROADMAP.md catalogue item 13).
 """
 
 from __future__ import annotations
@@ -96,20 +97,36 @@ def make_synthetic_dataset(root: str | Path, n_train: int = 64, n_val: int = 16,
     return yaml_path
 
 
+def _draw_ring_and_dots(img: np.ndarray, cx: int, cy: int, r: int, color, kps) -> None:
+    """A pose object: a ring of radius ``r``, 2 px wide, in ``color``, then a
+    white dot of radius 3 at each keypoint (truncated to whole pixels), by
+    pixel-centre tests."""
+    h, w = img.shape[:2]
+    ys, xs = np.mgrid[0:h, 0:w]
+    dist = np.hypot(xs - cx, ys - cy)
+    img[np.abs(dist - r) <= 1.0] = color
+    for x, y in kps:
+        img[(xs - int(x)) ** 2 + (ys - int(y)) ** 2 <= 9] = (255, 255, 255)
+
+
 def make_synthetic_task_dataset(root: str | Path, task: str, n_train: int = 32, n_val: int = 8, imgsz: int = 256,
-                                max_objects: int = 4, seed: int = 0) -> Path:
+                                max_objects: int = 4, seed: int = 0, nk: int = 5) -> Path:
     """Write a synthetic dataset of the segment task (filled triangles and
     pentagons, class ``poly3`` and ``poly5``, labelled by their normalised
-    vertices); returns the path of its data.yaml. The draws are the JAX
-    generator's, in its order, so the label files are identical to its; the
-    images are then blurred, drawn and written on a thread pool."""
-    if task != "segment":
-        raise NotImplementedError(f"task={task!r}: the port writes segment datasets; pose and obb wait for "
+    vertices) or of the pose task (rings of class ``blob`` with ``nk``
+    keypoints, the centre and ``nk - 1`` on the ring, each marked by a dot,
+    labelled by a box of 2.2 radii and the keypoints at visibility 2;
+    ``kpt_shape: [nk, 3]`` in data.yaml); returns the path of its data.yaml.
+    The draws are the JAX generator's, in its order, so the label files and
+    data.yaml are identical to its; the images are then blurred, drawn and
+    written on a thread pool."""
+    if task not in ("segment", "pose"):
+        raise NotImplementedError(f"task={task!r}: the port writes segment and pose datasets; obb waits for "
                                   "ROADMAP.md catalogue item 13")
     root = Path(root)
     rng = np.random.default_rng(seed)
-    names = ["poly3", "poly5"]
-    jobs = []  # (image path, noise, offset, [(polygon, colour)])
+    names = ["poly3", "poly5"] if task == "segment" else ["blob"]
+    jobs = []  # (image path, noise, offset, [(what, geometry, colour)])
     for split, n in (("train", n_train), ("val", n_val)):
         img_dir = root / "images" / split
         lab_dir = root / "labels" / split
@@ -124,26 +141,38 @@ def make_synthetic_task_dataset(root: str | Path, task: str, n_train: int = 32, 
                 cx = int(rng.integers(r + 2, imgsz - r - 2))
                 cy = int(rng.integers(r + 2, imgsz - r - 2))
                 color = tuple(int(c) for c in rng.integers(120, 255, 3))
-                cls = int(rng.integers(0, 2))
-                k = 3 if cls == 0 else 5
-                ang = rng.uniform(0, 2 * np.pi)
-                pts = np.stack([cx + r * np.cos(ang + 2 * np.pi * np.arange(k) / k),
-                                cy + r * np.sin(ang + 2 * np.pi * np.arange(k) / k)], -1)
-                shapes.append((pts.astype(np.int32), color))
-                lines.append(f"{cls} " + " ".join(f"{v:.6f}" for v in (pts / imgsz).reshape(-1)))
+                if task == "segment":
+                    cls = int(rng.integers(0, 2))
+                    k = 3 if cls == 0 else 5
+                    ang = rng.uniform(0, 2 * np.pi)
+                    pts = np.stack([cx + r * np.cos(ang + 2 * np.pi * np.arange(k) / k),
+                                    cy + r * np.sin(ang + 2 * np.pi * np.arange(k) / k)], -1)
+                    shapes.append(("polygon", pts.astype(np.int32), color))
+                    lines.append(f"{cls} " + " ".join(f"{v:.6f}" for v in (pts / imgsz).reshape(-1)))
+                else:  # the centre, then nk - 1 keypoints around the ring
+                    kps = [(cx, cy)] + [(cx + r * np.cos(2 * np.pi * j / (nk - 1)),
+                                         cy + r * np.sin(2 * np.pi * j / (nk - 1))) for j in range(nk - 1)]
+                    shapes.append(("ring", (cx, cy, r, kps), color))
+                    box = f"{cx/imgsz:.6f} {cy/imgsz:.6f} {2.2*r/imgsz:.6f} {2.2*r/imgsz:.6f}"
+                    lines.append(f"0 {box} " + " ".join(f"{x/imgsz:.6f} {y/imgsz:.6f} 2" for x, y in kps))
             (lab_dir / f"{i:05d}.txt").write_text("\n".join(lines) + "\n")
             jobs.append((img_dir / f"{i:05d}.bmp", noise, offset, shapes))
 
     def render(job):
         path, noise, offset, shapes = job
         img = np.clip(_blur7(noise).astype(np.int32) + offset, 0, 255).astype(np.uint8)
-        for pts, color in shapes:
-            img[fill_polys(np.zeros((imgsz, imgsz), np.int32), [pts], [1]).astype(bool)] = color
+        for what, geom, color in shapes:
+            if what == "polygon":
+                img[fill_polys(np.zeros((imgsz, imgsz), np.int32), [geom], [1]).astype(bool)] = color
+            else:
+                _draw_ring_and_dots(img, *geom[:3], color, geom[3])
         imwrite(path, img)
 
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
         list(pool.map(render, jobs))
     yaml_path = root / "data.yaml"
-    yaml_save(yaml_path, {"path": str(root), "train": "images/train", "val": "images/val", "nc": len(names),
-                          "names": names})
+    meta = {"path": str(root), "train": "images/train", "val": "images/val", "nc": len(names), "names": names}
+    if task == "pose":
+        meta["kpt_shape"] = [nk, 3]
+    yaml_save(yaml_path, meta)
     return yaml_path

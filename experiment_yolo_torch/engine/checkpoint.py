@@ -7,8 +7,8 @@ what the JAX package keeps in its Orbax state and ``meta.yaml``:
 
 - ``model`` and ``ema``: the model's and the EMA's state dicts, with the
   Ultralytics names of the port's modules (``utils/convert.py``'s naming);
-- ``model_yaml``, ``nc`` and ``task``, so that :func:`load_checkpoint`
-  rebuilds the model;
+- ``model_yaml``, ``nc`` and ``task`` (and a pose model's ``kpt_shape``), so
+  that :func:`load_checkpoint` rebuilds the model;
 - ``names``, ``epoch``, ``best_fitness`` and ``train_args``;
 - for ``last``, ``train_state``: the optimizer's ``state_dict`` (SGD's
   momentum buffers, Adam's moments, SOAP's factors, bases and moments, and
@@ -51,6 +51,8 @@ def save_checkpoint(path: str | Path, model: DetectionModel, *, ema: Optional[to
     path.parent.mkdir(parents=True, exist_ok=True)
     ckpt = {"model_yaml": dict(model.yaml), "nc": model.nc, "task": model.task, "names": dict(model.names),
             **(meta or {}), "model": _cpu(model.state_dict())}
+    if model.task == "pose":
+        ckpt["kpt_shape"] = list(model.kpt_shape)
     if ema is not None:
         ckpt["ema"] = _cpu(ema.state_dict())
     if train_state is not None:
@@ -91,9 +93,11 @@ def load_checkpoint(path: str | Path, device="cuda", prefer_ema: bool = True,
     """The model of a checkpoint, rebuilt from its YAML on ``device`` as the
     model class of its ``task`` (JAX ``engine/checkpoint.py:96-100``) with its
     names and, by default, the EMA weights (the reference validates and
-    exports the EMA model), computing in ``dtype``."""
+    exports the EMA model), computing in ``dtype``; a pose checkpoint's
+    ``kpt_shape`` sizes its head."""
     ckpt = read_checkpoint(path)
-    model = task_model(ckpt.get("task", "detect"))(ckpt["model_yaml"], device=device, dtype=dtype)
+    cfg = {**ckpt["model_yaml"], **({"kpt_shape": ckpt["kpt_shape"]} if "kpt_shape" in ckpt else {})}
+    model = task_model(ckpt.get("task", "detect"))(cfg, device=device, dtype=dtype)
     model.load_state_dict(_weights(ckpt, prefer_ema), strict=True)
     model.names = {int(k): v for k, v in ckpt["names"].items()}
     return model

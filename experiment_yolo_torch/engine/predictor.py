@@ -1,7 +1,7 @@
 """Detection predictor: source -> letterbox -> model -> NMS -> Results.
 
 Port of ``experiment_yolo_tpu/engine/predictor.py`` (``load_source``,
-``DetectionPredictor``) for detection and segmentation. A source is an array, an image file,
+``DetectionPredictor``) for detection, segmentation and pose. A source is an array, an image file,
 a folder or a list of them (``data/loaders.py``); its JPEGs are decoded for
 the model's device, a batch of files at a time. Letterbox runs on the host;
 the batch goes to the device as uint8 and is normalised there; forward,
@@ -10,11 +10,14 @@ image with its (gain, pad). The batch shape is fixed: a short last batch is
 padded with black images.
 
 A segmentation model's NMS also returns the kept anchors, whose mask
-coefficients make the masks at proto resolution (``assemble_masks``); each
+coefficients make the masks at proto resolution (``kept_outputs``); each
 image's masks are then taken to its original size on the device, all at
 once, as JAX ``_masks_to_orig`` takes them one by one with OpenCV (float32
 linear resizes to the letterbox square, the padding cut, to the original
-size, ``> 0.5``, cut to each box), and only then copied to the host.
+size, ``> 0.5``, cut to each box), and only then copied to the host. A pose
+model's kept anchors give their keypoints (JAX ``engine/predictor.py:126-130``),
+copied back with the detections and mapped to the original image through
+its (gain, pad), clipped to it (``:241-249``).
 
 One batch is in flight, as in the JAX package's software pipeline: batch i
 is launched on the card's stream with its copy back to pinned host memory,
@@ -34,7 +37,6 @@ import torch
 from experiment_yolo_torch.cfg import check_imgsz, get_cfg
 from experiment_yolo_torch.data.augment import letterbox, resize_linear_f32
 from experiment_yolo_torch.engine.results import Results
-from experiment_yolo_torch.nn.heads_extra import assemble_masks
 from experiment_yolo_torch.ops.nms import non_max_suppression
 
 Source = Union[str, Path, np.ndarray, List]
@@ -83,15 +85,15 @@ class DetectionPredictor:
     def infer(self, imgs: torch.Tensor):
         """(B, H, W, 3) uint8 RGB on the device -> (detections (B, max_det, 6),
         counts (B,)), and for a segmentation model the mask probabilities (B,
-        max_det, Hp, Wp) of the kept rows. The images are normalised in the
-        model's compute dtype."""
+        max_det, Hp, Wp) of the kept rows, for a pose model their keypoints
+        (B, max_det, nk, nd) in letterbox pixels. The images are normalised
+        in the model's compute dtype."""
         x = (imgs.permute(0, 3, 1, 2).to(self.model.dtype) / 255.0).contiguous()
-        if self.model.task != "segment":
+        if self.model.task == "detect":
             return self._nms(*self.model.predict(x))
-        boxes, scores, coeffs, protos = self.model.predict(x)
+        boxes, scores, *rest = self.model.predict(x)
         det, counts, idx = self._nms(boxes, scores, return_idx=True)
-        kept = torch.gather(coeffs, 1, idx.long()[..., None].expand(-1, -1, coeffs.shape[-1]))
-        return det, counts, assemble_masks(kept, protos)
+        return det, counts, self.model.kept_outputs(*rest, idx)
 
     def _preprocess(self, chunk):
         pre = [letterbox(img, (self.imgsz, self.imgsz)) for _, img in chunk]
@@ -102,22 +104,21 @@ class DetectionPredictor:
 
     def _launch(self, batch: np.ndarray):
         """Launch a batch and its copy back to the host; returns (det, counts,
-        masks, event): det and counts host tensors valid once ``event`` (None
-        on the CPU) has passed, masks (None without a segmentation model) on
-        the device."""
+        extra, event): det and counts host tensors valid once ``event`` (None
+        on the CPU) has passed; extra None for a detection model, the masks
+        on the device for a segmentation model, the keypoints on the host
+        (valid with det) for a pose model."""
         x = torch.from_numpy(batch)
         if self.device.type != "cuda":
             out = self.infer(x)
             return (*out[:2], out[2] if len(out) > 2 else None, None)
         out = self.infer(x.pin_memory().to(self.device, non_blocking=True))
-        (det, counts), masks = out[:2], (out[2] if len(out) > 2 else None)
-        det_h = torch.empty(det.shape, dtype=det.dtype, pin_memory=True)
-        counts_h = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
-        det_h.copy_(det, non_blocking=True)
-        counts_h.copy_(counts, non_blocking=True)
+        pose = self.model.task == "pose"  # keypoints come back with the detections; masks stay on the card
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+                for t in (out if pose else out[:2])]
         event = torch.cuda.Event()
         event.record()
-        return det_h, counts_h, masks, event
+        return host[0], host[1], host[2] if pose else (out[2] if len(out) > 2 else None), event
 
     def __call__(self, source: Source, stream: bool = False):
         """Detect in ``source``: a list of :class:`Results`, or a generator of
@@ -138,7 +139,7 @@ class DetectionPredictor:
             if chunk:
                 yield chunk
 
-        pending = None  # (chunk, pre, det, counts, masks, event, t0, t1): the batch in flight
+        pending = None  # (chunk, pre, det, counts, extra, event, t0, t1): the batch in flight
         for chunk in chunks():
             t0 = time.perf_counter()
             pre, batch = self._preprocess(chunk)
@@ -150,7 +151,7 @@ class DetectionPredictor:
         if pending is not None:
             yield from self._postprocess(*pending)
 
-    def _postprocess(self, chunk, pre, det, counts, masks, event, t0, t1) -> List[Results]:
+    def _postprocess(self, chunk, pre, det, counts, extra, event, t0, t1) -> List[Results]:
         if event is not None:
             event.synchronize()
         det, counts = det.numpy(), counts.numpy()
@@ -166,13 +167,20 @@ class DetectionPredictor:
             if self.args.classes is not None:
                 keep = np.isin(d[:, 5].astype(int), np.atleast_1d(self.args.classes))
                 d = d[keep]
-            m = None
-            if masks is not None:
-                probs = masks[i, :int(counts[i])]
+            m = k = None
+            if extra is not None and self.model.task == "pose":
+                k = extra[i, :int(counts[i])].float().numpy().copy()  # (n, nk, nd) letterbox pixels
+                if keep is not None:
+                    k = k[keep]
+                k[..., 0] = ((k[..., 0] - padw) / gain).clip(0, ow)
+                k[..., 1] = ((k[..., 1] - padh) / gain).clip(0, oh)
+            elif extra is not None:
+                probs = extra[i, :int(counts[i])]
                 if keep is not None:
                     probs = probs[torch.from_numpy(keep).to(probs.device)]
                 m = self._masks_to_orig(probs, d, gain, padw, padh, oh, ow)
-            results.append(Results(orig, path, self.model.names, d, speed=speed, device=self.device, masks=m))
+            results.append(Results(orig, path, self.model.names, d, speed=speed, device=self.device, masks=m,
+                                   keypoints=k))
         return results
 
     def _masks_to_orig(self, probs: torch.Tensor, d: np.ndarray, gain: float, padw: float, padh: float, oh: int,

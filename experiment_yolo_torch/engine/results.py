@@ -1,9 +1,11 @@
-"""Detection and segmentation results in original-image space (port of the
-detect and segment fields of ``experiment_yolo_tpu/engine/results.py``:
-``Boxes``, ``Masks`` and ``Results`` with ``save_txt``, ``to_dict``,
-``tojson``, ``verbose`` and ``save_crop``). ``plot`` and ``save`` draw with
-OpenCV in the JAX package and wait for ROADMAP.md catalogue item 15; the
-keypoint, OBB and probability holders wait for catalogue item 13."""
+"""Detection, segmentation and pose results in original-image space (port of
+the detect, segment and pose fields of ``experiment_yolo_tpu/engine/results.py``:
+``Boxes``, ``Masks``, ``Keypoints`` and ``Results`` with ``save_txt``,
+``to_dict``, ``tojson``, ``verbose`` and ``save_crop``; as in JAX, ``to_dict``
+and ``tojson`` give the boxes alone, and the server adds the keypoints).
+``plot`` and ``save`` draw with OpenCV in the JAX package and wait for
+ROADMAP.md catalogue item 15; the OBB and probability holders wait for
+catalogue item 13."""
 
 from __future__ import annotations
 
@@ -63,19 +65,40 @@ class Masks:
         return len(self.data)
 
 
+class Keypoints:
+    """Keypoints of one image, in original-image space. data: (N, nk, 2|3) [x, y(, conf)]."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = np.asarray(data, np.float32)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xy(self) -> np.ndarray:
+        return self.data[..., :2]
+
+    @property
+    def conf(self) -> Optional[np.ndarray]:
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+
 class Results:
     """One image's detections (and, from a segmentation model, their
-    ``masks``) and metadata. ``device`` is where its crops are encoded as JPEG
+    ``masks``, from a pose model their ``keypoints``) and metadata. ``device`` is where its crops are encoded as JPEG
     (nvJPEG on the card, libjpeg on the CPU)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str], boxes: np.ndarray,
-                 speed: Optional[dict] = None, device="cuda", masks: Optional[np.ndarray] = None):
+                 speed: Optional[dict] = None, device="cuda", masks: Optional[np.ndarray] = None,
+                 keypoints: Optional[np.ndarray] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape)
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
+        self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
         self.speed = speed or {}
         self.device = device
 

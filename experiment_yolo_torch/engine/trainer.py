@@ -1,7 +1,7 @@
 """The detection trainer: the training step and the dataset-driven loop.
 
-Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect and segment
-branches:
+Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect, segment
+and pose branches:
 
 - :meth:`DetectionTrainer.train_step` is ``_make_train_step``'s step: a batch
   as the JAX step takes it (uint8 NHWC images and padded labels), the image
@@ -12,14 +12,20 @@ branches:
   the card), the optimizer (SGD, the Adam family, RMSProp or SOAP) on its
   firing plan, and the EMA; a ``SegmentationModel`` adds the mask loss
   (``utils/task_losses.py``, its detect maps in f32 and its coefficients and
-  protos in the compute dtype, as JAX ``engine/trainer.py:457-465``);
+  protos in the compute dtype, as JAX ``engine/trainer.py:457-465``), a
+  ``PoseModel`` the keypoint loss (its detect maps in f32, its keypoint maps
+  in the compute dtype, as JAX ``engine/trainer.py:466-475``, with the
+  ``pose`` and ``kobj`` gains);
 - :meth:`DetectionTrainer.train` is ``train()``: the dataset and the threaded
   loader, the optimizer built for the loader's batches per epoch, epochs with
   ``close_mosaic`` and ``multi_scale``, the per-epoch mean of the loss
   components (read one step late, so that the host never waits for the step it
   just launched), validation of the EMA model after every epoch through one
-  dataset-driven ``DetectionValidator`` (``SegmentationValidator`` for a
-  segmentation model: fitness is the mean of the box and mask fitness),
+  dataset-driven ``DetectionValidator`` (``SegmentationValidator`` or
+  ``PoseValidator`` for a segmentation or pose model: fitness is the mean of
+  the box and mask or pose fitness); a pose model whose ``kpt_shape`` is not
+  the dataset's is rebuilt to the dataset's and drawn again from ``seed``
+  (JAX ``engine/trainer.py:186-196``) before training starts,
   ``results.csv``, the ``last``,
   ``best`` and ``epochN`` checkpoints, ``resume`` and ``EarlyStopping``.
 
@@ -32,9 +38,8 @@ bf16 diverges; the per-epoch validation of the EMA model runs in the compute
 dtype, as JAX's ``_validate`` runs its bf16 rebuild.
 
 Not ported: the mesh, FSDP, ``autobatch`` and ``plots`` (ROADMAP.md catalogue
-item 15), each of which raises; the kernel-warehouse temperature and the pose
-and OBB losses, whose models the port does not build (catalogue items 14 and
-13).
+item 15), each of which raises; the kernel-warehouse temperature and the OBB
+loss, whose models the port does not build (catalogue items 14 and 13).
 """
 
 from __future__ import annotations
@@ -54,16 +59,18 @@ from experiment_yolo_torch.data.augment import resize_linear
 from experiment_yolo_torch.data.build import DataLoader, build_yolo_dataset
 from experiment_yolo_torch.data.dataset import check_det_dataset
 from experiment_yolo_torch.engine.checkpoint import read_checkpoint, save_checkpoint
-from experiment_yolo_torch.nn.tasks import DetectionModel
+from experiment_yolo_torch.nn.tasks import DetectionModel, PoseModel
 from experiment_yolo_torch.optim.builders import YoloOptimizer, build_optimizer
 from experiment_yolo_torch.utils import LOGGER, colorstr, get_latest_run, increment_path
 from experiment_yolo_torch.utils.callbacks import Callbacks
 from experiment_yolo_torch.utils.ema import ModelEMA
 from experiment_yolo_torch.utils.loss import LossConfig, detection_loss
-from experiment_yolo_torch.utils.task_losses import segmentation_loss
+from experiment_yolo_torch.utils.task_losses import pose_loss, segmentation_loss
 
 NB = 100  # batches per epoch of the schedules for train_step callers, who have no loader (the JAX bench.py's)
-LOSS_KEYS = {"detect": ("box", "cls", "dfl"), "segment": ("box", "cls", "dfl", "seg")}  # sorted, as the JAX loop
+LOSS_KEYS = {"detect": ("box", "cls", "dfl"), "segment": ("box", "cls", "dfl", "seg"),  # sorted, as the JAX loop
+             "pose": ("box", "cls", "dfl", "kobj", "pose")}
+TASK_TARGETS = {"segment": ("masks",), "pose": ("keypoints",)}  # the batch keys a task's loss adds
 MULTI_SCALE = (0.75, 0.9, 1.0, 1.15, 1.3)  # multi_scale's fixed bucket set, times imgsz
 
 
@@ -133,6 +140,7 @@ class DetectionTrainer:
         self.dtype = torch.bfloat16 if args.amp else torch.float32
         model.dtype = self.dtype
         self.amp_check: Optional[Dict] = None  # what _check_amp found, once train() ran it
+        self.rebuilt_model = False  # train() rebuilt a pose model to the dataset's kpt_shape
         self.best_state: Optional[Dict[str, torch.Tensor]] = None  # the best epoch's EMA weights, after train()
         self.callbacks = Callbacks()
         self.metrics: Dict[str, float] = {}
@@ -165,10 +173,11 @@ class DetectionTrainer:
         """One micro-batch: ``img`` (B, H, W, 3) uint8 (no channel flip),
         ``bboxes`` (B, M, 4) normalised xywh, ``cls`` (B, M), ``mask`` (B, M),
         and for a segmentation model ``masks`` (B, H/4, W/4) int (the
-        overlap-index images), as numpy arrays or tensors. Returns the loss
-        components (``box``, ``cls``, ``dfl``, and ``seg``, each with its
-        gain), ``loss`` and the foreground count ``fg``, as tensors on the
-        model's device.
+        overlap-index images), for a pose model ``keypoints`` (B, M, nk, nd)
+        (normalised xy, the visibility), as numpy arrays or tensors. Returns
+        the loss components (``box``, ``cls``, ``dfl``, and ``seg`` or
+        ``pose`` and ``kobj``, each with its gain), ``loss`` and the
+        foreground count ``fg``, as tensors on the model's device.
 
         The EMA and Wise-IoU's ``iou_mean`` follow every micro-batch, whether
         the optimizer fired or not, as in the JAX package.
@@ -183,7 +192,7 @@ class DetectionTrainer:
         with record_function("forward"):
             x = img.to(dev, non_blocking=True).permute(0, 3, 1, 2).to(self.dtype).div(255.0).contiguous()
             feats = st.model(x)
-        keys = ("bboxes", "cls", "mask", "masks") if st.model.task == "segment" else ("bboxes", "cls", "mask")
+        keys = ("bboxes", "cls", "mask", *TASK_TARGETS.get(st.model.task, ()))
         targets = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True) for k in keys}
         with record_function("loss"):
             if st.model.task == "segment":  # the detect maps in f32, coefficients and protos as they come
@@ -191,6 +200,12 @@ class DetectionTrainer:
                 total, comps, res, st.iou_mean, _ = segmentation_loss([f.float() for f in det], coeffs, protos,
                                                                       targets, st.model.stride, self.loss_cfg,
                                                                       st.iou_mean)
+            elif st.model.task == "pose":  # the detect maps in f32, the keypoint maps as they come
+                det, kpt_maps = feats
+                a = self.args
+                total, comps, res, st.iou_mean = pose_loss([f.float() for f in det], kpt_maps, targets,
+                                                           st.model.stride, self.loss_cfg, st.iou_mean,
+                                                           st.model.kpt_shape, float(a.pose), float(a.kobj))
             elif st.slide_mean is None:
                 total, comps, res, st.iou_mean = detection_loss(feats, targets, st.model.stride, self.loss_cfg,
                                                                 st.iou_mean)
@@ -225,7 +240,7 @@ class DetectionTrainer:
         so that ``train_step``'s uploads run asynchronously."""
         pin = self.model.device.type == "cuda"
         out = {}
-        for k in ("img", "bboxes", "cls", "mask", "masks"):
+        for k in ("img", "bboxes", "cls", "mask", "masks", "keypoints"):
             if k not in batch:
                 continue
             t = torch.from_numpy(np.ascontiguousarray(batch[k]))
@@ -251,9 +266,11 @@ class DetectionTrainer:
             raise ValueError(f"dataset nc={data['nc']} but model nc={self.model.nc} — build the model with "
                              f"nc={data['nc']}")
         self.data = data
+        if self.model.task == "pose" and tuple(data.get("kpt_shape", self.model.kpt_shape)) != self.model.kpt_shape:
+            self._rebuild_pose_head(tuple(data["kpt_shape"]))
         self.model.names = data["names"]
 
-        train_set = build_yolo_dataset(args, data["train"], mode="train", device=self.model.device)
+        train_set = build_yolo_dataset(args, data["train"], mode="train", device=self.model.device, data=data)
         self.train_loader = DataLoader(train_set, args.batch, shuffle=True, workers=args.workers, seed=args.seed)
         nb = len(self.train_loader)
         if nb == 0:
@@ -322,6 +339,18 @@ class DetectionTrainer:
         self.callbacks.run("on_train_end", trainer=self)
         return self.metrics
 
+    def _rebuild_pose_head(self, kpt_shape: Tuple[int, int]) -> None:
+        """The model rebuilt with the dataset's ``kpt_shape`` (the reference's
+        PoseTrainer builds its PoseModel with it), every weight drawn again
+        from ``seed``, where the old one lived and in the compute dtype; the
+        facade takes the new model (:attr:`rebuilt_model`)."""
+        old = self.model
+        LOGGER.info(f"rebuilding pose head: model kpt_shape {old.kpt_shape} -> dataset {kpt_shape}")
+        cfg = {**{k: v for k, v in old.yaml.items() if k != "yaml_file"}, "kpt_shape": list(kpt_shape)}
+        self.model = PoseModel(cfg, device=old.device, generator=torch.Generator().manual_seed(int(self.args.seed)),
+                               dtype=self.dtype)
+        self.rebuilt_model = True
+
     def _weights_copy(self) -> Dict[str, torch.Tensor]:
         """A copy of the EMA model's state dict (the model's when ``ema`` is off)."""
         st = self.state
@@ -350,6 +379,8 @@ class DetectionTrainer:
         rel, finite = 0.0, True
         if model.task == "segment":  # (detect maps, coefficient maps, protos) -> one list
             got, want = ([*det, *coeffs, protos] for det, coeffs, protos in (got, want))
+        elif model.task == "pose":  # (detect maps, keypoint maps) -> one list
+            got, want = ([*det, *kpts] for det, kpts in (got, want))
         for a, b in zip(got, want):
             a = a.float()
             finite = finite and bool(torch.isfinite(a).all())

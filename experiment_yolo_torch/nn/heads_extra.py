@@ -1,17 +1,20 @@
-"""The segmentation head: ``Proto``, ``Segment`` and the mask assembly.
+"""The segmentation and pose heads: ``Proto``, ``Segment``, ``Pose``, the
+mask assembly and the keypoint decode.
 
 Port of ``experiment_yolo_tpu/nn/heads_extra.py`` (``Proto:23``,
-``Segment:40``, ``assemble_masks:875``), NCHW, with the Ultralytics fork's
-state-dict names: ``Segment`` is a :class:`~experiment_yolo_torch.nn.modules.Detect`
-(``cv2.{i}.{j}``, ``cv3.{i}.{j}``) with per-level mask-coefficient branches
-``cv4.{i}.{j}`` and a ``proto`` (``cv1``, ``upsample``, ``cv2``, ``cv3``).
+``Segment:40``, ``Pose:68``, ``assemble_masks:875``, ``decode_kpts:884``),
+NCHW, with the Ultralytics fork's state-dict names: ``Segment`` is a
+:class:`~experiment_yolo_torch.nn.modules.Detect` (``cv2.{i}.{j}``,
+``cv3.{i}.{j}``) with per-level mask-coefficient branches ``cv4.{i}.{j}`` and
+a ``proto`` (``cv1``, ``upsample``, ``cv2``, ``cv3``); ``Pose`` is a
+``Detect`` with per-level keypoint branches ``cv4.{i}.{j}``.
 
 The prototype upsampling is a 2x2 stride-2 transposed convolution with a
 bias (flax ``nn.ConvTranspose``, which does not flip its kernel; PyTorch's
 ``ConvTranspose2d`` is a convolution's gradient and does, so the converter
 flips the kernel's two spatial axes, ``utils/convert.py``). In bf16 its
 input, weight and bias are cast to the compute dtype, as every convolution's.
-The pose and OBB heads wait for ROADMAP.md catalogue item 13.
+The OBB head waits for ROADMAP.md catalogue item 13.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from experiment_yolo_torch.nn.modules import Conv, Detect, cast_conv
+from experiment_yolo_torch.ops.anchors import make_anchors
 
 
 class Proto(nn.Module):
@@ -59,6 +63,44 @@ class Segment(Detect):
         det = self._maps(xs, self.cv2, self.cv3)
         coeffs = [cast_conv(seq[2], seq[1](seq[0](x)), self.dtype) for seq, x in zip(self.cv4, xs)]
         return det, coeffs, self.proto(xs[0])
+
+
+class Pose(Detect):
+    """Detect + per-level keypoint regression (``c4 = max(ch[0] // 4, nk)``
+    channels, then ``nk = kpt_shape[0] * kpt_shape[1]``, keypoint-major).
+    Returns (detect maps [(B, 4*reg_max + nc, H, W)], keypoint maps [(B, nk,
+    H, W)])."""
+
+    def __init__(self, nc: int = 1, kpt_shape: Sequence[int] = (17, 3), ch: Sequence[int] = (), reg_max: int = 16):
+        super().__init__(nc, ch, reg_max)
+        self.kpt_shape = tuple(int(k) for k in kpt_shape)
+        nk = self.kpt_shape[0] * self.kpt_shape[1]
+        self.cv4 = self._branches(ch, max(ch[0] // 4, nk), nk)
+
+    def forward(self, xs: List[torch.Tensor]) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        det = self._maps(xs, self.cv2, self.cv3)
+        return det, [cast_conv(seq[2], seq[1](seq[0](x)), self.dtype) for seq, x in zip(self.cv4, xs)]
+
+
+def flat_kpts(kpt_maps: Sequence[torch.Tensor], kpt_shape: Sequence[int]) -> torch.Tensor:
+    """Per-level keypoint maps [(B, nk*nd, H, W)] -> (B, A, nk, nd), anchors
+    level by level in row-major order, as JAX's NHWC reshape gives them."""
+    b = kpt_maps[0].shape[0]
+    return torch.cat([k.flatten(2).transpose(1, 2) for k in kpt_maps], 1).reshape(b, -1, *kpt_shape)
+
+
+def decode_kpts(kpt_maps: Sequence[torch.Tensor], strides: Sequence[int], kpt_shape: Sequence[int] = (17, 3)
+                ) -> torch.Tensor:
+    """Keypoints in input pixels (B, A, nk, nd) from the raw maps, in JAX's
+    form (not the reference's): xy = (2 * p + anchor - 0.5) * stride on the
+    raw regression, the visibility sigmoided; xy come out in f32 (the anchors
+    are), the visibility is cast up from the compute dtype."""
+    flat = flat_kpts(kpt_maps, kpt_shape)
+    anchors, stride_t = make_anchors([k.shape[2:] for k in kpt_maps], strides, 0.5, device=flat.device)
+    xy = (flat[..., :2] * 2.0 + (anchors[None, :, None] - 0.5)) * stride_t[None, :, None]
+    if kpt_shape[1] == 3:
+        return torch.cat([xy, torch.sigmoid(flat[..., 2:3]).to(xy.dtype)], -1)
+    return xy
 
 
 def assemble_masks(coeffs: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:

@@ -4,13 +4,13 @@ Port of ``experiment_yolo_tpu/nn/tasks.py`` (``parse_model``,
 ``DetectionModel``) for the module types of ``yolov8.yaml``, ``yolov8-p2.yaml``,
 ``yolov8-ASF.yaml``, ``yolov8-ASF-P2.yaml``, ``yolov8-ASF-P2P2.yaml``,
 ``yolov8-LD-P2.yaml``, ``yolov8-C2f-VSS.yaml``, ``yolov8-aux.yaml``,
-``yolov8-lafiyolo.yaml``, ``yolov8-efficientnet.yaml`` and ``yolov8-seg.yaml``
-(``PORTED`` below), and the ``C2f_LDConv`` block, which no YAML uses:
+``yolov8-lafiyolo.yaml``, ``yolov8-efficientnet.yaml``, ``yolov8-seg.yaml`` and
+``yolov8-pose.yaml`` (``PORTED`` below), and the ``C2f_LDConv`` block, which no YAML uses:
 channel and depth scaling (``MBConv`` takes its repeats inside), savelist
 routing, strides from the graph's own downsampling (a ``Zoom_cat`` takes its
 middle source's), and the Detect bias priors, for a Detect on three or four
-levels, a ``DetectAux`` (its aux branches' priors too) or a ``Segment``
-(``SegmentationModel``). Layers live in ``self.model``
+levels, a ``DetectAux`` (its aux branches' priors too), a ``Segment``
+(``SegmentationModel``) or a ``Pose`` (``PoseModel``). Layers live in ``self.model``
 so that state-dict names read ``model.{i}.<module names>``, as in the
 Ultralytics fork.
 """
@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from experiment_yolo_torch.cfg import CFG_DIR, yaml_load
-from experiment_yolo_torch.nn.heads_extra import Proto, Segment
+from experiment_yolo_torch.nn.heads_extra import Pose, Proto, Segment, assemble_masks, decode_kpts
 from experiment_yolo_torch.nn.modules import (C2f, SPPF, Add, C2fLD, Concat, Conv, ConvBNAct, Detect, DetectAux,
                                               LDConv, MBConv, ScalSeq, ZoomCat, init_weights)
 from experiment_yolo_torch.nn.zoo_blocks import INNER_BLOCKS, SS2D, C2fX, C3X, VSSBlock
@@ -36,7 +36,7 @@ from experiment_yolo_torch.utils import select_device
 
 
 PORTED = "Conv, LDConv, C2f, C2f_LDConv, SPPF, MBConv, nn.Upsample, Concat, Add, ScalSeq, Zoom_cat, Detect, " \
-         "DetectAux, Segment, and " \
+         "DetectAux, Segment, Pose, and " \
          "C2f_<X> / C3_<X> for X in " + ", ".join(INNER_BLOCKS)
 
 
@@ -130,9 +130,15 @@ def parse_model(d: dict, ch: int = 3) -> Tuple[List[nn.Module], List[int], List[
             npr = _scale_ch(args[2] if len(args) > 2 else 256, nc, width, max_channels)
             c2, mod, s_out = 0, Segment(nc, nm, npr, [chs[j] for j in src]), s_in
             det_strides = [int(down[j]) for j in src]
-        elif mname in ("Pose", "OBB", "Classify") or mname.startswith(("Segment_", "Pose_", "OBB_")):
-            raise NotImplementedError(f"module {mname!r} (layer {i}): the pose, OBB and classify heads and the "
-                                      "other segment heads are not ported to experiment_yolo_torch yet (ROADMAP.md "
+        elif mname == "Pose":  # args: [nc, kpt_shape]; the literal string 'kpt_shape' reads the YAML's top-level key
+            ks = args[1] if len(args) > 1 else (17, 3)
+            if isinstance(ks, str):
+                ks = d.get("kpt_shape", (17, 3))
+            c2, mod, s_out = 0, Pose(nc, tuple(ks), [chs[j] for j in src]), s_in
+            det_strides = [int(down[j]) for j in src]
+        elif mname in ("OBB", "Classify") or mname.startswith(("Segment_", "Pose_", "OBB_")):
+            raise NotImplementedError(f"module {mname!r} (layer {i}): the OBB and classify heads and the other "
+                                      "segment and pose heads are not ported to experiment_yolo_torch yet (ROADMAP.md "
                                       "catalogue item 13)")
         else:
             raise NotImplementedError(f"module {mname!r} (layer {i}) is not ported to experiment_yolo_torch; "
@@ -189,9 +195,10 @@ class DetectionModel(nn.Module):
         layers, self.save, strides = parse_model(self.yaml)
         if not isinstance(layers[-1], Detect):
             raise NotImplementedError("the last layer must be Detect")
-        if isinstance(layers[-1], Segment) != (self.task == "segment"):
+        head_task = {Segment: "segment", Pose: "pose"}.get(type(layers[-1]), "detect")
+        if head_task != self.task:
             raise ValueError(f"{type(self).__name__} cannot take a {type(layers[-1]).__name__} head: build a "
-                             f"{'SegmentationModel' if isinstance(layers[-1], Segment) else 'DetectionModel'}")
+                             f"{TASK_MODELS[head_task].__name__}")
         self.model = nn.ModuleList(layers)
         self.nc, self.reg_max = self.detect.nc, self.detect.reg_max
         self.stride = tuple(strides)
@@ -266,7 +273,7 @@ class SegmentationModel(DetectionModel):
     returns (detect maps, coefficient maps, protos); :meth:`predict` returns
     (boxes (B, A, 4) xywh in input pixels, scores (B, A, nc), coefficients
     (B, A, nm), protos (B, nm, Hp, Wp)); the masks of the detections NMS
-    keeps come from ``nn/heads_extra.py:assemble_masks``."""
+    keeps come from :meth:`kept_outputs`."""
 
     task = "segment"
 
@@ -278,6 +285,37 @@ class SegmentationModel(DetectionModel):
         boxes, scores = decode_detections(det, self.stride, self.nc, self.reg_max)
         flat = torch.cat([c.flatten(2) for c in coeffs], 2).transpose(1, 2)  # (B, A, nm)
         return boxes, scores, flat, protos
+
+    @staticmethod
+    def kept_outputs(coeffs: torch.Tensor, protos: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """The mask probabilities (B, K, Hp, Wp) of the anchors ``idx`` (B, K)
+        an NMS kept, from :meth:`predict`'s coefficients and protos."""
+        return assemble_masks(torch.gather(coeffs, 1, idx.long()[..., None].expand(-1, -1, coeffs.shape[-1])), protos)
+
+
+class PoseModel(DetectionModel):
+    """Pose model (JAX ``nn/tasks.py:1147``): a :class:`DetectionModel` whose
+    last layer is a ``Pose`` of ``kpt_shape`` (nk, nd). ``forward`` returns
+    (detect maps, keypoint maps); :meth:`predict` returns (boxes (B, A, 4)
+    xywh in input pixels, scores (B, A, nc), keypoints (B, A, nk, nd) in
+    input pixels, ``nn/heads_extra.py:decode_kpts``)."""
+
+    task = "pose"
+
+    def __init__(self, cfg: Union[str, Path, dict] = "yolov8-pose.yaml", *args, **kwargs):
+        super().__init__(cfg, *args, **kwargs)
+        self.kpt_shape = self.detect.kpt_shape
+
+    def predict(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        det, kpt_maps = self(x)
+        boxes, scores = decode_detections(det, self.stride, self.nc, self.reg_max)
+        return boxes, scores, decode_kpts(kpt_maps, self.stride, self.kpt_shape)
+
+    @staticmethod
+    def kept_outputs(kpts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """The keypoints (B, K, nk, nd) of the anchors ``idx`` (B, K) an NMS
+        kept, from :meth:`predict`'s keypoints."""
+        return torch.gather(kpts, 1, idx.long()[..., None, None].expand(-1, -1, *kpts.shape[2:]))
 
 
 def guess_model_task(cfg) -> str:
@@ -298,13 +336,13 @@ def guess_model_task(cfg) -> str:
     return "detect"
 
 
-TASK_MODELS = {"detect": DetectionModel, "segment": SegmentationModel}
+TASK_MODELS = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel}
 
 
 def task_model(task: str):
-    """The model class of ``task``; pose, obb and classify raise naming
-    ROADMAP.md catalogue item 13."""
+    """The model class of ``task``; obb and classify raise naming ROADMAP.md
+    catalogue item 13."""
     if task not in TASK_MODELS:
         raise NotImplementedError(f"task={task!r} is not ported to experiment_yolo_torch yet (ROADMAP.md "
-                                  "catalogue item 13); the port builds detect and segment models")
+                                  "catalogue item 13); the port builds detect, segment and pose models")
     return TASK_MODELS[task]

@@ -18,11 +18,13 @@ API::
     POST /predict  body = the bytes of a JPEG, PNG or 24-bit BMP file, or JSON
                    {"image": <base64 of them>};
                    -> {"detections": [{"box": [x1, y1, x2, y2], "conf", "cls",
-                       "name"[, "mask_rle"]}], "speed_ms"}
+                       "name"[, "mask_rle"][, "keypoints"]}], "speed_ms"}
 
 A segmentation model's detections carry ``mask_rle``: the mask in the
 original image as COCO's uncompressed RLE, ``{"size": [h, w], "counts"}``,
-column-major, starting with a run of zeros (JAX ``serve.py:_rle``).
+column-major, starting with a run of zeros (JAX ``serve.py:_rle``). A pose
+model's carry ``keypoints``: [[x, y(, conf)], ...] in the original image,
+each rounded to 2 decimals (JAX ``serve.py:276-278``).
 
 Bodies are decoded by ``data/image_io.py`` as ``cv2.imdecode`` decodes them
 in the JAX server, JPEGs for the model's device (nvJPEG on the card, libjpeg
@@ -233,7 +235,7 @@ def _rle(mask: np.ndarray) -> dict:
 
 def serialize_results(res) -> dict:
     """One image's :class:`Results` -> a JSON-safe dict of its detections
-    (with ``mask_rle`` when it has masks)."""
+    (with ``mask_rle`` when it has masks, ``keypoints`` when it has keypoints)."""
     names = res.names or {}
     out = []
     for i, (b, c, k) in enumerate(zip(res.boxes.xyxy, res.boxes.conf, res.boxes.cls)):
@@ -241,5 +243,7 @@ def serialize_results(res) -> dict:
              "name": str(names.get(int(k), int(k)))}
         if res.masks is not None:
             d["mask_rle"] = _rle(res.masks.data[i])
+        if res.keypoints is not None:
+            d["keypoints"] = [[round(float(v), 2) for v in kp] for kp in res.keypoints.data[i].tolist()]
         out.append(d)
     return {"detections": out}

@@ -288,7 +288,8 @@ def detection_loss(feats: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor]
     ``return_aux`` appends what the task losses read (JAX
     ``utils/loss.py:493``): ``fg_mask``, ``weight`` (each anchor's target
     score, f32), ``target_gt_idx``, ``target_bboxes`` (grid units),
-    ``stride_tensor`` (A, 1) and ``imgsz`` (h, w).
+    ``anchor_points`` (A, 2) grid units, ``stride_tensor`` (A, 1) and
+    ``imgsz`` (h, w).
     """
     nc, reg_max = cfg.nc, cfg.reg_max
     aux_feats = None
@@ -349,5 +350,6 @@ def detection_loss(feats: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor]
     out = (total, comps, res, new_iou_mean) + ((new_slide_mean,) if slide_mean is not None else ())
     if return_aux:
         out += ({"fg_mask": fg_mask, "weight": weight, "target_gt_idx": res.target_gt_idx,
-                 "target_bboxes": target_bboxes, "stride_tensor": stride_tensor, "imgsz": (imgsz_h, imgsz_w)},)
+                 "target_bboxes": target_bboxes, "anchor_points": anchor_points, "stride_tensor": stride_tensor,
+                 "imgsz": (imgsz_h, imgsz_w)},)
     return out

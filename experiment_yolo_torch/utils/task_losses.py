@@ -1,8 +1,10 @@
-"""The segmentation loss: the detection loss plus a per-instance mask BCE.
+"""The segmentation and pose losses: the detection loss plus a per-instance
+mask BCE, or plus the keypoint terms.
 
-Port of ``experiment_yolo_tpu/utils/task_losses.py`` (``crop_mask:42``,
-``segmentation_loss:54``), the reference's ``v8SegmentationLoss`` in fixed
-shapes: the detection part is :func:`~experiment_yolo_torch.utils.loss.detection_loss`
+Port of ``experiment_yolo_tpu/utils/task_losses.py`` (``OKS_SIGMA:36``,
+``crop_mask:42``, ``segmentation_loss:54``, ``pose_loss:109``), the
+reference's ``v8SegmentationLoss`` and ``v8PoseLoss`` in fixed shapes. For
+segmentation: the detection part is :func:`~experiment_yolo_torch.utils.loss.detection_loss`
 with its assignment returned, and the mask term takes the ``max_fg`` (64)
 foreground anchors of largest target score per image, as ``jax.lax.top_k``
 picks them (ties to the lower index, here by a stable descending sort, which
@@ -14,17 +16,38 @@ the detect maps come in f32, the coefficients and protos in the compute
 dtype, so under bf16 the mask logits, the targets and the BCE are bf16, each
 crop's mean is summed in f32 and rounded to bf16, and the division by the box
 area and the sums run in f32.
+
+The pose loss (JAX's form, ``(2 * p + anchor - 0.5)`` on the raw regression)
+adds an OKS-style location term over the visible keypoints of each
+foreground anchor's ground truth and a visibility BCE, both over
+``n_fg * nk``. Its dtypes follow the JAX trainer's pose branch
+(``engine/trainer.py:466-475``): the detect maps in f32, the keypoint maps in
+the compute dtype. Under bf16 the targets are rounded to bf16 (as JAX casts
+them to the maps' dtype), the location term runs in f32 (the anchors and
+strides are f32) with the sigmas' ``(2 * sigma)^2`` in bf16, and the
+visibility BCE and its sum in bf16.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from experiment_yolo_torch.nn.heads_extra import flat_kpts
 from experiment_yolo_torch.utils.loss import LossConfig, _sigmoid_bce, detection_loss
 
 MAX_FG = 64  # foreground anchors a image that the mask term takes
+# the COCO 17-keypoint OKS sigmas (the reference's metrics.py:14)
+OKS_SIGMA = np.array([0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62, 1.07, 1.07, 0.87, 0.87, 0.89,
+                      0.89]) / 10.0
+
+
+def kpt_sigmas(kpt_shape: Sequence[int]) -> np.ndarray:
+    """The OKS sigmas of a keypoint shape: COCO's for (17, 3), else 1 / nk each."""
+    nk = kpt_shape[0]
+    return OKS_SIGMA if tuple(kpt_shape) == (17, 3) else np.ones(nk) / nk
 
 
 def crop_mask(masks: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
@@ -94,3 +117,49 @@ def segmentation_loss(feats: Sequence[torch.Tensor], coeffs: Sequence[torch.Tens
 
     comps = {**comps, "seg": loss_seg * cfg.box}
     return total_det + comps["seg"] * b, comps, res, new_iou, top_idx
+
+
+def pose_loss(feats: Sequence[torch.Tensor], kpt_maps: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor],
+              strides: Sequence[int], cfg: LossConfig, iou_mean: Optional[torch.Tensor] = None,
+              kpt_shape: Sequence[int] = (17, 3), pose_gain: float = 12.0, kobj_gain: float = 1.0) -> Tuple:
+    """(total, {box, cls, dfl, pose, kobj}, assignment, new iou_mean) of the
+    detect maps ``feats`` [(B, 4*reg_max + nc, H, W)] and the keypoint maps
+    [(B, nk*nd, H, W)]; ``batch`` adds ``keypoints`` (B, M, nk, nd),
+    normalised xy and the visibility, to the detection targets. The pose
+    and kobj terms carry their gains and the total adds them times the
+    batch size, as the reference does."""
+    b = feats[0].shape[0]
+    nk, nd = kpt_shape
+    total_det, comps, res, new_iou, aux = detection_loss(feats, batch, strides, cfg, iou_mean, return_aux=True)
+    anchor_points, stride_t = aux["anchor_points"], aux["stride_tensor"]
+    imgsz_h, imgsz_w = aux["imgsz"]
+
+    flat = flat_kpts(kpt_maps, kpt_shape)  # (B, A, nk, nd), the compute dtype
+    pred_xy = flat[..., :2] * 2.0 + (anchor_points[None, :, None] - 0.5)  # grid units, f32
+    # each anchor's ground-truth keypoints: normalised -> pixels -> that anchor's grid units
+    kpts = batch["keypoints"].to(flat.dtype)
+    kpts = torch.cat([kpts[..., :2] * torch.tensor([imgsz_w, imgsz_h], dtype=flat.dtype, device=flat.device),
+                      kpts[..., 2:]], -1)
+    idx = aux["target_gt_idx"].long()[..., None, None].expand(-1, -1, nk, kpts.shape[-1])
+    sel = torch.gather(kpts, 1, idx)  # (B, A, nk, nd)
+    sel_xy = sel[..., :2] / stride_t[None, :, None]
+    kpt_mask = sel[..., 2] != 0 if nd == 3 else torch.ones(sel.shape[:-1], dtype=torch.bool, device=sel.device)
+
+    fg = aux["fg_mask"]
+    tb = aux["target_bboxes"]
+    area = ((tb[..., 2] - tb[..., 0]) * (tb[..., 3] - tb[..., 1])).clamp(min=1e-9)  # grid units
+    sigmas = torch.tensor(kpt_sigmas(kpt_shape), dtype=flat.dtype, device=flat.device)
+    d = ((pred_xy - sel_xy) ** 2).sum(-1)  # (B, A, nk)
+    e = d / (2 * sigmas[None, None]) ** 2 / (area[..., None] + 1e-9) / 2.0
+    kpt_loss_factor = nk / (kpt_mask.sum(-1, keepdim=True) + 1e-9)
+    per_el = kpt_loss_factor * (1.0 - torch.exp(-e)) * kpt_mask
+    n_fg_el = (fg.sum() * nk).clamp(min=1)
+    loss_pose = torch.where(fg[..., None], per_el, 0.0).sum() / n_fg_el
+    if nd == 3:
+        kobj = _sigmoid_bce(flat[..., 2], kpt_mask.to(flat.dtype))
+        loss_kobj = torch.where(fg[..., None], kobj, 0.0).sum() / n_fg_el
+    else:
+        loss_kobj = torch.zeros((), dtype=flat.dtype, device=flat.device)
+
+    comps = {**comps, "pose": loss_pose * pose_gain, "kobj": loss_kobj * kobj_gain}
+    return total_det + (comps["pose"] + comps["kobj"]) * b, comps, res, new_iou

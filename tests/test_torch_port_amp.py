@@ -115,8 +115,8 @@ def _port(state, dtype=torch.float32):
 def maps(models):
     jm, jm16, variables, state = models
     x = np.random.default_rng(0).random((BATCH, IMGSZ, IMGSZ, 3), dtype=np.float32)
-    j32 = [np.transpose(np.asarray(f, np.float32), (0, 3, 1, 2)) for f in jm.apply(variables, x)]
-    j16 = [np.transpose(np.asarray(f.astype(jnp.float32)), (0, 3, 1, 2)) for f in jm16.apply(variables, x)]
+    j32 = [np.transpose(np.asarray(f, np.float32), (0, 3, 1, 2)) for f in jax.jit(jm.apply)(variables, x)]
+    j16 = [np.transpose(np.asarray(f.astype(jnp.float32)), (0, 3, 1, 2)) for f in jax.jit(jm16.apply)(variables, x)]
     model = _port(state, torch.bfloat16)
     with torch.no_grad():
         t16 = model(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())

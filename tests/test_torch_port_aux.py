@@ -224,9 +224,9 @@ def test_aux_model_forward_matches_jax(aux_pair, train):
     tm.load_state_dict(jax_variables_to_state_dict(variables, tm), strict=True)
     x = np.random.default_rng(7).random((BATCH, IMGSZ, IMGSZ, 3), dtype=np.float32)
     if train:
-        j_feats, updates = jm.apply(variables, x, train=True, mutable=["batch_stats"])
+        j_feats, updates = jax.jit(lambda v, xx: jm.apply(v, xx, train=True, mutable=["batch_stats"]))(variables, x)
     else:
-        j_feats = jm.apply(variables, x)
+        j_feats = jax.jit(jm.apply)(variables, x)
     with torch.no_grad():
         t_feats = tm.train(train)(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
     assert len(t_feats) == len(j_feats) == (6 if train else 3)

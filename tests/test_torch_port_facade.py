@@ -190,9 +190,10 @@ def test_refusals(tmp_path):
     with pytest.raises(TypeError, match="unsupported source"):
         yolo.predict(3.5)
     with pytest.raises(NotImplementedError, match="catalogue item 13"):
-        YOLO(CFG, device="cpu", task="pose")
-    with pytest.raises(ValueError, match="build a DetectionModel"):  # segment is ported, but this head is Detect
-        YOLO(CFG, device="cpu", task="segment")
+        YOLO(CFG, device="cpu", task="obb")
+    for task in ("segment", "pose"):  # ported, but this head is Detect
+        with pytest.raises(ValueError, match="build a DetectionModel"):
+            YOLO(CFG, device="cpu", task=task)
     with pytest.raises(NotImplementedError, match="catalogue item 15"):
         YOLO("model.onnx", device="cpu")
     with pytest.raises(ValueError, match="unsupported model source"):

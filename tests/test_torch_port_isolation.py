@@ -185,9 +185,25 @@ def test_cli_process_imports_no_jax_or_opencv(tmp_path):
                                   "models/yolov8-ASF-P2P2.yaml", "models/yolov8-ASF-P2.yaml",
                                   "models/yolov8-ASF.yaml", "models/yolov8-p2.yaml", "models/yolov8-aux.yaml",
                                   "models/yolov8-lafiyolo.yaml", "models/yolov8-efficientnet.yaml",
-                                  "models/yolov8-seg.yaml"])
+                                  "models/yolov8-seg.yaml", "models/yolov8-pose.yaml"])
 def test_yaml_copies_equal_originals(name):
     assert (PORT / "cfg" / name).read_bytes() == (ROOT / "experiment_yolo_tpu" / "cfg" / name).read_bytes()
+
+
+@pytest.mark.parametrize("module", ["utils/stats.py", "compare_models.py", "run_experiment.py"])
+def test_experiment_modules_import_nothing_of_jax_the_jax_package_or_scripts(module):
+    """The port's own copies of the significance protocol import no JAX, no
+    JAX package, nothing of ``scripts/`` (the JAX experiment's scripts), no
+    OpenCV and no PIL, by statement or by name."""
+    text = (PORT / module).read_text()
+    for word in ("import_module", "__import__", "sys.path"):
+        assert word not in text, f"{module} names {word}"
+    for node in ast.walk(ast.parse(text)):
+        names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
+            [node.module or ""] if isinstance(node, ast.ImportFrom) else []
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "scripts", "cv2", "PIL",
+                                              "compare_models", "run_experiment"), f"{module} imports {name}"
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):

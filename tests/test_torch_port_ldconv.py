@@ -70,7 +70,8 @@ def test_gather_matches_jax_gather_times_border_mul(n, stride):
     b, c, hx, wx = x.shape
     p, pad_r, pad_c = _jax_positions(off, stride, hx, wx)
     xp = np.pad(np.transpose(x, (0, 2, 3, 1)), ((0, 0), (WINDOW_R, pad_r), (WINDOW_R, pad_c), (0, 0)), mode="edge")
-    want = ldconv_bilinear_gather(jnp.asarray(xp), p) * _border_mul(p, hx, wx)[..., None]
+    want = jax.jit(lambda xx, pp: ldconv_bilinear_gather(xx, pp) * _border_mul(pp, hx, wx)[..., None])(
+        jnp.asarray(xp), p)
     want = np.asarray(want).reshape(b, -1, n * c)  # (B, h*w, N*C), n-major
     got = ldconv_gather_plain(torch.from_numpy(x), torch.from_numpy(off), stride)
     assert got.shape == want.shape
@@ -144,7 +145,7 @@ def test_module_matches_jax(sampling, n, stride, weight_scale):
     tm, variables = _module_pair(n, stride, c1, c2, seed=n + 7 * stride, weight_scale=weight_scale)
     x = np.random.default_rng(11).standard_normal((2, c1, 15, 12)).astype(np.float32)
     jm = JaxLDConv(c2=c2, num_param=n, stride=stride, sampling=sampling)
-    want = np.asarray(jm.apply(variables, jnp.asarray(np.transpose(x, (0, 2, 3, 1)))))
+    want = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(np.transpose(x, (0, 2, 3, 1)))))
     with torch.no_grad():
         got = tm(torch.from_numpy(x)).numpy()
     assert got.shape == np.transpose(want, (0, 3, 1, 2)).shape
@@ -201,8 +202,8 @@ def test_gather_backward_matches_jax_vjp(n, stride, offsets):
         xp = jnp.pad(x_nhwc, ((0, 0), (WINDOW_R, pad_r), (WINDOW_R, pad_c), (0, 0)), mode="edge")
         return ldconv_bilinear_gather(xp, pos) * _border_mul(pos, hx, wx)[..., None]
 
-    _, vjp = jax.vjp(fn, jnp.asarray(np.transpose(x, (0, 2, 3, 1))), p)
-    jdx, jdp = vjp(jnp.asarray(dy.reshape(b, p.shape[1], p.shape[2], n, c)))
+    jdx, jdp = jax.jit(lambda xx, pp, g: jax.vjp(fn, xx, pp)[1](g))(
+        jnp.asarray(np.transpose(x, (0, 2, 3, 1))), p, jnp.asarray(dy.reshape(b, p.shape[1], p.shape[2], n, c)))
     jdx = np.transpose(np.asarray(jdx), (0, 3, 1, 2))
     jdoff = np.transpose(np.asarray(jdp), (0, 4, 3, 1, 2)).reshape(off.shape)  # (B, [row N, col N], h, w)
     pos = np.asarray(p)
@@ -267,9 +268,16 @@ def test_module_gradients_match_jax(sampling, n, stride, weight_scale):
         return jm.apply({"params": params, "batch_stats": variables["batch_stats"]}, x_nhwc, train=True,
                         mutable=["batch_stats"])
 
-    jy, vjp, jstats = jax.vjp(fn, variables["params"], jnp.asarray(np.transpose(x, (0, 2, 3, 1))), has_aux=True)
-    w = np.random.default_rng(13).standard_normal(jy.shape).astype(np.float32)
-    jg_params, jg_x = vjp(jnp.asarray(w))
+    x_nhwc = jnp.asarray(np.transpose(x, (0, 2, 3, 1)))
+    w = np.random.default_rng(13).standard_normal(jax.eval_shape(fn, variables["params"], x_nhwc)[0].shape).astype(
+        np.float32)
+
+    @jax.jit
+    def forward_and_vjp(params, xx, ww):
+        jy, vjp, jstats = jax.vjp(fn, params, xx, has_aux=True)
+        return jy, jstats, vjp(ww)
+
+    jy, jstats, (jg_params, jg_x) = forward_and_vjp(variables["params"], x_nhwc, jnp.asarray(w))
 
     tm.train()
     xt = torch.from_numpy(x).requires_grad_()

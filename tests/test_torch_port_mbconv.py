@@ -178,7 +178,7 @@ def test_lafiyolo_forward_matches_jax(lafiyolo):
     (``tests/test_torch_port_model.py:check_config_matches_jax``'s bar)."""
     jm, variables, tm = lafiyolo
     x = np.random.default_rng(5).random((2, 64, 64, 3), dtype=np.float32)
-    j_feats = jm.apply(variables, x)
+    j_feats = jax.jit(jm.apply)(variables, x)
     with torch.no_grad():
         t_feats = tm.eval()(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
     assert len(t_feats) == len(j_feats) == 3

@@ -103,11 +103,11 @@ def _nhwc(t):
 def test_ss2d_matches_jax_on_a_non_square_map():
     x = np.random.default_rng(0).standard_normal((2, H, W, 16)).astype(np.float32)
     jm = jz.SS2D(d_model=16)
-    params = _shake(jm.init(jax.random.PRNGKey(0), x), seed=1)["params"]
+    params = _shake(jax.jit(jm.init)(jax.random.PRNGKey(0), x), seed=1)["params"]
     # the converter's rule starts at the VSSBlock that holds the SS2D
     tm = _load(tz.SS2D(16), {"params": {"self_attention": params}},
                lambda parts: convert._vss((), ["self_attention", *parts]))
-    want = np.asarray(jm.apply({"params": params}, x))
+    want = np.asarray(jax.jit(jm.apply)({"params": params}, x))
     before = selective_scan.launches
     with torch.no_grad():
         got = tm(torch.from_numpy(x)).numpy()
@@ -132,7 +132,7 @@ def test_ss2d_hands_k4_unreversed_sequences_and_views_and_matches_jax(monkeypatc
 
     x = np.random.default_rng(8).standard_normal((2, H, W, d_model)).astype(np.float32)
     jm = jz.SS2D(d_model=d_model)
-    params = _shake(jm.init(jax.random.PRNGKey(0), x), seed=9)["params"]
+    params = _shake(jax.jit(jm.init)(jax.random.PRNGKey(0), x), seed=9)["params"]
     tm = _load(tz.SS2D(d_model), {"params": {"self_attention": params}},
                lambda parts: convert._vss((), ["self_attention", *parts]))
     assert tm.dt_rank == rank
@@ -140,7 +140,7 @@ def test_ss2d_hands_k4_unreversed_sequences_and_views_and_matches_jax(monkeypatc
     monkeypatch.setattr(tz, "selective_scan", lambda *a, **k: calls.append((a, k)) or selective_scan(*a, **k))
     with torch.no_grad():
         got = tm(torch.from_numpy(x)).numpy()
-    np.testing.assert_allclose(got, np.asarray(jm.apply({"params": params}, x)), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(jax.jit(jm.apply)({"params": params}, x)), atol=ATOL, rtol=0)
     ((xs, dt, a, bs, cs, ds), kw), = calls
     length, d = H * W, 2 * d_model
     assert xs.shape == (2, 2, length, d) and dt.shape == (2, 4, length, d) and xs.is_contiguous()
@@ -158,9 +158,9 @@ def test_vss_block_matches_jax_and_uses_eps_1e_6():
     x = np.random.default_rng(2).standard_normal((2, H, W, 16)).astype(np.float32)
     x[0, :, :, :] *= 1e-3  # small activations: here a LayerNorm eps of 1e-5 would show
     jm = jz.VSSBlock(c2=16)
-    variables = _shake(jm.init(jax.random.PRNGKey(0), x), seed=3)
+    variables = _shake(jax.jit(jm.init)(jax.random.PRNGKey(0), x), seed=3)
     tm = _load(tz.VSSBlock(16), variables, lambda parts: convert._vss((), parts))
-    want = np.asarray(jm.apply(variables, x))
+    want = np.asarray(jax.jit(jm.apply)(variables, x))
     with torch.no_grad():
         got = _nhwc(tm(_nchw(x)))
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
@@ -177,10 +177,10 @@ def test_containers_match_jax_and_every_ss2d_parameter_gets_a_gradient(kind, inn
     c1, c2 = 24, 32
     x = np.random.default_rng(4).standard_normal((2, H, W, c1)).astype(np.float32)
     jm = (jz.C2fX if kind == "C2f" else jz.C3X)(c2, inner=inner, n=n, shortcut=shortcut)
-    variables = _shake(jm.init(jax.random.PRNGKey(0), x, False), seed=5)
+    variables = _shake(jax.jit(lambda r, xx: jm.init(r, xx, False))(jax.random.PRNGKey(0), x), seed=5)
     tm = (tz.C2fX if kind == "C2f" else tz.C3X)(c1, c2, inner, n, shortcut)
     tm = _load(tm, variables, lambda parts: convert._zoo(inner, parts))
-    want = np.asarray(jm.apply(variables, x, False))
+    want = np.asarray(jax.jit(lambda v, xx: jm.apply(v, xx, False))(variables, x))
     out = tm(_nchw(x))
     np.testing.assert_allclose(_nhwc(out), want, atol=ATOL, rtol=0)
     # the shortcut flag is live: the other setting gives another output
@@ -200,7 +200,8 @@ def test_seeded_init_is_the_jax_modules_own():
     """A seeded port model's scan parameters sit where the JAX init puts them:
     decays log(1..N), step-size bias softplus^-1(0.01), skips 1."""
     jm = jz.SS2D(d_model=16)
-    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0), np.zeros((1, 4, 4, 16), np.float32)))["params"]
+    params = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0), np.zeros((1, 4, 4, 16), np.float32)))[
+        "params"]
     model = TorchModel(SMALL_CFG, device="cpu", generator=torch.Generator().manual_seed(3))
     scans = [m for m in model.modules() if isinstance(m, tz.SS2D)]
     assert len(scans) == 4
@@ -233,7 +234,7 @@ def test_small_vss_detector_raw_maps_and_decode_match_jax(small_pair):
     n_jax = sum(int(np.prod(v.shape)) for v in jax.tree.leaves(variables["params"]))
     assert sum(p.numel() for p in tm.parameters()) == n_jax
     x = np.random.default_rng(0).random((1, 64, 64, 3), dtype=np.float32)
-    j_feats = jm.apply(variables, x)
+    j_feats = jax.jit(jm.apply)(variables, x)
     j_boxes, j_scores = decode_detections(j_feats, jm.strides, jm.nc, jm.reg_max)
     with torch.no_grad():
         t_feats = tm(_nchw(x))

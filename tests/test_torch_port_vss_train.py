@@ -138,9 +138,9 @@ def test_bf16_ss2d_matches_jax_bf16_ss2d(d_model):
     its output is bf16 and no further from JAX's f32 SS2D than 1.5 times
     JAX's bf16 SS2D is, on a non-square map."""
     x = np.random.default_rng(d_model).standard_normal((2, 6, 10, d_model)).astype(np.float32)
-    params = _shake(jz.SS2D(d_model=d_model).init(jax.random.PRNGKey(0), x), seed=d_model + 1)["params"]
-    j32 = np.asarray(jz.SS2D(d_model=d_model).apply({"params": params}, x))
-    j16 = jz.SS2D(d_model=d_model, dtype=jnp.bfloat16).apply({"params": params}, jnp.asarray(x, jnp.bfloat16))
+    params = _shake(jax.jit(jz.SS2D(d_model=d_model).init)(jax.random.PRNGKey(0), x), seed=d_model + 1)["params"]
+    j32 = np.asarray(jax.jit(jz.SS2D(d_model=d_model).apply)({"params": params}, x))
+    j16 = jax.jit(jz.SS2D(d_model=d_model, dtype=jnp.bfloat16).apply)({"params": params}, jnp.asarray(x, jnp.bfloat16))
     j16 = np.asarray(j16).astype(np.float32)
     tm = _load(tz.SS2D(d_model), {"params": {"self_attention": params}},
                lambda parts: convert._vss((), ["self_attention", *parts]))
