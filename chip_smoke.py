@@ -6,9 +6,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero and nothing is caught:
  1. print the card's name and power limit (``nvidia-smi``);
  2. turn TF32 off for matmuls and cuDNN convolutions (full f32 throughout);
- 3. build the five CUDA libraries of ``experiment_yolo_torch/csrc`` (eight
-    kernels, K4's backward among them, four of them, K1, K1's backward, K3
-    and K3's backward, also in a bf16 form) with nvcc;
+ 3. build the five CUDA libraries of ``experiment_yolo_torch/csrc`` (nine
+    kernels, K4's backward and K7, the rotated NMS, among them, four of them,
+    K1, K1's backward, K3 and K3's backward, also in a bf16 form) with nvcc;
  4. build ``yolov8-LD-P2.yaml`` (n scale, nc=6) on the card from a seeded
     generator, and run one batch of 8 at 640 to take each kernel's inputs
     from the main path: the Detect maps (K1), the ten LDConv sources and
@@ -23,11 +23,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     8,192, duplicates, IoUs exactly at the threshold, interleaved invalid
     candidates, an image with none valid); time kernel, plain version and,
     for K3, ``F.grid_sample`` as a library yardstick (CUDA events, median of
-    20 runs after warm-up), and read each kernel's device time from a
+    20 runs after warm-up, 5 for a plain version), and read each kernel's device time from a
     ``torch.profiler`` trace, for K3 also layer by layer beside each layer's
     bound; K2's bound is the largest of its pair arithmetic, its bytes and
     its chain of decisions (the earlier design's own bound beside it);
- 6. serve 20 batches of 8 seeded images of mixed sizes through
+ 6. serve 12 batches of 8 seeded images of mixed sizes through
     ``DetectionPredictor`` at imgsz 640, once with soft and once with hard
     NMS, with every launch counter set to 0 just before and read just after
     (1 K5 per soft batch, 1 K2 per hard batch), and report the median batch
@@ -76,7 +76,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     as phase 5 times the forwards (K3's device time summing every launch of
     its wrapper, the zero fill of ``dx`` included, also layer by layer), with
     ``F.grid_sample``'s backward as K3's yardstick;
-10. take 20 timed training steps (CIoU) after 3 warm-up steps, 4 distinct
+10. take 12 timed training steps (CIoU) after 3 warm-up steps, 4 distinct
     seeded batches in turn, with every launch counter set to 0 just before and
     read just after (exactly 1 K1, 3 K1-backward, 10 K3 and 10 K3-backward
     launches per step); every loss and gradient finite, parameters and EMA
@@ -126,7 +126,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     does (K1's backward, as its f32 form, the kernel
     alone), its bytes bound at bf16, and ``F.grid_sample``'s bf16 time beside
     K3 and its backward, also layer by layer;
-14. take 20 timed bf16 training steps after 3 warm-up steps (exactly 1, 3,
+14. take 12 timed bf16 training steps after 3 warm-up steps (exactly 1, 3,
     10, 10 launches of the bf16 forms of K1, K1-backward, K3, K3-backward a
     step, none of the f32 forms) and report img/s beside phase 10's f32
     img/s; take one step at 320, batch 2, on the card in bf16 and on the CPU
@@ -183,7 +183,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     Python), and each level's call alone; take K4's device time again in a
     fresh process (``chip_smoke.py --k4-device-ms``), whose traces hold every
     launch, and report it as the kernel's;
-20. serve 20 batches of 8 through ``DetectionPredictor`` on the VSS model, soft
+20. serve 12 batches of 8 through ``DetectionPredictor`` on the VSS model, soft
     then hard NMS, counters at 0 just before and read just after: exactly 10
     K4 and 1 K1 launch per forward, 1 K5 per soft batch, 1 K2 per hard
     batch, no K3;
@@ -197,14 +197,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     the card from the same seeds; hold K1's forward, one launch for the four
     levels, against its plain version on the model's own maps in f32 and
     bf16 at 640 (34,000 anchors) and at 608 (P5 19 x 19, an odd count),
-    within 1e-5, timed beside its bound; serve 20 batches of 8 through
+    within 1e-5, timed beside its bound; serve 12 batches of 8 through
     ``DetectionPredictor``, soft then hard NMS, counters at 0 just before
     and read just after (exactly 1 K1 a forward, 1 K5 or 1 K2 a batch, no K3
     or K4); compare 2 images' raw maps and hard-NMS detections with the CPU
     as phase 7 does;
 24. train ASF-P2: hold K1's backward on an f32 and a bf16 step's four
     levels against its plain version (phase 9's and phase 13's gates); take
-    20 timed bf16 ``train_step``s at 640, batch 8 (exactly 1 K1 and 4
+    12 timed bf16 ``train_step``s at 640, batch 8 (exactly 1 K1 and 4
     K1-backward launches a step, all bf16); one f32 step at 320, batch 2, on
     the card and on the CPU with phase 11's gates (the CPU takes the card's
     picks of ScalSeq's scale and of each window of ZoomCat's 2x2 max pool,
@@ -237,7 +237,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     version is, both reported; time the step's ten backward calls (events)
     and their plain versions (one run); (c) take the backward's device time
     for the step's ten calls and per level from a fresh process
-    (``chip_smoke.py --k4-bwd-device-ms``); (d) 20 timed f32 and 20 timed
+    (``chip_smoke.py --k4-bwd-device-ms``); (d) 12 timed f32 and 12 timed
     bf16 ``train_step``s after 3 warm-ups (exactly 10 K4 and 10
     K4-backward launches a step, and 1 K1 and 3 K1-backward launches of the
     step's dtype), img/s and peak memory; (e) one f32 step at 128, batch 2,
@@ -278,12 +278,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 28. the other configs (``other_configs_phase``): ``yolov8-aux.yaml`` (n
     scale, nc 80: ``DetectAux``, whose loss decodes its aux maps in a second
     K1 launch) and ``yolov8-lafiyolo.yaml`` (n scale, nc 6: ``MBConv``),
-    each from seeded weights (:func:`other_config`): served, 20 batches of 8
+    each from seeded weights (:func:`other_config`): served, 12 batches of 8
     through ``DetectionPredictor``, soft then hard NMS (exactly 1 K1 a
     forward, 1 K5 or 1 K2 a batch, and no module of the aux branches run),
     2 images against the CPU as phase 7 holds them; K1's backward on an f32
     and a bf16 step's levels (DetectAux's six) against its plain version
-    (phases 9 and 13's gates); 20 timed bf16 steps (exactly 2 K1 and 6
+    (phases 9 and 13's gates); 12 timed bf16 steps (exactly 2 K1 and 6
     K1-backward launches a step for the aux model, 1 and 3 for lafiyolo, all
     bf16) with img/s and peak memory; one f32 step at 320, batch 2, against
     the CPU with phase 11's gates, the CPU taking the card's picks in SPPF's
@@ -314,7 +314,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     BWD_RTOL, bf16 ``dx`` within one spacing; on the step's, random,
     contention and seam offsets) with device ms beside each bound, and one
     f32 step against the CPU's (phase 11's gates and picks); then
-    ``yolov8-seg.yaml`` n (nc 80, seeded weights) served for 20 batches of 8
+    ``yolov8-seg.yaml`` n (nc 80, seeded weights) served for 12 batches of 8
     at 640, soft then hard (1 K1 and 1 K5 or 1 K2 a batch, a bool mask a
     detection in its image), its maps within 1e-3 of the CPU's on two images
     and their masks equal to the CPU's except pixels within 1e-5 of 0.5
@@ -322,13 +322,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     16 images at 640, nc 2; hard multi-label NMS, 1 K1 and 1 K2 a batch), K2's
     keep masks equal to plain and the stats equal to those through the plain
     NMS; one f32 step at 320 against the CPU (losses 1e-4, gradients 1e-3,
-    the mask term's top 64 held, ``MaskPicks``) and three bf16 steps within
+    the mask term's top 64 held, ``mask_handover``) and three bf16 steps within
     1.5 times the CPU's bf16 distance; one ``YOLO("yolov8-seg.yaml",
     nc=2).train()`` epoch with per-epoch mask validation; a seg
     ``DetectionServer`` on its ``last.pt`` answering 4 requests with
     ``mask_rle`` equal to the facade's masks; the phase's seconds;
 31. the pose family (``pose_phase``): ``yolov8-pose.yaml`` n (nc 1, kpt
-    17 x 3, seeded weights) served for 20 batches of 8 at 640, soft then hard
+    17 x 3, seeded weights) served for 12 batches of 8 at 640, soft then hard
     (1 K1 and 1 K5 or 1 K2 a batch, (n, 17, 3) keypoints for n boxes), its
     raw maps and decoded keypoints within 1e-3 (px) of the CPU's on two
     images and its ``Results.keypoints`` the kept anchors' taken back;
@@ -346,15 +346,35 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     report and ``results.json`` under the run's root, a second call that
     reuses both runs, each model's ``per_image_stats`` through K5 equal to
     the plain soft-NMS's, and the bootstrap comparison equal on both;
-33. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
+33. the oriented-box family (``obb_phase``): ``yolov8-obb.yaml`` n (nc 15,
+    DOTA v1.0's classes, seeded weights) served for 20 batches of 8 at 1024,
+    DOTA's image size (rotated hard NMS: 1 K1 and 1 K7 a batch, finite (n, 7)
+    detections); K7's keep masks on the first batch's candidates and on
+    made-up pools (a ragged K = 1,000, K = 8,192, duplicates, ProbIoU exactly
+    at the threshold, 15 classes of one shape, interleaved invalid
+    candidates, an image with none valid) equal to its plain version's on the
+    card, timed beside its plain version and its bound; its raw maps and
+    decoded xywh within 1e-3 (px) of the CPU's on two images, angles within
+    1e-5 rad, the packed detections through K7 equal to those through the
+    plain version, ``Results.obb`` the detections taken back;
+    ``OBBValidator`` on a synthetic obb set (64 + 16 images at 640; 1 K1 and
+    1 K7 a batch) with the same stats through the plain version; one f32
+    step at 320 against the CPU (losses 1e-4, gradients 1e-3; the CPU takes
+    the card's rotated TAL assignment where the two part only at near-ties
+    of a gt's top-k cut, and any other difference fails) and three bf16 steps
+    within 1.5 times the CPU's bf16 distance; one ``YOLO("yolov8-obb.yaml",
+    nc=1).train()`` epoch whose ``last.pt`` reloads as an ``OBBModel``; an
+    OBB ``DetectionServer`` answering 4 requests with the facade's ``xywhr``
+    and ``points``;
+34. print a ``{"kernel_detail": ...}``, a ``{"served": ...}``, a ``{"trained":
     ...}``, a ``{"served_vss": ...}``, a ``{"validated": ...}``, a
     ``{"trained_loop": ...}``, a ``{"trained_bf16": ...}``, a ``{"facade":
     ..., "cli": ..., "server": ...}``, an ``{"asf_p2": ...}``, a
     ``{"two_stage": ...}``, a ``{"vss_trained": ...}``, a ``{"recipes":
     ...}``, an ``{"other_configs": ...}``, an ``{"image_input": ...}`` and a
-    ``{"segmentation_and_c2f_ldconv": ...}``, a ``{"pose": ...}`` and an
-    ``{"experiment": ...}`` line, then the
-    ``{"kernels": [...]}`` line for the eight kernels and the four bf16
+    ``{"segmentation_and_c2f_ldconv": ...}``, a ``{"pose": ...}``, an
+    ``{"experiment": ...}`` and an ``{"obb": ...}`` line, then the
+    ``{"kernels": [...]}`` line for the nine kernels and the four bf16
     forms (launches summed over every main path above), the card's name and
     power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -385,13 +405,16 @@ OTHER_CFGS = {"yolov8-aux.yaml": 2, "yolov8-lafiyolo.yaml": 1}  # phase 28's con
 ASF_CFG, ASF_STRIDES, ASF_CMP_BATCH = "yolov8-ASF-P2.yaml", (4, 8, 16, 32), 2  # the reference fork's train.py model
 TWO_STAGE_IMAGES, TWO_STAGE_CPU_IMAGES, SLICED_FRAMES, SLICE = 8, 2, 2, 512  # phase 25: double_predict, sliced_predict
 IMGSZ, BATCH, SEED = 640, 8, 0
-N_IMAGES, SERVE_BATCHES = 32, 20  # 4 distinct batches of seeded images, served in turn
-TRAIN_STEPS, TRAIN_WARMUP, TRAIN_BATCHES = 20, 3, 4  # timed steps, warm-up steps, distinct seeded batches
+# 4 distinct batches of seeded images, served in turn; 12 batches a served pass and 12 timed training steps (20 each
+# before phase 33 came: the run is held within its time, PERF.md section 6)
+N_IMAGES, SERVE_BATCHES = 32, 12
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_BATCHES = 12, 3, 4  # timed steps, warm-up steps, distinct seeded batches
+PLAIN_RUNS = 5  # timed runs of a plain version (after one warm-up); 20 before phase 33 came
 CMP_IMGSZ, CMP_BATCH = 320, 2  # the card-versus-CPU training step
 VSS_CMP_BATCH = 2  # the VSS card-versus-CPU batch: the CPU walks 25,600 scan steps one by one
 VSS_CMP_IMGSZ = 128  # the VSS card-versus-CPU training steps (batch CMP_BATCH): at 320 one CPU step walking every
 # scan step forwards and back took 17.8 s on the card's host, and phase 26 takes seven
-PLAIN_SCAN_RUNS = 3  # timed runs of K4's plain version: one forward's ten scans walk 76,800 steps in Python
+PLAIN_SCAN_RUNS = 1  # timed runs of K4's plain version (3 before phase 33): one forward's ten scans walk 76,800 steps
 K4_RTOL = 1e-5  # K4 vs plain: each direction's max abs error over that direction's largest plain value
 BWD_RTOL = 1e-5  # backward kernels vs plain: max abs error over each output's largest plain value (atomics' order)
 BF16_LOSS_RTOL = 0.05  # bf16 steps' loss components vs the f32 steps': about 2x the largest bf16 drift seen (0.029)
@@ -416,6 +439,7 @@ SMEM_ROUND_TRIP_CLOCKS = 30  # the earlier design's bound's assumption
 RAGGED_SCAN_LENGTH = 1003  # K4 also at a length that is no multiple of its chunk (48 here) or its 8-step tile
 VAL_BATCHES = 4  # seeded labelled batches of the val phase
 LOOP_TRAIN, LOOP_VAL, LOOP_NC, LOOP_EPOCHS = 64, 16, 3, 2  # the dataset-driven loop: synthetic BMP images at IMGSZ
+TAL_TIE_RTOL = 1e-4  # rotated TAL: a pick within this of a gt's k-th metric (relative) is a tie
 K5_RTOL = 1e-6  # K5 vs plain: kept scores' relative error (the same rounded operations: bit-equal, also gated)
 VAL_PROTOCOLS = {"soft-quirk": {"nms_type": "soft", "soft_nms_quirk": True},  # PARITY.md's protocol
                  "hard": {"nms_type": "hard", "soft_nms_quirk": False}}
@@ -647,7 +671,8 @@ def k1_row(name, feats, cases, kernel):
                 replaces="experiment_yolo_tpu/ops/pallas/dfl_decode.py:46", max_abs_err=err,
                 ms=cuda_ms(lambda: dfl_decode_levels_fwd(feats)),
                 device_ms=device_ms(lambda: dfl_decode_levels_fwd(feats), kernel, 1),
-                plain_ms=cuda_ms(lambda: torch.cat([dfl_decode_plain(f) for f in feats], 1)), bound_ms=b_ms,
+                plain_ms=cuda_ms(lambda: torch.cat([dfl_decode_plain(f) for f in feats], 1), PLAIN_RUNS, 1),
+                bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, per_call=1, cases=cases,
                 shapes=[f"{tuple(f.shape)} {str(f.dtype).removeprefix('torch.')}" for f in feats])
 
@@ -732,7 +757,7 @@ def check_k2(shifted, valid):
     check(made_up["IoU at the threshold"]["kept"] == 1000, "K2's tie case should keep the 7/10 and 6/10 pairs whole")
     ms = cuda_ms(lambda: nms_suppress(shifted, valid, IOU))
     dev_ms = device_ms(lambda: nms_suppress(shifted, valid, IOU), "nms_suppress_kernel", 2)  # pairs, chain
-    plain_ms = cuda_ms(lambda: nms_suppress_plain(shifted, valid, IOU))
+    plain_ms = cuda_ms(lambda: nms_suppress_plain(shifted, valid, IOU), PLAIN_RUNS, 1)
     b_ms, b_by, parts = k2_bound(valid, shifted.shape[1])
     old_clocks = int(((valid.sum(1) + want.sum(1)) * SMEM_ROUND_TRIP_CLOCKS).max())
     return dict(name="nms_suppress", route="cuda", source="experiment_yolo_torch/csrc/nms_suppress.cu",
@@ -811,7 +836,7 @@ def check_k3(ld, rand_ld):
 
     ms = cuda_ms(lambda: kernel(ld))
     dev_ms = device_ms(lambda: kernel(ld), "ldconv_gather_kernel", len(ld))
-    plain_ms = cuda_ms(lambda: [ldconv_gather_plain(x, o, s) for x, o, s in ld])
+    plain_ms = cuda_ms(lambda: [ldconv_gather_plain(x, o, s) for x, o, s in ld], PLAIN_RUNS, 1)
     main_grids, rand_grids = grid_sample_grids(ld), grid_sample_grids(rand_ld)
     library_ms = cuda_ms(lambda: library(ld, main_grids))
     # ten calls cost the host more than the card, for the kernel and for the library: their device times beside them
@@ -892,12 +917,12 @@ def check_k5(pools, serve_pool):
     ms = cuda_ms(lambda: soft_nms(*args, **kw))
     dev_ms = device_ms(lambda: soft_nms(*args, **kw), "soft_nms_kernel", 1)
     out = soft_nms_plain(*args, **kw)
-    plain_ms = cuda_ms(lambda: soft_nms_plain(*args, **kw))
+    plain_ms = cuda_ms(lambda: soft_nms_plain(*args, **kw), PLAIN_RUNS, 1)
     b_ms, b_by, parts, steps = k5_bound(out, args[0].shape[1])
     s_out = soft_nms_plain(*serve_pool)
     serve = {"K": serve_pool[0].shape[1], "kept": int((s_out > -1).sum()), "ms": cuda_ms(lambda: soft_nms(*serve_pool)),
              "device_ms": device_ms(lambda: soft_nms(*serve_pool), "soft_nms_kernel", 1),
-             "plain_ms": cuda_ms(lambda: soft_nms_plain(*serve_pool)),
+             "plain_ms": cuda_ms(lambda: soft_nms_plain(*serve_pool), PLAIN_RUNS, 1),
              "bound_ms": k5_bound(s_out, serve_pool[0].shape[1])[0],
              **{k: v for k, v in held("the serving pool", serve_pool, {}).items() if k in ("rel_err", "bit_equal")}}
     rows = (*main.values(), *made_up.values())
@@ -1189,7 +1214,8 @@ def check_k3_bwd(ld, rand_ld):
                 replaces="experiment_yolo_tpu/nn/modules.py:469", max_abs_err=err, rel_err=rel,
                 ms=cuda_ms(lambda: kernel(main)),
                 device_ms=device_ms(lambda: kernel(main), bwd_kernel, len(main), span=""),
-                plain_ms=cuda_ms(lambda: plain(main)), bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                plain_ms=cuda_ms(lambda: plain(main), PLAIN_RUNS, 1), bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms,
                 main_path={"max_abs_err": errs["main"][0], "rel_err": errs["main"][1]},
                 other_offsets={kind: {"max_abs_err": e, "rel_err": r} for kind, (e, r) in errs.items()
                                if kind not in ("main", "random", "contention")},
@@ -1388,52 +1414,122 @@ class CardPicks:
                 "cpu_sppf_least_gap_of_top_two_in_a_window": min(self.pool_gaps, default=None)}
 
 
-class MaskPicks:
-    """The mask loss's top-64 foreground anchors of a segment step
-    (``utils/task_losses.py:top_foreground``), taken on the card and held on
-    the CPU: tied target scores are ordered alike on both sides (a stable
-    sort), but near-equal ones may swap across the cut. Under :meth:`on`
-    with ``"cuda"`` the step's picks are recorded; under ``"cpu"`` the CPU's
-    own picks are compared with them, and where they differ the CPU step
-    takes the card's. The least gap between the 64th and 65th weights of an
-    image on the CPU is kept."""
+class Handover:
+    """A function of a step, its result taken on the card and held on the
+    CPU. Under :meth:`on` with ``"cuda"``, ``module.name`` runs and
+    ``record(out, args, kwargs)`` keeps what the comparison needs, on the
+    host; under ``"cpu"`` it runs on the CPU's own inputs and
+    ``hand_over(fn, out, kept, args, kwargs)`` gives (what the CPU step goes
+    on with, a report): where the two sides part, the card's result, and how
+    near the tie between them was."""
 
-    def __init__(self):
-        self.card = self.equal = self.least_gap = None
+    def __init__(self, module, name: str, record, hand_over):
+        self.module, self.name, self.record, self.hand_over = module, name, record, hand_over
+        self.kept, self.facts = None, {}
 
     @contextlib.contextmanager
-    def on(self, dev: str):
-        import torch
+    def on(self, dev: str, active: bool = True):
+        fn = getattr(self.module, self.name)
 
-        import experiment_yolo_torch.engine.trainer as trainer_module
-
-        loss = trainer_module.segmentation_loss
-
-        def card_loss(*args, **kwargs):
-            out = loss(*args, **kwargs)
-            self.card = out[4].detach().cpu()
+        def card(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.kept = self.record(out, args, kwargs)
             return out
 
-        def cpu_loss(*args, **kwargs):
-            out = loss(*args, **kwargs)
-            res = out[2]
-            w = torch.where(res.fg_mask, res.target_scores.sum(-1), -1.0).float()
-            top = torch.sort(w, dim=1, descending=True, stable=True)[0]
-            self.least_gap = (top[:, 63] - top[:, 64]).min().item() if top.shape[1] > 64 else None
-            self.equal = torch.equal(out[4].cpu(), self.card)
-            return out if self.equal else loss(*args, picks=self.card, **kwargs)
+        def cpu(*args, **kwargs):
+            out, self.facts = self.hand_over(fn, fn(*args, **kwargs), self.kept, args, kwargs)
+            return out
 
-        trainer_module.segmentation_loss = card_loss if dev == "cuda" else cpu_loss
+        if active:
+            setattr(self.module, self.name, card if dev == "cuda" else cpu)
         try:
             yield self
         finally:
-            trainer_module.segmentation_loss = loss
+            setattr(self.module, self.name, fn)
 
     def report(self):
-        if self.card is None:
-            return {}
-        return {"mask_top64_equal": self.equal, "mask_top64_cpu_took_card_picks": not self.equal,
-                "cpu_mask_least_gap_at_the_cut": self.least_gap}
+        return self.facts if self.kept is not None else {}
+
+
+def mask_handover():
+    """The mask loss's top-64 foreground anchors of a segment step
+    (``utils/task_losses.py:top_foreground``): tied target scores are ordered
+    alike on both sides (a stable sort), but near-equal ones may swap across
+    the cut. Where the CPU's picks differ from the card's, the CPU step takes
+    the card's; the least gap between the 64th and 65th weights of an image
+    on the CPU is reported."""
+    import torch
+
+    import experiment_yolo_torch.engine.trainer as trainer_module
+
+    def record(out, args, kwargs):
+        return out[4].detach().cpu()
+
+    def hand_over(fn, out, card, args, kwargs):
+        res = out[2]
+        w = torch.where(res.fg_mask, res.target_scores.sum(-1), -1.0).float()
+        top = torch.sort(w, dim=1, descending=True, stable=True)[0]
+        equal = torch.equal(out[4].cpu(), card)
+        return (out if equal else fn(*args, picks=card, **kwargs),
+                {"mask_top64_equal": equal, "mask_top64_cpu_took_card_picks": not equal,
+                 "cpu_mask_least_gap_at_the_cut": (top[:, 63] - top[:, 64]).min().item() if top.shape[1] > 64
+                 else None})
+
+    return Handover(trainer_module, "segmentation_loss", record, hand_over)
+
+
+def assign_handover():
+    """The rotated assigner's result of an OBB step (``utils/tal.py:assign``
+    with ``rotated``): each gt takes its top k anchors by align metric (a
+    ProbIoU to the sixth power), and an anchor whose metric lies within
+    rounding of a gt's k-th may fall on the other side of the cut on each
+    device. The card records its result; the CPU compares its own
+    foreground mask and gt indices with it. An anchor that differs is a
+    near-tie when, for each gt it went to on either side, its CPU metric
+    lies within TAL_TIE_RTOL of that gt's k-th metric; or, taken on both
+    sides by gts that differ, its CPU overlaps with those two gts lie within
+    TAL_TIE_RTOL of each other (an anchor claimed by several gts goes to the
+    larger). Any other difference fails the phase; where every one is a
+    near-tie the CPU step takes the card's result. The least relative gap
+    between a gt's k-th and (k + 1)-th metric on the CPU is reported."""
+    import inspect
+
+    import experiment_yolo_torch.utils.tal as tal
+
+    signature, wanted = inspect.signature(tal.assign), inspect.signature(tal.align_metrics).parameters
+
+    def record(out, args, kwargs):
+        return type(out)(*(t.cpu() for t in out))
+
+    def hand_over(fn, out, card, args, kwargs):
+        bound = signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        _, overlaps, metric = tal.align_metrics(**{k: v for k, v in bound.arguments.items() if k in wanted})
+        k, valid = bound.arguments["topk"], bound.arguments["mask_gt"].bool()
+        top = metric.sort(-1, descending=True).values
+        kth = top[..., k - 1]  # (B, M)
+        differ = (out.fg_mask != card.fg_mask) | (out.fg_mask & (out.target_gt_idx != card.target_gt_idx))
+        far, worst = [], None
+        for bi, ai in differ.nonzero().tolist():
+            gts = sorted({int(r.target_gt_idx[bi, ai]) for r in (out, card) if r.fg_mask[bi, ai]})
+            to_cut = max(float(abs(metric[bi, g, ai] - kth[bi, g]) / kth[bi, g]) if kth[bi, g] > 0 else math.inf
+                         for g in gts)
+            pair = overlaps[bi, gts, ai] if len(gts) == 2 and out.fg_mask[bi, ai] and card.fg_mask[bi, ai] else None
+            apart = float(abs(pair[0] - pair[1]) / pair.max()) if pair is not None and pair.max() > 0 else math.inf
+            worst = max(worst or 0.0, min(to_cut, apart))
+            if min(to_cut, apart) > TAL_TIE_RTOL:
+                far.append((bi, ai, gts, to_cut, apart))
+        check(not far, f"the rotated assignment differs from the card's at {len(far)} anchors that are no near-tie "
+                       f"(image, anchor, gts, relative distance to the cut, between the two gts' overlaps): "
+                       f"{far[:5]}")
+        n, held = int(differ.sum()), valid & (kth > 0)
+        return (out if n == 0 else card,
+                {"tal_assignment_equal": n == 0, "tal_anchors_taken_from_card": n,
+                 "tal_taken_anchors_largest_relative_distance_to_a_tie": worst,
+                 "cpu_tal_least_relative_gap_at_the_cut": ((top[..., k - 1] - top[..., k]) / kth)[held].min().item()
+                 if bool(held.any()) else None})
+
+    return Handover(tal, "assign", record, hand_over)
 
 
 def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_scalseq=1, n_zoomcat=0, n_sppf=1,
@@ -1470,14 +1566,17 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
     tensor of the largest difference of gradients, momentum buffers and
     updates. A segment ``cfg`` (``batch`` with ``masks``) adds the mask term:
     its loss component is held too, and the CPU's top-64 foreground anchors
-    are held equal to the card's (:class:`MaskPicks`; where they differ the
-    CPU takes the card's, and the least gap at the cut is reported)."""
+    are held equal to the card's (:func:`mask_handover`; where they differ the
+    CPU takes the card's, and the least gap at the cut is reported). An obb
+    ``cfg`` (``bboxes`` (B, M, 5)) has the CPU take the card's rotated TAL
+    assignment where every difference is a near-tie at a gt's top-k cut, and
+    fails on any other (:func:`assign_handover`)."""
     import numpy as np
 
     from experiment_yolo_torch.engine.trainer import LOSS_KEYS, DetectionTrainer
     from experiment_yolo_torch.nn.tasks import guess_model_task, task_model
 
-    picks, mask_picks = CardPicks(), MaskPicks()
+    picks, mask_picks, assign_picks = CardPicks(), mask_handover(), assign_handover()
     task = guess_model_task(cfg)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -1488,7 +1587,7 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
                                            "warmup_epochs": 0.0, **(recipe or {})})
         opt = trainer.state.optimizer
         lrs = opt.schedules()
-        with picks.on(dev, n_sppf), mask_picks.on(dev):
+        with picks.on(dev, n_sppf), mask_picks.on(dev), assign_picks.on(dev, task == "obb"):
             t = time.perf_counter()
             comps = trainer.train_step(batch)
             step_s = time.perf_counter() - t
@@ -1510,7 +1609,7 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
     keys = LOSS_KEYS[task]
     loss_rel = max(abs(gpu["comps"][k] - cpu["comps"][k]) / abs(cpu["comps"][k]) for k in keys)
     check(loss_rel <= 1e-4, f"loss components differ from the CPU's by {loss_rel} relative > 1e-4")
-    check((mask_picks.card is not None) == (task == "segment"), f"the mask term's picks: {mask_picks.report()}")
+    check((mask_picks.kept is not None) == (task == "segment"), f"the mask term's picks: {mask_picks.report()}")
 
     def worst(a, b, slack=None):
         """Largest relative L2 difference over tensors, and the tensors that miss
@@ -1545,7 +1644,7 @@ def compare_train_cpu(state_dict, batch, recipe=None, cfg=CFG, n_ldconv=10, n_sc
             "iou_mean_card": gpu["iou_mean"], "iou_mean_cpu": cpu["iou_mean"], "iou_mean_rel_err": iou_rel,
             "loss_max_rel_err": loss_rel, "grad_max_rel_l2": grad_rel, "momentum_max_rel_l2": mom_rel,
             "update_max_rel_l2": upd_rel, "worst_tensor_grad_momentum_update": worst_of,
-            **picks.report(), **mask_picks.report(),
+            **picks.report(), **mask_picks.report(), **assign_picks.report(),
             "step_s_card": gpu["step_s"], "step_s_cpu": cpu["step_s"],
             "loss_card": {k: gpu["comps"][k] for k in keys},
             "loss_cpu": {k: cpu["comps"][k] for k in keys}}
@@ -2219,7 +2318,7 @@ def check_bf16_forms(feats, ld, ld_train, levels):
                      ms=cuda_ms(lambda: [ldconv_gather_fwd(x, o, s) for x, o, _, s in main]),
                      device_ms=device_ms(lambda: [ldconv_gather_fwd(x, o, s) for x, o, _, s in main], fwd_kernel,
                                          len(main)),
-                     plain_ms=cuda_ms(lambda: [ldconv_gather_plain(x, o, s) for x, o, _, s in main]),
+                     plain_ms=cuda_ms(lambda: [ldconv_gather_plain(x, o, s) for x, o, _, s in main], PLAIN_RUNS, 1),
                      bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library),
                      library_device_ms=device_ms(library, "grid_sampler", len(main)),
                      # the f32 form on the same sources widened, so on the same positions (the widening not timed)
@@ -4301,7 +4400,7 @@ def seg_phase(images, root: Path, counters, card):
     nc 80, seeded weights) served (:func:`seg_served`), the synthetic seg
     dataset (LOOP_TRAIN + LOOP_VAL images at IMGSZ) validated with a seeded
     nc-2 model (:func:`task_validated`), one f32 step at CMP_IMGSZ against the
-    CPU (mask picks held, :class:`MaskPicks`) and BF16_CMP_STEPS bf16 steps
+    CPU (mask picks held, :func:`mask_handover`) and BF16_CMP_STEPS bf16 steps
     against the CPU's bf16 distance, one ``YOLO(SEG_CFG, nc=2).train()``
     epoch with per-epoch mask validation whose ``last.pt`` reloads as a
     ``SegmentationModel``, and a seg server (:func:`seg_server`) on a
@@ -4721,6 +4820,433 @@ def experiment_phase(root: Path, counters, card):
         f"results {json.dumps(first)}, {card_cmp.summary()}, {card}")
     return record, launches
 
+OBB_CFG, OBB_NC, OBB_IMGSZ = "yolov8-obb.yaml", 15, 1024  # DOTA v1.0's 15 classes at DOTA's published image size
+OBB_DATA_NC = 1  # the synthetic obb set's one class
+OBB_CMP_IMAGES = 2  # the served CPU comparison: images of the first batch
+OBB_SERVE_BATCHES = 20  # batches of BATCH served at OBB_IMGSZ
+OBB_PX_ATOL, OBB_RAD_ATOL = 1e-3, 1e-5  # the card's raw maps and decoded xywh (px), and its angles, against the CPU's
+# K7's pair arithmetic (csrc/nms_suppress.cu:probiou_of), in two classes. Single-issue f32 operations, 32: the
+# three sums of the covariance terms, the centre differences (2), the core A*B - C*C (3), + eps, t1 (2 squares, 2
+# products, a sum, * 0.25), t2 (a difference, 2 products, * 0.5), the root's product and * 4, t3's two + eps and
+# * 0.5, the two sums and two clips of bd, 1 - e, + eps, 1 - hd, the compare. They issue at one per lane and
+# clock, 128 lanes an SM: half the 67 TFLOP/s, which counts an FMA as two. Operations that need the special
+# function unit, 7: three divisions, two square roots, the log and the exp; each takes at least one of its
+# operations, 16 an SM and clock. The two pipes run side by side, so a pair costs the larger of the two.
+PROBIOU_F32_OPS, PROBIOU_SFU_OPS = 32, 7
+H100_SMS, F32_LANES_PER_SM, SFU_LANES_PER_SM = 132, 128, 16  # H100 SXM
+
+
+def k7_bound(valid, k: int):
+    """(least ms, what bounds it, the three times) for a batch of K = ``k``
+    rotated candidates per image, worked out as K2's (:func:`k2_bound`): the
+    ProbIoU arithmetic of every pair (i, j > i), each class of operation at
+    its own rate (each box's covariance terms once, not counted), 22 bytes a
+    candidate (20 of xywhr and a valid flag read, a keep flag written) over
+    HBM, and the chain of the image with most valid candidates at one
+    dependent register operation each."""
+    pairs = valid.shape[0] * k * (k - 1) / 2
+    per_pair_clocks = max(PROBIOU_F32_OPS / F32_LANES_PER_SM, PROBIOU_SFU_OPS / SFU_LANES_PER_SM) / H100_SMS
+    times = {"pairs_ms": pairs * per_pair_clocks / SM_CLOCK_HZ * 1e3,
+             "bytes_ms": valid.numel() * (20 + 1 + 1) / HBM_BYTES_PER_S * 1e3,
+             "chain_ms": int(valid.sum(1).max()) * DEPENDENT_OP_CLOCKS / SM_CLOCK_HZ * 1e3}
+    worst = max(times, key=times.get)
+    return times[worst], "bytes" if worst == "bytes_ms" else "operations", times
+
+
+def k7_made_up(gen):
+    """K7's made-up cases, each (xywhr boxes (B, K, 5) with the class offset
+    on the centres, valid (B, K), threshold): clustered turned boxes at a
+    ragged K = 1,000 and at the largest K, 8,192; exact duplicates; pairs
+    whose ProbIoU is exactly the threshold (every pair the same shape on
+    whole-pixel centres: none may suppress); boxes of one shape in 15 classes'
+    offsets (ProbIoU at its clip: none suppresses across classes); invalid
+    candidates interleaved with valid ones; an image with no valid
+    candidate."""
+    import math as _math
+
+    import torch
+
+    from experiment_yolo_torch.ops.boxes import probiou
+
+    def clustered(b, k):
+        centres = (torch.rand(b, k // 8 + 1, 2, generator=gen) * 1000).repeat_interleave(8, 1)[:, :k]
+        centres = centres + torch.randn(b, k, 2, generator=gen) * 8
+        wh = torch.rand(b, k, 2, generator=gen) * 60 + 6
+        ang = torch.rand(b, k, 1, generator=gen) * _math.pi - _math.pi / 4
+        return torch.cat([centres, wh, ang], -1).contiguous()
+
+    def some_valid(b, k):
+        return torch.rand(b, k, generator=gen) > 0.2
+
+    dup = clustered(2, 512)
+    dup[:, 1::2] = dup[:, 0::2]
+    x0 = 100.0 * torch.arange(300, dtype=torch.float32)
+    pair = torch.tensor([[0.0, 0.0, 40.0, 20.0, 0.3], [6.0, 2.0, 40.0, 20.0, 0.5]])
+    ties = pair.repeat(300, 1)
+    ties[:, 0] += x0.repeat_interleave(2)
+    ties = torch.stack([ties, ties]).contiguous()
+    tie_thr = float(probiou(ties[:1, :1], ties[:1, 1:2])[0, 0])
+    classes = clustered(1, 15 * 64)[:, :64].repeat(1, 15, 1)
+    classes[..., :2] += (torch.arange(15, dtype=torch.float32).repeat_interleave(64) * 7680.0)[None, :, None]
+    interleaved = some_valid(2, 1024)
+    interleaved[:, 1::2] = False
+    none = some_valid(2, 1024)
+    none[1] = False
+    return {"ragged K=1000": (clustered(3, 1000), some_valid(3, 1000), 0.45),
+            "K=8192": (clustered(1, 8192), some_valid(1, 8192), 0.45),
+            "duplicates": (dup, some_valid(2, 512), 0.45),
+            "ProbIoU at the threshold": (ties, torch.ones(2, 600, dtype=torch.bool), tie_thr),
+            "15 classes, one shape": (classes.contiguous(), torch.ones(1, 960, dtype=torch.bool), 0.1),
+            "interleaved invalid": (clustered(2, 1024), interleaved, 0.3),
+            "an image with no valid candidate": (clustered(2, 1024), none, 0.3)}
+
+
+def check_k7(shifted, valid, thr):
+    """K7 on the served batch's candidates and on :func:`k7_made_up` against
+    its plain version on the card: identical keep masks; timed beside its
+    plain version, with its device time (pair pass and chain) and bound."""
+    import torch
+
+    from experiment_yolo_torch.ops.kernels.nms_rotated import nms_rotated_suppress, nms_rotated_suppress_plain
+
+    keep, want = nms_rotated_suppress(shifted, valid, thr), nms_rotated_suppress_plain(shifted, valid, thr)
+    torch.cuda.synchronize()
+    mismatched = int((keep != want).sum())
+    check(mismatched == 0, f"K7 nms_rotated_suppress: {mismatched} keep flags differ from its plain version")
+    check(bool(want.any()) and bool((valid & ~want).any()), "K7 inputs neither keep nor suppress: no real work")
+    made_up = {}
+    for label, (boxes, ok, t) in k7_made_up(torch.Generator().manual_seed(SEED + 7)).items():
+        boxes, ok = boxes.cuda(), ok.cuda()
+        got, ref = nms_rotated_suppress(boxes, ok, t), nms_rotated_suppress_plain(boxes, ok, t)
+        torch.cuda.synchronize()
+        bad = int((got != ref).sum())
+        check(bad == 0, f"K7 nms_rotated_suppress: {bad} keep flags differ from its plain version on the {label} case")
+        made_up[label] = {"K": boxes.shape[1], "images": boxes.shape[0], "kept": int(ref.sum()),
+                          "valid": int(ok.sum()), "mismatched": bad}
+        if label == "15 classes, one shape":  # each class keeps what one class alone keeps
+            one = int(nms_rotated_suppress_plain(boxes[:, :64], ok[:, :64], t).sum())
+            check(made_up[label]["kept"] == 15 * one, f"K7 kept {made_up[label]['kept']} of 15 classes, one class "
+                                                      f"alone {one}: a suppression across classes")
+    check(made_up["ProbIoU at the threshold"]["kept"] == 1200, "K7's tie case should keep every pair whole")
+    ms = cuda_ms(lambda: nms_rotated_suppress(shifted, valid, thr))
+    dev_ms = device_ms(lambda: nms_rotated_suppress(shifted, valid, thr), "nms_rotated_kernel_pairs", 1, span="")
+    plain_ms = cuda_ms(lambda: nms_rotated_suppress_plain(shifted, valid, thr), PLAIN_RUNS, 1)
+    b_ms, b_by, parts = k7_bound(valid, shifted.shape[1])
+    return dict(name="nms_rotated_suppress", route="cuda", source="experiment_yolo_torch/csrc/nms_suppress.cu",
+                replaces="experiment_yolo_tpu/ops/nms.py:258", max_abs_err=float(mismatched), ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, kept=int(want.sum()),
+                candidates=int(valid.sum()), images=int(valid.shape[0]), K=int(valid.shape[1]), bound_parts=parts,
+                bound_assumption=f"largest of: per pair (i, j > i), the larger of {PROBIOU_F32_OPS} single-issue "
+                                 f"f32 operations at {F32_LANES_PER_SM} lanes and {PROBIOU_SFU_OPS} special-function "
+                                 f"operations (divisions, roots, log, exp) at {SFU_LANES_PER_SM} lanes, an SM and "
+                                 f"clock, {H100_SMS} SMs; 22 bytes per candidate over HBM; the image with "
+                                 f"most valid candidates deciding them one after another at {DEPENDENT_OP_CLOCKS} "
+                                 f"clocks each, {SM_CLOCK_HZ / 1e9} GHz", made_up=made_up)
+
+
+@contextlib.contextmanager
+def plain_k7():
+    """``nms_rotated`` with K7's plain version on the card's tensors."""
+    import experiment_yolo_torch.ops.nms as nms_module
+    from experiment_yolo_torch.ops.kernels.nms_rotated import nms_rotated_suppress_plain
+
+    kernel = nms_module.nms_rotated_suppress
+    nms_module.nms_rotated_suppress = nms_rotated_suppress_plain
+    try:
+        yield
+    finally:
+        nms_module.nms_rotated_suppress = kernel
+
+
+def obb_compare_cpu(model, pred, images):
+    """The first OBB_CMP_IMAGES images of a served batch through the card and
+    through the same weights on the CPU (plain versions): raw detect and
+    angle maps and decoded xywh (px, every anchor) within OBB_PX_ATOL, angles
+    within OBB_RAD_ATOL; the card's packed detections through K7 equal to
+    those through its plain version on the card; the predictor's
+    ``Results.obb`` the card's detections taken back through each image's
+    gain and pad. Returns the record."""
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch.data.augment import letterbox
+    from experiment_yolo_torch.nn.tasks import OBBModel
+    from experiment_yolo_torch.ops.nms import nms_rotated
+    from experiment_yolo_torch.utils.seeded import letterboxed, model_input
+
+    imgs = images[:OBB_CMP_IMAGES]
+    x = model_input(letterboxed(imgs, OBB_IMGSZ), "cuda")
+    cpu = OBBModel(model.yaml, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    with torch.no_grad():
+        det_c, ang_c = cpu(x.cpu())
+        det_g, ang_g = model(x)
+        rb_c, sc_c = cpu.predict(x.cpu())
+        rb_g, sc_g = model.predict(x)
+    map_err = max((a.cpu() - b).abs().max().item() for a, b in zip([*det_g, *ang_g], [*det_c, *ang_c]))
+    xywh_err = (rb_g[..., :4].cpu() - rb_c[..., :4]).abs().max().item()
+    rad_err = (rb_g[..., 4].cpu() - rb_c[..., 4]).abs().max().item()
+    score_err = (sc_g.cpu() - sc_c).abs().max().item()
+    check(map_err <= OBB_PX_ATOL, f"OBB raw maps differ from the CPU's by {map_err} > {OBB_PX_ATOL}")
+    check(xywh_err <= OBB_PX_ATOL, f"decoded xywh differ from the CPU's by {xywh_err} px > {OBB_PX_ATOL}")
+    check(rad_err <= OBB_RAD_ATOL, f"decoded angles differ from the CPU's by {rad_err} rad > {OBB_RAD_ATOL}")
+    a = pred.args
+    kw = dict(conf_thres=float(a.conf), iou_thres=float(a.iou), max_det=int(a.max_det))
+    det_k, n_k = nms_rotated(rb_g, sc_g, **kw)
+    with plain_k7():
+        det_p, n_p = nms_rotated(rb_g, sc_g, **kw)
+    check(torch.equal(det_k, det_p) and torch.equal(n_k, n_p), "the packed detections through K7 differ from those "
+                                                               "through its plain version on the card")
+    results = pred(imgs)
+    padded = np.zeros((pred.batch, OBB_IMGSZ, OBB_IMGSZ, 3), np.uint8)
+    padded[:len(imgs)] = letterboxed(imgs, OBB_IMGSZ)
+    det, counts = pred.infer(torch.from_numpy(padded).cuda())
+    for i, (img, r) in enumerate(zip(imgs, results)):
+        n = int(counts[i])
+        _, gain, (padw, padh) = letterbox(img, OBB_IMGSZ)
+        want = det[i, :n].cpu().numpy().copy()
+        want[:, 0] = ((want[:, 0] - padw) / gain).clip(0, img.shape[1])
+        want[:, 1] = ((want[:, 1] - padh) / gain).clip(0, img.shape[0])
+        want[:, 2:4] = want[:, 2:4] / gain
+        check(n > 0 and np.array_equal(r.obb.data, want), f"image {i}: the predictor's oriented boxes differ from "
+                                                          "the card's detections taken back")
+    return {"images": len(imgs), "map_max_abs_err": map_err, "xywh_max_abs_err_px": xywh_err,
+            "angle_max_abs_err_rad": rad_err, "score_max_abs_err": score_err, "atol_px": OBB_PX_ATOL,
+            "atol_rad": OBB_RAD_ATOL, "packed_detections_k7_equal_plain": True,
+            "detections_first_images": n_k[:len(imgs)].tolist()}
+
+
+def obb_served(model, images, counters, card):
+    """OBB_SERVE_BATCHES batches of BATCH seeded images at OBB_IMGSZ through
+    ``DetectionPredictor`` on the OBB model (rotated NMS, hard whatever
+    ``nms_type`` says), counters at 0 just before and read just after:
+    exactly 1 K1 and 1 K7 a batch, finite (n, 7) detections. Then K7 against
+    its plain version on the first batch's candidates and made-up cases
+    (:func:`check_k7`), and :func:`obb_compare_cpu`. Returns the record, the
+    K7 row and the launches."""
+    import numpy as np
+    import torch
+
+    from experiment_yolo_torch import DetectionPredictor
+    from experiment_yolo_torch.ops.nms import rotated_candidates
+    from experiment_yolo_torch.utils.seeded import letterboxed, model_input
+
+    stream = [images[i % N_IMAGES] for i in range(OBB_SERVE_BATCHES * BATCH)]
+    pred = DetectionPredictor(model, {"imgsz": OBB_IMGSZ, "batch": BATCH})
+    pred(images[:BATCH])
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    batch_ms, dets = [], []
+    for start in range(0, len(stream), BATCH):
+        t = time.perf_counter()
+        results = pred(stream[start:start + BATCH])
+        batch_ms.append((time.perf_counter() - t) * 1e3)
+        for r in results:
+            check(r.obb.data.shape == (len(r), 7) and bool(np.isfinite(r.obb.data).all()),
+                  f"obb: detections {r.obb.data.shape}")
+            dets.append(len(r))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode=OBB_SERVE_BATCHES, nms_rotated_suppress=OBB_SERVE_BATCHES)
+    check(launches == want, f"the OBB main path launched {launches}, expected {want}")
+    check(min(dets) > 0, f"obb: an image with {min(dets)} detections")
+    median_ms = statistics.median(batch_ms)
+    served = {"batches": OBB_SERVE_BATCHES, "batch": BATCH, "imgsz": OBB_IMGSZ, "nms": "rotated, hard",
+              "batch_ms_median": median_ms, "batch_ms_min": min(batch_ms), "batch_ms_max": max(batch_ms),
+              "batch_ms_p10_p90": statistics.quantiles(batch_ms, n=10)[::8],
+              "img_per_s_at_median": BATCH / median_ms * 1e3, "detections_per_image": sum(dets) / len(dets),
+              "launches": launches}
+    log(f"served {OBB_CFG} (nc {OBB_NC}): {len(stream)} images in {OBB_SERVE_BATCHES} batches of {BATCH} at {OBB_IMGSZ}: "
+        f"median {median_ms:.2f} ms per batch (min {min(batch_ms):.2f}, max {max(batch_ms):.2f}), "
+        f"{served['img_per_s_at_median']:.2f} img/s at the median, {served['detections_per_image']:.1f} detections "
+        f"an image, launches {launches}, {card}")
+    x = model_input(letterboxed(images[:BATCH], OBB_IMGSZ), "cuda")
+    with torch.no_grad():
+        c = rotated_candidates(*model.predict(x), conf_thres=float(pred.args.conf))
+    k7 = check_k7(c.shifted, c.valid, float(pred.args.iou))
+    served["k7_candidates_per_image"] = k7["candidates"] / BATCH
+    log(f"nms_rotated_suppress: {k7['max_abs_err']} keep flags off, kernel {k7['ms']:.4f} ms (device "
+        f"{k7['device_ms']} ms) on {BATCH} images of K = {k7['K']} ({k7['candidates']} valid, {k7['kept']} kept), "
+        f"plain {k7['plain_ms']:.4f} ms, library none, bound {k7['bound_ms']:.4f} ms ({k7['bound_by']}: "
+        f"{k7['bound_parts']}), {card}")
+    for label, row in k7["made_up"].items():
+        log(f"  K7 {label}: {row}")
+    t = time.perf_counter()
+    served["cpu_comparison"] = obb_compare_cpu(model, pred, images)
+    served["cpu_comparison"]["seconds"] = time.perf_counter() - t
+    log(f"obb served CPU comparison: {json.dumps(served['cpu_comparison'])}")
+    return served, k7, launches
+
+
+def obb_validated(model, data: Path, counters, card):
+    """``OBBValidator`` on the synthetic obb set's val split at IMGSZ, batch
+    BATCH, counters at 0 just before and read just after (1 K1 and 1 K7 a
+    batch): mAP, img/s; then again with K7's plain version on the card: the
+    same stats. Returns the record and the launches."""
+    import torch
+
+    from experiment_yolo_torch.engine.validators_extra import OBBValidator
+
+    validator = OBBValidator({"data": str(data), "imgsz": IMGSZ, "batch": BATCH, "workers": 8, "verbose": False})
+    validator(model)  # warm-up; builds the dataset and the loader once
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    stats = validator(model)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_val = len(validator._dataset)
+    nb = math.ceil(n_val / BATCH)
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode=nb, nms_rotated_suppress=nb)
+    check(launches == want, f"the obb validator launched {launches}, expected {want}")
+    with plain_k7():
+        plain = validator(model)
+    check(plain == stats, f"the obb validator's stats through K7 {stats} differ from those through its plain "
+                          f"version {plain}")
+    return {"images": n_val, "batch": BATCH, "imgsz": IMGSZ, "nms": "rotated, hard", "stats": stats,
+            "stats_k7_equal_plain": True, "img_per_s": n_val / secs, "seconds": secs, "launches": launches,
+            "card": card}, launches
+
+
+def seeded_obb_batch(batch: int, imgsz: int, seed: int):
+    """:func:`~experiment_yolo_torch.utils.seeded.seeded_batch` at nc 1 with
+    each box turned: ``bboxes`` (B, M, 5), an angle in [-pi/2, 0) added, as
+    ``cv2.minAreaRect`` gives them."""
+    import numpy as np
+
+    from experiment_yolo_torch.utils.seeded import seeded_batch
+
+    out = seeded_batch(batch, imgsz, seed, nc=OBB_DATA_NC)
+    ang = np.random.default_rng(seed + 1000).uniform(-np.pi / 2, 0, (*out["bboxes"].shape[:2], 1))
+    rb = np.concatenate([out["bboxes"], ang], -1).astype(np.float32)
+    return {**out, "bboxes": np.where(out["mask"][..., None], rb, 0.0).astype(np.float32)}
+
+
+def obb_server(weights: Path, root: Path, images, counters, card):
+    """An OBB ``DetectionServer`` on the checkpoint ``weights`` (batch BATCH
+    at OBB_IMGSZ) answers 4 BMP requests, one at a time: each answer's
+    ``xywhr`` and ``points`` equal to ``serialize_results`` of the facade's
+    ``predict`` of the same image alone; 1 K1 and 1 K7 a request."""
+    import urllib.request
+
+    import torch
+
+    from experiment_yolo_torch import YOLO
+    from experiment_yolo_torch.data.image_io import imwrite
+    from experiment_yolo_torch.serve import DetectionServer, serialize_results
+
+    yolo = YOLO(str(weights))
+    check(type(yolo.model).__name__ == "OBBModel", f"{weights} reloaded as {type(yolo.model).__name__}")
+    server = DetectionServer(yolo, batch=BATCH, imgsz=OBB_IMGSZ)
+    port = server.start(host="127.0.0.1", port=0)
+    answers = []
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        for i, img in enumerate(images[:4]):
+            imwrite(root / f"obb_req{i}.bmp", img)
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                         data=(root / f"obb_req{i}.bmp").read_bytes())
+            answers.append(json.loads(urllib.request.urlopen(req, timeout=120).read()))
+    finally:
+        server.stop()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(dfl_decode=4, nms_rotated_suppress=4)
+    check(launches == want, f"the OBB server launched {launches} for 4 requests, expected {want}")
+    n = 0
+    for img, a in zip(images[:4], answers):
+        want_dets = serialize_results(yolo.predict([img], imgsz=OBB_IMGSZ, batch=BATCH)[0])["detections"]
+        check(a["detections"] == want_dets and len(want_dets) > 0 and {"xywhr", "points"} <= set(want_dets[0]),
+              f"the server's {len(a['detections'])} detections differ from the facade's {len(want_dets)}")
+        n += len(want_dets)
+    return {"requests": 4, "detections": n, "launches": launches, "card": card}, launches
+
+
+def obb_phase(images, root: Path, counters, card):
+    """Phase 33: ``yolov8-obb.yaml`` (n scale, nc 15, seeded weights) served
+    at OBB_IMGSZ with K7 held to its plain version (:func:`obb_served`); the
+    synthetic obb set (LOOP_TRAIN + LOOP_VAL images at IMGSZ) validated with
+    a seeded nc-1 model (:func:`obb_validated`); one f32 step at CMP_IMGSZ
+    against the CPU (the CPU takes the card's TAL assignment where the two
+    part only at near-ties, :func:`assign_handover`) and BF16_CMP_STEPS bf16 steps against the CPU's bf16 distance;
+    one ``YOLO(OBB_CFG, nc=1).train()`` epoch on the obb set with
+    ``OBBValidator``, whose ``last.pt`` reloads as an ``OBBModel``; and an
+    OBB server (:func:`obb_server`) on a checkpoint of the served model.
+    Returns the record, the K7 row and the launches."""
+    import torch
+
+    from experiment_yolo_torch import YOLO
+    from experiment_yolo_torch.data import make_synthetic_task_dataset
+    from experiment_yolo_torch.engine.checkpoint import save_checkpoint
+    from experiment_yolo_torch.nn.tasks import yaml_model_load
+    from experiment_yolo_torch.utils.seeded import seeded_model
+
+    t0 = time.perf_counter()
+    record, launches, seconds = {}, dict.fromkeys(counters, 0), {}
+
+    def add(run, part):
+        for name in launches:
+            launches[name] += run[name]
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+
+    model = seeded_model({**yaml_model_load(OBB_CFG), "nc": OBB_NC}, SEED)
+    record["params"] = sum(p.numel() for p in model.parameters())
+    check(model.stride == (8, 16, 32) and type(model).__name__ == "OBBModel" and model.nc == OBB_NC,
+          f"{OBB_CFG}: {type(model).__name__}, strides {model.stride}, nc {model.nc}")
+    log(f"model {OBB_CFG} scale n: {record['params']} params, strides {model.stride}, nc {model.nc}, seeded weights")
+    record["served"], k7, run = obb_served(model, images, counters, card)
+    add(run, "served")
+    served_ckpt = save_checkpoint(root / "obb_seeded.pt", model)
+    del model
+    torch.cuda.empty_cache()
+    data = make_synthetic_task_dataset(root / "obb", "obb", n_train=LOOP_TRAIN, n_val=LOOP_VAL, imgsz=IMGSZ,
+                                       seed=SEED)
+    add(dict.fromkeys(counters, 0), "dataset")
+    model = seeded_model({**yaml_model_load(OBB_CFG), "nc": OBB_DATA_NC}, SEED)
+    record["validated"], run = obb_validated(model, data, counters, card)
+    add(run, "validated")
+    log(f"obb validated: {record['validated']['images']} images, mAP50 {record['validated']['stats']['mAP50']:.4f}, "
+        f"{record['validated']['img_per_s']:.2f} img/s, {card}")
+    state = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    cfg = dict(model.yaml)
+    del model
+    batches = [seeded_obb_batch(CMP_BATCH, CMP_IMGSZ, SEED + 70 + i) for i in range(BF16_CMP_STEPS)]
+    record["cpu_comparison"] = compare_train_cpu(state, batches[0], cfg=cfg, n_ldconv=0, n_scalseq=0, n_sppf=1)
+    log(f"obb training CPU comparison: {json.dumps(record['cpu_comparison'])}")
+    record["cpu_comparison_bf16"] = compare_train_cpu_bf16(state, batches, cfg=cfg)
+    log(f"obb bf16 training CPU comparison: {json.dumps(record['cpu_comparison_bf16'])}")
+    add(dict.fromkeys(counters, 0), "steps against the CPU")
+    # the obb branch of the loss takes the detect maps in f32 (JAX engine/trainer.py:476-482): K1 and its backward
+    # run their f32 forms in a bf16 step; validation decodes the bf16 model's maps
+    loop, run = facade_epoch(OBB_CFG, lambda steps, val: dict(dfl_decode=steps, dfl_decode_bwd=3 * steps,
+                                                               dfl_decode_bf16=val, nms_rotated_suppress=val),
+                             data, root, counters, card, nc=OBB_DATA_NC)
+    add(run, "facade epoch")
+    record["facade_train"] = loop
+    check(all(k in loop["last_epoch_metrics"] for k in ("mAP50", "fitness")),
+          f"the obb epoch's validation: {loop['last_epoch_metrics']}")
+    check(set(loop["losses"][0]) == {"box", "cls", "dfl"}, f"the obb epoch's losses {loop['losses']}")
+    log(f"{OBB_CFG} facade: YOLO(...).train() 1 epoch: {loop['loop_img_per_s']:.2f} img/s over the loop "
+        f"({loop['train_dtype']}), val {json.dumps(loop['last_epoch_metrics'])}, {card}")
+    reloaded = YOLO(str(Path(loop["weights"]) / "last.pt")).model
+    check(type(reloaded).__name__ == "OBBModel", f"last.pt reloaded as {type(reloaded).__name__}")
+    record["facade_train"]["last_pt_reloads_as"] = type(reloaded).__name__
+    del reloaded
+    record["server"], run = obb_server(served_ckpt, root, images, counters, card)
+    add(run, "server")
+    record["seconds"], record["part_seconds"] = time.perf_counter() - t0, seconds
+    record["card"] = card
+    log(f"phase 33 took {record['seconds']:.1f} s ({json.dumps({k: round(v, 1) for k, v in seconds.items()})}), "
+        f"{card}")
+    return record, k7, launches
+
+
 def main() -> None:
     import torch
 
@@ -4737,8 +5263,8 @@ def main() -> None:
 
     import experiment_yolo_torch
     from experiment_yolo_torch.engine.trainer import DetectionTrainer
-    from experiment_yolo_torch.ops.kernels import (_build, dfl_decode, ldconv_gather, nms_suppress, selective_scan,
-                                                   soft_nms)
+    from experiment_yolo_torch.ops.kernels import (_build, dfl_decode, ldconv_gather, nms_rotated, nms_suppress,
+                                                   selective_scan, soft_nms)
     from experiment_yolo_torch.utils.seeded import (VAL_CONF, letterboxed, model_input, seeded_batch, seeded_images,
                                                     seeded_model)
 
@@ -4750,7 +5276,8 @@ def main() -> None:
                 "selective_scan_bwd": selective_scan.selective_scan_bwd, "soft_nms": soft_nms.soft_nms,
                 "dfl_decode_bf16": dfl_decode.dfl_decode_bf16, "dfl_decode_bwd_bf16": dfl_decode.dfl_decode_bwd_bf16,
                 "ldconv_gather_bf16": ldconv_gather.ldconv_gather_bf16,
-                "ldconv_gather_bwd_bf16": ldconv_gather.ldconv_gather_bwd_bf16}
+                "ldconv_gather_bwd_bf16": ldconv_gather.ldconv_gather_bwd_bf16,
+                "nms_rotated_suppress": nms_rotated.nms_rotated_suppress}
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5071,9 +5598,15 @@ def main() -> None:
     experiment, run = experiment_phase(Path(work.name) / "experiment", counters, card)
     for name in launches:
         launches[name] += run[name]
+    torch.cuda.empty_cache()
+    # 33. the oriented-box family at DOTA's 1024: served with K7, validated, trained, served over HTTP
+    obb, k7, run = obb_phase(images, Path(work.name), counters, card)
+    for name in launches:
+        launches[name] += run[name]
+    kernels.insert(kernels.index(k5) + 1, k7)
     work.cleanup()
 
-    # 33. the result lines
+    # 34. the result lines
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["kernel_ms"] = k["ms"]
@@ -5101,6 +5634,7 @@ def main() -> None:
     log(json.dumps({"segmentation_and_c2f_ldconv": seg}))
     log(json.dumps({"pose": pose}))
     log(json.dumps({"experiment": experiment}))
+    log(json.dumps({"obb": obb}))
     # last of the long lines, so that a reader of the output's tail gets it whole
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     log(f"card: {card}")

@@ -141,7 +141,7 @@ def entrypoint(argv: List[str] | None = None) -> Any:
     results = model.predict(source, **overrides)
     LOGGER.info(f"{colorstr('predict:')} {len(results)} images")
     for r in results:
-        LOGGER.info(f"  {r.path}: {len(r.boxes)} detections")
+        LOGGER.info(f"  {r.path}: {len(r)} detections")  # an OBB result has no boxes: len counts its oriented boxes
     return results
 
 

@@ -40,6 +40,23 @@
 // it (min, max, the rounded add, subtract and multiply) is commutative in its
 // two boxes, so IoU(i, j) = IoU(j, i) exactly and the row-major mask decides
 // as the column-wise plain version does.
+//
+// Kernel K7, rotated boxes (nms_rotated_suppress_launch below), replaces the
+// greedy loop of experiment_yolo_tpu/ops/nms.py:_nms_rotated_single (a
+// fori_loop over the ProbIoU matrix, not Pallas). It is this file's chain
+// behind a pair pass of its own: the bit for (i, j > i) is set where
+// ProbIoU(i, j) > thr. The ProbIoU is the plain version's float32 expression
+// (ops/boxes.py:probiou, JAX's order and eps placements, both clips, NaN
+// passed through as torch.maximum and torch.minimum pass it) in explicitly
+// rounded operations, and its scalar divisions are multiplications by the
+// rounded reciprocal, as PyTorch's CUDA division by a Python number computes
+// them; logf, expf, cosf and sinf are the functions PyTorch's CUDA kernels
+// call. So the card's bits equal the plain version's on the card. Swapping
+// the two boxes changes no rounded value: the sums and products are
+// commutative, (y1 - y2)^2 and (x1 - x2)^2 are squares of exact negations,
+// (x2 - x1) * (y1 - y2) negates both factors, and det1 * det2 commutes; so
+// ProbIoU(i, j) = ProbIoU(j, i) bit for bit, and the row-major mask decides
+// as the plain version's walk over row i does.
 #include "common.cuh"
 
 constexpr int PAIR_ROWS = 128;  // rows (threads) per block of the pair pass; its columns are one 64-bit word
@@ -150,6 +167,83 @@ nms_suppress_kernel_chain(const unsigned long long* __restrict__ mask, const uns
   }
 }
 
+// ---- K7: the pair pass on the ProbIoU of xywhr boxes -------------------------------------------------------------
+
+constexpr float PROBIOU_EPS = 1e-7f;
+
+// torch.maximum / torch.minimum against a bound: NaN passes through
+__device__ __forceinline__ float clip_lo(float v, float lo) { return v != v ? v : fmaxf(v, lo); }
+__device__ __forceinline__ float clip_hi(float v, float hi) { return v != v ? v : fminf(v, hi); }
+
+// A box's covariance terms a, b, c and its determinant clipped at 0.
+struct Cov { float x, y, a, b, c, det; };
+
+__device__ __forceinline__ Cov cov_of(const float* box) {
+  const float inv12 = 1.0f / 12.0f;  // x / 12.0 on the card: x times the rounded reciprocal
+  const float w = box[2], h = box[3], r = box[4];
+  const float a = __fmul_rn(__fmul_rn(w, w), inv12), b = __fmul_rn(__fmul_rn(h, h), inv12);
+  const float co = cosf(r), si = sinf(r);
+  const float cc = __fmul_rn(co, co), ss = __fmul_rn(si, si);
+  Cov v;
+  v.x = box[0];
+  v.y = box[1];
+  v.a = __fadd_rn(__fmul_rn(a, cc), __fmul_rn(b, ss));
+  v.b = __fadd_rn(__fmul_rn(a, ss), __fmul_rn(b, cc));
+  v.c = __fsub_rn(__fmul_rn(__fmul_rn(a, co), si), __fmul_rn(__fmul_rn(b, si), co));
+  v.det = clip_lo(__fsub_rn(__fmul_rn(v.a, v.b), __fmul_rn(v.c, v.c)), 0.f);
+  return v;
+}
+
+// ProbIoU(p, q) of ops/boxes.py:probiou, p the first box
+__device__ __forceinline__ float probiou_of(const Cov& p, const Cov& q) {
+  const float A = __fadd_rn(p.a, q.a), B = __fadd_rn(p.b, q.b), C = __fadd_rn(p.c, q.c);
+  const float dx = __fsub_rn(p.x, q.x), dy = __fsub_rn(p.y, q.y);
+  const float core = __fsub_rn(__fmul_rn(A, B), __fmul_rn(C, C));
+  const float denom = __fadd_rn(core, PROBIOU_EPS);
+  const float t1 = __fmul_rn(__fdiv_rn(__fadd_rn(__fmul_rn(A, __fmul_rn(dy, dy)), __fmul_rn(B, __fmul_rn(dx, dx))),
+                                       denom), 0.25f);
+  const float t2 = __fmul_rn(__fdiv_rn(__fmul_rn(__fmul_rn(C, __fsub_rn(q.x, p.x)), dy), denom), 0.5f);
+  const float root = __fmul_rn(4.f, __fsqrt_rn(__fmul_rn(p.det, q.det)));
+  const float t3 = __fmul_rn(logf(__fadd_rn(__fdiv_rn(core, __fadd_rn(root, PROBIOU_EPS)), PROBIOU_EPS)), 0.5f);
+  const float bd = clip_hi(clip_lo(__fadd_rn(__fadd_rn(t1, t2), t3), PROBIOU_EPS), 100.f);
+  const float hd = __fsqrt_rn(__fadd_rn(__fsub_rn(1.f, expf(-bd)), PROBIOU_EPS));
+  return __fsub_rn(1.f, hd);
+}
+
+// A block per (image, PAIR_ROWS rows, one 64-column word) of the upper
+// triangle, as nms_suppress_kernel_pairs: the 64 column boxes' terms in
+// shared memory, each row's terms once in registers.
+__global__ void __launch_bounds__(PAIR_ROWS)
+nms_rotated_kernel_pairs(const float* __restrict__ boxes, unsigned long long* __restrict__ mask, int K, int W,
+                         float thr) {
+  const int img = blockIdx.z, word = blockIdx.x, r0 = blockIdx.y * PAIR_ROWS;
+  if (word < r0 / 64) return;
+  __shared__ Cov col[64];
+  const float* bx = boxes + static_cast<long long>(img) * K * 5;
+  const int j0 = word * 64, cols = min(64, K - j0);
+  if (threadIdx.x < cols) col[threadIdx.x] = cov_of(bx + (j0 + threadIdx.x) * 5);
+  __syncthreads();
+  const int i = r0 + threadIdx.x;
+  if (i >= K || word < i / 64) return;
+  const Cov row = cov_of(bx + i * 5);
+  unsigned long long bits = 0;
+  for (int t = max(0, i - j0 + 1); t < cols; ++t)  // j > i only
+    if (probiou_of(row, col[t]) > thr) bits |= 1ull << t;
+  mask[(static_cast<long long>(img) * K + i) * W + word] = bits;
+}
+
+static int chain_launch(const unsigned long long* mask, const unsigned char* valid, unsigned char* keep, int B, int K,
+                        int W, cudaStream_t stream) {
+  const int wpl = (W + 31) / 32;
+  if (wpl == 1)
+    nms_suppress_kernel_chain<1><<<B, 32, 0, stream>>>(mask, valid, keep, K, W);
+  else if (wpl == 2)
+    nms_suppress_kernel_chain<2><<<B, 32, 0, stream>>>(mask, valid, keep, K, W);
+  else
+    nms_suppress_kernel_chain<4><<<B, 32, 0, stream>>>(mask, valid, keep, K, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // boxes: (B, K, 4) f32 xyxy contiguous, 16-byte aligned; valid, keep: (B, K)
 // bool (one byte each); mask: (B, K, ceil(K / 64)) 64-bit scratch, written
 // and read here (no fill needed). K <= 8,192.
@@ -162,12 +256,19 @@ extern "C" int nms_suppress_launch(const float* boxes, const unsigned char* vali
   nms_suppress_kernel_pairs<<<pairs, PAIR_ROWS, 0, stream>>>(boxes, mask, K, W, thr);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int wpl = (W + 31) / 32;
-  if (wpl == 1)
-    nms_suppress_kernel_chain<1><<<B, 32, 0, stream>>>(mask, valid, keep, K, W);
-  else if (wpl == 2)
-    nms_suppress_kernel_chain<2><<<B, 32, 0, stream>>>(mask, valid, keep, K, W);
-  else
-    nms_suppress_kernel_chain<4><<<B, 32, 0, stream>>>(mask, valid, keep, K, W);
-  return static_cast<int>(cudaGetLastError());
+  return chain_launch(mask, valid, keep, B, K, W, stream);
+}
+
+// K7. boxes: (B, K, 5) f32 xywhr contiguous, the class offset on the centres;
+// valid, keep, mask and K as for nms_suppress_launch.
+extern "C" int nms_rotated_suppress_launch(const float* boxes, const unsigned char* valid, unsigned char* keep,
+                                           unsigned long long* mask, int B, int K, float thr, cudaStream_t stream) {
+  if (B == 0 || K == 0) return static_cast<int>(cudaSuccess);
+  const int W = (K + 63) / 64;
+  if (W > 128 || B > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 pairs(W, (K + PAIR_ROWS - 1) / PAIR_ROWS, B);
+  nms_rotated_kernel_pairs<<<pairs, PAIR_ROWS, 0, stream>>>(boxes, mask, K, W, thr);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return chain_launch(mask, valid, keep, B, K, W, stream);
 }

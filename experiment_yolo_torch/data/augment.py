@@ -42,9 +42,11 @@ float32 rounding of OpenCV's.
 
 Every random draw is the JAX module's, call for call and size for size, so the
 labels of a sample are identical to the JAX package's for the same generator.
-Oriented boxes wait for the OBB family (ROADMAP.md catalogue item 13); the
-optional Albumentations hook stays out, as the JAX
-package skips it without the package.
+The obb task carries 'obb', (N, 4, 2) float pixel corners, through every
+step beside the boxes, and :func:`format_sample` turns them into xywhr with
+:func:`xyxyxyxy2xywhr`, OpenCV 5.0's ``minAreaRect`` bit for bit
+(``data/polygons.py``). The optional Albumentations hook stays out, as the
+JAX package skips it without the package.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from experiment_yolo_torch.data.polygons import fill_polys, polygons2mask_overlap
+from experiment_yolo_torch.data.polygons import fill_polys, min_area_rect, polygons2mask_overlap
 
 PAD_VALUE = 114
 RESIZE_BITS = 11  # fixed-point bits of INTER_LINEAR resize weights
@@ -326,11 +328,11 @@ def hsv2bgr(img: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Label helpers (boxes, classes, the segment task's polygons, the pose task's keypoints)
+# Label helpers (boxes, classes, the segment task's polygons, the pose task's keypoints, the obb task's corners)
 # ---------------------------------------------------------------------------
 
 def _scale_shift_points(labels: Dict, r: float, padw: float, padh: float) -> Dict:
-    """The labels with every polygon point and keypoint mapped to x * r + pad."""
+    """The labels with every polygon point, keypoint and corner mapped to x * r + pad."""
     out = dict(labels)
     if labels.get("segments") is not None:
         out["segments"] = [s * r + np.asarray([padw, padh], np.float32) for s in labels["segments"]]
@@ -339,6 +341,8 @@ def _scale_shift_points(labels: Dict, r: float, padw: float, padh: float) -> Dic
         kp[..., 0] = kp[..., 0] * r + padw
         kp[..., 1] = kp[..., 1] * r + padh
         out["keypoints"] = kp
+    if labels.get("obb") is not None:
+        out["obb"] = labels["obb"] * r + np.asarray([padw, padh], np.float32)
     return out
 
 
@@ -350,6 +354,8 @@ def _take_instances(labels: Dict, keep) -> Dict:
         out["segments"] = [labels["segments"][i] for i in idx]
     if labels.get("keypoints") is not None:
         out["keypoints"] = labels["keypoints"][keep]
+    if labels.get("obb") is not None:
+        out["obb"] = labels["obb"][keep]
     return out
 
 
@@ -360,6 +366,8 @@ def _cat_instances(l1: Dict, l2: Dict) -> Dict:
         out["segments"] = list(l1.get("segments") or []) + list(l2.get("segments") or [])
     if l1.get("keypoints") is not None:
         out["keypoints"] = np.concatenate([l1["keypoints"], l2["keypoints"]])
+    if l1.get("obb") is not None:
+        out["obb"] = np.concatenate([l1["obb"], l2["obb"]])
     return out
 
 
@@ -368,12 +376,6 @@ def _invisible_off(kp: np.ndarray, width: float, height: float) -> np.ndarray:
     oob = (kp[..., 0] < 0) | (kp[..., 0] >= width) | (kp[..., 1] < 0) | (kp[..., 1] >= height)
     kp[..., 2] = np.where(oob, 0.0, kp[..., 2])
     return kp
-
-
-def _check_ported(labels: Dict) -> None:
-    if labels.get("obb") is not None:
-        raise NotImplementedError("labels with 'obb' belong to the obb task, which is not ported to "
-                                  "experiment_yolo_torch yet (ROADMAP.md catalogue item 13)")
 
 
 # ---------------------------------------------------------------------------
@@ -405,7 +407,6 @@ def letterbox(img: np.ndarray, new_shape: Union[int, Tuple[int, int]] = (640, 64
 
 def letterbox_labels(labels: Dict, imgsz, scaleup: bool = True) -> Dict:
     """``imgsz``: an int (square) or an (h, w) tuple (rect batches)."""
-    _check_ported(labels)
     shape = (imgsz, imgsz) if isinstance(imgsz, int) else tuple(imgsz)
     img, r, (padw, padh) = letterbox(labels["img"], shape, scaleup=scaleup)
     bboxes = labels["bboxes"].copy()
@@ -432,9 +433,9 @@ def _tile(it: Dict, s: int) -> Tuple[np.ndarray, float]:
 
 
 def _merge(shifted: List[Dict], s: int, first: Dict) -> Dict:
-    """The tiles' labels on the (2s, 2s) canvas, clipped to it, keypoints off
-    it made invisible; the geometry fields are ``first``'s (the first item's),
-    empty when no tile has a label."""
+    """The tiles' labels on the (2s, 2s) canvas, clipped to it (the obb
+    corners too), keypoints off it made invisible; the geometry fields are
+    ``first``'s (the first item's), empty when no tile has a label."""
     if shifted:
         merged = shifted[0]
         for nxt in shifted[1:]:
@@ -443,11 +444,14 @@ def _merge(shifted: List[Dict], s: int, first: Dict) -> Dict:
         merged = {"bboxes": np.zeros((0, 4), np.float32), "cls": np.zeros((0,), np.float32)}
         if first.get("segments") is not None:
             merged["segments"] = []
-        if first.get("keypoints") is not None:
-            merged["keypoints"] = np.zeros((0,) + first["keypoints"].shape[1:], np.float32)
+        for k in ("keypoints", "obb"):
+            if first.get(k) is not None:
+                merged[k] = np.zeros((0,) + first[k].shape[1:], np.float32)
     merged["bboxes"] = np.clip(merged["bboxes"], 0, 2 * s).astype(np.float32)
     if merged.get("segments") is not None:
         merged["segments"] = [np.clip(p, 0, 2 * s) for p in merged["segments"]]
+    if merged.get("obb") is not None:
+        merged["obb"] = np.clip(merged["obb"], 0, 2 * s)
     if merged.get("keypoints") is not None:
         merged["keypoints"] = _invisible_off(merged["keypoints"], 2 * s, 2 * s)
     return merged
@@ -456,8 +460,6 @@ def _merge(shifted: List[Dict], s: int, first: Dict) -> Dict:
 def mosaic4(items: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
     """Four images on a (2s, 2s) canvas around a random centre; the following
     :func:`random_perspective` crops back to s x s (border -s/2)."""
-    for it in items:
-        _check_ported(it)
     s = imgsz
     yc = int(rng.uniform(s // 2, 2 * s - s // 2))
     xc = int(rng.uniform(s // 2, 2 * s - s // 2))
@@ -492,8 +494,6 @@ def mosaic4(items: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
 def mosaic9(items: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
     """Nine images in a 3x3 grid, cropped to the (2s, 2s) canvas: the same
     output as :func:`mosaic4`. Draws nothing from ``rng``, as in JAX."""
-    for it in items:
-        _check_ported(it)
     s = imgsz
     canvas = np.full((3 * s, 3 * s, 3), PAD_VALUE, dtype=np.uint8)
     hp = wp = -1  # the previous tile's h, w
@@ -591,7 +591,6 @@ def random_perspective(labels: Dict, degrees: float = 0.0, translate: float = 0.
                        rng: Optional[np.random.Generator] = None) -> Dict:
     """Affine or perspective warp with the box transform and the degenerate-box
     filter. Draws P, P, angle, scale, shear, shear, T, T, as in JAX."""
-    _check_ported(labels)
     rng = rng or np.random.default_rng()
     img = labels["img"]
     border = labels.get("mosaic_border", border)
@@ -638,6 +637,12 @@ def random_perspective(labels: Dict, degrees: float = 0.0, translate: float = 0.
             segs = [np.clip(warp_pts(p), [0, 0], [width, height]) for p in labels["segments"]]
             new = np.stack([np.concatenate([p.min(0), p.max(0)]) for p in segs], 0).astype(np.float32)
             labels["segments"] = segs
+        elif labels.get("obb") is not None:  # the corners warped, not clipped; the boxes from their extremes, clipped
+            corners = warp_pts(labels["obb"])
+            labels["obb"] = corners
+            new = np.concatenate([corners.min(1), corners.max(1)], -1).astype(np.float32)
+            new[:, [0, 2]] = new[:, [0, 2]].clip(0, width)
+            new[:, [1, 3]] = new[:, [1, 3]].clip(0, height)
         else:
             xy = warp_pts(bboxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n, 4, 2)).reshape(n, 8)
             x, y = xy[:, [0, 2, 4, 6]], xy[:, [1, 3, 5, 7]]
@@ -683,10 +688,9 @@ def random_hsv(img: np.ndarray, hgain=0.015, sgain=0.7, vgain=0.4, rng=None) -> 
 
 
 def random_flip(labels: Dict, direction: str, p: float, rng=None, flip_idx=None) -> Dict:
-    """Image, box, polygon and keypoint flip with probability ``p`` (one
+    """Image, box, polygon, corner and keypoint flip with probability ``p`` (one
     draw); ``flip_idx`` reorders the keypoints on a horizontal flip (left and
     right swapped; None keeps their order)."""
-    _check_ported(labels)
     rng = rng or np.random.default_rng()
     if rng.random() >= p:
         return labels
@@ -708,6 +712,11 @@ def random_flip(labels: Dict, direction: str, p: float, rng=None, flip_idx=None)
             p[..., axis] = extent - p[..., axis]
             flipped.append(p)
         labels = {**labels, "segments": flipped}
+    if labels.get("obb") is not None:
+        axis, extent = (0, w) if direction == "horizontal" else (1, h)
+        corners = labels["obb"].copy()
+        corners[..., axis] = extent - corners[..., axis]
+        labels = {**labels, "obb": corners}
     if labels.get("keypoints") is not None:
         axis, extent = (0, w) if direction == "horizontal" else (1, h)
         kp = labels["keypoints"].copy()
@@ -726,6 +735,16 @@ def mixup(l1: Dict, l2: Dict, rng=None) -> Dict:
     return {**l1, "img": img, **_cat_instances(l1, l2)}
 
 
+def xyxyxyxy2xywhr(corners: np.ndarray) -> np.ndarray:
+    """(N, 4, 2) corner points -> (N, 5) float32 xywhr: ``cv2.minAreaRect`` of
+    each, its angle in degrees in [-90, 0) taken to radians in float64 (JAX
+    ``data/augment.py:512``)."""
+    rects = min_area_rect(np.asarray(corners, np.float32).reshape(-1, 4, 2))
+    out = rects.copy()
+    out[:, 4] = rects[:, 4].astype(np.float64) / 180 * np.pi
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Format: pad to a static label count
 # ---------------------------------------------------------------------------
@@ -738,8 +757,11 @@ def format_sample(labels: Dict, imgsz: int, max_labels: int, task: str = "detect
     (H / mask_ratio, W / mask_ratio) int32, the overlap-index image, with the
     instances reordered by area, largest first, to match its values; for
     ``task='pose'`` also ``keypoints`` (max_labels, nk, nd), xy normalised
-    and the visibility."""
-    if task not in ("detect", "segment", "pose"):
+    and the visibility; for ``task='obb'`` ``bboxes`` are (max_labels, 5),
+    each instance's corners as :func:`xyxyxyxy2xywhr` gives them, xywh
+    normalised and the angle in radians. ``classify`` raises naming ROADMAP.md
+    catalogue item 13."""
+    if task not in ("detect", "segment", "pose", "obb"):
         raise NotImplementedError(f"task={task!r} is not ported to experiment_yolo_torch yet "
                                   "(ROADMAP.md catalogue item 13)")
     img = labels["img"]
@@ -751,11 +773,17 @@ def format_sample(labels: Dict, imgsz: int, max_labels: int, task: str = "detect
         out["masks"] = masks
         if len(order):
             bboxes, cls = bboxes[order], cls[order]
+    if task == "obb" and labels.get("obb") is not None and len(labels["obb"]):
+        bboxes = xyxyxyxy2xywhr(labels["obb"])
     n = min(len(bboxes), max_labels)
-    out_boxes = np.zeros((max_labels, 4), np.float32)
+    out_boxes = np.zeros((max_labels, 5 if task == "obb" else 4), np.float32)
     out_cls = np.zeros((max_labels,), np.int32)
     mask = np.zeros((max_labels,), bool)
-    if n:
+    if n and task == "obb":
+        out_boxes[:n] = bboxes[:n] / np.asarray([w, h, w, h, 1.0], np.float32)
+        out_cls[:n] = cls[:n].astype(np.int32)
+        mask[:n] = True
+    elif n:
         b = bboxes[:n]
         out_boxes[:n] = np.stack([(b[:, 0] + b[:, 2]) / 2 / w, (b[:, 1] + b[:, 3]) / 2 / h,
                                   (b[:, 2] - b[:, 0]) / w, (b[:, 3] - b[:, 1]) / h], axis=1)

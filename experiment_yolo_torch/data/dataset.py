@@ -2,11 +2,11 @@
 
 Port of ``experiment_yolo_tpu/data/dataset.py`` (``IMG_FORMATS``,
 ``check_det_dataset``, ``img2label_path`` and ``YOLODataset``) for the detect,
-segment and pose tasks: the image scan, ``fraction``, ``single_cls``, the
+segment, pose and obb tasks: the image scan, ``fraction``, ``single_cls``, the
 YOLO txt labels (detect: cls cx cy w h; segment: cls x1 y1 x2 y2 ..., a
 polygon whose extent is the box; pose: cls cx cy w h then (kx ky [kv]) for
-each of ``kpt_shape``'s keypoints, visibility 1 where the dims are 2;
-normalised), the ``.cache.npy`` label cache with the JAX package's
+each of ``kpt_shape``'s keypoints, visibility 1 where the dims are 2; obb:
+cls x1 y1 ... x4 y4, four corners whose extent is the box; normalised), the ``.cache.npy`` label cache with the JAX package's
 hash key and format (so either package reads the other's), the image caches
 (``cache='ram'`` and ``'disk'``, whose ``.npy`` sidecars the JAX package
 writes too), and the samples: augmented for training (:meth:`get_sample`,
@@ -16,8 +16,7 @@ letterboxed for validation (:meth:`get_val_sample`).
 Images are read by ``data/image_io.py`` (JPEG, PNG, 24-bit BMP, or a ``.npy``
 sidecar), JPEGs with nvJPEG when the dataset's ``device`` is the card and with
 libjpeg when it is the CPU; unreadable images and images under 10 px are
-dropped with the JAX package's messages. The obb task waits for ROADMAP.md
-catalogue item 13.
+dropped with the JAX package's messages.
 """
 
 from __future__ import annotations
@@ -88,7 +87,7 @@ class YOLODataset:
     def __init__(self, img_path: str | Path, imgsz: int = 640, augment: bool = True, hyp=None, max_labels: int = 128,
                  fraction: float = 1.0, single_cls: bool = False, task: str = "detect", cache: str | bool = False,
                  device="cuda", kpt_shape=(17, 3), flip_idx=None):
-        if task not in ("detect", "segment", "pose"):
+        if task not in ("detect", "segment", "pose", "obb"):
             raise NotImplementedError(f"task={task!r} datasets are not ported to experiment_yolo_torch yet "
                                       "(ROADMAP.md catalogue item 13)")
         self.img_path = Path(img_path)
@@ -172,9 +171,11 @@ class YOLODataset:
         """Parse one YOLO txt label file, normalised: ``cls cx cy w h`` per
         line, for the segment task ``cls x1 y1 x2 y2 ...``, whose box is the
         polygon's extent, for the pose task ``cls cx cy w h`` and the
-        keypoints."""
+        keypoints, for the obb task ``cls x1 y1 ... x4 y4``, whose box is the
+        corners' extent (a line of another length gives a box of its first
+        four numbers and no corners, as in JAX)."""
         lp = img2label_path(img_file)
-        cls, boxes, segments, keypoints = [], [], [], []
+        cls, boxes, segments, keypoints, corners = [], [], [], [], []
         nk, ndim = self.kpt_shape
         if os.path.isfile(lp):
             for ln in Path(lp).read_text().splitlines():
@@ -185,6 +186,11 @@ class YOLODataset:
                 if self.task == "segment":
                     pts = vals.reshape(-1, 2)
                     segments.append(pts)
+                    lo, hi = pts.min(0), pts.max(0)
+                    boxes.append([(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2, hi[0] - lo[0], hi[1] - lo[1]])
+                elif self.task == "obb" and len(vals) == 8:
+                    pts = vals.reshape(4, 2)
+                    corners.append(pts)
                     lo, hi = pts.min(0), pts.max(0)
                     boxes.append([(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2, hi[0] - lo[0], hi[1] - lo[1]])
                 elif self.task == "pose":
@@ -201,6 +207,8 @@ class YOLODataset:
             out["segments_n"] = segments
         elif self.task == "pose":
             out["keypoints_n"] = np.stack(keypoints) if keypoints else np.zeros((0, nk, 3), np.float32)
+        elif self.task == "obb":
+            out["obb_n"] = np.stack(corners) if corners else np.zeros((0, 4, 2), np.float32)
         return out
 
     def __len__(self) -> int:
@@ -245,6 +253,8 @@ class YOLODataset:
             kp = lab["keypoints_n"].copy()
             kp[..., :2] *= np.asarray([w, h], np.float32)
             out["keypoints"] = kp
+        elif self.task == "obb":
+            out["obb"] = lab["obb_n"] * np.asarray([w, h], np.float32)
         return out
 
     def _perspective(self, lab: Dict, rng: np.random.Generator) -> Dict:

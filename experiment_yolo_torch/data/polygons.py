@@ -1,4 +1,5 @@
-"""Polygon rasterising for the segment task, without OpenCV.
+"""Polygon rasterising for the segment task and the rotated boxes of the obb
+task, without OpenCV.
 
 The JAX package draws instance masks with ``cv2.fillPoly`` and orders them by
 ``cv2.contourArea`` (``data/augment.py:polygons2mask_overlap``), and pastes
@@ -13,7 +14,11 @@ CopyPaste's instances through ``cv2.drawContours(..., FILLED)``. Here:
   summed in order, halved, absolute;
 - :func:`polygons2mask_overlap` is the JAX function: one overlap-index image
   at 1/``downsample`` resolution, instances drawn largest first with value
-  i+1, and the order (``np.argsort(-areas)``, so ties fall the same way).
+  i+1, and the order (``np.argsort(-areas)``, so ties fall the same way);
+- :func:`min_area_rect` is ``cv2.minAreaRect`` of float32 points, bit for bit
+  (the convex hull, the rotating calipers, the angle in [-90, 0) degrees), in
+  the same C++ library; the obb task's ``xyxyxyxy2xywhr`` takes its boxes
+  from it.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import numpy as np
 from experiment_yolo_torch.ops.kernels import _build
 
 BUILD_DIR = _build.BUILD_ROOT / "host"
-_JOB = _build.Job(_build.CSRC / "polygon_fill.cpp", "g++", ("-O2", "-std=c++17", "-fPIC", "-shared"),
+_JOB = _build.Job(_build.CSRC / "polygon_fill.cpp", "g++", ("-O2", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off"),
                   build_dir=BUILD_DIR)
 _lib: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -44,6 +49,8 @@ def _library() -> ctypes.CDLL:
             P = ctypes.c_void_p
             lib.fill_polys.argtypes = [P, ctypes.c_int, ctypes.c_int, P, P, ctypes.c_int, P]
             lib.fill_polys.restype = ctypes.c_int
+            lib.min_area_rects.argtypes = [P, ctypes.c_int, ctypes.c_int, P]
+            lib.min_area_rects.restype = None
             _lib["lib"] = lib
         return _lib["lib"]
 
@@ -66,6 +73,21 @@ def fill_polys(img: np.ndarray, polys: Sequence[np.ndarray], colors: Sequence[in
                              len(pts), col.ctypes.data):
         raise ValueError("fill_polys: a polygon without vertices")
     return img
+
+
+def min_area_rect(points: np.ndarray) -> np.ndarray:
+    """``cv2.minAreaRect`` of point sets: (..., n, 2) float32 points, n >= 1
+    -> (..., 5) float32 (cx, cy, w, h, angle in degrees in [-90, 0)), one box
+    per set of n points."""
+    p = np.ascontiguousarray(np.asarray(points, np.float32))
+    if p.ndim < 2 or p.shape[-1] != 2 or p.shape[-2] < 1:
+        raise ValueError(f"min_area_rect: expected (..., n >= 1, 2) points, got shape {p.shape}")
+    lead = p.shape[:-2]
+    count = int(np.prod(lead, dtype=np.int64))
+    out = np.zeros((*lead, 5), np.float32)
+    if count:
+        _library().min_area_rects(p.ctypes.data, count, p.shape[-2], out.ctypes.data)
+    return out
 
 
 def contour_area(points: np.ndarray) -> float:

@@ -1,7 +1,7 @@
 """Synthetic YOLO-format detection dataset.
 
 Port of ``experiment_yolo_tpu/data/synthetic.py`` (``make_synthetic_dataset``
-and ``make_synthetic_task_dataset`` for the segment and pose tasks): the
+and ``make_synthetic_task_dataset`` for the segment, pose and obb tasks): the
 no-network stand-in for COCO128/WAID, coloured ellipses, rectangles and
 triangles (one class each) on blurred noise, written as a standard YOLO
 dataset (``images/``, ``labels/``, ``data.yaml``). It makes the same numpy
@@ -14,10 +14,10 @@ would depend on the encoder (nvJPEG on the card, libjpeg on the CPU;
 ``data/codec.py``). The pixels come from this module's own rasteriser
 (a 7x7 Gaussian blur with OpenCV's sigma for that size, 1.4, and a
 saturating offset; filled shapes by pixel-centre tests) and are not held to
-OpenCV's drawing, except the segment task's polygons, which
-``data/polygons.py:fill_polys`` draws as ``cv2.fillPoly`` does; the pose
-task's rings and dots are pixel-centre tests too. The obb dataset waits for
-that family (ROADMAP.md catalogue item 13).
+OpenCV's drawing, except the segment task's polygons and the obb task's
+rotated rectangles, which ``data/polygons.py:fill_polys`` draws as
+``cv2.fillPoly`` does; the pose task's rings and dots are pixel-centre tests
+too.
 """
 
 from __future__ import annotations
@@ -116,13 +116,16 @@ def make_synthetic_task_dataset(root: str | Path, task: str, n_train: int = 32, 
     vertices) or of the pose task (rings of class ``blob`` with ``nk``
     keypoints, the centre and ``nk - 1`` on the ring, each marked by a dot,
     labelled by a box of 2.2 radii and the keypoints at visibility 2;
-    ``kpt_shape: [nk, 3]`` in data.yaml); returns the path of its data.yaml.
+    ``kpt_shape: [nk, 3]`` in data.yaml) or of the obb task (filled
+    rectangles of class ``blob``, 2r by 2 max(r // 2, 4), turned by an angle
+    in [0, pi/2), labelled by their four normalised corners); returns the
+    path of its data.yaml.
     The draws are the JAX generator's, in its order, so the label files and
     data.yaml are identical to its; the images are then blurred, drawn and
     written on a thread pool."""
-    if task not in ("segment", "pose"):
-        raise NotImplementedError(f"task={task!r}: the port writes segment and pose datasets; obb waits for "
-                                  "ROADMAP.md catalogue item 13")
+    if task not in ("segment", "pose", "obb"):
+        raise NotImplementedError(f"task={task!r}: the port writes segment, pose and obb datasets; classify waits "
+                                  "for ROADMAP.md catalogue item 13")
     root = Path(root)
     rng = np.random.default_rng(seed)
     names = ["poly3", "poly5"] if task == "segment" else ["blob"]
@@ -149,6 +152,14 @@ def make_synthetic_task_dataset(root: str | Path, task: str, n_train: int = 32, 
                                     cy + r * np.sin(ang + 2 * np.pi * np.arange(k) / k)], -1)
                     shapes.append(("polygon", pts.astype(np.int32), color))
                     lines.append(f"{cls} " + " ".join(f"{v:.6f}" for v in (pts / imgsz).reshape(-1)))
+                elif task == "obb":
+                    w2, h2 = r, max(r // 2, 4)
+                    ang = rng.uniform(0, np.pi / 2)
+                    c, s = np.cos(ang), np.sin(ang)
+                    box = np.asarray([[-w2, -h2], [w2, -h2], [w2, h2], [-w2, h2]], np.float32)
+                    pts = box @ np.asarray([[c, s], [-s, c]], np.float32) + [cx, cy]
+                    shapes.append(("polygon", pts.astype(np.int32), color))
+                    lines.append("0 " + " ".join(f"{v:.6f}" for v in (pts / imgsz).reshape(-1)))
                 else:  # the centre, then nk - 1 keypoints around the ring
                     kps = [(cx, cy)] + [(cx + r * np.cos(2 * np.pi * j / (nk - 1)),
                                          cy + r * np.sin(2 * np.pi * j / (nk - 1))) for j in range(nk - 1)]

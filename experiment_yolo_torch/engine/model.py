@@ -1,14 +1,14 @@
 """The ``YOLO`` facade: one object that routes train, val and predict.
 
 Port of ``experiment_yolo_tpu/engine/model.py:YOLO`` for detection,
-segmentation and pose. The model is a :class:`~experiment_yolo_torch.nn.tasks.DetectionModel`
-or, for a segment or pose YAML (the task guessed from its name or head, as
-JAX ``engine/model.py:30-42``) or checkpoint, a ``SegmentationModel`` or a
-``PoseModel``, built from a YAML or a checkpoint of the port; ``train``,
+segmentation, pose and oriented boxes. The model is a :class:`~experiment_yolo_torch.nn.tasks.DetectionModel`
+or, for a segment, pose or obb YAML (the task guessed from its name or head,
+as JAX ``engine/model.py:30-42``) or checkpoint, a ``SegmentationModel``, a
+``PoseModel`` or an ``OBBModel``, built from a YAML or a checkpoint of the port; ``train``,
 ``val`` and ``predict`` go to :class:`DetectionTrainer` (whose rebuild of a
 pose head to the dataset's ``kpt_shape`` the facade takes up, as JAX
 ``engine/model.py:109``), the task's validator (``DetectionValidator``,
-``SegmentationValidator`` or ``PoseValidator``) and
+``SegmentationValidator``, ``PoseValidator`` or ``OBBValidator``) and
 :class:`DetectionPredictor` with the facade's overrides under the call's, and
 the paper's two-stage inference, ``double_predict`` and ``sliced_predict``, to
 ``engine/double_inference.py`` and ``engine/sliced.py``. The JAX facade's
@@ -33,7 +33,7 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 
 class YOLO:
-    """Unified detection, segmentation and pose model API, on the card unless ``device='cpu'``.
+    """Unified detection, segmentation, pose and oriented-box model API, on the card unless ``device='cpu'``.
 
     ``model`` is a model YAML (by path, or by name from the port's
     ``cfg/models``; ``nc`` overrides its class count) or a ``.pt`` checkpoint
@@ -57,7 +57,7 @@ class YOLO:
                  seed: int = 0, task: Optional[str] = None, device="cuda"):
         model = str(model)
         if task is not None:
-            task_model(task)  # obb and classify raise naming ROADMAP.md catalogue item 13
+            task_model(task)  # classify raises naming ROADMAP.md catalogue item 13
         self.ckpt_path: Optional[str] = None
         if model.endswith((".yaml", ".yml")):
             cfg = yaml_model_load(model)
@@ -145,14 +145,15 @@ class YOLO:
     def val(self, **kwargs) -> Dict[str, float]:
         """Validate on ``data``'s split with the task's validator
         (:class:`DetectionValidator`, ``SegmentationValidator``: box and mask
-        mAP, or ``PoseValidator``: box and pose mAP)."""
+        mAP, ``PoseValidator``: box and pose mAP, or ``OBBValidator``: rotated-box
+        mAP)."""
         from experiment_yolo_torch.engine.validator import DetectionValidator
         from experiment_yolo_torch.engine.validators_extra import TASK_VALIDATORS
 
         return TASK_VALIDATORS.get(self.task, DetectionValidator)({**self.overrides, **kwargs})(self.model)
 
     def predict(self, source, stream: bool = False, **kwargs) -> List:
-        """Detect (and segment, or find keypoints) in ``source`` with :class:`DetectionPredictor`, built again
+        """Detect (and segment, find keypoints, or find oriented boxes) in ``source`` with :class:`DetectionPredictor`, built again
         when the overrides change: an (H, W, 3) uint8 BGR array, an image file
         (JPEG, PNG, BMP), a folder of them, or a list of any of these. A list
         of :class:`Results`, or a generator of them with ``stream``. Videos

@@ -1,7 +1,7 @@
 """Detection predictor: source -> letterbox -> model -> NMS -> Results.
 
 Port of ``experiment_yolo_tpu/engine/predictor.py`` (``load_source``,
-``DetectionPredictor``) for detection, segmentation and pose. A source is an array, an image file,
+``DetectionPredictor``) for detection, segmentation, pose and oriented boxes. A source is an array, an image file,
 a folder or a list of them (``data/loaders.py``); its JPEGs are decoded for
 the model's device, a batch of files at a time. Letterbox runs on the host;
 the batch goes to the device as uint8 and is normalised there; forward,
@@ -17,7 +17,11 @@ linear resizes to the letterbox square, the padding cut, to the original
 size, ``> 0.5``, cut to each box), and only then copied to the host. A pose
 model's kept anchors give their keypoints (JAX ``engine/predictor.py:126-130``),
 copied back with the detections and mapped to the original image through
-its (gain, pad), clipped to it (``:241-249``).
+its (gain, pad), clipped to it (``:241-249``). An OBB model's detections
+come from rotated NMS (kernel K7; hard, whatever ``nms_type`` says, JAX
+``:131-137``): centres back through (gain, pad) and clipped to the image,
+extents divided by the gain, the angle as it is (``:224-229``); ``classes``
+does not filter them, as in JAX.
 
 One batch is in flight, as in the JAX package's software pipeline: batch i
 is launched on the card's stream with its copy back to pinned host memory,
@@ -37,7 +41,7 @@ import torch
 from experiment_yolo_torch.cfg import check_imgsz, get_cfg
 from experiment_yolo_torch.data.augment import letterbox, resize_linear_f32
 from experiment_yolo_torch.engine.results import Results
-from experiment_yolo_torch.ops.nms import non_max_suppression
+from experiment_yolo_torch.ops.nms import nms_rotated, non_max_suppression
 
 Source = Union[str, Path, np.ndarray, List]
 
@@ -86,11 +90,16 @@ class DetectionPredictor:
         """(B, H, W, 3) uint8 RGB on the device -> (detections (B, max_det, 6),
         counts (B,)), and for a segmentation model the mask probabilities (B,
         max_det, Hp, Wp) of the kept rows, for a pose model their keypoints
-        (B, max_det, nk, nd) in letterbox pixels. The images are normalised
-        in the model's compute dtype."""
+        (B, max_det, nk, nd) in letterbox pixels; an OBB model's detections
+        are (B, max_det, 7) [xywhr, conf, cls]. The images are normalised in
+        the model's compute dtype."""
         x = (imgs.permute(0, 3, 1, 2).to(self.model.dtype) / 255.0).contiguous()
         if self.model.task == "detect":
             return self._nms(*self.model.predict(x))
+        if self.model.task == "obb":
+            a = self.args
+            return nms_rotated(*self.model.predict(x), conf_thres=float(a.conf), iou_thres=float(a.iou),
+                               max_det=int(a.max_det))
         boxes, scores, *rest = self.model.predict(x)
         det, counts, idx = self._nms(boxes, scores, return_idx=True)
         return det, counts, self.model.kept_outputs(*rest, idx)
@@ -161,6 +170,12 @@ class DetectionPredictor:
         for i, ((path, orig), (_, gain, (padw, padh))) in enumerate(zip(chunk, pre)):
             d = det[i, :int(counts[i])].copy()
             oh, ow = orig.shape[:2]
+            if self.model.task == "obb":  # xywhr: centres unpadded and clipped, extents over the gain
+                d[:, 0] = ((d[:, 0] - padw) / gain).clip(0, ow)
+                d[:, 1] = ((d[:, 1] - padh) / gain).clip(0, oh)
+                d[:, 2:4] = d[:, 2:4] / gain
+                results.append(Results(orig, path, self.model.names, None, speed=speed, device=self.device, obb=d))
+                continue
             d[:, [0, 2]] = ((d[:, [0, 2]] - padw) / gain).clip(0, ow)
             d[:, [1, 3]] = ((d[:, [1, 3]] - padh) / gain).clip(0, oh)
             keep = None

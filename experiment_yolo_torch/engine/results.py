@@ -1,11 +1,14 @@
-"""Detection, segmentation and pose results in original-image space (port of
-the detect, segment and pose fields of ``experiment_yolo_tpu/engine/results.py``:
-``Boxes``, ``Masks``, ``Keypoints`` and ``Results`` with ``save_txt``,
-``to_dict``, ``tojson``, ``verbose`` and ``save_crop``; as in JAX, ``to_dict``
-and ``tojson`` give the boxes alone, and the server adds the keypoints).
-``plot`` and ``save`` draw with OpenCV in the JAX package and wait for
-ROADMAP.md catalogue item 15; the OBB and probability holders wait for
-catalogue item 13."""
+"""Detection, segmentation, pose and oriented-box results in original-image
+space (port of the detect, segment, pose and obb fields of
+``experiment_yolo_tpu/engine/results.py``: ``Boxes``, ``Masks``,
+``Keypoints``, ``OBB`` and ``Results`` with ``save_txt``, ``to_dict``,
+``tojson``, ``verbose`` and ``save_crop``; as in JAX, ``to_dict`` and
+``tojson`` give the boxes alone, and the server adds the keypoints). An OBB
+result has no ``boxes``: as in JAX its ``verbose`` reads "(no detections)",
+and ``save_txt``, ``to_dict``, ``tojson`` and ``save_crop`` raise as JAX's
+do. ``plot`` and ``save`` draw with OpenCV in the JAX package and wait for
+ROADMAP.md catalogue item 15; the probability holder waits for catalogue
+item 13."""
 
 from __future__ import annotations
 
@@ -84,26 +87,64 @@ class Keypoints:
         return self.data[..., 2] if self.data.shape[-1] == 3 else None
 
 
+class OBB:
+    """Oriented boxes in original-image space. data: (N, 7) [cx, cy, w, h, rad, conf, cls]."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = np.asarray(data, np.float32).reshape(-1, 7)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xywhr(self) -> np.ndarray:
+        return self.data[:, :5]
+
+    @property
+    def conf(self) -> np.ndarray:
+        return self.data[:, 5]
+
+    @property
+    def cls(self) -> np.ndarray:
+        return self.data[:, 6]
+
+    @property
+    def xyxyxyxy(self) -> np.ndarray:
+        """(N, 4, 2) corners, in the JAX holder's numpy order of operations."""
+        cx, cy, w, h, r = (self.data[:, i] for i in range(5))
+        cos, sin = np.cos(r), np.sin(r)
+        dx1, dy1 = w / 2 * cos, w / 2 * sin
+        dx2, dy2 = -h / 2 * sin, h / 2 * cos
+        c = np.stack([cx, cy], -1)
+        return np.stack([c + np.stack([dx1 + dx2, dy1 + dy2], -1), c + np.stack([dx1 - dx2, dy1 - dy2], -1),
+                         c - np.stack([dx1 + dx2, dy1 + dy2], -1), c - np.stack([dx1 - dx2, dy1 - dy2], -1)], 1)
+
+
 class Results:
     """One image's detections (and, from a segmentation model, their
-    ``masks``, from a pose model their ``keypoints``) and metadata. ``device`` is where its crops are encoded as JPEG
-    (nvJPEG on the card, libjpeg on the CPU)."""
+    ``masks``, from a pose model their ``keypoints``; an OBB model's ``obb``
+    in place of ``boxes``) and metadata. ``device`` is where its crops are
+    encoded as JPEG (nvJPEG on the card, libjpeg on the CPU)."""
 
-    def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str], boxes: np.ndarray,
+    def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str], boxes: Optional[np.ndarray],
                  speed: Optional[dict] = None, device="cuda", masks: Optional[np.ndarray] = None,
-                 keypoints: Optional[np.ndarray] = None):
+                 keypoints: Optional[np.ndarray] = None, obb: Optional[np.ndarray] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
-        self.boxes = Boxes(boxes, self.orig_shape)
+        self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
+        self.obb = OBB(obb, self.orig_shape) if obb is not None else None
         self.speed = speed or {}
         self.device = device
 
     def __len__(self):
-        return len(self.boxes)
+        if self.boxes is not None:
+            return len(self.boxes)
+        return len(self.obb) if self.obb is not None else 0
 
     def plot(self, *args, **kwargs):
         raise NotImplementedError("Results.plot draws with OpenCV in the JAX package and is not ported to "
@@ -143,7 +184,7 @@ class Results:
 
     def verbose(self) -> str:
         """The per-class counts, as ``"2 cars, 1 person, "``."""
-        if not len(self.boxes):
+        if self.boxes is None or not len(self.boxes):
             return "(no detections), "
         cls = self.boxes.cls.astype(int)
         return "".join(f"{(cls == c).sum()} {self.names.get(int(c), int(c))}{'s' if (cls == c).sum() > 1 else ''}, "

@@ -1,7 +1,7 @@
 """The detection trainer: the training step and the dataset-driven loop.
 
-Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect, segment
-and pose branches:
+Port of ``experiment_yolo_tpu/engine/trainer.py`` for its detect, segment,
+pose and obb branches:
 
 - :meth:`DetectionTrainer.train_step` is ``_make_train_step``'s step: a batch
   as the JAX step takes it (uint8 NHWC images and padded labels), the image
@@ -15,7 +15,10 @@ and pose branches:
   protos in the compute dtype, as JAX ``engine/trainer.py:457-465``), a
   ``PoseModel`` the keypoint loss (its detect maps in f32, its keypoint maps
   in the compute dtype, as JAX ``engine/trainer.py:466-475``, with the
-  ``pose`` and ``kobj`` gains);
+  ``pose`` and ``kobj`` gains), an ``OBBModel`` the rotated-box loss in
+  place of the detection loss (its detect maps in f32, its angle maps in the
+  compute dtype; Wise-IoU's running mean kept as it is, JAX
+  ``engine/trainer.py:476-482``);
 - :meth:`DetectionTrainer.train` is ``train()``: the dataset and the threaded
   loader, the optimizer built for the loader's batches per epoch, epochs with
   ``close_mosaic`` and ``multi_scale``, the per-epoch mean of the loss
@@ -23,7 +26,7 @@ and pose branches:
   just launched), validation of the EMA model after every epoch through one
   dataset-driven ``DetectionValidator`` (``SegmentationValidator`` or
   ``PoseValidator`` for a segmentation or pose model: fitness is the mean of
-  the box and mask or pose fitness); a pose model whose ``kpt_shape`` is not
+  the box and mask or pose fitness; ``OBBValidator`` for an OBB model); a pose model whose ``kpt_shape`` is not
   the dataset's is rebuilt to the dataset's and drawn again from ``seed``
   (JAX ``engine/trainer.py:186-196``) before training starts,
   ``results.csv``, the ``last``,
@@ -38,8 +41,8 @@ bf16 diverges; the per-epoch validation of the EMA model runs in the compute
 dtype, as JAX's ``_validate`` runs its bf16 rebuild.
 
 Not ported: the mesh, FSDP, ``autobatch`` and ``plots`` (ROADMAP.md catalogue
-item 15), each of which raises; the kernel-warehouse temperature and the OBB
-loss, whose models the port does not build (catalogue items 14 and 13).
+item 15), each of which raises; the kernel-warehouse temperature, whose
+models the port does not build (catalogue item 14).
 """
 
 from __future__ import annotations
@@ -65,11 +68,11 @@ from experiment_yolo_torch.utils import LOGGER, colorstr, get_latest_run, increm
 from experiment_yolo_torch.utils.callbacks import Callbacks
 from experiment_yolo_torch.utils.ema import ModelEMA
 from experiment_yolo_torch.utils.loss import LossConfig, detection_loss
-from experiment_yolo_torch.utils.task_losses import pose_loss, segmentation_loss
+from experiment_yolo_torch.utils.task_losses import obb_loss, pose_loss, segmentation_loss
 
 NB = 100  # batches per epoch of the schedules for train_step callers, who have no loader (the JAX bench.py's)
 LOSS_KEYS = {"detect": ("box", "cls", "dfl"), "segment": ("box", "cls", "dfl", "seg"),  # sorted, as the JAX loop
-             "pose": ("box", "cls", "dfl", "kobj", "pose")}
+             "pose": ("box", "cls", "dfl", "kobj", "pose"), "obb": ("box", "cls", "dfl")}
 TASK_TARGETS = {"segment": ("masks",), "pose": ("keypoints",)}  # the batch keys a task's loss adds
 MULTI_SCALE = (0.75, 0.9, 1.0, 1.15, 1.3)  # multi_scale's fixed bucket set, times imgsz
 
@@ -171,7 +174,8 @@ class DetectionTrainer:
 
     def train_step(self, batch: Mapping) -> Dict[str, torch.Tensor]:
         """One micro-batch: ``img`` (B, H, W, 3) uint8 (no channel flip),
-        ``bboxes`` (B, M, 4) normalised xywh, ``cls`` (B, M), ``mask`` (B, M),
+        ``bboxes`` (B, M, 4) normalised xywh (an OBB model's (B, M, 5), the
+        angle in radians added), ``cls`` (B, M), ``mask`` (B, M),
         and for a segmentation model ``masks`` (B, H/4, W/4) int (the
         overlap-index images), for a pose model ``keypoints`` (B, M, nk, nd)
         (normalised xy, the visibility), as numpy arrays or tensors. Returns
@@ -206,6 +210,10 @@ class DetectionTrainer:
                 total, comps, res, st.iou_mean = pose_loss([f.float() for f in det], kpt_maps, targets,
                                                            st.model.stride, self.loss_cfg, st.iou_mean,
                                                            st.model.kpt_shape, float(a.pose), float(a.kobj))
+            elif st.model.task == "obb":  # the detect maps in f32, the angle maps as they come; iou_mean kept
+                det, angle_maps = feats
+                total, comps, res = obb_loss([f.float() for f in det], angle_maps, targets, st.model.stride,
+                                             self.loss_cfg)
             elif st.slide_mean is None:
                 total, comps, res, st.iou_mean = detection_loss(feats, targets, st.model.stride, self.loss_cfg,
                                                                 st.iou_mean)
@@ -379,8 +387,8 @@ class DetectionTrainer:
         rel, finite = 0.0, True
         if model.task == "segment":  # (detect maps, coefficient maps, protos) -> one list
             got, want = ([*det, *coeffs, protos] for det, coeffs, protos in (got, want))
-        elif model.task == "pose":  # (detect maps, keypoint maps) -> one list
-            got, want = ([*det, *kpts] for det, kpts in (got, want))
+        elif model.task in ("pose", "obb"):  # (detect maps, keypoint or angle maps) -> one list
+            got, want = ([*det, *extra] for det, extra in (got, want))
         for a, b in zip(got, want):
             a = a.float()
             finite = finite and bool(torch.isfinite(a).all())

@@ -1,9 +1,10 @@
-"""The segmentation and pose validators: box mAP with mask or pose mAP.
+"""The segmentation, pose and oriented-box validators: box mAP with mask or
+pose mAP, and rotated-box mAP.
 
 Port of ``experiment_yolo_tpu/engine/validators_extra.py`` (``mask_iou_np:28``,
 ``kpt_oks_np:36``, ``_TaskValidator:46``, ``SegmentationValidator:98-172``,
-``PoseValidator:173-234``, ``TASK_VALIDATORS:298``) for the segment and pose
-tasks. The card part (:meth:`SegmentationValidator.infer`):
+``PoseValidator:173-234``, ``OBBValidator:236-296``, ``TASK_VALIDATORS:298``)
+for the segment, pose and obb tasks. The card part (:meth:`SegmentationValidator.infer`):
 normalise, forward, decode (kernel K1), NMS as the JAX validator calls it
 (multi-label, hard, its default pool of 1,024: kernel K2) with the kept
 anchors' indices, and the masks of the kept detections at proto resolution.
@@ -16,20 +17,26 @@ differs).
 :class:`PoseValidator` keeps the same NMS and gathers the kept anchors'
 keypoints on the card; on the host each image's keypoints are taken back
 through its (gain, pad) and held to the ground truth's by OKS, whose area is
-the original-image ground-truth box's times 0.53 (the reference's). The OBB
-validator waits for ROADMAP.md catalogue item 13.
+the original-image ground-truth box's times 0.53 (the reference's).
+
+:class:`OBBValidator` runs rotated NMS (hard, each anchor's best class, a
+pool of 1,024: kernel K7) at the validator's ``conf``, ``iou`` and
+``max_det``; on the host the predicted and ground-truth xywhr boxes go back
+through each image's (gain, pad), centres unpadded and extents divided by the
+gain, the angles unchanged and nothing clipped, and are matched by ProbIoU.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable, Mapping, Optional
+from typing import Dict, Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from experiment_yolo_torch.engine.validator import DetectionValidator
-from experiment_yolo_torch.ops.nms import non_max_suppression
+from experiment_yolo_torch.ops.boxes import probiou
+from experiment_yolo_torch.ops.nms import nms_rotated, non_max_suppression
 from experiment_yolo_torch.utils import LOGGER
 from experiment_yolo_torch.utils.metrics import IOUV, DetMetrics, box_iou_np, match_predictions
 from experiment_yolo_torch.utils.task_losses import kpt_sigmas
@@ -228,4 +235,66 @@ class PoseValidator(SegmentationValidator):
             pose_m.update(tp_p, d[:, 4], d[:, 5], cls)
 
 
-TASK_VALIDATORS = {"segment": SegmentationValidator, "pose": PoseValidator}
+class OBBValidator(DetectionValidator):
+    """``OBBValidator(overrides)(model)`` on ``overrides['data']`` (an obb
+    dataset), or ``(model, batches, names, n_images=None)`` on batches in
+    memory whose ``bboxes`` are (B, M, 5) normalised xywh and the angle in
+    radians -> the stats (precision, recall, mAP50, mAP50-95, fitness) of
+    ProbIoU matching. No COCO records are kept."""
+
+    task = "obb"
+
+    def __init__(self, overrides: Optional[Dict] = None):
+        super().__init__(overrides)
+        self.args.task = self.task
+
+    def nms(self, rboxes: torch.Tensor, scores: torch.Tensor):
+        """Rotated NMS on decoded (B, A, 5) xywhr boxes and (B, A, nc) scores ->
+        (detections (B, max_det, 7), counts (B,))."""
+        a = self.args
+        return nms_rotated(rboxes, scores, conf_thres=float(a.conf), iou_thres=float(a.iou), max_det=int(a.max_det))
+
+    @torch.no_grad()
+    def infer(self, model, imgs: torch.Tensor):
+        """The card part: (B, H, W, 3) uint8 -> (detections (B, max_det, 7)
+        [xywhr, conf, cls] in letterbox pixels, counts (B,)), the images
+        normalised in f32 and cast to the model's compute dtype, the model in
+        eval mode."""
+        x = (imgs.permute(0, 3, 1, 2).float() / 255.0).to(model.dtype).contiguous()
+        training = model.training
+        model.eval()
+        try:
+            return self.nms(*model.predict(x))
+        finally:
+            model.train(training)
+
+    def score_batch(self, metrics: DetMetrics, det: np.ndarray, counts: np.ndarray, batch: Mapping,
+                    n: Optional[int] = None, first_id: int = 0) -> List[dict]:
+        """The host part for the first ``n`` images of one batch: the xywhr
+        boxes to original-image space, ProbIoU matching, ``metrics.update``."""
+        ih, iw = np.asarray(batch["img"]).shape[1:3]
+        for i in range(len(det) if n is None else n):
+            k = int(counts[i])
+            d = det[i, :k]  # (k, 7) letterbox space
+            gain, padw, padh = np.asarray(batch["ratio_pad"][i])
+            pr = d[:, :5].copy()
+            pr[:, 0] = (pr[:, 0] - padw) / gain
+            pr[:, 1] = (pr[:, 1] - padh) / gain
+            pr[:, 2:4] /= gain
+            m = np.asarray(batch["mask"][i]).astype(bool)
+            cls = np.asarray(batch["cls"][i])[m].astype(np.float32)
+            gr = np.asarray(batch["bboxes"][i])[m].copy()  # (M, 5) normalised xywhr
+            gr[:, 0] = (gr[:, 0] * iw - padw) / gain
+            gr[:, 1] = (gr[:, 1] * ih - padh) / gain
+            gr[:, 2] = gr[:, 2] * iw / gain
+            gr[:, 3] = gr[:, 3] * ih / gain
+            if k and len(gr):
+                iou = probiou(torch.from_numpy(pr)[:, None], torch.from_numpy(gr.astype(np.float32))[None]).numpy()
+            else:
+                iou = np.zeros((k, len(gr)))
+            tp = match_predictions(d[:, 6], cls, iou) if k else np.zeros((0, IOUV.size), bool)
+            metrics.update(tp, d[:, 5], d[:, 6], cls)
+        return []
+
+
+TASK_VALIDATORS = {"segment": SegmentationValidator, "pose": PoseValidator, "obb": OBBValidator}

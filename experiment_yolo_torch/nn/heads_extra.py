@@ -1,24 +1,25 @@
-"""The segmentation and pose heads: ``Proto``, ``Segment``, ``Pose``, the
-mask assembly and the keypoint decode.
+"""The segmentation, pose and oriented-box heads: ``Proto``, ``Segment``,
+``Pose``, ``OBB``, the mask assembly, the keypoint decode and the angle decode.
 
 Port of ``experiment_yolo_tpu/nn/heads_extra.py`` (``Proto:23``,
-``Segment:40``, ``Pose:68``, ``assemble_masks:875``, ``decode_kpts:884``),
+``Segment:40``, ``Pose:68``, ``OBB:94``, ``assemble_masks:875``,
+``decode_kpts:884``, ``decode_obb_angle:905``),
 NCHW, with the Ultralytics fork's state-dict names: ``Segment`` is a
 :class:`~experiment_yolo_torch.nn.modules.Detect` (``cv2.{i}.{j}``,
 ``cv3.{i}.{j}``) with per-level mask-coefficient branches ``cv4.{i}.{j}`` and
-a ``proto`` (``cv1``, ``upsample``, ``cv2``, ``cv3``); ``Pose`` is a
-``Detect`` with per-level keypoint branches ``cv4.{i}.{j}``.
+a ``proto`` (``cv1``, ``upsample``, ``cv2``, ``cv3``); ``Pose`` and ``OBB``
+are a ``Detect`` with per-level keypoint or angle branches ``cv4.{i}.{j}``.
 
 The prototype upsampling is a 2x2 stride-2 transposed convolution with a
 bias (flax ``nn.ConvTranspose``, which does not flip its kernel; PyTorch's
 ``ConvTranspose2d`` is a convolution's gradient and does, so the converter
 flips the kernel's two spatial axes, ``utils/convert.py``). In bf16 its
 input, weight and bias are cast to the compute dtype, as every convolution's.
-The OBB head waits for ROADMAP.md catalogue item 13.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import torch
@@ -80,6 +81,30 @@ class Pose(Detect):
     def forward(self, xs: List[torch.Tensor]) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         det = self._maps(xs, self.cv2, self.cv3)
         return det, [cast_conv(seq[2], seq[1](seq[0](x)), self.dtype) for seq, x in zip(self.cv4, xs)]
+
+
+class OBB(Detect):
+    """Detect + per-level rotation-angle branches (``c4 = max(ch[0] // 4, ne)``
+    channels, then ``ne``). Returns (detect maps [(B, 4*reg_max + nc, H, W)],
+    angle maps [(B, ne, H, W)]); :func:`decode_obb_angle` maps the angle to
+    (-pi/4, 3pi/4)."""
+
+    def __init__(self, nc: int = 1, ne: int = 1, ch: Sequence[int] = (), reg_max: int = 16):
+        super().__init__(nc, ch, reg_max)
+        self.ne = int(ne)
+        self.cv4 = self._branches(ch, max(ch[0] // 4, self.ne), self.ne)
+
+    def forward(self, xs: List[torch.Tensor]) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        det = self._maps(xs, self.cv2, self.cv3)
+        return det, [cast_conv(seq[2], seq[1](seq[0](x)), self.dtype) for seq, x in zip(self.cv4, xs)]
+
+
+def decode_obb_angle(angle_maps: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Angle maps [(B, ne, H, W)] -> (B, A, ne) radians in (-pi/4, 3pi/4),
+    ``(sigmoid - 0.25) * pi`` in the maps' dtype, anchors level by level in
+    row-major order."""
+    flat = torch.cat([a.flatten(2).transpose(1, 2) for a in angle_maps], 1)
+    return (torch.sigmoid(flat) - 0.25) * math.pi
 
 
 def flat_kpts(kpt_maps: Sequence[torch.Tensor], kpt_shape: Sequence[int]) -> torch.Tensor:

@@ -4,13 +4,13 @@ Port of ``experiment_yolo_tpu/nn/tasks.py`` (``parse_model``,
 ``DetectionModel``) for the module types of ``yolov8.yaml``, ``yolov8-p2.yaml``,
 ``yolov8-ASF.yaml``, ``yolov8-ASF-P2.yaml``, ``yolov8-ASF-P2P2.yaml``,
 ``yolov8-LD-P2.yaml``, ``yolov8-C2f-VSS.yaml``, ``yolov8-aux.yaml``,
-``yolov8-lafiyolo.yaml``, ``yolov8-efficientnet.yaml``, ``yolov8-seg.yaml`` and
-``yolov8-pose.yaml`` (``PORTED`` below), and the ``C2f_LDConv`` block, which no YAML uses:
+``yolov8-lafiyolo.yaml``, ``yolov8-efficientnet.yaml``, ``yolov8-seg.yaml``,
+``yolov8-pose.yaml`` and ``yolov8-obb.yaml`` (``PORTED`` below), and the ``C2f_LDConv`` block, which no YAML uses:
 channel and depth scaling (``MBConv`` takes its repeats inside), savelist
 routing, strides from the graph's own downsampling (a ``Zoom_cat`` takes its
 middle source's), and the Detect bias priors, for a Detect on three or four
 levels, a ``DetectAux`` (its aux branches' priors too), a ``Segment``
-(``SegmentationModel``) or a ``Pose`` (``PoseModel``). Layers live in ``self.model``
+(``SegmentationModel``), a ``Pose`` (``PoseModel``) or an ``OBB`` (``OBBModel``). Layers live in ``self.model``
 so that state-dict names read ``model.{i}.<module names>``, as in the
 Ultralytics fork.
 """
@@ -27,16 +27,16 @@ import torch
 from torch import nn
 
 from experiment_yolo_torch.cfg import CFG_DIR, yaml_load
-from experiment_yolo_torch.nn.heads_extra import Pose, Proto, Segment, assemble_masks, decode_kpts
+from experiment_yolo_torch.nn.heads_extra import OBB, Pose, Proto, Segment, assemble_masks, decode_kpts, decode_obb_angle
 from experiment_yolo_torch.nn.modules import (C2f, SPPF, Add, C2fLD, Concat, Conv, ConvBNAct, Detect, DetectAux,
                                               LDConv, MBConv, ScalSeq, ZoomCat, init_weights)
 from experiment_yolo_torch.nn.zoo_blocks import INNER_BLOCKS, SS2D, C2fX, C3X, VSSBlock
-from experiment_yolo_torch.ops.anchors import decode_detections
+from experiment_yolo_torch.ops.anchors import decode_detections, decode_rboxes
 from experiment_yolo_torch.utils import select_device
 
 
 PORTED = "Conv, LDConv, C2f, C2f_LDConv, SPPF, MBConv, nn.Upsample, Concat, Add, ScalSeq, Zoom_cat, Detect, " \
-         "DetectAux, Segment, Pose, and " \
+         "DetectAux, Segment, Pose, OBB, and " \
          "C2f_<X> / C3_<X> for X in " + ", ".join(INNER_BLOCKS)
 
 
@@ -136,9 +136,12 @@ def parse_model(d: dict, ch: int = 3) -> Tuple[List[nn.Module], List[int], List[
                 ks = d.get("kpt_shape", (17, 3))
             c2, mod, s_out = 0, Pose(nc, tuple(ks), [chs[j] for j in src]), s_in
             det_strides = [int(down[j]) for j in src]
-        elif mname in ("OBB", "Classify") or mname.startswith(("Segment_", "Pose_", "OBB_")):
-            raise NotImplementedError(f"module {mname!r} (layer {i}): the OBB and classify heads and the other "
-                                      "segment and pose heads are not ported to experiment_yolo_torch yet (ROADMAP.md "
+        elif mname == "OBB":  # args: [nc, ne]
+            c2, mod, s_out = 0, OBB(nc, args[1] if len(args) > 1 else 1, [chs[j] for j in src]), s_in
+            det_strides = [int(down[j]) for j in src]
+        elif mname == "Classify" or mname.startswith(("Segment_", "Pose_", "OBB_")):
+            raise NotImplementedError(f"module {mname!r} (layer {i}): the classify head and the other segment, "
+                                      "pose and OBB heads are not ported to experiment_yolo_torch yet (ROADMAP.md "
                                       "catalogue item 13)")
         else:
             raise NotImplementedError(f"module {mname!r} (layer {i}) is not ported to experiment_yolo_torch; "
@@ -195,7 +198,7 @@ class DetectionModel(nn.Module):
         layers, self.save, strides = parse_model(self.yaml)
         if not isinstance(layers[-1], Detect):
             raise NotImplementedError("the last layer must be Detect")
-        head_task = {Segment: "segment", Pose: "pose"}.get(type(layers[-1]), "detect")
+        head_task = {Segment: "segment", Pose: "pose", OBB: "obb"}.get(type(layers[-1]), "detect")
         if head_task != self.task:
             raise ValueError(f"{type(self).__name__} cannot take a {type(layers[-1]).__name__} head: build a "
                              f"{TASK_MODELS[head_task].__name__}")
@@ -336,13 +339,27 @@ def guess_model_task(cfg) -> str:
     return "detect"
 
 
-TASK_MODELS = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel}
+class OBBModel(DetectionModel):
+    """Oriented-box model (JAX ``nn/tasks.py:1173``): a :class:`DetectionModel`
+    whose last layer is an ``OBB``. ``forward`` returns (detect maps, angle
+    maps); :meth:`predict` returns (rboxes (B, A, 5) xywhr, xywh in input
+    pixels and the angle in radians in (-pi/4, 3pi/4), scores (B, A, nc)),
+    ``ops/anchors.py:decode_rboxes``."""
+
+    task = "obb"
+
+    def predict(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        det, angle_maps = self(x)
+        return decode_rboxes(det, decode_obb_angle(angle_maps), self.stride, self.nc, self.reg_max)
+
+
+TASK_MODELS = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "obb": OBBModel}
 
 
 def task_model(task: str):
-    """The model class of ``task``; obb and classify raise naming ROADMAP.md
+    """The model class of ``task``; classify raises naming ROADMAP.md
     catalogue item 13."""
     if task not in TASK_MODELS:
         raise NotImplementedError(f"task={task!r} is not ported to experiment_yolo_torch yet (ROADMAP.md "
-                                  "catalogue item 13); the port builds detect, segment and pose models")
+                                  "catalogue item 13); the port builds detect, segment, pose and obb models")
     return TASK_MODELS[task]

@@ -297,3 +297,46 @@ def wise_iou_loss(pred: torch.Tensor, target: torch.Tensor, iou_mean: torch.Tens
         else:
             loss = loss * beta / (WIOU_DELTA * torch.pow(WIOU_ALPHA, beta - WIOU_DELTA))
     return loss, new_mean
+
+
+def _rbox_covariance(boxes: torch.Tensor):
+    """The Gaussian covariance terms (a, b, c) of xywhr boxes (..., 5), each
+    (..., 1), in the JAX package's order of operations (``ops/boxes.py:386``)."""
+    a = boxes[..., 2:3] ** 2 / 12.0
+    b = boxes[..., 3:4] ** 2 / 12.0
+    r = boxes[..., 4:5]
+    cos, sin = torch.cos(r), torch.sin(r)
+    return a * cos ** 2 + b * sin ** 2, a * sin ** 2 + b * cos ** 2, a * cos * sin - b * sin * cos
+
+
+def probiou(obb1: torch.Tensor, obb2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Probabilistic IoU of rotated xywhr boxes (arXiv:2106.06072; JAX
+    ``ops/boxes.py:401``), broadcast over the leading dims -> (...,). The JAX
+    package's order of operations and ``eps`` placements, and both clips:
+    each determinant at 0 and the Bhattacharyya distance to [eps, 100], so
+    that boxes far apart (two classes' centres ``max_wh`` apart) give
+    ``1 - sqrt(1 - exp(-100) + eps)``, not 0. Kernel K7
+    (``ops/kernels/nms_rotated.py``) computes the same float32 operations."""
+    x1, y1 = obb1[..., 0:1], obb1[..., 1:2]
+    x2, y2 = obb2[..., 0:1], obb2[..., 1:2]
+    a1, b1, c1 = _rbox_covariance(obb1)
+    a2, b2, c2 = _rbox_covariance(obb2)
+    denom = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / denom * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / denom * 0.5
+    det1 = _clip(a1 * b1 - c1 ** 2, 0.0)
+    det2 = _clip(a2 * b2 - c2 ** 2, 0.0)
+    t3 = torch.log(((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2) / (4 * torch.sqrt(det1 * det2) + eps) + eps) * 0.5
+    bd = _clip(t1 + t2 + t3, eps, 100.0)
+    hd = torch.sqrt(1.0 - torch.exp(-bd) + eps)
+    return (1.0 - hd)[..., 0]
+
+
+def xywhr2xyxyxyxy(rboxes: torch.Tensor) -> torch.Tensor:
+    """xywhr (..., 5) -> the four corners (..., 4, 2) (JAX ``ops/boxes.py:418``)."""
+    c, s = torch.cos(rboxes[..., 4]), torch.sin(rboxes[..., 4])
+    ctr = rboxes[..., :2]
+    w2, h2 = rboxes[..., 2] / 2.0, rboxes[..., 3] / 2.0
+    v1 = torch.stack([w2 * c, w2 * s], -1)
+    v2 = torch.stack([-h2 * s, h2 * c], -1)
+    return torch.stack([ctr + v1 + v2, ctr + v1 - v2, ctr - v1 - v2, ctr - v1 + v2], -2)

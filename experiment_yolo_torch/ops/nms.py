@@ -9,6 +9,11 @@ K5), packed into a fixed (B, max_det, 6) [x1, y1, x2, y2, conf, cls] plus
 per-image counts, and with ``return_idx`` the anchor of each kept row (the
 segment path gathers its mask coefficients by it).
 
+:func:`nms_rotated` is the oriented-box family's (JAX ``ops/nms.py:258-318``):
+the top-k pool of each anchor's best class, the class offset on the centres
+only, greedy hard suppression on the ProbIoU (kernel K7 on the card), packed
+into (B, max_det, 7) [x, y, w, h, angle, conf, cls].
+
 Ties in every top-k break toward the lower index, as ``jax.lax.top_k`` does,
 so the port keeps the JAX package's candidate order exactly.
 """
@@ -20,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from experiment_yolo_torch.ops.boxes import xywh2xyxy
+from experiment_yolo_torch.ops.kernels.nms_rotated import nms_rotated_suppress
 from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress
 from experiment_yolo_torch.ops.kernels.soft_nms import soft_nms
 
@@ -31,15 +37,16 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _pack(cand_boxes, cand_cls, cand_anchor, keep_scores, conf_thres: float, max_det: int):
-    """Top ``max_det`` kept candidates -> ((B, max_det, 6), counts (B,),
-    anchor indices (B, max_det) int32, 0 beyond the counts as in JAX)."""
+    """Top ``max_det`` kept candidates -> ((B, max_det, D + 2): the D box
+    values, conf, cls; counts (B,), anchor indices (B, max_det) int32, 0
+    beyond the counts as in JAX)."""
     b, k = keep_scores.shape
     out_scores, out_idx = _top_k(keep_scores, min(max_det, k))
     if k < max_det:
         out_scores = torch.cat([out_scores, out_scores.new_full((b, max_det - k), -1.0)], 1)
         out_idx = torch.cat([out_idx, out_idx.new_zeros((b, max_det - k))], 1)
     det_valid = out_scores > conf_thres
-    boxes = torch.gather(cand_boxes, 1, out_idx[..., None].expand(b, max_det, 4))
+    boxes = torch.gather(cand_boxes, 1, out_idx[..., None].expand(b, max_det, cand_boxes.shape[-1]))
     cls = torch.gather(cand_cls, 1, out_idx)
     out = torch.cat([boxes, out_scores[..., None], cls[..., None]], -1)
     anchor = torch.where(det_valid, torch.gather(cand_anchor, 1, out_idx), 0).to(torch.int32)
@@ -136,3 +143,49 @@ def non_max_suppression(boxes: torch.Tensor, scores: torch.Tensor, conf_thres: f
         keep_scores = torch.where(keep, c.scores, torch.full_like(c.scores, -1.0))
     out, counts, anchor = _pack(c.boxes, c.cls, c.anchor, keep_scores, conf_thres, max_det)
     return (out, counts, anchor) if return_idx else (out, counts)
+
+
+class RotatedCandidates(NamedTuple):
+    """The rotated NMS pool of each image, score-sorted: xywhr boxes (B, K,
+    5), classes (B, K) f32, scores (B, K), the boxes with the class offset on
+    their centres (B, K, 5), contiguous, the conf gate (B, K) and each
+    candidate's anchor (B, K)."""
+
+    boxes: torch.Tensor
+    cls: torch.Tensor
+    scores: torch.Tensor
+    shifted: torch.Tensor
+    valid: torch.Tensor
+    anchor: torch.Tensor
+
+
+def rotated_candidates(rboxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25,
+                       pre_nms_topk: int = 1024, max_wh: float = 7680.0) -> RotatedCandidates:
+    """The ``pre_nms_topk`` best anchors of each image by their best class
+    (JAX ``ops/nms.py:264-274``), their centres shifted by ``class *
+    max_wh``, so that a ProbIoU across classes meets its clip."""
+    rboxes, scores = rboxes.float(), scores.float()
+    b, a, _ = scores.shape
+    best_scores, best_cls = scores.max(-1)
+    k = min(pre_nms_topk, a)
+    cand_scores, cand_anchor = _top_k(best_scores, k)
+    cand_boxes = torch.gather(rboxes, 1, cand_anchor[..., None].expand(b, k, 5))
+    cand_cls = torch.gather(best_cls.float(), 1, cand_anchor)
+    shifted = torch.cat([cand_boxes[..., :2] + (cand_cls * max_wh)[..., None], cand_boxes[..., 2:]], -1)
+    return RotatedCandidates(cand_boxes, cand_cls, cand_scores, shifted.contiguous(), cand_scores > conf_thres,
+                             cand_anchor)
+
+
+def nms_rotated(rboxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
+                max_det: int = 300, pre_nms_topk: int = 1024, max_wh: float = 7680.0) -> Tuple:
+    """Batched rotated-box NMS: xywhr boxes (B, A, 5) and sigmoid scores (B, A,
+    nc) -> detections (B, max_det, 7) [x, y, w, h, angle, conf, cls],
+    zero-padded, and counts (B,) int32: :func:`rotated_candidates`, then box i
+    suppresses every later j with ``probiou(i, j) > iou_thres`` while i is
+    kept (kernel K7 on the card). Hard NMS only: no soft form, no
+    multi-label pool."""
+    c = rotated_candidates(rboxes, scores, conf_thres, pre_nms_topk, max_wh)
+    keep = nms_rotated_suppress(c.shifted, c.valid, iou_thres)
+    keep_scores = torch.where(keep, c.scores, torch.full_like(c.scores, -1.0))
+    out, counts, _ = _pack(c.boxes, c.cls, c.anchor, keep_scores, conf_thres, max_det)
+    return out, counts

@@ -19,12 +19,15 @@ API::
                    {"image": <base64 of them>};
                    -> {"detections": [{"box": [x1, y1, x2, y2], "conf", "cls",
                        "name"[, "mask_rle"][, "keypoints"]}], "speed_ms"}
+                   (an OBB model: [{"xywhr", "points", "conf", "cls", "name"}])
 
 A segmentation model's detections carry ``mask_rle``: the mask in the
 original image as COCO's uncompressed RLE, ``{"size": [h, w], "counts"}``,
 column-major, starting with a run of zeros (JAX ``serve.py:_rle``). A pose
 model's carry ``keypoints``: [[x, y(, conf)], ...] in the original image,
-each rounded to 2 decimals (JAX ``serve.py:276-278``).
+each rounded to 2 decimals (JAX ``serve.py:276-278``). An OBB model's
+detections are ``xywhr`` (the angle in radians), rounded to 4 decimals, and
+the four corner ``points``, rounded to 2 (JAX ``serve.py:256-265``).
 
 Bodies are decoded by ``data/image_io.py`` as ``cv2.imdecode`` decodes them
 in the JAX server, JPEGs for the model's device (nvJPEG on the card, libjpeg
@@ -235,8 +238,14 @@ def _rle(mask: np.ndarray) -> dict:
 
 def serialize_results(res) -> dict:
     """One image's :class:`Results` -> a JSON-safe dict of its detections
-    (with ``mask_rle`` when it has masks, ``keypoints`` when it has keypoints)."""
+    (with ``mask_rle`` when it has masks, ``keypoints`` when it has keypoints;
+    ``xywhr`` and ``points`` for oriented boxes)."""
     names = res.names or {}
+    if res.obb is not None:
+        return {"detections": [{"xywhr": [round(float(v), 4) for v in xr.tolist()],
+                                "points": [[round(float(v), 2) for v in pt] for pt in pts.tolist()],
+                                "conf": round(float(c), 4), "cls": int(k), "name": str(names.get(int(k), int(k)))}
+                               for xr, pts, c, k in zip(res.obb.xywhr, res.obb.xyxyxyxy, res.obb.conf, res.obb.cls)]}
     out = []
     for i, (b, c, k) in enumerate(zip(res.boxes.xyxy, res.boxes.conf, res.boxes.cls)):
         d = {"box": [round(float(v), 2) for v in b.tolist()], "conf": round(float(c), 4), "cls": int(k),

@@ -3,7 +3,7 @@
 The port's own copy of the name and layout mapping of
 ``experiment_yolo_tpu/utils/torch_convert.py`` (read in the other direction),
 for the layer types the port builds: ``Conv``, ``LDConv``, ``MBConv``, ``C2f``,
-``C2f_LDConv``, ``SPPF``, ``ScalSeq``, ``Detect``, ``DetectAux``, ``Segment``, ``Pose`` and the zoo containers
+``C2f_LDConv``, ``SPPF``, ``ScalSeq``, ``Detect``, ``DetectAux``, ``Segment``, ``Pose``, ``OBB`` and the zoo containers
 ``C2f_VSS``, ``C2f_LVMB``, ``C3_VSS``, ``C3_LVMB``. It takes the JAX package's
 ``{'params', 'batch_stats'}`` as nested dicts of numpy arrays and returns a
 state dict for ``model.load_state_dict(..., strict=True)``; a tree shaped like
@@ -28,7 +28,7 @@ Layout rules:
   flax's ``ConvTranspose`` kernel (kh, kw, I, O), which does not flip:
   PyTorch's ``ConvTranspose2d`` weight (I, O, kh, kw) is that kernel with
   both spatial axes reversed
-- Pose (the port's own mapping too): ``cv2``/``cv3`` from its nested
+- Pose and OBB (the port's own mapping too): ``cv2``/``cv3`` from its nested
   ``detect`` module, ``cv4.{i}.{j}`` from ``cv4_{i}_{j}`` at the head's level
 - VSSBlock / SS2D: Dense kernel (I, O) -> Linear weight (O, I); the depthwise
   conv kernel (3, 3, 1, d_inner) -> (d_inner, 1, 3, 3) by the conv rule, and
@@ -164,8 +164,8 @@ def _rule(mtype: str, rest: List[str], module) -> Rule:
             return "params", ("proto", "upsample", "kernel" if rest[2] == "weight" else "bias"), \
                 _conv_transpose if rest[2] == "weight" else _same
         return _conv_bn(("proto", rest[1]), rest[2:])
-    if mtype in ("Detect", "DetectAux", "Segment", "Pose"):  # cv2.{i}.{j}: j in (0, 1) a Conv, j == 2 a bare Conv2d
-        nested = mtype in ("Segment", "Pose") and rest[0] != "cv4" or \
+    if mtype in ("Detect", "DetectAux", "Segment", "Pose", "OBB"):  # cv2.{i}.{j}: j in (0, 1) a Conv, j == 2 a Conv2d
+        nested = mtype in ("Segment", "Pose", "OBB") and rest[0] != "cv4" or \
             mtype == "DetectAux" and rest[0] not in ("cv4", "cv5")
         name = (*(("detect",) if nested else ()),
                 f"{rest[0]}_{rest[1]}_{rest[2]}")

@@ -113,6 +113,18 @@ def df_loss(pred_dist: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (lse - proj).mean(1)
 
 
+def df_loss_levels(pred_maps: Sequence[torch.Tensor], target_ltrb: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """:func:`df_loss` of each level's box channels against its anchors' rows
+    of ``target_ltrb`` (B, A, 4) -> (B, A)."""
+    parts, start = [], 0
+    for f in pred_maps:
+        b, _, h, w = f.shape
+        d = f[:, : 4 * reg_max].reshape(b, 4, reg_max, h * w)
+        parts.append(df_loss(d, target_ltrb[:, start:start + h * w].transpose(1, 2)))
+        start += h * w
+    return torch.cat(parts, 1)
+
+
 class _BCESum(torch.autograd.Function):
     """``sum(max(x, 0) - x * t + log1p(exp(-|x|)))`` over every element, in
     the logits' dtype with an f32 sum, and the analytic backward
@@ -249,14 +261,7 @@ def _box_dfl_losses(pred_maps: List[torch.Tensor], pred_bboxes: torch.Tensor, an
         nwd_loss = (torch.where(fg_mask, 1.0 - nwd, 0.0) * weight).sum() / target_scores_sum
         loss_iou = cfg.iou_ratio * loss_iou + (1.0 - cfg.iou_ratio) * nwd_loss
 
-    target_ltrb = bbox2dist(anchor_points[None], target_bboxes, reg_max)  # (B, A, 4)
-    parts, start = [], 0
-    for f in pred_maps:
-        b, _, h, w = f.shape
-        d = f[:, : 4 * reg_max].reshape(b, 4, reg_max, h * w)
-        parts.append(df_loss(d, target_ltrb[:, start:start + h * w].transpose(1, 2)))
-        start += h * w
-    dfl = torch.cat(parts, 1)  # (B, A)
+    dfl = df_loss_levels(pred_maps, bbox2dist(anchor_points[None], target_bboxes, reg_max), reg_max)
     loss_dfl = (torch.where(fg_mask, dfl, 0.0) * weight).sum() / target_scores_sum
     return loss_iou, loss_dfl, new_iou_mean
 

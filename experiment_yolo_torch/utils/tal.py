@@ -1,8 +1,10 @@
 """Task-aligned assigner (TAL) on padded ground truth.
 
 Port of ``experiment_yolo_tpu/utils/tal.py`` (``select_candidates_in_gts``,
-``_select_topk_mask`` with ``exact=True``, ``assign``) for axis-aligned boxes:
-ground truth arrives padded to M boxes per image with a validity mask, and
+``select_candidates_in_rotated_gts``, ``_select_topk_mask`` with
+``exact=True``, ``assign``) for axis-aligned boxes and, with ``rotated``, for
+xywhr boxes (the RotatedTaskAlignedAssigner: point-in-rotated-rectangle
+candidates and ProbIoU overlaps; JAX ``utils/tal.py:121-142``): ground truth arrives padded to M boxes per image with a validity mask, and
 every step is a fixed-shape masked computation. The whole assigner runs
 without gradients, as in the JAX package (callers pass detached predictions).
 """
@@ -14,7 +16,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from experiment_yolo_torch.ops.boxes import bbox_iou
+from experiment_yolo_torch.ops.boxes import bbox_iou, probiou, xywhr2xyxyxyxy
 
 
 class AssignResult(NamedTuple):
@@ -33,6 +35,22 @@ def select_candidates_in_gts(xy_centers: torch.Tensor, gt_bboxes: torch.Tensor, 
     return (x - x1 > eps) & (y - y1 > eps) & (x2 - x > eps) & (y2 - y > eps)
 
 
+def select_candidates_in_rotated_gts(xy_centers: torch.Tensor, gt_rboxes: torch.Tensor) -> torch.Tensor:
+    """Anchor centres inside rotated gt boxes, edges included: (A, 2) x (B, M,
+    5 xywhr) -> (B, M, A) bool, the centre projected on two edges of the box
+    (JAX ``utils/tal.py:51``)."""
+    corners = xywhr2xyxyxyxy(gt_rboxes)  # (B, M, 4, 2)
+    a, b, d = corners[..., 0, :], corners[..., 1, :], corners[..., 3, :]
+    ab = (b - a)[..., None, :]  # (B, M, 1, 2)
+    ad = (d - a)[..., None, :]
+    ap = xy_centers[None, None] - a[..., None, :]  # (B, M, A, 2)
+    norm_ab = (ab * ab).sum(-1)
+    norm_ad = (ad * ad).sum(-1)
+    ap_ab = (ap * ab).sum(-1)
+    ap_ad = (ap * ad).sum(-1)
+    return (ap_ab >= 0) & (ap_ab <= norm_ab) & (ap_ad >= 0) & (ap_ad <= norm_ad)
+
+
 def select_topk_mask(metrics: torch.Tensor, topk: int, valid_gt: torch.Tensor) -> torch.Tensor:
     """The exact top-k anchors of each gt as a (B, M, A) 0/1 mask, zero on
     invalid gt rows.
@@ -48,29 +66,51 @@ def select_topk_mask(metrics: torch.Tensor, topk: int, valid_gt: torch.Tensor) -
 
 
 @torch.no_grad()
-def assign(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.Tensor, gt_labels: torch.Tensor,
-           gt_bboxes: torch.Tensor, mask_gt: torch.Tensor, topk: int = 10, num_classes: int = 80,
-           alpha: float = 0.5, beta: float = 6.0, eps: float = 1e-9) -> AssignResult:
-    """Task-aligned assignment (s^alpha * u^beta), fixed shapes throughout.
-
-    pd_scores (B, A, nc) sigmoided; pd_bboxes (B, A, 4) xyxy px; anc_points
-    (A, 2) px; gt_labels (B, M); gt_bboxes (B, M, 4) xyxy px, zero rows as
-    padding; mask_gt (B, M) bool.
-    """
+def align_metrics(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.Tensor, gt_labels: torch.Tensor,
+                  gt_bboxes: torch.Tensor, mask_gt: torch.Tensor, alpha: float = 0.5, beta: float = 6.0,
+                  rotated: bool = False):
+    """(candidates, overlaps, align metrics) of :func:`assign`, each (B, M,
+    A): the anchors inside each valid gt, their CIoU (or ProbIoU) with it and
+    s^alpha * u^beta, both 0 off the candidates."""
     b, a, nc = pd_scores.shape
     m = gt_bboxes.shape[1]
-    gt_labels = gt_labels.to(torch.int32)
     mask_gt = mask_gt.bool()
-
-    pre_mask = select_candidates_in_gts(anc_points, gt_bboxes) & mask_gt[..., None]  # (B, M, A)
+    in_gts = select_candidates_in_rotated_gts if rotated else select_candidates_in_gts
+    pre_mask = in_gts(anc_points, gt_bboxes) & mask_gt[..., None]  # (B, M, A)
     # each anchor's score for each gt's class: one nonzero per row, so exact
-    label_idx = gt_labels.clamp(0, nc - 1).long()[..., None].expand(b, m, a)
+    label_idx = gt_labels.to(torch.int32).clamp(0, nc - 1).long()[..., None].expand(b, m, a)
     cls_scores = pd_scores.transpose(1, 2).gather(1, label_idx)  # (B, M, A)
-    overlaps = bbox_iou(gt_bboxes[:, :, None], pd_bboxes[:, None], xywh=False, CIoU=True)[..., 0]
+    if rotated:
+        overlaps = probiou(gt_bboxes[:, :, None], pd_bboxes[:, None])
+    else:
+        overlaps = bbox_iou(gt_bboxes[:, :, None], pd_bboxes[:, None], xywh=False, CIoU=True)[..., 0]
     overlaps = torch.where(pre_mask, overlaps, 0.0).clamp(min=0.0)
     cls_scores = torch.where(pre_mask, cls_scores, 0.0)
     # s^alpha in f32: XLA fuses JAX's bf16 power into the f32 product without rounding it to bf16
     align_metric = cls_scores.float() ** alpha * overlaps ** beta
+    # XLA flushes subnormal results to 0 (on the CPU as on the TPU), so a metric under the smallest normal float ties
+    # at 0 in the JAX package (a far ProbIoU of 1e-7 gives u^6 = 1e-42): flushed here, the top-k ties break alike
+    align_metric = torch.where(align_metric < torch.finfo(torch.float32).tiny, 0.0, align_metric)
+    return pre_mask, overlaps, align_metric
+
+
+@torch.no_grad()
+def assign(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.Tensor, gt_labels: torch.Tensor,
+           gt_bboxes: torch.Tensor, mask_gt: torch.Tensor, topk: int = 10, num_classes: int = 80,
+           alpha: float = 0.5, beta: float = 6.0, eps: float = 1e-9, rotated: bool = False) -> AssignResult:
+    """Task-aligned assignment (s^alpha * u^beta), fixed shapes throughout.
+
+    pd_scores (B, A, nc) sigmoided; pd_bboxes (B, A, 4) xyxy px; anc_points
+    (A, 2) px; gt_labels (B, M); gt_bboxes (B, M, 4) xyxy px, zero rows as
+    padding; mask_gt (B, M) bool. With ``rotated`` the boxes are (B, A, 5)
+    and (B, M, 5) xywhr px, the candidates the anchors inside each rotated
+    box and the overlaps their ProbIoU.
+    """
+    m = gt_bboxes.shape[1]
+    gt_labels = gt_labels.to(torch.int32)
+    mask_gt = mask_gt.bool()
+    pre_mask, overlaps, align_metric = align_metrics(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt,
+                                                     alpha, beta, rotated)
 
     mask_pos = select_topk_mask(align_metric, topk, mask_gt) * pre_mask.to(align_metric.dtype)  # (B, M, A)
 
@@ -84,7 +124,7 @@ def assign(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.T
 
     oh_gt = mi == target_gt_idx[:, None, :]  # (B, M, A), one hit per anchor
     target_labels = torch.where(oh_gt, gt_labels[:, :, None], 0).sum(1, dtype=torch.int32).clamp(min=0)
-    target_bboxes = torch.where(oh_gt[..., None], gt_bboxes[:, :, None, :], 0.0).sum(1)  # (B, A, 4)
+    target_bboxes = torch.where(oh_gt[..., None], gt_bboxes[:, :, None, :], 0.0).sum(1)  # (B, A, 4 or 5)
     onehot = F.one_hot(target_labels.long(), num_classes).to(pd_scores.dtype)
     target_scores = torch.where(fg_mask[..., None], onehot, 0.0)
 

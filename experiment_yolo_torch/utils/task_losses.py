@@ -1,9 +1,10 @@
-"""The segmentation and pose losses: the detection loss plus a per-instance
-mask BCE, or plus the keypoint terms.
+"""The segmentation, pose and oriented-box losses: the detection loss plus a
+per-instance mask BCE, or plus the keypoint terms; and the rotated-box loss.
 
 Port of ``experiment_yolo_tpu/utils/task_losses.py`` (``OKS_SIGMA:36``,
-``crop_mask:42``, ``segmentation_loss:54``, ``pose_loss:109``), the
-reference's ``v8SegmentationLoss`` and ``v8PoseLoss`` in fixed shapes. For
+``crop_mask:42``, ``segmentation_loss:54``, ``pose_loss:109``,
+``obb_loss:173``), the reference's ``v8SegmentationLoss``, ``v8PoseLoss``
+and ``v8OBBLoss`` in fixed shapes. For
 segmentation: the detection part is :func:`~experiment_yolo_torch.utils.loss.detection_loss`
 with its assignment returned, and the mask term takes the ``max_fg`` (64)
 foreground anchors of largest target score per image, as ``jax.lax.top_k``
@@ -26,6 +27,18 @@ the compute dtype. Under bf16 the targets are rounded to bf16 (as JAX casts
 them to the maps' dtype), the location term runs in f32 (the anchors and
 strides are f32) with the sigmas' ``(2 * sigma)^2`` in bf16, and the
 visibility BCE and its sum in bf16.
+
+The OBB loss is JAX's: the rotated assigner (``utils/tal.py``, ProbIoU
+overlaps) on the decoded xywhr boxes, the class BCE, a ``1 - probiou`` box
+term and the DFL on the unrotated box of each target (its ``xywh2xyxy``, the
+angle left out, as upstream), each weighted by target score; targets under
+2 px on a side are masked out. Off the foreground the box term meets a unit
+box in place of a padded target, so that its gradient is 0 where JAX's is NaN
+(see :func:`obb_loss`). It keeps no Wise-IoU mean and ignores
+``iou_type``, NWD and the class-loss zoo, as JAX does. Its dtypes follow the
+JAX trainer's obb branch (``engine/trainer.py:476-482``): the detect maps in
+f32, the angle maps in the compute dtype, so under bf16 the angle's sigmoid,
+cosine and sine run in bf16 before they meet the f32 distances.
 """
 
 from __future__ import annotations
@@ -35,8 +48,12 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from experiment_yolo_torch.nn.heads_extra import flat_kpts
-from experiment_yolo_torch.utils.loss import LossConfig, _sigmoid_bce, detection_loss
+from experiment_yolo_torch.nn.heads_extra import decode_obb_angle, flat_kpts
+from experiment_yolo_torch.ops.anchors import bbox2dist, dist2rbox, make_anchors
+from experiment_yolo_torch.ops.boxes import probiou, xywh2xyxy
+from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode_levels
+from experiment_yolo_torch.utils import tal
+from experiment_yolo_torch.utils.loss import LossConfig, _sigmoid_bce, detection_loss, df_loss_levels
 
 MAX_FG = 64  # foreground anchors a image that the mask term takes
 # the COCO 17-keypoint OKS sigmas (the reference's metrics.py:14)
@@ -163,3 +180,53 @@ def pose_loss(feats: Sequence[torch.Tensor], kpt_maps: Sequence[torch.Tensor], b
 
     comps = {**comps, "pose": loss_pose * pose_gain, "kobj": loss_kobj * kobj_gain}
     return total_det + (comps["pose"] + comps["kobj"]) * b, comps, res, new_iou
+
+
+def obb_loss(feats: Sequence[torch.Tensor], angle_maps: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor],
+             strides: Sequence[int], cfg: LossConfig) -> Tuple:
+    """(total, {box, cls, dfl}, assignment) of the detect maps ``feats`` [(B,
+    4*reg_max + nc, H, W)] and the angle maps [(B, ne, H, W)]; ``batch`` holds
+    ``bboxes`` (B, M, 5) normalised xywh and the angle in radians, ``cls``
+    (B, M) and ``mask`` (B, M). The total is the components' sum times the
+    batch size, as the reference's."""
+    nc, reg_max = cfg.nc, cfg.reg_max
+    b = feats[0].shape[0]
+    pred_scores = torch.cat([f[:, 4 * reg_max:].reshape(b, nc, -1) for f in feats], 2).transpose(1, 2)  # (B, A, nc)
+    dtype = pred_scores.dtype
+    feat_shapes = [tuple(f.shape[2:4]) for f in feats]
+    anchor_points, stride_tensor = make_anchors(feat_shapes, strides, 0.5, device=feats[0].device)
+    imgsz_h, imgsz_w = feats[0].shape[2] * strides[0], feats[0].shape[3] * strides[0]
+    angle = decode_obb_angle(angle_maps)  # (B, A, ne), the angle maps' dtype
+
+    # targets: normalised xywh + angle -> pixel xywhr, boxes under 2 px masked
+    gt = batch["bboxes"].to(dtype)
+    gt_xywh = gt[..., :4] * torch.tensor([imgsz_w, imgsz_h, imgsz_w, imgsz_h], dtype=dtype, device=gt.device)
+    mask_gt = batch["mask"].bool() & (gt_xywh[..., 2] >= 2) & (gt_xywh[..., 3] >= 2)
+    gt_rboxes = torch.where(mask_gt[..., None], torch.cat([gt_xywh, gt[..., 4:5]], -1), 0.0)
+
+    dist = dfl_decode_levels(feats, reg_max)  # (B, A, 4) grid units, K1 and its backward on the card
+    xywh = dist2rbox(dist, angle[..., :1], anchor_points[None])
+    pred_rboxes = torch.cat([xywh, angle[..., :1].to(xywh.dtype)], -1)  # (B, A, 5) grid units
+    assigner_boxes = torch.cat([pred_rboxes[..., :4] * stride_tensor[None], pred_rboxes[..., 4:5]], -1).detach()
+    res = tal.assign(torch.sigmoid(pred_scores.detach()), assigner_boxes, anchor_points * stride_tensor,
+                     batch["cls"], gt_rboxes, mask_gt, topk=cfg.tal_topk, num_classes=nc, alpha=cfg.tal_alpha,
+                     beta=cfg.tal_beta, rotated=True)
+    target_scores, fg_mask = res.target_scores, res.fg_mask
+    target_scores_sum = target_scores.sum().clamp(min=1.0)
+    target_rboxes = torch.cat([res.target_bboxes[..., :4] / stride_tensor[None], res.target_bboxes[..., 4:5]], -1)
+
+    loss_cls = _sigmoid_bce(pred_scores, target_scores).sum() / target_scores_sum
+    weight = torch.where(fg_mask, target_scores.sum(-1), 0.0)
+    # JAX takes every anchor's ProbIoU and masks it after; an anchor off the foreground whose target is a padded
+    # zero box (gt row 0 of an image without labels, or one under 2 px) then gets 0 * inf = NaN in its gradient,
+    # from the square root of a zero determinant. Here such anchors meet a unit box: the values and the foreground's
+    # gradients are JAX's, and the rest of the gradient is 0 where JAX's is NaN.
+    iou = probiou(pred_rboxes, torch.where(fg_mask[..., None], target_rboxes,
+                                           target_rboxes.new_tensor([0.0, 0.0, 1.0, 1.0, 0.0])))
+    loss_iou = (torch.where(fg_mask, 1.0 - iou, 0.0) * weight).sum() / target_scores_sum
+    target_ltrb = bbox2dist(anchor_points[None], xywh2xyxy(target_rboxes[..., :4]), reg_max)
+    dfl = df_loss_levels(feats, target_ltrb, reg_max)
+    loss_dfl = (torch.where(fg_mask, dfl, 0.0) * weight).sum() / target_scores_sum
+
+    comps = {"box": loss_iou * cfg.box, "cls": loss_cls * cfg.cls, "dfl": loss_dfl * cfg.dfl}
+    return (comps["box"] + comps["cls"] + comps["dfl"]) * b, comps, res

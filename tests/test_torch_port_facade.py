@@ -190,7 +190,7 @@ def test_refusals(tmp_path):
     with pytest.raises(TypeError, match="unsupported source"):
         yolo.predict(3.5)
     with pytest.raises(NotImplementedError, match="catalogue item 13"):
-        YOLO(CFG, device="cpu", task="obb")
+        YOLO(CFG, device="cpu", task="classify")
     for task in ("segment", "pose"):  # ported, but this head is Detect
         with pytest.raises(ValueError, match="build a DetectionModel"):
             YOLO(CFG, device="cpu", task=task)

@@ -27,11 +27,13 @@ mods = sys.argv[1:]
 for m in mods:
     __import__(m)
 from experiment_yolo_torch import DetectionModel, DetectionPredictor
-from experiment_yolo_torch.ops.kernels import dfl_decode, ldconv_gather, nms_suppress, selective_scan, soft_nms
+from experiment_yolo_torch.ops.kernels import dfl_decode, ldconv_gather, nms_rotated, nms_suppress, selective_scan, soft_nms
 model = DetectionModel("yolov8-LD-P2.yaml", device="cpu")
 imgs = [np.random.default_rng(0).integers(0, 256, (64, 48, 3), dtype=np.uint8)]
 for nms_type in ("soft", "hard"):
     DetectionPredictor(model, {"imgsz": 64, "batch": 1, "nms_type": nms_type})(imgs)
+from experiment_yolo_torch.nn.tasks import OBBModel
+DetectionPredictor(OBBModel("yolov8-obb.yaml", device="cpu"), {"imgsz": 64, "batch": 1, "conf": 0.0})(imgs)
 from experiment_yolo_torch import DetectionValidator
 from experiment_yolo_torch.utils.seeded import seeded_batch
 val = {**seeded_batch(2, 64, 1), "ori_shape": np.full((2, 2), 64), "ratio_pad": np.tile(np.float32([1, 0, 0]), (2, 1))}
@@ -68,7 +70,7 @@ launches = [dfl_decode.dfl_decode.launches, ldconv_gather.ldconv_gather.launches
             dfl_decode.dfl_decode_bwd.launches, ldconv_gather.ldconv_gather_bwd.launches,
             selective_scan.selective_scan.launches, soft_nms.soft_nms.launches, dfl_decode.dfl_decode_bf16.launches,
             dfl_decode.dfl_decode_bwd_bf16.launches, ldconv_gather.ldconv_gather_bf16.launches,
-            ldconv_gather.ldconv_gather_bwd_bf16.launches]
+            ldconv_gather.ldconv_gather_bwd_bf16.launches, nms_rotated.nms_rotated_suppress.launches]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "cv2", "PIL", "matplotlib"))
 print(len(mods), launches, bad)
@@ -78,7 +80,8 @@ print(len(mods), launches, bad)
 def test_port_imports_no_jax_and_cpu_launches_nothing():
     """In a fresh interpreter: import every port module (``engine/model.py``,
     ``cfg/cli.py`` and ``serve.py`` among them), serve two CPU predicts of
-    LD-P2 and one of a small VSS model, validate LD-P2 with soft-NMS in quirk
+    LD-P2, one of a small VSS model and one of ``yolov8-obb.yaml`` at conf 0
+    (rotated NMS), validate LD-P2 with soft-NMS in quirk
     mode and with hard NMS, take one CPU training step with Wise-IoU and NWD
     and one with the defaults (bf16), predict through ``YOLO``, run the CLI's
     ``version`` and answer one request through ``DetectionServer``. Nothing
@@ -90,7 +93,7 @@ def test_port_imports_no_jax_and_cpu_launches_nothing():
     out = subprocess.run([sys.executable, "-c", _PROBE, *MODULES], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[-2] == f"{len(MODULES)} [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0] []"
+    assert out.stdout.split("\n")[-2] == f"{len(MODULES)} [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0] []"
 
 
 def test_port_sources_name_no_cv2_pil_or_jax():
@@ -185,7 +188,7 @@ def test_cli_process_imports_no_jax_or_opencv(tmp_path):
                                   "models/yolov8-ASF-P2P2.yaml", "models/yolov8-ASF-P2.yaml",
                                   "models/yolov8-ASF.yaml", "models/yolov8-p2.yaml", "models/yolov8-aux.yaml",
                                   "models/yolov8-lafiyolo.yaml", "models/yolov8-efficientnet.yaml",
-                                  "models/yolov8-seg.yaml", "models/yolov8-pose.yaml"])
+                                  "models/yolov8-seg.yaml", "models/yolov8-pose.yaml", "models/yolov8-obb.yaml"])
 def test_yaml_copies_equal_originals(name):
     assert (PORT / "cfg" / name).read_bytes() == (ROOT / "experiment_yolo_tpu" / "cfg" / name).read_bytes()
 
@@ -204,6 +207,22 @@ def test_experiment_modules_import_nothing_of_jax_the_jax_package_or_scripts(mod
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "scripts", "cv2", "PIL",
                                               "compare_models", "run_experiment"), f"{module} imports {name}"
+
+
+@pytest.mark.parametrize("module", ["data/split_dota.py", "data/converter.py", "ops/kernels/nms_rotated.py"])
+def test_dota_tools_and_k7_wrapper_import_nothing_of_jax_the_jax_package_or_opencv(module):
+    """The DOTA tools and the K7 wrapper are the port's own: no JAX, no JAX
+    package (its ``data/split_dota.py`` is JAX-free, and still not imported),
+    no OpenCV and no PIL, by statement or by name."""
+    text = (PORT / module).read_text()
+    for word in ("import_module", "__import__", "sys.path"):
+        assert word not in text, f"{module} names {word}"
+    for node in ast.walk(ast.parse(text)):
+        names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
+            [node.module or ""] if isinstance(node, ast.ImportFrom) else []
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "experiment_yolo_tpu", "cv2", "PIL",
+                                              "shapely"), f"{module} imports {name}"
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
@@ -236,6 +255,7 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     tensor reaches a plain version."""
     from experiment_yolo_torch.ops.kernels.dfl_decode import dfl_decode, dfl_decode_bwd
     from experiment_yolo_torch.ops.kernels.ldconv_gather import ldconv_gather, ldconv_gather_bwd
+    from experiment_yolo_torch.ops.kernels.nms_rotated import nms_rotated_suppress
     from experiment_yolo_torch.ops.kernels.nms_suppress import nms_suppress
     from experiment_yolo_torch.ops.kernels.selective_scan import selective_scan
     from experiment_yolo_torch.ops.kernels.soft_nms import soft_nms
@@ -252,6 +272,8 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
                           torch.zeros(1, 64, 9, **meta), 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         nms_suppress(torch.zeros(1, 8, 4, **meta), torch.zeros(1, 8, dtype=torch.bool, **meta), 0.5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        nms_rotated_suppress(torch.zeros(1, 8, 5, **meta), torch.zeros(1, 8, dtype=torch.bool, **meta), 0.5)
     with pytest.raises(ValueError, match="CUDA tensor"):
         soft_nms(torch.zeros(1, 8, 4, **meta), torch.zeros(1, 8, **meta), torch.zeros(1, 8, dtype=torch.bool, **meta),
                  0.5, 300)

@@ -96,16 +96,16 @@ def test_detection_loss_value_and_gradient_match_jax(seed):
     each of the three head maps within 1e-5 abs + 1e-4 rel: the per-level DFL
     decode (K1's plain version and its backward), TAL, BCE, CIoU and the DFL
     loss, against ``jax.value_and_grad`` of the JAX ``detection_loss`` with
-    its default switches and the exact top-k."""
+    its default switches and the exact top-k, jitted."""
     maps, lab = _head_maps(seed), _labels(seed + 5)
     jcfg = JLossConfig(nc=NC, exact_topk=True)
 
-    def jfn(feats):
-        total, comps, _ = j_loss(feats, {k: jnp.asarray(v) for k, v in lab.items()}, STRIDES, jcfg)
+    def jfn(feats, labels):
+        total, comps, _ = j_loss(feats, labels, STRIDES, jcfg)
         return total, comps
 
-    (jtotal, jcomps), jgrads = jax.value_and_grad(jfn, has_aux=True)(
-        [jnp.asarray(np.transpose(m, (0, 2, 3, 1))) for m in maps])
+    (jtotal, jcomps), jgrads = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
+        [jnp.asarray(np.transpose(m, (0, 2, 3, 1))) for m in maps], {k: jnp.asarray(v) for k, v in lab.items()})
     feats = [torch.from_numpy(m).requires_grad_() for m in maps]
     total, comps, res, _ = t_loss(feats, {k: torch.from_numpy(v) for k, v in lab.items()}, STRIDES, TLossConfig(nc=NC))
     total.backward()

@@ -162,7 +162,7 @@ def test_pose_head_at_5x3_matches_jax():
 def test_pose_task_routing():
     """A ``-pose`` YAML builds a ``PoseModel`` through the facade; a
     ``DetectionModel`` refuses a Pose head and a ``PoseModel`` a Detect head;
-    the two-stage methods refuse a pose model; obb and classify still raise
+    the two-stage methods refuse a pose model; classify still raises
     naming catalogue item 13."""
     assert guess_model_task("yolov8n-pose.yaml") == "pose" and task_model("pose") is TPoseModel
     yolo = YOLO("yolov8n-pose.yaml", device="cpu")
@@ -174,7 +174,7 @@ def test_pose_task_routing():
         TDetModel(_pose_cfg((17, 3)), device="cpu")
     with pytest.raises(ValueError, match="DetectionModel"):
         TPoseModel("yolov8n.yaml", device="cpu")
-    for task in ("obb", "classify"):
+    for task in ("classify",):
         with pytest.raises(NotImplementedError, match="catalogue item 13"):
             task_model(task)
 

@@ -154,10 +154,11 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_launches_nothing():
 
 def test_cpu_gradients_match_jax():
     """The CPU path is differentiable as it stands: every input's gradient of
-    sum(y * w) against ``jax.grad`` of the reference, 1e-4 of its largest value."""
+    sum(y * w) against ``jax.grad`` of the reference (jitted), 1e-4 of its
+    largest value."""
     arrays = _inputs(2, 24, 4, 16, seed=7)
     w = np.random.default_rng(8).standard_normal(arrays[0].shape).astype(np.float32)
-    want = jax.grad(lambda *a: jnp.sum(selective_scan_reference(*a) * w), argnums=tuple(range(6)))(*arrays)
+    want = jax.jit(jax.grad(lambda *a: jnp.sum(selective_scan_reference(*a) * w), argnums=tuple(range(6))))(*arrays)
     leaves = [t.requires_grad_() for t in _torch(arrays)]
     (selective_scan(*leaves) * torch.from_numpy(w)).sum().backward()
     for t, g in zip(leaves, want):

@@ -138,8 +138,9 @@ def test_seg_model_build_predict_and_task_match_jax(seg_pair):
     scores, flat coefficients and protos, within 1e-5 of each tensor's
     largest value (about 3e-6 a layer over 23 layers); the task routing: a
     ``-seg`` YAML builds a ``SegmentationModel``, a ``DetectionModel``
-    refuses a Segment head, and obb and classify raise naming catalogue
-    item 13 (pose is ported: ``tests/test_torch_port_pose.py``)."""
+    refuses a Segment head, and classify raises naming catalogue item 13
+    (pose and obb are ported: ``tests/test_torch_port_pose.py``,
+    ``tests/test_torch_port_obb.py``)."""
     jm, variables, tm = seg_pair
     assert sum(p.numel() for p in tm.parameters()) == sum(v.size for v in jax.tree.leaves(variables["params"]))
     assert tuple(tm.stride) == tuple(jm.strides) == STRIDES
@@ -167,7 +168,7 @@ def test_seg_model_build_predict_and_task_match_jax(seg_pair):
             method([np.zeros((64, 64, 3), np.uint8)])
     with pytest.raises(ValueError, match="SegmentationModel"):
         TDetModel({**yaml_model_load("yolov8n-seg.yaml"), "nc": NC}, device="cpu")
-    for task in ("obb", "classify"):
+    for task in ("classify",):
         with pytest.raises(NotImplementedError, match="catalogue item 13"):
             task_model(task)
         with pytest.raises(NotImplementedError, match="catalogue item 13"):

@@ -62,13 +62,13 @@ def _jax_trainer(jm, variables):
 
 
 def _fg_masks(jm, jt, variables, tr, batch):
-    """The TAL foreground mask of each package's loss on the first batch,
-    from the initial weights in train mode (on a copy of the port model, so
-    that its BatchNorm statistics stay as they were)."""
+    """The TAL foreground mask of each package's loss (JAX's jitted) on the
+    first batch, from the initial weights in train mode (on a copy of the
+    port model, so that its BatchNorm statistics stay as they were)."""
     img = batch["img"].astype(np.float32) / 255.0
     feats, _ = jax.jit(lambda v, x: jm.module.apply(v, x, True, mutable=["batch_stats"]))(variables, img)
     tb = {k: jnp.asarray(batch[k]) for k in ("bboxes", "cls", "mask")}
-    jmask = j_loss(list(feats), tb, jm.strides, jt.loss_cfg, return_aux=True)[-1]["fg_mask"]
+    jmask = jax.jit(lambda f, b: j_loss(list(f), b, jm.strides, jt.loss_cfg, return_aux=True)[-1]["fg_mask"])(feats, tb)
     model = copy.deepcopy(tr.state.model)
     with torch.no_grad():
         tfeats = model(torch.from_numpy(np.ascontiguousarray(img.transpose(0, 3, 1, 2))))

@@ -137,17 +137,16 @@ def test_detection_loss_with_the_recipe_matches_jax(seed):
     """The loss with Wise-IoU and the NWD blend: components within 1e-5
     relative, the new running mean (over foreground anchors only, from 0.8)
     within 1e-6 relative, the gradient with respect to each head map within
-    1e-5 abs + 1e-4 rel."""
+    1e-5 abs + 1e-4 rel; JAX's loss and gradient jitted."""
     maps, lab = _head_maps(seed), _labels(seed + 5)
     jcfg = JLossConfig(nc=NC, exact_topk=True, **RECIPE)
 
-    def jfn(feats):
-        total, comps, new_mean = j_loss(feats, {k: jnp.asarray(v) for k, v in lab.items()}, STRIDES, jcfg,
-                                        jnp.float32(0.8))
+    def jfn(feats, labels):
+        total, comps, new_mean = j_loss(feats, labels, STRIDES, jcfg, jnp.float32(0.8))
         return total, (comps, new_mean)
 
-    (jtotal, (jcomps, jmean)), jgrads = jax.value_and_grad(jfn, has_aux=True)(
-        [jnp.asarray(np.transpose(m, (0, 2, 3, 1))) for m in maps])
+    (jtotal, (jcomps, jmean)), jgrads = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
+        [jnp.asarray(np.transpose(m, (0, 2, 3, 1))) for m in maps], {k: jnp.asarray(v) for k, v in lab.items()})
     feats = [torch.from_numpy(m).requires_grad_() for m in maps]
     total, comps, res, mean = t_loss(feats, {k: torch.from_numpy(v) for k, v in lab.items()}, STRIDES,
                                      TLossConfig(nc=NC, **RECIPE), torch.tensor(0.8))
